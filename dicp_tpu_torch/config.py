@@ -1,0 +1,209 @@
+"""Configuration of the PyTorch port: the counterpart of ``dicp_tpu/config.py``.
+
+:class:`ICPConfig` has the JAX class's fields, defaults, validation and
+``with_``, so a JAX config carries across unchanged
+(:func:`dicp_tpu_torch.convert.config_from_dict`).  What differs:
+
+* ``resolved_nn_method`` keys on the tensors' device; CPU and CUDA use the same
+  thresholds (dense up to 4096^2 distance entries, the tiled kernel tier below
+  m = 16384).  On the CPU the kernel tier runs the kernel's plain version.
+* Paths this port does not have yet raise ``NotImplementedError`` naming their
+  ROADMAP item, with no silent substitute: the cluster tier (Queue 1 item 5),
+  the fused small-pair kernel K4 (item 11), Anderson acceleration (item 11)
+  and Gumbel soft NN (item 2).
+* ``scan_unroll`` and ``sharded_fused`` are accepted and inert: they tune
+  ``lax.scan`` and a ``shard_map`` body, which eager PyTorch does not have.
+  ``driver`` is validated and selects nothing: one early-exit loop gives the
+  results of both JAX drivers (see :mod:`dicp_tpu_torch.registration`).
+  ``cluster_group``, ``cluster_probes`` and ``cluster_fixup`` are inert until
+  the cluster tier is ported.
+* The YAML loader imports ``yaml`` only when a file is given; with no file the
+  built-in defaults below are used.  They equal
+  ``dicp_tpu/configs/dicp_config.yaml``, which a test holds them to.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Optional
+
+import torch
+
+# Above this many distance entries per batch element the correspondence
+# search leaves the dense tier (dicp_tpu/knn.py:35).
+DENSE_MAX_ENTRIES = 4096 * 4096
+# Targets at least this large go to the cluster tier (dicp_tpu/config.py:197).
+CLUSTER_MIN_TARGETS = 16384
+
+# The reference YAML schema with its shipped values.
+DEFAULT_YAML = {
+    "dICP": {
+        "parameters": {
+            "tanh_steepness": 5.0,
+            "target_pad_val": 1000,
+            "source_zeroes_are_pad": False,
+            "const_iter": False,
+        },
+        "functionality": {
+            "gumbel": False,
+            "gumbel_eps": 1.0e-10,
+            "gumbel_tau": 0.1,
+        },
+        "logging": {
+            "verbose": False,
+            "matched_ratio_thresh": 0.0,
+        },
+    }
+}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to dicp_tpu_torch yet (ROADMAP.md Queue 1 {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class ICPConfig:
+    """Static solver configuration; field semantics as in ``dicp_tpu``."""
+
+    icp_type: str = "pt2pl"  # 'pt2pl' | 'pt2pt' | 'symmetric'
+    max_iterations: int = 100
+    tolerance: float = 1e-12
+    differentiable: bool = True
+
+    # per-call options of the reference icp() signature
+    dim: int = 3
+    trim_dist: Optional[float] = None
+    loss_name: Optional[str] = None  # one of losses.VALID_LOSSES
+    loss_metric: float = 1.0
+
+    # YAML-sourced parameters
+    tanh_steepness: float = 5.0
+    target_pad_val: float = 1000.0
+    source_zeroes_are_pad: bool = False
+    const_iter: bool = False
+    use_gumbel: bool = False
+    gumbel_eps: float = 1e-10
+    gumbel_tau: float = 0.1
+    verbose: bool = False
+    match_ratio_thresh: float = 0.0
+
+    # solver knobs with no reference counterpart
+    tikhonov: Optional[float] = None
+    driver: str = "auto"  # 'auto' | 'scan' | 'while'; one loop serves all
+    remat: bool = False   # recompute each iteration in the backward pass
+    collect_histories: bool = True
+    use_pallas_nn: Optional[bool] = None  # legacy: True -> 'pallas', False -> 'dense'
+    # 'dense' (n, m) distance matrix | 'pallas' tiled 1-NN kernel (K1) |
+    # 'cluster' (not ported) | 'auto'
+    nn_method: str = "auto"
+    cluster_group: int = 128           # inert until the cluster tier is ported
+    cluster_probes: int = 32           # inert until the cluster tier is ported
+    cluster_fixup: Optional[int] = None  # inert until the cluster tier is ported
+    batch_chunk: Optional[int] = None  # solve the batch in chunks of this size
+    fused_small: Optional[bool] = None  # True raises (K4 not ported); None/False off
+    solve_method: str = "closed"  # 'closed' (Cramer/Schur) | 'lu'
+    scan_unroll: int = 1          # inert: no lax.scan in eager PyTorch
+    anderson_m: int = 0           # > 0 raises (not ported)
+    anderson_cap: float = 5.0
+    sharded_fused: Optional[bool] = None  # inert: no shard_map in this port
+
+    def __post_init__(self):
+        if self.icp_type not in ("pt2pt", "pt2pl", "symmetric"):
+            raise ValueError(
+                f"icp_type must be pt2pt|pt2pl|symmetric, got {self.icp_type}")
+        if self.dim not in (2, 3):
+            raise ValueError("dim must be 2 or 3")
+        if self.loss_name is not None:
+            from dicp_tpu_torch.losses import VALID_LOSSES
+
+            if self.loss_name not in VALID_LOSSES:
+                raise ValueError(f"loss_name must be one of {VALID_LOSSES}, "
+                                 f"got {self.loss_name}")
+        if self.driver not in ("auto", "scan", "while"):
+            raise ValueError(f"driver must be auto|scan|while, got {self.driver}")
+        if self.nn_method not in ("auto", "dense", "pallas", "cluster"):
+            raise ValueError(f"nn_method must be auto|dense|pallas|cluster, "
+                             f"got {self.nn_method}")
+        if self.solve_method not in ("closed", "lu"):
+            raise ValueError(f"solve_method must be closed|lu, got {self.solve_method}")
+        if self.anderson_m < 0:
+            raise ValueError(f"anderson_m must be >= 0, got {self.anderson_m}")
+        if self.nn_method == "cluster":
+            raise _not_ported("the cluster correspondence tier (nn_method='cluster')",
+                              "item 5")
+        if self.fused_small:
+            raise _not_ported("the fused small-pair solve kernel K4 (fused_small=True)",
+                              "item 11")
+        if self.anderson_m > 0:
+            raise _not_ported("Anderson acceleration (anderson_m > 0)", "item 11")
+        if self.use_gumbel and self.differentiable:
+            raise _not_ported("Gumbel soft nearest neighbour (use_gumbel=True)",
+                              "item 2")
+
+    def resolved_nn_method(self, n: int, m: int, device) -> str:
+        """Correspondence tier for n queries against m targets on ``device``.
+
+        The CPU and CUDA use the same table; on the CPU the kernel tier runs
+        the kernel's plain version."""
+        device = torch.device(device)
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"dicp_tpu_torch runs on cpu or cuda, got {device}")
+        if self.nn_method != "auto":
+            return self.nn_method
+        if self.use_pallas_nn is not None:
+            return "pallas" if self.use_pallas_nn else "dense"
+        if n * m <= DENSE_MAX_ENTRIES:
+            return "dense"
+        if m >= CLUSTER_MIN_TARGETS:
+            raise _not_ported(
+                f"the cluster correspondence tier (auto picks it for m = {m} "
+                f">= {CLUSTER_MIN_TARGETS} targets; pass nn_method='pallas' to "
+                "force the tiled kernel)", "item 5")
+        return "pallas"
+
+    def with_(self, **kw) -> "ICPConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def load_yaml_config(config_path: Optional[str] = None) -> dict:
+    """The reference YAML schema as a dict: the file at ``config_path``, or a
+    copy of the built-in defaults when it is None."""
+    if config_path is None:
+        return copy.deepcopy(DEFAULT_YAML)
+    import yaml
+
+    with open(config_path, "r") as f:
+        return yaml.safe_load(f)
+
+
+def config_from_yaml(
+    config_path: Optional[str] = None,
+    icp_type: str = "pt2pl",
+    max_iterations: int = 100,
+    tolerance: float = 1e-12,
+    differentiable: bool = True,
+) -> ICPConfig:
+    """Build an :class:`ICPConfig` the way the reference constructor does: the
+    YAML supplies the parameter/functionality/logging blocks, the arguments
+    the rest."""
+    raw = load_yaml_config(config_path)["dICP"]
+    params = raw["parameters"]
+    func = raw["functionality"]
+    logging = raw["logging"]
+    return ICPConfig(
+        icp_type=icp_type,
+        max_iterations=max_iterations,
+        tolerance=tolerance,
+        differentiable=differentiable,
+        tanh_steepness=params["tanh_steepness"],
+        target_pad_val=params["target_pad_val"],
+        source_zeroes_are_pad=params["source_zeroes_are_pad"],
+        const_iter=params["const_iter"],
+        use_gumbel=func["gumbel"],
+        gumbel_eps=func["gumbel_eps"],
+        gumbel_tau=func["gumbel_tau"],
+        verbose=logging["verbose"],
+        match_ratio_thresh=logging["matched_ratio_thresh"],
+    )
