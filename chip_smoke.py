@@ -7,7 +7,9 @@ Phases, each raising on failure (the script then exits non-zero):
 
 0. device: a CUDA device is required (no CPU continuation); prints the card's
    name and power limit; checks that float32 matmuls run in full precision.
-1. build: compiles the CUDA kernel K1 (csrc/tiled_nn.cu) from the checkout.
+1. build: compiles the CUDA kernels of the checkout, one nvcc per source, all
+   started together (csrc/tiled_nn.cu, cluster_search.cu, cluster_topk.cu);
+   prints K1's -Xptxas=-v report.
 2. K1 against its plain PyTorch version on the card, bit for bit: indices and
    squared distances identical, at the main path's shapes and at edge cases.
 3. the reference contract on the dense tier: the 65-point pair of tests/data
@@ -17,9 +19,24 @@ Phases, each raising on failure (the script then exits non-zero):
    LiDAR-like scene, 12,288 source points against 16,000 target points with
    normals, pt2pl, dim 3; every pair's rotation and translation error < 1e-3,
    and K1 launched at least once per Gauss-Newton iteration.
+5. the cluster kernels' -Xptxas=-v reports (K2 and K5: csrc/cluster_search.cu,
+   K3: csrc/cluster_topk.cu).
+6. K2 and K5 against their plain PyTorch versions on the card, bit for bit
+   (best, row, bound) at the two raw-scan shapes and at edge cases; timed.
+7. K3 against its plain version, bit for bit, at 100k x 100k (k = 16, 1, 32)
+   and with duplicate distances; timed.
+8. the single-pair raw-scan path: weighted PCA normals of a 100,000-point map
+   (median angle to the exact normals < 2 deg), cluster k-NN normals (K3),
+   and ICP.icp of the map's points, permuted and moved, through the cluster
+   tier (K2 at least once per iteration; rotation and translation errors
+   < 1e-3); then cluster_nn(use_pallas=True) (K5) equal to the K2 path.
+9. batched raw scans: 8 pairs of 50,000 -> 60,000 points through the cluster
+   tier; every pair's errors < 1e-3, K2 launched.
 
-The line before the last is a JSON object describing each kernel of the path;
-the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Each main path (phases 4, 8 and 9) is driven with the kernels' launch counts
+set to 0 just before it and read just after.  The line before the last is a
+JSON object describing each kernel of the paths; the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,13 +51,20 @@ import torch
 
 from dicp_tpu_torch import ICP, ICPConfig, se3
 from dicp_tpu_torch.convert import to_torch
-from dicp_tpu_torch.ops import _build, tiled_knn
+from dicp_tpu_torch.ops import _build, cluster_search, tiled_knn
+from dicp_tpu_torch.ops import cluster_knn as ck
+from dicp_tpu_torch.ops.normals import estimate_normals
 from dicp_tpu_torch.utils.timing import cuda_median_ms
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 B, N_SRC, M_TGT = 8, 12288, 16000  # phase 4: the slice at real size
-TOL_POSE = 1e-3                    # rad and m, phases 3 and 4
+TOL_POSE = 1e-3                    # rad and m, phases 3, 4, 8 and 9
+KERNELS = ("tiled_nn", "cluster_search", "cluster_topk")
+M_MAP = 100_000                    # phases 6-8: one raw scan against its map
+B_RAW, N_RAW, M_RAW = 8, 50_000, 60_000  # phases 6 and 9: batched raw scans
+PROBES, GROUP = 32, 128            # the cluster tier's defaults
+TOL_NORMAL_DEG = 2.0               # phase 8: median weighted-normal angle
 
 
 def _check(cond: bool, what: str) -> None:
@@ -66,14 +90,19 @@ def phase0_device() -> str:
     return card
 
 
-def phase1_build() -> None:
+def _report(lib: Path) -> str:
+    log = Path(str(lib) + ".log")
+    return log.read_text().strip() if log.exists() else "(built earlier)"
+
+
+def phase1_build() -> dict:
     t0 = time.perf_counter()
-    lib = _build.build("tiled_nn")
+    libs = _build.build_all(KERNELS)
     tiled_knn._kernel()  # load and bind
     seconds = time.perf_counter() - t0
-    log = Path(str(lib) + ".log")
-    report = log.read_text().strip() if log.exists() else "(built earlier)"
-    print(f"phase 1 ok: built {lib.name} in {seconds:.2f} s\n{report}")
+    print(f"phase 1 ok: built {', '.join(lib.name for lib in libs.values())} "
+          f"in {seconds:.2f} s\n{_report(libs['tiled_nn'])}")
+    return libs
 
 
 def lidar_scene(rng: np.random.Generator, m: int) -> np.ndarray:
@@ -220,6 +249,20 @@ def phase3_reference(device) -> None:
           f"{float(err.max()):.3e}, iterations {float(res['stats']['iterations'].max())}")
 
 
+def _reset_launches() -> None:
+    tiled_knn.launches = 0
+    cluster_search.fused_search.launches = 0
+    cluster_search.block_search.launches = 0
+    cluster_search.fused_topk.launches = 0
+
+
+def _launches() -> dict:
+    return {"tiled_nn": tiled_knn.launches,
+            "cluster_search": cluster_search.fused_search.launches,
+            "cluster_block_search": cluster_search.block_search.launches,
+            "cluster_topk": cluster_search.fused_topk.launches}
+
+
 def phase4_slice(device, sources: np.ndarray, targets: np.ndarray, T_true: np.ndarray):
     """The main path at real size; returns (K1 launches in one solve, ms/solve)."""
     n, m = sources.shape[1], targets.shape[1]
@@ -235,10 +278,10 @@ def phase4_slice(device, sources: np.ndarray, targets: np.ndarray, T_true: np.nd
         return solver.icp(src, tgt, ti, trim_dist=2.0,
                           loss_fn={"name": "huber", "metric": 0.5}, dim=3)
 
-    tiled_knn.launches = 0
+    _reset_launches()
     res = solve()
     torch.cuda.synchronize()
-    launches = tiled_knn.launches
+    launches = _launches()["tiled_nn"]
 
     iters = res["stats"]["iterations"]
     _check(res["T"].device.type == device.type and res["pc"].device.type == device.type,
@@ -261,14 +304,294 @@ def phase4_slice(device, sources: np.ndarray, targets: np.ndarray, T_true: np.nd
     return launches, ms
 
 
+def phase5_cluster_build(libs: dict) -> None:
+    cluster_search._search_kernel()  # load and bind
+    cluster_search._topk_kernel()
+    for name in ("cluster_search", "cluster_topk"):
+        print(f"  {libs[name].name}:\n{_report(libs[name])}")
+    print("phase 5 ok: cluster kernels built and bound")
+
+
+def raw_scan_pair(rng: np.random.Generator, m: int):
+    """The single-pair path's inputs: a map (m, 6) with exact normals, the
+    map's points permuted and moved by the inverse of a known transform
+    (m, 3), and that transform (4, 4) (source to target, <= 5 deg, <= 0.3 m)."""
+    mp = lidar_scene(rng, m)
+    T_true = random_transforms(rng, 1, max_angle_deg=5.0, max_shift=0.3)[0]
+    R, t = T_true[:3, :3], T_true[:3, 3]
+    scan = (mp[rng.permutation(m), :3] - t) @ R
+    return mp.astype(np.float32), scan.astype(np.float32), T_true
+
+
+def _search_inputs(y: torch.Tensor, x: torch.Tensor, probes: int = PROBES,
+                   group: int = GROUP):
+    """What the cluster tier hands K2, K5 and K3 for queries x against
+    targets y (both ([B,] n, 3)): the index and the query blocks with their
+    selected groups, built on x's device as cluster_nn builds them."""
+    index = ck.build_cluster_index(y, group)
+    ix, xq, _ = ck._with_batch(index, x)
+    xb, _, _ = ck._sorted_blocks(ix, xq, qblock=ck.FUSED_QBLOCK)
+    bsel, _ = ck._block_select(ix, xb, probes)
+    return ix, xb, bsel
+
+
+def _max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b|, counting equal entries (inf == inf included) as 0."""
+    d = torch.where(a == b, torch.zeros_like(a), (a.double() - b.double()).abs().to(a.dtype))
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _edge_cases(device, rng: np.random.Generator) -> dict:
+    """name -> (targets (m, 3), queries (n, 3), probes, group)."""
+    near = rng.uniform(-1, 1, (3000, 3))
+    base = rng.uniform(-10, 10, (1500, 3))
+    cases = {
+        "P = G": (rng.uniform(-1, 1, (300, 3)), rng.uniform(-1, 1, (200, 3)), 8, 64),
+        "m not a multiple of g": (rng.uniform(-5, 5, (777, 3)), rng.uniform(-5, 5, (300, 3)),
+                                  3, 128),
+        "one query": (near, rng.uniform(-1, 1, (1, 3)), 4, 128),
+        "duplicate targets": (np.concatenate([base, base]),
+                              base + rng.normal(scale=1e-3, size=base.shape), 4, 64),
+        "all targets equidistant": (np.ones((2500, 3)), np.zeros((130, 3)), 4, 128),
+        "far query": (near, np.full((1, 3), 1e4), 4, 128),
+    }
+    return {name: (to_torch(y, device, torch.float32), to_torch(x, device, torch.float32), p, g)
+            for name, (y, x, p, g) in cases.items()}
+
+
+def phase6_search_kernels(device, mp: np.ndarray, scan: np.ndarray,
+                          raw_targets: np.ndarray, raw_sources: np.ndarray) -> dict:
+    """K2 and K5 against their plain versions on the same card tensors."""
+    shapes = {
+        f"single pair {len(scan)} -> {len(mp)}": (to_torch(mp[:, :3], device),
+                                                  to_torch(scan, device), PROBES, GROUP),
+        f"batched {raw_sources.shape[0]} x {raw_sources.shape[1]} -> {raw_targets.shape[1]}": (
+            to_torch(raw_targets[..., :3], device), to_torch(raw_sources, device), PROBES, GROUP),
+    }
+    shapes.update(_edge_cases(device, np.random.default_rng(SEED + 6)))
+    err = {"cluster_search": 0.0, "cluster_block_search": 0.0}
+    inputs = {}
+    for name, (y, x, probes, group) in shapes.items():
+        ix, xb, bsel = inputs[name] = _search_inputs(y, x, probes, group)
+        args = (ix.points, ix.centers, ix.radius, xb, bsel)
+        k2 = cluster_search.fused_search(*args)
+        p2 = cluster_search.fused_search_plain(*args)
+        k5 = cluster_search.block_search(ix.points, xb, bsel)
+        p5 = cluster_search.block_search_plain(ix.points, xb, bsel)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("best", "row", "bound"), k2, p2):
+            _check(torch.equal(a, b), f"K2 {what} bit-equal to the plain version's ({name})")
+        for what, a, b in zip(("best", "row"), k5, p5):
+            _check(torch.equal(a, b), f"K5 {what} bit-equal to the plain version's ({name})")
+        _check(torch.equal(k5[0], k2[0]) and torch.equal(k5[1], k2[1]),
+               f"K5's argmin equals K2's ({name})")
+        if name == "P = G":
+            _check(bool(torch.isinf(k2[2]).all()), "every group selected: bound inf")
+        if name == "all targets equidistant":
+            _check(bool((k2[1] == bsel[..., :1] * group).all()),
+                   "ties resolve to the first candidate column")
+        e2 = max(_max_abs_diff(k2[0], p2[0]), _max_abs_diff(k2[2], p2[2]))
+        e5 = _max_abs_diff(k5[0], p5[0])
+        err["cluster_search"] = max(err["cluster_search"], e2)
+        err["cluster_block_search"] = max(err["cluster_block_search"], e5)
+        print(f"  K2, K5 == plain: {name}: xb {tuple(xb.shape)}, bsel {tuple(bsel.shape)}, "
+              f"G {ix.points.shape[-3]}, max |diff| {e2}, {e5}")
+
+    times = []
+    for label in list(shapes)[:2]:  # the two raw-scan shapes
+        ix, xb, bsel = inputs[label]
+        args = (ix.points, ix.centers, ix.radius, xb, bsel)
+        t = {
+            "cluster_search": cuda_median_ms(lambda: cluster_search.fused_search(*args),
+                                             warmup=3, iters=20),
+            "cluster_search plain": cuda_median_ms(
+                lambda: cluster_search.fused_search_plain(*args), warmup=1, iters=5),
+            "cluster_block_search": cuda_median_ms(
+                lambda: cluster_search.block_search(ix.points, xb, bsel), warmup=3, iters=20),
+            "cluster_block_search plain": cuda_median_ms(
+                lambda: cluster_search.block_search_plain(ix.points, xb, bsel),
+                warmup=1, iters=5),
+        }
+        pairs = xb.shape[:-1].numel() * bsel.shape[-1] * ix.points.shape[-2]
+        print(f"  {label}: K2 {t['cluster_search']:.4f} ms (plain "
+              f"{t['cluster_search plain']:.4f}), K5 {t['cluster_block_search']:.4f} ms "
+              f"(plain {t['cluster_block_search plain']:.4f}); {pairs:.3e} (query, "
+              f"candidate) pairs, K2 {pairs / t['cluster_search'] / 1e6:.1f} Gpair/s")
+        times.append(t)
+    single = times[0]
+    print("phase 6 ok: K2 and K5 bit-equal to their plain versions in every case")
+    return {name: {"max_abs_err": err[name], "ms": single[name],
+                   "plain_ms": single[f"{name} plain"]}
+            for name in ("cluster_search", "cluster_block_search")}
+
+
+def phase7_topk_kernel(device, mp: np.ndarray, scan: np.ndarray) -> dict:
+    """K3 against its plain version on the same card tensors."""
+    y, x = to_torch(mp[:, :3], device), to_torch(scan, device)
+    ix, xb, bsel = _search_inputs(y, x)
+    rng = np.random.default_rng(SEED + 7)
+    base = rng.uniform(-10, 10, (2000, 3))
+    dup_y = to_torch(np.concatenate([base, base, base]), device, torch.float32)
+    dup_x = to_torch(base[:700] + rng.normal(scale=1e-3, size=(700, 3)), device, torch.float32)
+    dix, dxb, dbsel = _search_inputs(dup_y, dup_x, 4, 64)
+    cases = [(f"{len(scan)} -> {len(mp)}, k = {k}", ix, xb, bsel, k) for k in (16, 1, 32)]
+    cases.append(("duplicate distances, k = 5", dix, dxb, dbsel, 5))
+    err = 0.0
+    for name, index, q, sel, k in cases:
+        args = (index.points, index.centers, index.radius, q, sel, k)
+        kern = cluster_search.fused_topk(*args)
+        plain = cluster_search.fused_topk_plain(*args)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("d2", "rows", "bound"), kern, plain):
+            _check(torch.equal(a, b), f"K3 {what} bit-equal to the plain version's ({name})")
+        if name.startswith("duplicate"):
+            _check(bool((kern[0][..., 0] == kern[0][..., 1]).any()),
+                   "duplicate distances are kept for later ranks")
+        e = max(_max_abs_diff(kern[0], plain[0]), _max_abs_diff(kern[2], plain[2]))
+        err = max(err, e)
+        print(f"  K3 == plain: {name}: xb {tuple(q.shape)}, P {sel.shape[-1]}, max |diff| {e}")
+    args = (ix.points, ix.centers, ix.radius, xb, bsel, 16)
+    ms = cuda_median_ms(lambda: cluster_search.fused_topk(*args), warmup=3, iters=20)
+    plain_ms = cuda_median_ms(lambda: cluster_search.fused_topk_plain(*args), warmup=1, iters=3)
+    print(f"phase 7 ok: K3 {ms:.4f} ms, plain {plain_ms:.4f} ms at {len(scan)} -> "
+          f"{len(mp)}, k = 16, P = {PROBES}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def _angles_deg(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Angle between unit vectors up to sign, in degrees."""
+    cos = torch.clamp(torch.abs(torch.sum(a.double() * b.double(), dim=-1)), max=1.0)
+    return torch.rad2deg(torch.arccos(cos))
+
+
+def phase8_single_pair(device, mp: np.ndarray, scan: np.ndarray, T_true: np.ndarray) -> dict:
+    """The single-pair raw-scan path: normals for the map, then pt2pl through
+    the cluster index.  Returns the launch counts of the path."""
+    pts = to_torch(mp[:, :3], device)
+    exact = to_torch(mp[:, 3:6], device)
+    src = to_torch(scan, device)
+    n, m = src.shape[0], pts.shape[0]
+    _check(ICPConfig().resolved_nn_method(n, m, device) == "cluster",
+           f"({n}, {m}) resolves to the cluster tier")
+    solver = ICP(icp_type="pt2pl", differentiable=False, max_iterations=30, tolerance=1e-5,
+                 device=device, cluster_probes=PROBES, cluster_group=GROUP)
+    ti = torch.eye(4, dtype=torch.float32, device=device)
+
+    _reset_launches()
+    normals = estimate_normals(pts, method="weighted")
+    knn_normals = estimate_normals(pts, k=16, method="cluster")
+    target = torch.cat([pts, normals], dim=-1)
+    res = solver.icp(src, target, ti, trim_dist=2.0, loss_fn={"name": "huber", "metric": 1.0},
+                     dim=3)
+    index = ck.build_cluster_index(pts, GROUP)
+    idx_k5, d2_k5, cert_k5 = ck.cluster_nn(index, src, probes=PROBES, use_pallas=True)
+    torch.cuda.synchronize()
+    launches = _launches()
+
+    angle = _angles_deg(normals, exact)
+    knn_angle = _angles_deg(knn_normals, exact)
+    med = float(torch.median(angle))
+    print(f"  weighted normals: median angle {med:.4f} deg, mean {float(angle.mean()):.4f} "
+          f"deg; cluster k-NN (k = 16) normals: median {float(torch.median(knn_angle)):.4f} deg")
+    _check(normals.shape == (m, 3) and bool(torch.isfinite(normals).all()),
+           "finite (m, 3) weighted normals")
+    _check(med < TOL_NORMAL_DEG, f"median weighted-normal angle {med} < {TOL_NORMAL_DEG} deg")
+    _check(launches["cluster_topk"] >= 1, "estimate_normals(method='cluster') launched K3")
+
+    iters = int(res["stats"]["iterations"].max())
+    _check(res["T"].shape == (1, 4, 4) and bool(torch.isfinite(res["T"]).all()),
+           "a finite (1, 4, 4) transform")
+    _check(launches["cluster_search"] >= iters >= 1,
+           f"K2 launched {launches['cluster_search']} times, at least once per iteration "
+           f"({iters})")
+    rot, trans = pose_errors(torch.as_tensor(T_true[None], device=device),
+                             res["T"].to(torch.float64))
+    print(f"  {n} -> {m} pt2pl: {iters} iterations, converged "
+          f"{bool(res['stats']['converged'][0])}, rotation error {float(rot[0]):.3e} rad, "
+          f"translation error {float(trans[0]):.3e} m")
+    _check(float(rot.max()) < TOL_POSE, f"rotation error < {TOL_POSE} rad")
+    _check(float(trans.max()) < TOL_POSE, f"translation error < {TOL_POSE} m")
+
+    # the final correspondences as the solver computes them: queries ordered
+    # once at T_init, then the certificate and the brute-force fix-up budget
+    cfg = ICPConfig(cluster_probes=PROBES, cluster_group=GROUP)
+    order = ck.query_order(index, src)
+    T_est = res["T"][0]
+    ps = src @ T_est[:3, :3].T + T_est[:3, 3]
+    _, _, cert = ck.cluster_nn(index, ps, probes=PROBES, order=order)
+    budget = cfg.resolved_cluster_fixup(n)
+    unc = int((~cert).sum())
+    print(f"  final correspondences: certified {float(cert.float().mean()):.6f} before the "
+          f"fix-up; {unc} uncertified, {min(unc, budget)} brute-forced (budget {budget}), "
+          f"{max(0, unc - budget)} left out")
+
+    idx_k2, d2_k2, cert_k2 = ck.cluster_nn(index, src, probes=PROBES)
+    _check(torch.equal(idx_k5, idx_k2) and torch.equal(d2_k5, d2_k2)
+           and torch.equal(cert_k5, cert_k2), "cluster_nn(use_pallas=True) (K5) equals the K2 path")
+
+    def solve():
+        return solver.icp(src, target, ti, trim_dist=2.0,
+                          loss_fn={"name": "huber", "metric": 1.0}, dim=3)
+
+    ms = cuda_median_ms(solve, warmup=1, iters=5)
+    normals_ms = cuda_median_ms(lambda: estimate_normals(pts, method="weighted"),
+                                warmup=1, iters=5)
+    print(f"phase 8 ok: {n} -> {m} pt2pl through the cluster tier, {ms:.3f} ms per icp call "
+          f"(median of 5), weighted normals {normals_ms:.3f} ms; launches {launches}")
+    return launches
+
+
+def phase9_batched(device, sources: np.ndarray, targets: np.ndarray, T_true: np.ndarray) -> dict:
+    """Batched raw scans through the cluster tier; returns the launch counts."""
+    n, m = sources.shape[1], targets.shape[1]
+    _check(ICPConfig().resolved_nn_method(n, m, device) == "cluster",
+           f"({n}, {m}) resolves to the cluster tier")
+    src, tgt = to_torch(sources, device), to_torch(targets, device)
+    ti = torch.eye(4, dtype=torch.float32, device=device).expand(len(sources), 4, 4)
+    solver = ICP(icp_type="pt2pl", differentiable=False, max_iterations=30, tolerance=1e-5,
+                 device=device, cluster_probes=PROBES, cluster_group=GROUP)
+
+    def solve():
+        return solver.icp(src, tgt, ti, trim_dist=2.0, loss_fn={"name": "huber", "metric": 1.0},
+                          dim=3)
+
+    _reset_launches()
+    res = solve()
+    torch.cuda.synchronize()
+    launches = _launches()
+    iters = res["stats"]["iterations"]
+    _check(res["T"].shape == (len(sources), 4, 4) and bool(torch.isfinite(res["T"]).all()),
+           "finite (B, 4, 4) transforms")
+    _check(launches["cluster_search"] >= int(iters.max()) >= 1,
+           f"K2 launched {launches['cluster_search']} times, at least once per iteration "
+           f"({int(iters.max())})")
+    rot, trans = pose_errors(torch.as_tensor(T_true, device=device), res["T"].to(torch.float64))
+    print(f"  per pair: iterations {iters.tolist()}\n  rotation error (rad) {rot.tolist()}\n"
+          f"  translation error (m) {trans.tolist()}")
+    _check(float(rot.max()) < TOL_POSE, f"rotation errors < {TOL_POSE} rad")
+    _check(float(trans.max()) < TOL_POSE, f"translation errors < {TOL_POSE} m")
+    ms = cuda_median_ms(solve, warmup=1, iters=5)
+    print(f"phase 9 ok: {len(sources)} x {n} -> {m} pt2pl through the cluster tier, "
+          f"{ms:.3f} ms per icp call (median of 5); launches {launches}")
+    return launches
+
+
 def main() -> None:
     card = phase0_device()
     device = torch.device("cuda", 0)
-    phase1_build()
+    libs = phase1_build()
     sources, targets, T_true = scene_pairs(np.random.default_rng(SEED), B, N_SRC, M_TGT)
     k1 = phase2_kernel(device, sources, targets)
     phase3_reference(device)
     launches, _ = phase4_slice(device, sources, targets, T_true)
+    phase5_cluster_build(libs)
+    mp, scan, T_pair = raw_scan_pair(np.random.default_rng(SEED + 8), M_MAP)
+    raw_sources, raw_targets, T_raw = scene_pairs(np.random.default_rng(SEED + 9),
+                                                  B_RAW, N_RAW, M_RAW)
+    timed = phase6_search_kernels(device, mp, scan, raw_targets, raw_sources)
+    timed["cluster_topk"] = phase7_topk_kernel(device, mp, scan)
+    single = phase8_single_pair(device, mp, scan, T_pair)
+    batched = phase9_batched(device, raw_sources, raw_targets, T_raw)
     kernels = [{
         "name": "tiled_nn",
         "route": "cuda",
@@ -279,6 +602,17 @@ def main() -> None:
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
     }]
+    sources_of = {"cluster_search": ("dicp_tpu_torch/csrc/cluster_search.cu",
+                                     "dicp_tpu/ops/pallas_cluster.py:126"),
+                  "cluster_block_search": ("dicp_tpu_torch/csrc/cluster_search.cu",
+                                           "dicp_tpu/ops/pallas_cluster.py:33"),
+                  "cluster_topk": ("dicp_tpu_torch/csrc/cluster_topk.cu",
+                                   "dicp_tpu/ops/pallas_cluster.py:278")}
+    for name, (source, replaces) in sources_of.items():
+        count = single[name] + batched[name]
+        _check(count > 0, f"{name} launched on the raw-scan paths ({count})")
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": count, **timed[name]})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

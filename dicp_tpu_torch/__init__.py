@@ -2,14 +2,18 @@
 
 Batched differentiable Gauss-Newton ICP with the call surface and results
 of the JAX package, running on the CPU or on an NVIDIA Hopper GPU.  The
-correspondence search's tiled tier is a CUDA kernel written by hand
-(``csrc/tiled_nn.cu``), built with ``nvcc`` at first use on a CUDA tensor.
+correspondence search's tiled tier (``csrc/tiled_nn.cu``) and cluster tier
+(``csrc/cluster_search.cu``, ``csrc/cluster_topk.cu``) are CUDA kernels
+written by hand, built with ``nvcc`` at first use on a CUDA tensor.
 
 * :mod:`dicp_tpu_torch.api` / :mod:`dicp_tpu_torch.ICP`: the drop-in ``ICP``
   class and ragged-input batch handling.
 * :mod:`dicp_tpu_torch.registration`: the functional core, :func:`register`.
 * :mod:`dicp_tpu_torch.knn`, :mod:`dicp_tpu_torch.ops.tiled_knn`: hard 1-NN,
   dense and tiled.
+* :mod:`dicp_tpu_torch.ops.cluster_knn`, :mod:`dicp_tpu_torch.ops.cluster_search`:
+  the Hilbert cluster index and its certified 1-NN and k-NN searches.
+* :mod:`dicp_tpu_torch.ops.normals`: PCA surface normals.
 * :mod:`dicp_tpu_torch.convert`: configs and arrays carried across from the
   JAX package.
 
@@ -18,9 +22,13 @@ This package imports neither ``jax`` nor ``dicp_tpu``.
 
 from dicp_tpu_torch.api import ICP, batch_size_handling
 from dicp_tpu_torch.config import ICPConfig
+from dicp_tpu_torch.ops.cluster_knn import (build_cluster_index, cluster_knn,
+                                            cluster_nn, cluster_nn_verified)
+from dicp_tpu_torch.ops.normals import estimate_normals, estimate_normals_weighted
 from dicp_tpu_torch.registration import ICPResult, register
 
 __version__ = "0.1.0"
 
-__all__ = ["ICP", "ICPConfig", "ICPResult", "batch_size_handling", "register",
-           "__version__"]
+__all__ = ["ICP", "ICPConfig", "ICPResult", "batch_size_handling",
+           "build_cluster_index", "cluster_knn", "cluster_nn", "cluster_nn_verified",
+           "estimate_normals", "estimate_normals_weighted", "register", "__version__"]

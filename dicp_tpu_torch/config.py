@@ -5,18 +5,21 @@
 (:func:`dicp_tpu_torch.convert.config_from_dict`).  What differs:
 
 * ``resolved_nn_method`` keys on the tensors' device; CPU and CUDA use the same
-  thresholds (dense up to 4096^2 distance entries, the tiled kernel tier below
-  m = 16384).  On the CPU the kernel tier runs the kernel's plain version.
+  table: dense up to 4096^2 distance entries, then the cluster tier for
+  targets of m >= 16384 points and the tiled kernel tier below.  JAX's auto
+  also picks the cluster tier for any size above the dense tier on a CPU
+  (``dicp_tpu/config.py:197``); the port does not, so parity tests of the
+  cluster tier pass ``nn_method='cluster'`` to both packages.  On the CPU the
+  kernel tiers run the kernels' plain versions.
+* ``cluster_group``, ``cluster_probes`` and ``cluster_fixup`` configure the
+  cluster tier as in JAX (:meth:`ICPConfig.resolved_cluster_fixup`).
 * Paths this port does not have yet raise ``NotImplementedError`` naming their
-  ROADMAP item, with no silent substitute: the cluster tier (Queue 1 item 5),
-  the fused small-pair kernel K4 (item 11), Anderson acceleration (item 11)
-  and Gumbel soft NN (item 2).
+  ROADMAP item, with no silent substitute: the fused small-pair kernel K4
+  (item 11), Anderson acceleration (item 11) and Gumbel soft NN (item 2).
 * ``scan_unroll`` and ``sharded_fused`` are accepted and inert: they tune
   ``lax.scan`` and a ``shard_map`` body, which eager PyTorch does not have.
   ``driver`` is validated and selects nothing: one early-exit loop gives the
   results of both JAX drivers (see :mod:`dicp_tpu_torch.registration`).
-  ``cluster_group``, ``cluster_probes`` and ``cluster_fixup`` are inert until
-  the cluster tier is ported.
 * The YAML loader imports ``yaml`` only when a file is given; with no file the
   built-in defaults below are used.  They equal
   ``dicp_tpu/configs/dicp_config.yaml``, which a test holds them to.
@@ -96,11 +99,13 @@ class ICPConfig:
     collect_histories: bool = True
     use_pallas_nn: Optional[bool] = None  # legacy: True -> 'pallas', False -> 'dense'
     # 'dense' (n, m) distance matrix | 'pallas' tiled 1-NN kernel (K1) |
-    # 'cluster' (not ported) | 'auto'
+    # 'cluster' Hilbert cluster index (K2), built once per solve | 'auto'
     nn_method: str = "auto"
-    cluster_group: int = 128           # inert until the cluster tier is ported
-    cluster_probes: int = 32           # inert until the cluster tier is ported
-    cluster_fixup: Optional[int] = None  # inert until the cluster tier is ported
+    cluster_group: int = 128    # points per cluster group
+    cluster_probes: int = 32    # groups searched per block of 128 queries
+    # uncertified cluster queries brute-forced per iteration; None = auto
+    # (n/64 clamped to [256, 4096]), 0 = off
+    cluster_fixup: Optional[int] = None
     batch_chunk: Optional[int] = None  # solve the batch in chunks of this size
     fused_small: Optional[bool] = None  # True raises (K4 not ported); None/False off
     solve_method: str = "closed"  # 'closed' (Cramer/Schur) | 'lu'
@@ -130,9 +135,6 @@ class ICPConfig:
             raise ValueError(f"solve_method must be closed|lu, got {self.solve_method}")
         if self.anderson_m < 0:
             raise ValueError(f"anderson_m must be >= 0, got {self.anderson_m}")
-        if self.nn_method == "cluster":
-            raise _not_ported("the cluster correspondence tier (nn_method='cluster')",
-                              "item 5")
         if self.fused_small:
             raise _not_ported("the fused small-pair solve kernel K4 (fused_small=True)",
                               "item 11")
@@ -145,8 +147,8 @@ class ICPConfig:
     def resolved_nn_method(self, n: int, m: int, device) -> str:
         """Correspondence tier for n queries against m targets on ``device``.
 
-        The CPU and CUDA use the same table; on the CPU the kernel tier runs
-        the kernel's plain version."""
+        The CPU and CUDA use the same table; on the CPU the kernel tiers run
+        the kernels' plain versions."""
         device = torch.device(device)
         if device.type not in ("cpu", "cuda"):
             raise ValueError(f"dicp_tpu_torch runs on cpu or cuda, got {device}")
@@ -157,11 +159,14 @@ class ICPConfig:
         if n * m <= DENSE_MAX_ENTRIES:
             return "dense"
         if m >= CLUSTER_MIN_TARGETS:
-            raise _not_ported(
-                f"the cluster correspondence tier (auto picks it for m = {m} "
-                f">= {CLUSTER_MIN_TARGETS} targets; pass nn_method='pallas' to "
-                "force the tiled kernel)", "item 5")
+            return "cluster"
         return "pallas"
+
+    def resolved_cluster_fixup(self, n: int) -> int:
+        """Concrete uncertified-query brute-force budget for n queries."""
+        if self.cluster_fixup is not None:
+            return min(int(self.cluster_fixup), n)
+        return min(min(4096, max(256, n // 64)), n)
 
     def with_(self, **kw) -> "ICPConfig":
         return dataclasses.replace(self, **kw)

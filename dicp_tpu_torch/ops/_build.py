@@ -42,32 +42,58 @@ def _nvcc() -> str:
                        "the CUDA kernels of dicp_tpu_torch cannot be built")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same hash exists.
-
-    Returns the library's path.  The compiler's output (including the
-    ``-Xptxas=-v`` register and shared-memory report) is kept beside it as
-    ``<library>.log``."""
+def _library(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is built: named by a hash of source and flags."""
     src = SRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of the same hash exists;
+    see :func:`build_all`."""
+    return build_all([name])[name]
+
+
+def build_all(names) -> dict:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one ``nvcc`` per source, all started together.
+
+    Returns {name: library path}.  The compiler's output (including the
+    ``-Xptxas=-v`` register and shared-memory report) is kept beside each
+    library as ``<library>.log``."""
+    libs = {name: _library(name) for name in names}
+    jobs = {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src} "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
-        Path(str(lib) + ".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)  # atomic: a reader never sees half a library
+        for name, lib in libs.items():
+            if lib.exists() or name in jobs:
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs[name] = (proc, tmp)
+        failed = []
+        for name, (proc, tmp) in jobs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build {SRC_DIR / name}.cu "
+                              f"(exit {proc.returncode}):\n{err}")
+                continue
+            Path(str(libs[name]) + ".log").write_text(out + err)
+            os.replace(tmp, libs[name])  # atomic: a reader never sees half a library
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
+        for proc, tmp in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return libs
 
 
 @functools.lru_cache(maxsize=None)

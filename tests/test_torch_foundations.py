@@ -192,16 +192,12 @@ def test_fields_and_defaults_match_jax():
                                  (12288, 16000), (16384, 1024), (2000, 16384),
                                  (100000, 100000)])
 def test_resolved_nn_method_table(n, m):
-    """The TPU table of the JAX package on both devices; where it picks the
-    cluster tier the port raises, naming its ROADMAP item."""
+    """The TPU table of the JAX package, cluster tier included, on both
+    devices."""
     cfg = tcfg.ICPConfig()
     expected = jcfg.ICPConfig().resolved_nn_method(n, m, False)
     for device in ("cpu", "cuda", torch.device("cuda", 0)):
-        if expected == "cluster":
-            with pytest.raises(NotImplementedError, match="item 5"):
-                cfg.resolved_nn_method(n, m, device)
-        else:
-            assert cfg.resolved_nn_method(n, m, device) == expected
+        assert cfg.resolved_nn_method(n, m, device) == expected
     for legacy in (True, False):
         assert (tcfg.ICPConfig(use_pallas_nn=legacy).resolved_nn_method(n, m, "cpu")
                 == jcfg.ICPConfig(use_pallas_nn=legacy).resolved_nn_method(n, m, False))
@@ -210,7 +206,8 @@ def test_resolved_nn_method_table(n, m):
         cfg.resolved_nn_method(n, m, "meta")
 
 
-@pytest.mark.parametrize("kw,item", [({"nn_method": "cluster"}, "item 5"),
+@pytest.mark.parametrize("kw,item", [({"nn_method": "cluster", "fused_small": True},
+                                      "item 11"),
                                      ({"fused_small": True}, "item 11"),
                                      ({"anderson_m": 2, "collect_histories": False,
                                        "differentiable": False}, "item 11"),

@@ -267,10 +267,13 @@ def test_input_errors(source_np, target_np):
         batch_size_handling(_t(source_np[:, :3]), torch.zeros(65, 6, device="meta"))
     with pytest.raises(ValueError, match="asked for"):
         ICP(device="meta").icp(_t(source_np[:, :3]), _t(target_np), np.eye(4))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ICP(nn_method="cluster")
-    with pytest.raises(NotImplementedError, match="item 5"):  # auto at m >= 16384
-        ICP(icp_type="pt2pt").icp(np.zeros((1100, 3)), np.ones((16384, 3)), np.eye(4))
+    # the cluster tier is ported (nn_method='cluster', and auto at m >= 16384);
+    # the fused small-pair kernel K4 still raises, naming its ROADMAP item
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ICP(nn_method="cluster", fused_small=True)
+    res = ICP(icp_type="pt2pt", max_iterations=3).icp(np.zeros((1100, 3)),
+                                                     np.ones((16384, 3)), np.eye(4))
+    assert res["T"].shape == (1, 4, 4) and bool(torch.isfinite(res["T"]).all())
 
 
 def test_numpy_inputs_follow_the_solver_device(source_np, target_np):
@@ -328,18 +331,24 @@ def test_remat_lu_and_histories_off_match(source_np, target_np):
 
 def test_port_never_imports_jax():
     """In a fresh interpreter: import the port, run a small solve on each
-    tier, and find neither jax nor the JAX package in sys.modules."""
+    tier and the normals on both large-cloud paths, and find neither jax nor
+    the JAX package in sys.modules."""
     code = (
         "import sys, numpy as np\n"
         "import dicp_tpu_torch\n"
         "from dicp_tpu_torch import ICP\n"
         "scan = np.load('tests/data/points_scan.npy')\n"
         "mp = np.load('tests/data/points_map.npy')\n"
-        "for method in ('dense', 'pallas'):\n"
+        "import dicp_tpu_torch.ops.normals, dicp_tpu_torch.ops.cluster_search\n"
+        "for method in ('dense', 'pallas', 'cluster'):\n"
         "    res = ICP(icp_type='pt2pl', nn_method=method, max_iterations=20,\n"
         "              tolerance=1e-8).icp(scan[:, :3], mp, np.eye(4), trim_dist=5.0,\n"
         "                                  loss_fn={'name': 'huber', 'metric': 1.0}, dim=2)\n"
         "    assert res['T'].shape == (1, 4, 4)\n"
+        "import torch\n"
+        "pts = torch.as_tensor(mp[:, :3])\n"
+        "for method in ('weighted', 'cluster'):\n"
+        "    assert dicp_tpu_torch.estimate_normals(pts, method=method).shape == (65, 3)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dicp_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
