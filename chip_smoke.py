@@ -32,16 +32,37 @@ Phases, each raising on failure (the script then exits non-zero):
    < 1e-3); then cluster_nn(use_pallas=True) (K5) equal to the K2 path.
 9. batched raw scans: 8 pairs of 50,000 -> 60,000 points through the cluster
    tier; every pair's errors < 1e-3, K2 launched.
+10. the whole-solve kernel K4's -Xptxas=-v report (csrc/fused_gn.cu, built in
+    phase 1 with the others).
+11. K4 against its plain version on the same card tensors: the headline's
+    configuration (the reference pair at B=256, pt2pl, dim 2, trim 5,
+    huber 1, tol 1e-6), the gate's largest shape (256 pairs of 256 -> 512
+    points of the LiDAR-like scene, pt2pl, dim 3) and edge cases (pt2pt dim 3
+    cauchy, prior weights with zeros, B=5, n=1, the trim loss at steepness 2,
+    every loss); convergence, iterations and matched ratio equal, T within
+    1e-5, pc within 1e-4, two launches identical.  Timed against the plain
+    version, and the forward A/B: register(fused_small=True) against the loop,
+    alternated in one process.
+12. the headline path: the reference pair at B=256 through register_ift with
+    K4 as the forward, value sum(T) and its gradient with respect to the
+    sources; transform error < 1e-3, gradients finite and nonzero, cosine
+    with the unrolled gradient > 0.99, K4 launched once per call.  Timed
+    (registrations per second) alternated with the IFT on the loop forward
+    and with the unrolled gradient.
 
-Each main path (phases 4, 8 and 9) is driven with the kernels' launch counts
-set to 0 just before it and read just after.  The line before the last is a
-JSON object describing each kernel of the paths; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Each main path (phases 4, 8, 9 and 12) is driven with the kernels' launch
+counts set to 0 just before it and read just after.  The line before the last
+is a JSON object describing each kernel of the paths, with its bound: the
+larger of its operations at the H100's f32 rate and its bytes (each input
+read once, each output written once) at its memory rate, for this run's
+inputs.  The last line is ``{"ok": true, "device": {...}}``.  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import time
 from pathlib import Path
@@ -49,22 +70,38 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from dicp_tpu_torch import ICP, ICPConfig, se3
+from dicp_tpu_torch import ICP, ICPConfig, register, register_ift, se3
 from dicp_tpu_torch.convert import to_torch
-from dicp_tpu_torch.ops import _build, cluster_search, tiled_knn
+from dicp_tpu_torch.losses import VALID_LOSSES
+from dicp_tpu_torch.ops import _build, cluster_search, fused_gn, tiled_knn
 from dicp_tpu_torch.ops import cluster_knn as ck
 from dicp_tpu_torch.ops.normals import estimate_normals
+from dicp_tpu_torch.registration import _preprocess
 from dicp_tpu_torch.utils.timing import cuda_median_ms
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 B, N_SRC, M_TGT = 8, 12288, 16000  # phase 4: the slice at real size
 TOL_POSE = 1e-3                    # rad and m, phases 3, 4, 8 and 9
-KERNELS = ("tiled_nn", "cluster_search", "cluster_topk")
+KERNELS = ("tiled_nn", "cluster_search", "cluster_topk", "fused_gn")
 M_MAP = 100_000                    # phases 6-8: one raw scan against its map
 B_RAW, N_RAW, M_RAW = 8, 50_000, 60_000  # phases 6 and 9: batched raw scans
 PROBES, GROUP = 32, 128            # the cluster tier's defaults
 TOL_NORMAL_DEG = 2.0               # phase 8: median weighted-normal angle
+B_HEAD = 256                       # phases 11 and 12: bench.py's batch
+N_GATE, M_GATE = 256, 512          # phase 11: the fused gate's largest pair
+F32_FLOPS, HBM_BYTES = 67e12, 3.35e12  # H100 SXM: f32 non-tensor-core, HBM3 per s
+# the headline configuration (bench.py): pt2pl, dim 2, trim 5, huber 1
+HEAD = dict(icp_type="pt2pl", differentiable=True, max_iterations=100, tolerance=1e-6,
+            dim=2, trim_dist=5.0, loss_name="huber", loss_metric=1.0)
+
+
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations at
+    the f32 rate and the bytes at the memory rate."""
+    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def _check(cond: bool, what: str) -> None:
@@ -216,9 +253,13 @@ def phase2_kernel(device, sources: np.ndarray, targets: np.ndarray) -> dict:
     ms = cuda_median_ms(lambda: tiled_knn.nn_distances(x, y), warmup=3, iters=20)
     plain_ms = cuda_median_ms(lambda: tiled_knn.nn_distances_plain(x, y), warmup=1, iters=5)
     pairs = x.shape[0] * x.shape[1] * y.shape[1]
+    # 9 flops per (query, target) pair; read both clouds, write idx and d2
+    bound = _bound(9.0 * pairs, 4.0 * (x.numel() + y.numel()) + 8.0 * x.shape[0] * x.shape[1])
     print(f"phase 2 ok: K1 {ms:.4f} ms, plain {plain_ms:.4f} ms at "
-          f"{tuple(x.shape)} x {tuple(y.shape)} ({pairs / ms / 1e6:.1f} Gpair/s)")
-    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms}
+          f"{tuple(x.shape)} x {tuple(y.shape)} ({pairs / ms / 1e6:.1f} Gpair/s); bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": None}
 
 
 def phase3_reference(device) -> None:
@@ -251,6 +292,7 @@ def phase3_reference(device) -> None:
 
 def _reset_launches() -> None:
     tiled_knn.launches = 0
+    fused_gn.launches = 0
     cluster_search.fused_search.launches = 0
     cluster_search.block_search.launches = 0
     cluster_search.fused_topk.launches = 0
@@ -419,10 +461,32 @@ def phase6_search_kernels(device, mp: np.ndarray, scan: np.ndarray,
               f"candidate) pairs, K2 {pairs / t['cluster_search'] / 1e6:.1f} Gpair/s")
         times.append(t)
     single = times[0]
-    print("phase 6 ok: K2 and K5 bit-equal to their plain versions in every case")
+    ix, xb, bsel = inputs[list(shapes)[0]]
+    bounds = {"cluster_search": _bound(*_search_work(ix, xb, bsel, 1, True)),
+              "cluster_block_search": _bound(*_search_work(ix, xb, bsel, 1, False))}
+    print(f"phase 6 ok: K2 and K5 bit-equal to their plain versions in every case; bounds "
+          f"at the single pair {bounds}")
     return {name: {"max_abs_err": err[name], "ms": single[name],
-                   "plain_ms": single[f"{name} plain"]}
+                   "plain_ms": single[f"{name} plain"], **bounds[name], "library_ms": None}
             for name in ("cluster_search", "cluster_block_search")}
+
+
+def _search_work(ix, xb, bsel, k: int, with_bound: bool):
+    """(flops, bytes) a cluster search needs: 9 flops per (query, candidate)
+    pair; with the bound, 13 per (query, non-selected group) (difference,
+    norm, sqrt, the 1 - 8 eps scale, radius, clamp, square).  Bytes: the
+    grouped points, the queries and the selection read once (centers and
+    radii too with the bound); k (d2, row) pairs per query written, plus the
+    bound."""
+    G, g = ix.points.shape[-3], ix.points.shape[-2]
+    queries = xb.shape[:-1].numel()
+    P = bsel.shape[-1]
+    flops = 9.0 * queries * P * g
+    nbytes = 4.0 * (ix.points.numel() + xb.numel() + bsel.numel()) + 8.0 * queries * k
+    if with_bound:
+        flops += 13.0 * queries * (G - P)
+        nbytes += 4.0 * (ix.centers.numel() + ix.radius.numel()) + 4.0 * queries
+    return flops, nbytes
 
 
 def phase7_topk_kernel(device, mp: np.ndarray, scan: np.ndarray) -> dict:
@@ -453,9 +517,11 @@ def phase7_topk_kernel(device, mp: np.ndarray, scan: np.ndarray) -> dict:
     args = (ix.points, ix.centers, ix.radius, xb, bsel, 16)
     ms = cuda_median_ms(lambda: cluster_search.fused_topk(*args), warmup=3, iters=20)
     plain_ms = cuda_median_ms(lambda: cluster_search.fused_topk_plain(*args), warmup=1, iters=3)
+    bound = _bound(*_search_work(ix, xb, bsel, 16, True))
     print(f"phase 7 ok: K3 {ms:.4f} ms, plain {plain_ms:.4f} ms at {len(scan)} -> "
-          f"{len(mp)}, k = 16, P = {PROBES}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"{len(mp)}, k = 16, P = {PROBES}; bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def _angles_deg(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -576,6 +642,270 @@ def phase9_batched(device, sources: np.ndarray, targets: np.ndarray, T_true: np.
     return launches
 
 
+def phase10_fused_build(libs: dict) -> None:
+    fused_gn._kernel()  # load and bind
+    print(f"  {libs['fused_gn'].name}:\n{_report(libs['fused_gn'])}")
+    print("phase 10 ok: K4 built and bound (four instances: pt2pl/pt2pt x dim 3/2; "
+          "the solve runs on thread 0 of each block, inside the same kernel)")
+
+
+def reference_batch(device, batch: int = B_HEAD):
+    """bench.py's inputs: the 65-point reference pair replicated to ``batch``."""
+    scan = np.load(ROOT / "tests" / "data" / "points_scan.npy").astype(np.float32)
+    mp = np.load(ROOT / "tests" / "data" / "points_map.npy").astype(np.float32)
+    src = to_torch(np.stack([scan[:, :3]] * batch), device)
+    tgt = to_torch(np.stack([mp] * batch), device)
+    ti = torch.eye(4, dtype=torch.float32, device=device).expand(batch, 4, 4).contiguous()
+    return src, tgt, ti
+
+
+def random_pairs(rng: np.random.Generator, batch: int, n: int, m: int, dim: int,
+                 normals: bool):
+    """tests/test_fused_gn.py's scene: each target a permuted exact transform
+    of its source plus far outliers (every query has a unique exact match)."""
+    src = rng.uniform(-2.0, 2.0, (batch, n, 3))
+    if dim == 2:
+        src[..., 2] = 0.0
+    tgts = []
+    for b in range(batch):
+        th = rng.uniform(-0.15, 0.15)
+        C = np.array([[np.cos(th), -np.sin(th), 0.0], [np.sin(th), np.cos(th), 0.0],
+                      [0.0, 0.0, 1.0]])
+        t = np.array([0.1 * rng.normal(), 0.1 * rng.normal(), 0.0])
+        pts = np.concatenate([src[b][rng.permutation(n)], rng.uniform(50, 60, (m - n, 3))])
+        tgts.append(pts @ C.T + t)
+    tgt = np.stack(tgts)
+    if normals:
+        nrm = rng.normal(size=(batch, m, 3))
+        if dim == 2:
+            nrm[..., 2] = 0.0
+        nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-9)
+        tgt = np.concatenate([tgt, nrm], axis=-1)
+    return src.astype(np.float32), tgt.astype(np.float32)
+
+
+def _k4_args(cfg: ICPConfig, src, tgt, ti, weight=None):
+    """What registration hands K4: the preprocessed solver tensors with
+    per-point weights."""
+    source, target, w, C, r = _preprocess(cfg, src, tgt, ti, weight)
+    if cfg.icp_type == "pt2pt":
+        w = w[:, ::3]
+    return source[..., :3].contiguous(), target, w, C, r
+
+
+def _k4_work(args, iters: torch.Tensor, tcols: int):
+    """(flops, bytes) of the whole solves K4 ran: per executed iteration and
+    source point, 8 flops per target (difference form) plus ~220 for the
+    weights, the Jacobian row and its normal-equation products (the Pallas
+    cost estimate's count); inputs read once, results written once."""
+    source, target, w = args[:3]
+    B, n, m = source.shape[0], source.shape[1], target.shape[1]
+    flops = float(iters.double().sum()) * n * (8.0 * m + 220.0)
+    nbytes = 4.0 * (B * n * 3 + B * m * tcols + B * n + B * 12) + 4.0 * (B * 16 + B * n)
+    return flops, nbytes
+
+
+def phase11_fused_kernel(device) -> dict:
+    """K4 against its plain version on the same card tensors; timed; and the
+    forward A/B of register(fused_small=True) against the loop."""
+    rng = np.random.default_rng(SEED + 11)
+    base = dict(differentiable=False, driver="while", collect_histories=False,
+                max_iterations=40, tolerance=1e-5, nn_method="dense")
+    head_cfg = ICPConfig(**HEAD, driver="while", collect_histories=False, fused_small=True)
+    src, tgt, ti = reference_batch(device)
+    cases = {"headline: reference pair B=256, pt2pl dim 2": (head_cfg, (src, tgt, ti, None))}
+
+    g_src, g_tgt, _ = scene_pairs(rng, B_HEAD, N_GATE, M_GATE)
+    cases["gate's largest: 256 x 256 -> 512 LiDAR-like, pt2pl dim 3"] = (
+        ICPConfig(**base, icp_type="pt2pl", dim=3, trim_dist=2.0, loss_name="huber",
+                  loss_metric=0.5, fused_small=True),
+        (to_torch(g_src, device), to_torch(g_tgt, device),
+         torch.eye(4, device=device).expand(B_HEAD, 4, 4), None))
+
+    def edge(name, batch, n, m, dim, normals, weight=None, **kw):
+        e_src, e_tgt = random_pairs(rng, batch, n, m, dim, normals)
+        w = None if weight is None else to_torch(weight, device)
+        cases[name] = (ICPConfig(**{**base, "dim": dim, "fused_small": True, **kw}),
+                       (to_torch(e_src, device), to_torch(e_tgt, device),
+                        torch.eye(4, device=device).expand(batch, 4, 4), w))
+
+    edge("pt2pt dim 3 cauchy", 8, 40, 48, 3, False, icp_type="pt2pt", loss_name="cauchy",
+         loss_metric=2.0)
+    edge("prior weights with zeros, hard trim", 5, 40, 40, 2, False,
+         weight=(rng.random((5, 40)) > 0.2).astype(np.float32), icp_type="pt2pt",
+         trim_dist=3.0)
+    edge("B=5 pt2pl dim 2", 5, 30, 30, 2, True, icp_type="pt2pl", loss_name="huber")
+    edge("n=1 pt2pt dim 2", 3, 1, 8, 2, False, icp_type="pt2pt", loss_name="huber")
+    edge("trim loss, steepness 2", 4, 40, 40, 2, False, icp_type="pt2pt", differentiable=True,
+         loss_name="trim", loss_metric=2.0, tanh_steepness=2.0)
+    for loss in VALID_LOSSES + (None,):
+        edge(f"loss {loss}, pt2pl dim 3", 3, 48, 64, 3, True, icp_type="pt2pl",
+             differentiable=True, loss_name=loss, loss_metric=2.0 if loss else 1.0,
+             trim_dist=4.0)
+
+    err, work = 0.0, {}
+    for name, (cfg, (s, t, i, w)) in cases.items():
+        args = _k4_args(cfg, s, t, i, w)
+        before = fused_gn.launches
+        out = fused_gn.fused_gn_solve(*args, cfg)
+        again = fused_gn.fused_gn_solve(*args, cfg)
+        plain = fused_gn.fused_gn_solve_plain(*args, cfg)
+        torch.cuda.synchronize()
+        _check(fused_gn.launches == before + 2, f"K4 launched twice ({name})")
+        for a, b in zip(out, again):
+            _check(torch.equal(a, b), f"two K4 launches give identical outputs ({name})")
+        C, r, conv, iters, ratio = out[:5]
+        Cp, rp, convp, itersp, ratiop = plain[:5]
+        for what, a, b in (("converged", conv, convp), ("iterations", iters, itersp),
+                           ("matched ratio", ratio, ratiop)):
+            _check(torch.equal(a, b), f"K4 {what} equal to the plain version's ({name}): "
+                   f"{a.tolist()} vs {b.tolist()}")
+        dT = max(float((C - Cp).abs().max()), float((r - rp).abs().max()))
+        pc = torch.einsum("nij,npj->npi", C, args[0]) + r[:, None, :]
+        pcp = torch.einsum("nij,npj->npi", Cp, args[0]) + rp[:, None, :]
+        dpc = float((pc - pcp).abs().max())
+        _check(dT < 1e-5, f"K4 T within 1e-5 of the plain version's ({name}): {dT}")
+        _check(dpc < 1e-4, f"K4 pc within 1e-4 of the plain version's ({name}): {dpc}")
+        _check(bool(torch.isfinite(C).all()), f"finite K4 rotations ({name})")
+        err = max(err, dT)
+        work[name] = (args, cfg, iters)
+        print(f"  K4 == plain: {name}: {tuple(args[0].shape)} -> {tuple(args[1].shape)}, "
+              f"iterations {sorted(set(iters.tolist()))}, converged "
+              f"{int(conv.sum())}/{len(conv)}, max |T diff| {dT:.3e}, max |pc diff| {dpc:.3e}")
+
+    timed = {}
+    for name in list(cases)[:2]:
+        args, cfg, iters = work[name]
+        ms = cuda_median_ms(lambda: fused_gn.fused_gn_solve(*args, cfg), warmup=3, iters=20)
+        plain_ms = cuda_median_ms(lambda: fused_gn.fused_gn_solve_plain(*args, cfg),
+                                  warmup=1, iters=5)
+        bound = _bound(*_k4_work(args, iters, 6 if cfg.icp_type == "pt2pl" else 3))
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, **bound}
+        print(f"  {name}: K4 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}), "
+              f"{float(iters.sum()):.0f} element-iterations")
+
+    # the forward A/B at the headline's configuration, alternated in one process
+    ab_cfg = {fused: head_cfg.with_(fused_small=fused) for fused in (True, False)}
+
+    def forward(fused):
+        with torch.no_grad():
+            return register(src, tgt, ti, None, ab_cfg[fused])
+
+    before = fused_gn.launches
+    res_k, res_l = forward(True), forward(False)
+    torch.cuda.synchronize()
+    _check(fused_gn.launches == before + 1, "register(fused_small=True) launches K4 once")
+    _check(torch.equal(res_k.iterations, res_l.iterations), "K4 and loop iterations equal")
+    dT = float((res_k.T - res_l.T).abs().max())
+    _check(dT < 1e-5, f"K4 and loop transforms within 1e-5: {dT}")
+    ab = {True: [], False: []}
+    for fused in (True, False, False, True):
+        ab[fused].append(cuda_median_ms(lambda: forward(fused), warmup=1, iters=5))
+    print(f"  forward A/B at B={B_HEAD} (headline config): register(fused_small=True) "
+          f"{ab[True]} ms, loop {ab[False]} ms (order K4, loop, loop, K4); "
+          f"iterations {float(res_k.iterations.max())}, |T diff| {dT:.3e}")
+    head = timed[list(cases)[0]]
+    print(f"phase 11 ok: K4 matches its plain version in {len(cases)} cases; headline "
+          f"K4 {head['ms']:.4f} ms vs plain {head['plain_ms']:.4f} ms")
+    return {"max_abs_err": err, "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": None}
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(torch.dot(a, b) / (torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)))
+
+
+def _profile(fn, label: str, calls: int = 3) -> None:
+    """Device busy share of ``calls`` calls under torch.profiler: the kernels'
+    summed device time over the host wall time of the window (the profiler's
+    own overhead included), the launches per call and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the device's own rows (kernels, copies): CPU-op rows repeat their time
+    rows = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    launches = sum(e.count for e in rows)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"  profile of {label} ({calls} calls): wall {wall_ms / calls:.3f} ms, device busy "
+          f"{busy_ms / calls:.3f} ms per call, busy share {busy_ms / wall_ms:.3f}; "
+          f"{launches / calls:.0f} device ops per call; top: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / calls:.3f} ms x"
+                      f"{e.count / calls:.0f}" for e in top))
+
+
+def phase12_headline(device) -> int:
+    """bench.py's headline through register_ift with K4 as the forward;
+    returns K4's launches in one call."""
+    src, tgt, ti = reference_batch(device)
+    cfg = ICPConfig(**HEAD, collect_histories=False, fused_small=True)
+    variants = {
+        "IFT, K4 forward": lambda s: register_ift(s, tgt, ti, None, cfg),
+        "IFT, loop forward": lambda s: register_ift(s, tgt, ti, None,
+                                                    cfg.with_(fused_small=False)),
+        "unrolled": lambda s: register(s, tgt, ti, None, ICPConfig(**HEAD)),
+    }
+
+    def value_and_grad(name):
+        s = src.clone().requires_grad_(True)
+        res = variants[name](s)
+        value = res.T.sum()
+        (grad,) = torch.autograd.grad(value, s)
+        return res, value.detach(), grad
+
+    _reset_launches()
+    res, value, grad = value_and_grad("IFT, K4 forward")
+    torch.cuda.synchronize()
+    launches = fused_gn.launches
+    _check(launches == 1, f"K4 launched once per call ({launches})")
+
+    xi = torch.tensor([1.0, 1.0, 0.0, 0.0, 0.0, 0.1], dtype=torch.float64)
+    T_true = se3.tran_inv(se3.vec2tran(xi)).to(device)
+    err = torch.linalg.vector_norm(
+        se3.tran2vec(T_true @ torch.linalg.inv(res.T.detach().double())), dim=-1)
+    _check(float(err.max()) < TOL_POSE, f"headline transform error {float(err.max())} < "
+           f"{TOL_POSE}")
+    _check(bool(torch.isfinite(grad).all()) and bool((grad != 0).any()),
+           "IFT gradient finite and nonzero")
+    _, value_u, grad_u = value_and_grad("unrolled")
+    _check(bool(torch.isfinite(grad_u).all()) and bool((grad_u != 0).any()),
+           "unrolled gradient finite and nonzero")
+    cos = _cosine(grad, grad_u)
+    _check(cos > 0.99, f"cosine of the IFT and unrolled gradients {cos} > 0.99")
+    _, value_l, grad_l = value_and_grad("IFT, loop forward")
+    cos_l = _cosine(grad, grad_l)
+    print(f"  B={B_HEAD}: transform error {float(err.max()):.3e}, iterations "
+          f"{float(res.iterations.max())}, sum(T) {float(value):.6f} (loop forward "
+          f"{float(value_l):.6f}, unrolled {float(value_u):.6f}); gradient cosine with the "
+          f"unrolled {cos:.8f}, with the loop-forward IFT {cos_l:.8f}")
+
+    times = {name: [] for name in variants}
+    order = list(variants) + list(variants)[::-1]
+    for name in order:
+        times[name].append(cuda_median_ms(lambda: value_and_grad(name), warmup=1, iters=5))
+    for name, ms in times.items():
+        print(f"  {name}: {ms} ms per forward+backward (median of 5, order {order})")
+    _profile(lambda: value_and_grad("IFT, K4 forward"), "IFT, K4 forward")
+    ms = statistics.median(times["IFT, K4 forward"])
+    rate = B_HEAD / ms * 1e3
+    print(f"pt2pl_diff_B256_fwdbwd_registrations_per_s = {rate} registrations/s "
+          f"({ms} ms per forward+backward, median of the K4-forward IFT medians)")
+    print(f"phase 12 ok: register_ift with K4 as the forward, {ms:.4f} ms per "
+          f"forward+backward at B={B_HEAD} ({rate:.1f} registrations/s); K4 launches "
+          f"{launches}")
+    return launches
+
+
 def main() -> None:
     card = phase0_device()
     device = torch.device("cuda", 0)
@@ -592,15 +922,16 @@ def main() -> None:
     timed["cluster_topk"] = phase7_topk_kernel(device, mp, scan)
     single = phase8_single_pair(device, mp, scan, T_pair)
     batched = phase9_batched(device, raw_sources, raw_targets, T_raw)
+    phase10_fused_build(libs)
+    k4 = phase11_fused_kernel(device)
+    k4_launches = phase12_headline(device)
     kernels = [{
         "name": "tiled_nn",
         "route": "cuda",
         "source": "dicp_tpu_torch/csrc/tiled_nn.cu",
         "replaces": "dicp_tpu/ops/pallas_knn.py:50",
         "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
+        **k1,
     }]
     sources_of = {"cluster_search": ("dicp_tpu_torch/csrc/cluster_search.cu",
                                      "dicp_tpu/ops/pallas_cluster.py:126"),
@@ -613,6 +944,11 @@ def main() -> None:
         _check(count > 0, f"{name} launched on the raw-scan paths ({count})")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": count, **timed[name]})
+    _check(k4_launches > 0, f"fused_gn launched on the headline path ({k4_launches})")
+    kernels.append({"name": "fused_gn", "route": "cuda",
+                    "source": "dicp_tpu_torch/csrc/fused_gn.cu",
+                    "replaces": "dicp_tpu/ops/fused_gn.py:167", "launches": k4_launches,
+                    **k4})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

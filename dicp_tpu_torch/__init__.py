@@ -3,12 +3,19 @@
 Batched differentiable Gauss-Newton ICP with the call surface and results
 of the JAX package, running on the CPU or on an NVIDIA Hopper GPU.  The
 correspondence search's tiled tier (``csrc/tiled_nn.cu``) and cluster tier
-(``csrc/cluster_search.cu``, ``csrc/cluster_topk.cu``) are CUDA kernels
-written by hand, built with ``nvcc`` at first use on a CUDA tensor.
+(``csrc/cluster_search.cu``, ``csrc/cluster_topk.cu``) and the whole-solve
+small-pair kernel (``csrc/fused_gn.cu``) are CUDA kernels written by hand,
+built with ``nvcc`` at first use on a CUDA tensor.
 
 * :mod:`dicp_tpu_torch.api` / :mod:`dicp_tpu_torch.ICP`: the drop-in ``ICP``
   class and ragged-input batch handling.
 * :mod:`dicp_tpu_torch.registration`: the functional core, :func:`register`.
+* :mod:`dicp_tpu_torch.ift`: :func:`register_ift`, implicit-function-theorem
+  gradients through the fixed point.
+* :mod:`dicp_tpu_torch.anderson`: :func:`register_anderson`, the
+  Anderson-accelerated driver.
+* :mod:`dicp_tpu_torch.ops.fused_gn`: the whole-solve kernel K4
+  (``fused_small=True``).
 * :mod:`dicp_tpu_torch.knn`, :mod:`dicp_tpu_torch.ops.tiled_knn`: hard 1-NN,
   dense and tiled.
 * :mod:`dicp_tpu_torch.ops.cluster_knn`, :mod:`dicp_tpu_torch.ops.cluster_search`:
@@ -20,15 +27,18 @@ written by hand, built with ``nvcc`` at first use on a CUDA tensor.
 This package imports neither ``jax`` nor ``dicp_tpu``.
 """
 
+from dicp_tpu_torch.anderson import register_anderson
 from dicp_tpu_torch.api import ICP, batch_size_handling
 from dicp_tpu_torch.config import ICPConfig
 from dicp_tpu_torch.ops.cluster_knn import (build_cluster_index, cluster_knn,
                                             cluster_nn, cluster_nn_verified)
 from dicp_tpu_torch.ops.normals import estimate_normals, estimate_normals_weighted
+from dicp_tpu_torch.ift import register_ift
 from dicp_tpu_torch.registration import ICPResult, register
 
 __version__ = "0.1.0"
 
 __all__ = ["ICP", "ICPConfig", "ICPResult", "batch_size_handling",
            "build_cluster_index", "cluster_knn", "cluster_nn", "cluster_nn_verified",
-           "estimate_normals", "estimate_normals_weighted", "register", "__version__"]
+           "estimate_normals", "estimate_normals_weighted", "register", "register_anderson",
+           "register_ift", "__version__"]

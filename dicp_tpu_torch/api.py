@@ -13,7 +13,9 @@ Semantics reproduced from the JAX package:
 
 Devices: tensors keep the device they are on, and tensors on different
 devices raise.  Numpy arrays and lists go to the device of the tensor inputs
-if there are any, else to the ``ICP(device=...)`` device (default CPU).
+if there are any, else to the ``ICP(device=...)`` device.  That defaults to
+the card (``cuda``): without a CUDA device a call with only numpy or list
+inputs raises, and CPU use asks for it with ``device="cpu"``.
 Padding is built with differentiable ops, so gradients reach every original
 list element.
 """
@@ -40,12 +42,19 @@ def _tensors(obj):
 
 
 def _resolve_device(requested, *inputs) -> torch.device:
-    """The one device of the tensor inputs, else ``requested`` (default CPU)."""
+    """The one device of the tensor inputs, else ``requested`` (default the
+    card; without a CUDA device that raises: there is no CPU continuation)."""
     found = {t.device for t in _tensors(inputs)}
     if len(found) > 1:
         raise ValueError(f"inputs lie on different devices: {sorted(map(str, found))}")
     if not found:
-        return torch.device("cpu" if requested is None else requested)
+        if requested is not None:
+            return torch.device(requested)
+        if not torch.cuda.is_available():
+            raise RuntimeError("dicp_tpu_torch runs numpy and list inputs on the card "
+                               "by default, and no CUDA device is available: pass "
+                               "device='cpu' to run on the CPU")
+        return torch.device("cuda")
     (device,) = found
     if requested is not None:
         want = torch.device(requested)
@@ -248,8 +257,9 @@ class ICP:
     def __init__(self, config_path=None, icp_type="pt2pl", max_iterations=100,
                  tolerance=1e-12, differentiable=True, device=None, **solver_kwargs):
         """``device``: where numpy/list inputs go when no tensor input fixes
-        it (default CPU).  ``solver_kwargs``: :class:`ICPConfig` fields with
-        no reference counterpart (e.g. ``nn_method``, ``batch_chunk``,
+        it (default the card, ``cuda``; ``"cpu"`` for the CPU).
+        ``solver_kwargs``: :class:`ICPConfig` fields with no reference
+        counterpart (e.g. ``nn_method``, ``batch_chunk``,
         ``collect_histories``)."""
         self.device = device
         self._base_cfg = config_from_yaml(

@@ -13,13 +13,18 @@
   kernel tiers run the kernels' plain versions.
 * ``cluster_group``, ``cluster_probes`` and ``cluster_fixup`` configure the
   cluster tier as in JAX (:meth:`ICPConfig.resolved_cluster_fixup`).
-* Paths this port does not have yet raise ``NotImplementedError`` naming their
-  ROADMAP item, with no silent substitute: the fused small-pair kernel K4
-  (item 11), Anderson acceleration (item 11) and Gumbel soft NN (item 2).
+* Gumbel soft NN, which this port does not have yet, raises
+  ``NotImplementedError`` naming its ROADMAP item (item 2), with no silent
+  substitute.  ``fused_small`` gates the whole-solve kernel K4
+  (:func:`dicp_tpu_torch.ops.fused_gn.fused_eligible`; auto stays off, as in
+  JAX) and ``anderson_m > 0`` selects the Anderson driver
+  (:mod:`dicp_tpu_torch.anderson`), with JAX's validation.
 * ``scan_unroll`` and ``sharded_fused`` are accepted and inert: they tune
   ``lax.scan`` and a ``shard_map`` body, which eager PyTorch does not have.
-  ``driver`` is validated and selects nothing: one early-exit loop gives the
+  ``driver`` is validated and selects no loop: one early-exit loop gives the
   results of both JAX drivers (see :mod:`dicp_tpu_torch.registration`).
+  :meth:`ICPConfig.resolved_driver` is read by K4's gate and by the
+  Anderson validation, as in JAX.
 * The YAML loader imports ``yaml`` only when a file is given; with no file the
   built-in defaults below are used.  They equal
   ``dicp_tpu/configs/dicp_config.yaml``, which a test holds them to.
@@ -107,10 +112,12 @@ class ICPConfig:
     # (n/64 clamped to [256, 4096]), 0 = off
     cluster_fixup: Optional[int] = None
     batch_chunk: Optional[int] = None  # solve the batch in chunks of this size
-    fused_small: Optional[bool] = None  # True raises (K4 not ported); None/False off
+    # the whole-solve kernel K4 (ops/fused_gn): True forces it where eligible,
+    # None (auto) and False leave it off
+    fused_small: Optional[bool] = None
     solve_method: str = "closed"  # 'closed' (Cramer/Schur) | 'lu'
     scan_unroll: int = 1          # inert: no lax.scan in eager PyTorch
-    anderson_m: int = 0           # > 0 raises (not ported)
+    anderson_m: int = 0           # > 0: Anderson-accelerated driver (anderson.py)
     anderson_cap: float = 5.0
     sharded_fused: Optional[bool] = None  # inert: no shard_map in this port
 
@@ -135,14 +142,34 @@ class ICPConfig:
             raise ValueError(f"solve_method must be closed|lu, got {self.solve_method}")
         if self.anderson_m < 0:
             raise ValueError(f"anderson_m must be >= 0, got {self.anderson_m}")
-        if self.fused_small:
-            raise _not_ported("the fused small-pair solve kernel K4 (fused_small=True)",
-                              "item 11")
-        if self.anderson_m > 0:
-            raise _not_ported("Anderson acceleration (anderson_m > 0)", "item 11")
+        if self.anderson_m > 0 and self.collect_histories:
+            raise ValueError("anderson_m > 0 requires collect_histories="
+                             "False: the accelerated iterate sequence has no "
+                             "reference-contract per-iteration histories")
+        if self.anderson_m > 0 and self.const_iter:
+            raise ValueError("anderson_m > 0 is an early-exit acceleration; "
+                             "const_iter (fixed trip count) contradicts it")
+        if self.anderson_m > 0 and self.use_gumbel and self.differentiable:
+            raise ValueError("anderson_m > 0 requires a deterministic "
+                             "correspondence backend (Gumbel soft-NN "
+                             "resamples every evaluation)")
+        if (self.anderson_m > 0 and self.differentiable
+                and self.resolved_driver() == "scan"):
+            raise ValueError(
+                "anderson_m > 0 replaces the unrolled driver with the Anderson "
+                "driver, which autograd does not flow through; for gradients use "
+                "dicp_tpu_torch.ift (IFT backward, driver='while'), or drop "
+                "anderson_m for unrolled gradients")
         if self.use_gumbel and self.differentiable:
             raise _not_ported("Gumbel soft nearest neighbour (use_gumbel=True)",
                               "item 2")
+
+    def resolved_driver(self) -> str:
+        """JAX's driver rule: 'scan' (unrolled, differentiable) or 'while'
+        (early exit).  One loop serves both here; K4's gate reads it."""
+        if self.driver != "auto":
+            return self.driver
+        return "scan" if self.differentiable else "while"
 
     def resolved_nn_method(self, n: int, m: int, device) -> str:
         """Correspondence tier for n queries against m targets on ``device``.

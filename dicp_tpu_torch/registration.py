@@ -17,6 +17,11 @@ carry-forward of histories and the reference's stop-gradient boundaries
 (histories and stats detached; only ``pc`` and ``T`` carry gradient) are
 reproduced as in the JAX core.
 
+``_register_impl`` routes as JAX does: ``anderson_m > 0`` to the Anderson
+driver (:mod:`dicp_tpu_torch.anderson`); else, where
+:func:`ops.fused_gn.fused_eligible` allows, to the whole-solve kernel K4;
+else to the loop.
+
 Shapes (ragged and unbatched inputs are handled in :mod:`dicp_tpu_torch.api`):
   source  (N, n, 3|6)   target (N, m, 3|6)   T_init (N, 4, 4)
   weight  (N, n) or None
@@ -31,7 +36,9 @@ from torch.utils.checkpoint import checkpoint
 
 from dicp_tpu_torch import knn, losses, se3
 from dicp_tpu_torch.config import ICPConfig
+from dicp_tpu_torch.ops import tiled_knn
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn, query_order
+from dicp_tpu_torch.ops.fused_gn import fused_eligible, fused_gn_solve
 from dicp_tpu_torch.ops.smallsolve import solve_spd
 
 
@@ -53,18 +60,20 @@ class ICPResult(NamedTuple):
     matched_ratio: torch.Tensor  # (N,) float
 
 
-def _damping(cfg: ICPConfig, A: torch.Tensor) -> torch.Tensor:
+def _damping(cfg: ICPConfig, A: torch.Tensor, use_abs: bool = False) -> torch.Tensor:
     """Tikhonov damping for the normal equations A (N, k, k).
 
     ``cfg.tikhonov`` set -> absolute.  None -> relative to the largest
     diagonal entry (1e-12 in f64, 1e-6 in f32): scan pairs give diagonals
     from ~1e6 (rotation) down to <1 (weak translation), where any absolute
     value is too small for f32 stability and too large for the weak block.
-    Damping never moves the fixed point."""
+    Damping never moves the fixed point.  ``use_abs``: take the largest
+    |diagonal| (the IFT adjoint's dG/dxi need not have a positive one)."""
     if cfg.tikhonov is not None:
         return torch.tensor(cfg.tikhonov, dtype=A.dtype, device=A.device)
     rel = 1e-12 if A.dtype == torch.float64 else 1e-6
-    dmax = torch.amax(torch.diagonal(A, dim1=-2, dim2=-1), dim=-1)
+    diag = torch.diagonal(A, dim1=-2, dim2=-1)
+    dmax = torch.amax(torch.abs(diag) if use_abs else diag, dim=-1)
     return (rel * torch.clamp(dmax, min=1.0))[..., None, None]
 
 
@@ -127,6 +136,24 @@ def _make_corr_fn(cfg: ICPConfig, source, target, C0, r0):
     """Correspondence closure built once per solve: ``corr(ps_t)`` returns
     (the gathered target rows (normals ride along) for the current source
     points ``ps_t`` (N, n, 3), a per-point validity weight or None).
+    Gradients keep hard-NN semantics: the indices of :func:`_make_index_fn`
+    carry none, and gradient reaches the target only through
+    :func:`knn.gather_rows`."""
+    index_fn = _make_index_fn(cfg, source, target, C0, r0)
+
+    def corr(ps_t):
+        idx, valid = index_fn(ps_t)
+        return knn.gather_rows(target, idx), valid
+
+    return corr
+
+
+def _make_index_fn(cfg: ICPConfig, source, target, C0, r0):
+    """Index closure built once per solve: ``index_fn(ps_t)`` returns (the
+    nearest target row (N, n) int32 of each current source point ``ps_t``
+    (N, n, 3), a per-point validity weight or None), computed without
+    gradient.  The IFT backward calls it at the fixed point, so its
+    linearised problem is the one the forward solved.
 
     The cluster tier builds its index once here (the target is constant over
     the iterations) and returns the certificate gate as the validity weight.
@@ -134,24 +161,23 @@ def _make_corr_fn(cfg: ICPConfig, source, target, C0, r0):
     blocks and with them the selected groups: one target cloud
     (``target.shape[0] == 1``) curve-sorts the queries once, at ``T_init``
     (rigid motion keeps neighbourhoods, so the order stays a good locality
-    hint); a batch re-sorts them on every call.  Gradients keep hard-NN
-    semantics: indices come from detached inputs without gradient, and
-    gradient reaches the target only through :func:`knn.gather_rows`."""
+    hint); a batch re-sorts them on every call."""
     n, m = source.shape[-2], target.shape[-2]
     method = cfg.resolved_nn_method(n, m, source.device)
     if method == "cluster":
-        return _cluster_corr_fn(cfg, source, target, C0, r0)
-    use_pallas = method == "pallas"
+        return _cluster_index_fn(cfg, source, target, C0, r0)
+    pts = target[..., :3].detach()
 
-    def corr(ps_t):
-        # find_nn_normalized, not find_nn: inputs are already (N, n, 3) and
-        # (N, m, 3|6), which the public transpose heuristic can misread
-        return knn.find_nn_normalized(ps_t, target, use_pallas=use_pallas), None
+    def index_fn(ps_t):
+        with torch.no_grad():
+            if method == "pallas":
+                return tiled_knn.nn_indices(ps_t.detach(), pts), None
+            return knn.nn_indices(ps_t, pts), None
 
-    return corr
+    return index_fn
 
 
-def _cluster_corr_fn(cfg: ICPConfig, source, target, C0, r0):
+def _cluster_index_fn(cfg: ICPConfig, source, target, C0, r0):
     n = source.shape[-2]
     dtype = source.dtype
     fixup = cfg.resolved_cluster_fixup(n)
@@ -161,22 +187,22 @@ def _cluster_corr_fn(cfg: ICPConfig, source, target, C0, r0):
             ps0 = torch.einsum("ij,pj->pi", C0[0], source[0, :, :3]) + r0[0][None, :]
             qord = query_order(index, ps0.detach())
 
-            def corr(ps_t):
+            def index_fn(ps_t):
                 idx, _, cert = cluster_nn(index, ps_t[0], probes=cfg.cluster_probes,
                                           order=qord, fixup=fixup)
-                return (knn.gather_rows(target, idx[None]),
-                        _certified_gate(cert[None], dtype))
+                return idx[None], _certified_gate(cert[None], dtype)
 
-            return corr
+            return index_fn
 
         index = build_cluster_index(target[..., :3], cfg.cluster_group)
 
-    def corr(ps_t):
+    def index_fn(ps_t):
+        # fused=None: K2 on CUDA queries, the group scan on the CPU
         idx, _, cert = cluster_nn(index, ps_t, probes=cfg.cluster_probes,
                                   use_pallas=False, fixup=fixup)
-        return knn.gather_rows(target, idx), _certified_gate(cert, dtype)
+        return idx, _certified_gate(cert, dtype)
 
-    return corr
+    return index_fn
 
 
 def _normal_equations(J_w, res_w, chunk: int = 4096):
@@ -424,19 +450,22 @@ def register(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tensor,
                          "use dicp_tpu_torch.api.ICP for ragged/unbatched inputs")
     _check_devices(source, target, T_init, weight)
     if cfg.batch_chunk is not None and source.shape[0] > cfg.batch_chunk:
-        return _chunked_over_batch(cfg, source, target, T_init, weight)
+        return _chunked_over_batch(
+            lambda s, t, ti, w: _register_impl(s, t, ti, w, cfg),
+            cfg.batch_chunk, source, target, T_init, weight)
     return _register_impl(source, target, T_init, weight, cfg)
 
 
-def _chunked_over_batch(cfg: ICPConfig, source, target, T_init, weight):
-    """Solve the batch in sequential chunks of ``cfg.batch_chunk`` elements.
+def _chunked_over_batch(call, chunk: int, source, target, T_init, weight):
+    """Apply ``call(source, target, T_init, weight)`` to sequential chunks of
+    ``chunk`` batch elements and concatenate the ``ICPResult``s.
 
     Identical to one big call: batch elements are independent, and every
     chunk's histories have the same fixed length.  As in JAX the batch is
     edge-padded to a whole number of chunks (repeating its last element) and
     the results are sliced back, so every chunk has ``batch_chunk`` elements
     and takes the same correspondence branch as JAX's chunks."""
-    N, chunk = source.shape[0], cfg.batch_chunk
+    N = source.shape[0]
     pad = -(-N // chunk) * chunk - N
     if weight is None:
         weight = source.new_ones(source.shape[:-1])
@@ -448,13 +477,38 @@ def _chunked_over_batch(cfg: ICPConfig, source, target, T_init, weight):
     parts = []
     for lo in range(0, N + pad, chunk):
         hi = lo + chunk
-        parts.append(_register_impl(source[lo:hi], target[lo:hi], T_init[lo:hi],
-                                     weight[lo:hi], cfg))
+        parts.append(call(source[lo:hi], target[lo:hi], T_init[lo:hi], weight[lo:hi]))
     return ICPResult(*(torch.cat(field)[:N] for field in zip(*parts)))
 
 
 def _register_impl(source, target, T_init, weight, cfg):
+    if cfg.anderson_m > 0:
+        # the Anderson-accelerated driver (does its own preprocessing);
+        # differentiable=True still selects the smooth weight forms whose
+        # fixed point the IFT backward linearises
+        from dicp_tpu_torch.anderson import _anderson_impl
+
+        return _anderson_impl(source, target, T_init, weight, cfg, cfg.anderson_m,
+                              1e-8, cfg.anderson_cap)
+
     source, target, weight, C, r = _preprocess(cfg, source, target, T_init, weight)
+    if fused_eligible(cfg, source, target):
+        # the whole solve in one kernel launch (K4, ops/fused_gn); it takes
+        # per-point weights, so the pt2pt expansion is undone and redone here
+        w_pt = weight[:, ::3] if cfg.icp_type == "pt2pt" else weight
+        Cv, rv, conv, iters, ratio, wsave, cost = fused_gn_solve(
+            source[..., :3], target, w_pt, C, r, cfg)
+        if cfg.icp_type == "pt2pt":
+            wsave = torch.repeat_interleave(wsave, 3, dim=-1)
+        N = source.shape[0]
+        return ICPResult(
+            pc=torch.einsum("nij,npj->npi", Cv, source[..., :3]) + rv[:, None, :],
+            T=se3._homogeneous(Cv, rv),
+            costs=cost[:, None, None],
+            deltas=source.new_zeros((N, 1, 6, 1)),
+            weights=wsave[:, None, :, None],
+            converged=conv, iterations=iters, matched_ratio=ratio)
+
     corr_fn = _make_corr_fn(cfg, source, target, C, r)
     carry, deltas, weights, costs, it_final = _run_loop(
         cfg, source, target, weight, C, r, corr_fn)

@@ -213,14 +213,26 @@ def test_resolved_nn_method_table(n, m):
                                        "differentiable": False}, "item 11"),
                                      ({"use_gumbel": True}, "item 2")])
 def test_not_ported_paths_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tcfg.ICPConfig(**kw)
+    """Gumbel soft NN (item 2) still raises naming its ROADMAP item; K4
+    (fused_small) and Anderson (anderson_m) of item 11 are ported and
+    accepted exactly where the JAX package accepts them."""
     jcfg.ICPConfig(**kw)  # valid in the JAX package
+    if item == "item 2":
+        with pytest.raises(NotImplementedError, match=item):
+            tcfg.ICPConfig(**kw)
+        return
+    t, j = tcfg.ICPConfig(**kw), jcfg.ICPConfig(**kw)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.resolved_driver() == j.resolved_driver()
 
 
 @pytest.mark.parametrize("kw", [{"icp_type": "p2x"}, {"dim": 4}, {"loss_name": "l2"},
                                 {"driver": "loop"}, {"nn_method": "kd"},
-                                {"solve_method": "qr"}, {"anderson_m": -1}])
+                                {"solve_method": "qr"}, {"anderson_m": -1},
+                                {"anderson_m": 4},
+                                {"anderson_m": 4, "collect_histories": False,
+                                 "const_iter": True},
+                                {"anderson_m": 4, "collect_histories": False}])
 def test_config_validation_matches_jax(kw):
     with pytest.raises(ValueError):
         jcfg.ICPConfig(**kw)

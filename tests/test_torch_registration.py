@@ -61,7 +61,7 @@ def test_reference_pair_matches_jax(source_np, target_np, driver):
     call = dict(trim_dist=5.0, loss_fn=HUBER, dim=2)
     res_j = JICP(**kw).icp(jnp.asarray(source_np[:, :3]), jnp.asarray(target_np),
                            jnp.eye(4), **call)
-    res_t = ICP(**kw).icp(source_np[:, :3], target_np, np.eye(4), **call)
+    res_t = ICP(**kw, device="cpu").icp(source_np[:, :3], target_np, np.eye(4), **call)
     np.testing.assert_allclose(res_t["T"].numpy(), np.asarray(res_j["T"]), rtol=0, atol=1e-10)
     assert float(_err(_truth(), res_t["T"][0])) < 1e-10
     for key in ("costs", "deltas", "weights"):
@@ -158,7 +158,7 @@ def test_ragged_batch_equals_serial_and_jax(source_np, target_np):
     and == the JAX package's ragged batch."""
     sources, targets = _three_pairs(source_np, target_np)
     kw = dict(icp_type="pt2pl", differentiable=True, max_iterations=25, tolerance=1e-8)
-    solver = ICP(**kw)
+    solver = ICP(**kw, device="cpu")
     serial = [solver.icp(s, t, np.eye(4), trim_dist=5.0, loss_fn=HUBER, dim=2)
               for s, t in zip(sources, targets)]
     batch = solver.icp(sources, targets, np.stack([np.eye(4)] * 3), trim_dist=5.0,
@@ -175,7 +175,7 @@ def test_ragged_batch_equals_serial_and_jax(source_np, target_np):
 
 def test_batch_chunk_equals_unchunked(source_np, target_np):
     sources, targets = _three_pairs(source_np, target_np)
-    src, tgt, _, w = batch_size_handling(sources, targets)
+    src, tgt, _, w = batch_size_handling(sources, targets, device="cpu")
     ti = torch.eye(4, dtype=torch.float64).expand(3, 4, 4)
     cfg = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=30,
                     tolerance=1e-10, dim=2, trim_dist=5.0, loss_name="huber")
@@ -186,7 +186,7 @@ def test_batch_chunk_equals_unchunked(source_np, target_np):
 
 
 def test_zero_inputs_return_T_init(source_np, target_np):
-    solver = ICP(icp_type="pt2pl", max_iterations=25, tolerance=1e-8)
+    solver = ICP(icp_type="pt2pl", max_iterations=25, tolerance=1e-8, device="cpu")
     for s, t in ((source_np, []), ([], target_np), ([], [])):
         res = solver.icp(s, t, np.eye(4), trim_dist=5.0, dim=2)
         assert float(torch.linalg.norm(res["T"][0] - torch.eye(4))) < 1e-8
@@ -197,7 +197,8 @@ def test_zero_inputs_return_T_init(source_np, target_np):
     # batched T_init through the phony path comes back unchanged
     t1 = se3.vec2tran(torch.tensor([0.1, 0.2, 0, 0, 0, 0.3])).numpy()
     ti = np.stack([np.eye(4), t1]).astype(np.float32)
-    res = ICP(icp_type="pt2pl", max_iterations=10, tolerance=1e-8).icp([], [], ti, dim=2)
+    res = ICP(icp_type="pt2pl", max_iterations=10, tolerance=1e-8,
+              device="cpu").icp([], [], ti, dim=2)
     np.testing.assert_allclose(res["T"].numpy(), ti, atol=1e-6)
 
 
@@ -209,7 +210,7 @@ def test_weight_inputs(source_np, target_np):
                np.vstack([source_np[:, :3], rng.random((10, 3))])]
     weights = [None, np.ones(source_np.shape[0]),
                np.hstack([np.ones(source_np.shape[0]), np.zeros(10)])]
-    solver = ICP(icp_type="pt2pl", max_iterations=25, tolerance=1e-8)
+    solver = ICP(icp_type="pt2pl", max_iterations=25, tolerance=1e-8, device="cpu")
     call = dict(trim_dist=5.0, loss_fn=HUBER, dim=2)
     serial = torch.cat([solver.icp(s, target_np, np.eye(4), weight=w, **call)["T"]
                         for s, w in zip(sources, weights)])
@@ -220,14 +221,15 @@ def test_weight_inputs(source_np, target_np):
 
 
 def test_padded_source_and_const_iter(source_np, target_np):
-    solver = ICP(icp_type="pt2pt", differentiable=False, max_iterations=25, tolerance=1e-8)
+    solver = ICP(icp_type="pt2pt", differentiable=False, max_iterations=25, tolerance=1e-8,
+                 device="cpu")
     solver.source_zeroes_are_pad = True
     src = source_np[:50, :3]
     T_a = solver.icp(src, target_np[:55], np.eye(4), dim=2)["T"]
     T_b = solver.icp(np.vstack([src, np.zeros((20, 3))]), target_np[:55], np.eye(4),
                      dim=2)["T"]
     assert float(_err(T_a, T_b)) < 1e-8
-    solver = ICP(icp_type="pt2pl", max_iterations=12, tolerance=1e-8)
+    solver = ICP(icp_type="pt2pl", max_iterations=12, tolerance=1e-8, device="cpu")
     solver.const_iter = True
     res = solver.icp(source_np[:, :3], target_np, np.eye(4), trim_dist=5.0,
                      loss_fn=HUBER, dim=2)
@@ -240,10 +242,10 @@ def test_negative_coordinate_ragged_targets(source_np, target_np):
     shift = np.array([-60.0, -60.0, 0.0])
     src = source_np[:, :3] + shift
     tgt = np.hstack([target_np[:, :3] + shift, target_np[:, 3:6]])
-    _, tgt_b, _, _ = batch_size_handling([src[:51], src], [tgt[:55], tgt])
+    _, tgt_b, _, _ = batch_size_handling([src[:51], src], [tgt[:55], tgt], device="cpu")
     np.testing.assert_array_equal(tgt_b[0, 55:].numpy(), np.repeat(tgt[54:55], 10, 0))
     res = ICP(icp_type="pt2pl", differentiable=False, max_iterations=50,
-              tolerance=1e-10).icp([src[:51], src], [tgt[:55], tgt], np.eye(4),
+              tolerance=1e-10, device="cpu").icp([src[:51], src], [tgt[:55], tgt], np.eye(4),
                                    trim_dist=5.0, loss_fn=HUBER, dim=2)
     tr = torch.eye(4, dtype=torch.float64)
     tr[:3, 3] = _t(shift)
@@ -254,33 +256,47 @@ def test_negative_coordinate_ragged_targets(source_np, target_np):
 def test_input_errors(source_np, target_np):
     src3 = np.stack([source_np[:, :3]] * 3)
     with pytest.raises(ValueError, match="batch length"):
-        batch_size_handling(src3, [target_np, target_np])
+        batch_size_handling(src3, [target_np, target_np], device="cpu")
     with pytest.raises(ValueError, match="weight"):
-        batch_size_handling([source_np[:, :3]] * 2, [target_np] * 2, weight=[np.ones(65)])
+        batch_size_handling([source_np[:, :3]] * 2, [target_np] * 2, weight=[np.ones(65)],
+                            device="cpu")
     with pytest.raises(ValueError, match="rows"):
-        batch_size_handling(src3, np.stack([target_np] * 3), weight=np.ones((2, 65)))
+        batch_size_handling(src3, np.stack([target_np] * 3), weight=np.ones((2, 65)),
+                            device="cpu")
     with pytest.raises(ValueError, match="pt2pl requires target normals"):
-        ICP(icp_type="pt2pl").icp(source_np[:, :3], target_np[:, :3], np.eye(4))
+        ICP(icp_type="pt2pl", device="cpu").icp(source_np[:, :3], target_np[:, :3], np.eye(4))
     with pytest.raises(ValueError, match="dim"):
-        ICP().icp(source_np[:, :3], target_np, np.eye(4), dim=4)
+        ICP(device="cpu").icp(source_np[:, :3], target_np, np.eye(4), dim=4)
     with pytest.raises(ValueError, match="different devices"):
         batch_size_handling(_t(source_np[:, :3]), torch.zeros(65, 6, device="meta"))
     with pytest.raises(ValueError, match="asked for"):
         ICP(device="meta").icp(_t(source_np[:, :3]), _t(target_np), np.eye(4))
     # the cluster tier is ported (nn_method='cluster', and auto at m >= 16384);
-    # the fused small-pair kernel K4 still raises, naming its ROADMAP item
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ICP(nn_method="cluster", fused_small=True)
-    res = ICP(icp_type="pt2pt", max_iterations=3).icp(np.zeros((1100, 3)),
-                                                     np.ones((16384, 3)), np.eye(4))
+    # fused_small=True is accepted as in JAX, and on a cluster-tier problem
+    # the gate is false and the loop runs
+    res = ICP(icp_type="pt2pt", max_iterations=3, device="cpu", fused_small=True,
+              differentiable=False, driver="while", collect_histories=False).icp(
+        np.zeros((1100, 3)), np.ones((16384, 3)), np.eye(4))
     assert res["T"].shape == (1, 4, 4) and bool(torch.isfinite(res["T"]).all())
 
 
 def test_numpy_inputs_follow_the_solver_device(source_np, target_np):
-    """Numpy inputs go to ICP(device=...), the CPU by default; tensors keep theirs."""
+    """Numpy inputs go to ICP(device=...), the card by default (without one
+    that raises: there is no CPU continuation); device="cpu" puts them on the
+    CPU; tensors keep theirs."""
     src, tgt, ti, w = batch_size_handling(source_np[:, :3], target_np, np.eye(4),
                                           device="cpu")
     assert {x.device.type for x in (src, tgt, ti, w)} == {"cpu"}
+    res = ICP(device="cpu", max_iterations=3).icp(source_np[:, :3], target_np, np.eye(4))
+    assert res["T"].device.type == "cpu"
+    if torch.cuda.is_available():
+        src, _, _, _ = batch_size_handling(source_np[:, :3], target_np, np.eye(4))
+        assert src.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            batch_size_handling(source_np[:, :3], target_np, np.eye(4))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ICP().icp(source_np[:, :3], target_np, np.eye(4))
     src, tgt, ti, w = batch_size_handling(torch.zeros(5, 3, device="meta"),
                                           torch.zeros(6, 6, device="meta"), np.eye(4))
     assert {x.device.type for x in (src, tgt, ti, w)} == {"meta"}
@@ -342,7 +358,7 @@ def test_port_never_imports_jax():
         "import dicp_tpu_torch.ops.normals, dicp_tpu_torch.ops.cluster_search\n"
         "for method in ('dense', 'pallas', 'cluster'):\n"
         "    res = ICP(icp_type='pt2pl', nn_method=method, max_iterations=20,\n"
-        "              tolerance=1e-8).icp(scan[:, :3], mp, np.eye(4), trim_dist=5.0,\n"
+        "              tolerance=1e-8, device='cpu').icp(scan[:, :3], mp, np.eye(4), trim_dist=5.0,\n"
         "                                  loss_fn={'name': 'huber', 'metric': 1.0}, dim=2)\n"
         "    assert res['T'].shape == (1, 4, 4)\n"
         "import torch\n"
