@@ -8,7 +8,8 @@ Phases, each raising on failure (the script then exits non-zero):
 0. device: a CUDA device is required (no CPU continuation); prints the card's
    name and power limit; checks that float32 matmuls run in full precision.
 1. build: compiles the CUDA kernels of the checkout, one nvcc per source, all
-   started together (csrc/tiled_nn.cu, cluster_search.cu, cluster_topk.cu);
+   started together (csrc/tiled_nn.cu, cluster_search.cu, cluster_topk.cu,
+   fused_gn.cu, score_nn.cu);
    prints K1's -Xptxas=-v report.
 2. K1 against its plain PyTorch version on the card, bit for bit: indices and
    squared distances identical, at the main path's shapes and at edge cases.
@@ -50,7 +51,23 @@ Phases, each raising on failure (the script then exits non-zero):
     (registrations per second) alternated with the IFT on the loop forward
     and with the unrolled gradient.
 
-Each main path (phases 4, 8, 9 and 12) is driven with the kernels' launch
+13. the score-form 1-NN kernels K6 and K7 (csrc/score_nn.cu, built in phase 1):
+    their -Xptxas=-v report, then each against its plain version on the same
+    card tensors, bit for bit (indices and scores): 4096 x 4096 at every
+    (tq, tm) of the A/B table, one 100k x 100k call each, m < tm, m not a
+    multiple of tm, n = 1, n not a multiple of tq, duplicated targets (ties
+    to the first copy) and f64 inputs.  Timed at 100k x 100k.
+14. the A/B entry point itself, ``dicp_tpu_torch.benchmarks.exp_knn.main()``:
+    v0 (K1), v1 (K6) and v2 (K7) correct within the tie tolerance at
+    4096 x 4096 against an f64 argmin, then the seven rows timed at
+    100k x 100k in this process.
+15. Gumbel soft NN on the card: ICP.icp with use_gumbel=True at the headline
+    configuration (the reference pair at B=256) with a seeded generator,
+    finite with transform error < 0.5; one streamed gumbel_nn at phase 4's
+    8 x 12,288 -> 16,000 shape, finite and inside the targets' bounding box,
+    and equal to hard NN on a well-separated lattice at tau = 1e-3.
+
+Each main path (phases 4, 8, 9, 12 and 14) is driven with the kernels' launch
 counts set to 0 just before it and read just after.  The line before the last
 is a JSON object describing each kernel of the paths, with its bound: the
 larger of its operations at the H100's f32 rate and its bytes (each input
@@ -71,6 +88,8 @@ import numpy as np
 import torch
 
 from dicp_tpu_torch import ICP, ICPConfig, register, register_ift, se3
+from dicp_tpu_torch import knn
+from dicp_tpu_torch.benchmarks import exp_knn
 from dicp_tpu_torch.convert import to_torch
 from dicp_tpu_torch.losses import VALID_LOSSES
 from dicp_tpu_torch.ops import _build, cluster_search, fused_gn, tiled_knn
@@ -83,13 +102,18 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 B, N_SRC, M_TGT = 8, 12288, 16000  # phase 4: the slice at real size
 TOL_POSE = 1e-3                    # rad and m, phases 3, 4, 8 and 9
-KERNELS = ("tiled_nn", "cluster_search", "cluster_topk", "fused_gn")
+KERNELS = ("tiled_nn", "cluster_search", "cluster_topk", "fused_gn", "score_nn")
 M_MAP = 100_000                    # phases 6-8: one raw scan against its map
 B_RAW, N_RAW, M_RAW = 8, 50_000, 60_000  # phases 6 and 9: batched raw scans
 PROBES, GROUP = 32, 128            # the cluster tier's defaults
 TOL_NORMAL_DEG = 2.0               # phase 8: median weighted-normal angle
 B_HEAD = 256                       # phases 11 and 12: bench.py's batch
 N_GATE, M_GATE = 256, 512          # phase 11: the fused gate's largest pair
+N_SCORE = 100_000                  # phases 13 and 14: the A/B's timing size
+# (tq, tm) of the A/B's rows (benchmarks/exp_knn.py:277-285)
+SCORE_TILES = ((256, 2048), (512, 4096), (256, 4096), (512, 2048))
+SCORE_OPS = 7.0                    # per (query, column): 3 mul, 3 add, 1 compare
+TOL_GUMBEL = 0.5                   # phase 15: tests/test_icp.py:189's bound
 F32_FLOPS, HBM_BYTES = 67e12, 3.35e12  # H100 SXM: f32 non-tensor-core, HBM3 per s
 # the headline configuration (bench.py): pt2pl, dim 2, trim 5, huber 1
 HEAD = dict(icp_type="pt2pl", differentiable=True, max_iterations=100, tolerance=1e-6,
@@ -296,6 +320,8 @@ def _reset_launches() -> None:
     cluster_search.fused_search.launches = 0
     cluster_search.block_search.launches = 0
     cluster_search.fused_topk.launches = 0
+    exp_knn.nn_v1.launches = 0
+    exp_knn.nn_v2.launches = 0
 
 
 def _launches() -> dict:
@@ -455,10 +481,12 @@ def phase6_search_kernels(device, mp: np.ndarray, scan: np.ndarray,
                 warmup=1, iters=5),
         }
         pairs = xb.shape[:-1].numel() * bsel.shape[-1] * ix.points.shape[-2]
+        k2_bound = _bound(*_search_work(ix, xb, bsel, 1, True))
         print(f"  {label}: K2 {t['cluster_search']:.4f} ms (plain "
               f"{t['cluster_search plain']:.4f}), K5 {t['cluster_block_search']:.4f} ms "
               f"(plain {t['cluster_block_search plain']:.4f}); {pairs:.3e} (query, "
-              f"candidate) pairs, K2 {pairs / t['cluster_search'] / 1e6:.1f} Gpair/s")
+              f"candidate) pairs, K2 {pairs / t['cluster_search'] / 1e6:.1f} Gpair/s; "
+              f"K2 bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']})")
         times.append(t)
     single = times[0]
     ix, xb, bsel = inputs[list(shapes)[0]]
@@ -906,6 +934,149 @@ def phase12_headline(device) -> int:
     return launches
 
 
+def _score_bound(n: int, m: int) -> dict:
+    """K6/K7's bound: SCORE_OPS f32 operations per (query, column) pair;
+    the two clouds read once, the index and the score written once."""
+    return _bound(SCORE_OPS * n * m, 12.0 * (n + m) + 8.0 * n)
+
+
+def phase13_score_kernels(device, libs: dict) -> dict:
+    """K6 and K7 against their plain versions on the same card tensors, bit
+    for bit; timed at 100k x 100k."""
+    exp_knn._kernels()  # load and bind
+    print(f"  {libs['score_nn'].name}:\n{_report(libs['score_nn'])}")
+    rng = np.random.default_rng(SEED + 13)
+
+    def cloud(n, dtype=np.float32):
+        return rng.uniform(-50, 50, (n, 3)).astype(dtype)
+
+    base = cloud(3000)
+    first = [SCORE_TILES[0]]
+    cases = [  # (name, queries, targets, (tq, tm) list)
+        ("4096 x 4096", cloud(4096), cloud(4096), SCORE_TILES),
+        (f"{N_SCORE} x {N_SCORE}", cloud(N_SCORE), cloud(N_SCORE), first),
+        ("m < tm: 1000 x 300", cloud(1000), cloud(300), first),
+        ("m not a multiple of tm: 777 x 5001", cloud(777), cloud(5001), SCORE_TILES),
+        ("n = 1", cloud(1), cloud(5000), first),
+        ("n not a multiple of tq: 1000 x 5000 at 64 x 256", cloud(1000), cloud(5000),
+         [(64, 256)]),
+        ("duplicated targets", base[:1000] + cloud(1000) * 2e-4,
+         np.concatenate([base, base]), first),
+        ("f64 inputs", cloud(2000, np.float64), cloud(3000, np.float64), first),
+    ]
+    err = {"score_nn_v1": 0.0, "score_nn_v2": 0.0}
+    for name, x_np, y_np, tiles in cases:
+        x, y = to_torch(x_np, device), to_torch(y_np, device)
+        for tq, tm in tiles:
+            runs = [("score_nn_v1", exp_knn.nn_v1, exp_knn.nn_v1_plain, {}),
+                    ("score_nn_v2", exp_knn.nn_v2, exp_knn.nn_v2_plain, {})]
+            if (tq, tm) == SCORE_TILES[0]:
+                runs.append(("score_nn_v1", exp_knn.nn_v1, exp_knn.nn_v1_plain,
+                             {"semantics": True}))
+            for kname, fn, plain_fn, kw in runs:
+                idx_k, s_k = fn(x, y, tq=tq, tm=tm, **kw)
+                idx_p, s_p = plain_fn(x, y, tq=tq, tm=tm, **kw)
+                torch.cuda.synchronize()
+                what = f"{kname} {tq}x{tm}{' semantics' if kw else ''} ({name})"
+                _check(idx_k.shape == (x.shape[0],) and idx_k.dtype == torch.int32,
+                       f"{what}: (n,) int32 indices")
+                _check(torch.equal(idx_k, idx_p), f"{what}: indices equal the plain version's")
+                _check(torch.equal(s_k, s_p), f"{what}: scores bit-equal to the plain version's")
+                err[kname] = max(err[kname], _max_abs_diff(s_k, s_p))
+                if name == "duplicated targets":
+                    _check(bool((idx_k < len(base)).all()), f"{what}: ties to the first copy")
+        print(f"  K6, K7 == plain: {name}: {tuple(x.shape)} x {tuple(y.shape)} {x.dtype}, "
+              f"tiles {list(tiles)}")
+
+    x, y = (to_torch(cloud(N_SCORE), device) for _ in range(2))
+    out = {}
+    for kname, fn, plain_fn in (("score_nn_v1", exp_knn.nn_v1, exp_knn.nn_v1_plain),
+                                ("score_nn_v2", exp_knn.nn_v2, exp_knn.nn_v2_plain)):
+        ms = cuda_median_ms(lambda: fn(x, y), warmup=3, iters=20)
+        plain_ms = cuda_median_ms(lambda: plain_fn(x, y), warmup=1, iters=3)
+        bound = _score_bound(N_SCORE, N_SCORE)
+        out[kname] = {"max_abs_err": err[kname], "ms": ms, "plain_ms": plain_ms, **bound,
+                      "library_ms": None}
+        print(f"  {kname} at {N_SCORE} x {N_SCORE}, 256 x 2048: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+              f"{SCORE_OPS:.0f} f32 operations per pair)")
+    print("phase 13 ok: K6 and K7 bit-equal to their plain versions in every case")
+    return out
+
+
+def phase14_exp_knn() -> dict:
+    """The A/B entry point; returns the launches of its run."""
+    _reset_launches()
+    result = exp_knn.main(time_n=N_SCORE)
+    torch.cuda.synchronize()
+    launches = {"score_nn_v1": exp_knn.nn_v1.launches, "score_nn_v2": exp_knn.nn_v2.launches,
+                "tiled_nn": tiled_knn.launches}
+    _check(all(result["correct"].values()) and list(result["correct"]) == ["v0", "v1", "v2"],
+           f"v0, v1 and v2 correct at 4096 x 4096: {result['correct']}")
+    _check(len(result["ms"]) == 7, "seven rows timed")
+    for name, count in launches.items():
+        _check(count > 0, f"{name} launched by exp_knn.main() ({count})")
+    print(f"phase 14 ok: exp_knn.main() correct for {list(result['correct'])}, seven rows "
+          f"timed at {N_SCORE} x {N_SCORE}; launches {launches}")
+    return launches
+
+
+def phase15_gumbel(device, sources: np.ndarray, targets: np.ndarray) -> None:
+    """Gumbel soft NN on the card: the headline solve with a seeded
+    generator, and the streamed soft neighbour at phase 4's shape."""
+    src, tgt, ti = reference_batch(device)
+    solver = ICP(icp_type="pt2pl", differentiable=True, max_iterations=HEAD["max_iterations"],
+                 tolerance=HEAD["tolerance"], device=device, use_gumbel=True)
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    t0 = time.perf_counter()
+    res = solver.icp(src, tgt, ti, trim_dist=HEAD["trim_dist"],
+                     loss_fn={"name": "huber", "metric": HEAD["loss_metric"]}, dim=HEAD["dim"],
+                     key=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    xi = torch.tensor([1.0, 1.0, 0.0, 0.0, 0.0, 0.1], dtype=torch.float64)
+    T_true = se3.tran_inv(se3.vec2tran(xi)).to(device)
+    err = torch.linalg.vector_norm(
+        se3.tran2vec(T_true @ torch.linalg.inv(res["T"].to(torch.float64))), dim=-1)
+    _check(bool(torch.isfinite(res["T"]).all()), "finite Gumbel transforms")
+    _check(float(err.max()) < TOL_GUMBEL,
+           f"Gumbel transform error {float(err.max())} < {TOL_GUMBEL}")
+    print(f"  ICP.icp(use_gumbel=True) at B={B_HEAD}: transform error max "
+          f"{float(err.max()):.4e}, median {float(err.median()):.4e}; iterations "
+          f"{float(res['stats']['iterations'].max())}; {wall:.3f} s (host clock)")
+
+    x, y = to_torch(sources, device), to_torch(targets, device)
+    n, m = x.shape[-2], y.shape[-2]
+    _check(n * m > knn.DENSE_MAX_ENTRIES, "the soft neighbour streams at phase 4's shape")
+    soft = knn.gumbel_nn(x, y, SEED + 15)
+    lo, hi = y.amin(dim=-2, keepdim=True), y.amax(dim=-2, keepdim=True)
+    slack = 1e-4 * float(y.abs().max())
+    _check(soft.shape == y.shape[:1] + (n, y.shape[-1]) and bool(torch.isfinite(soft).all()),
+           "a finite (B, n, 6) soft neighbour")
+    _check(bool((soft >= lo - slack).all() and (soft <= hi + slack).all()),
+           "the soft neighbour lies inside the targets' bounding box")
+    ms = cuda_median_ms(lambda: knn.gumbel_nn(x, y, SEED + 15), warmup=1, iters=3)
+
+    # a lattice of spacing 30 m: every query's nearest target is far nearer
+    # than its next, so the softmax at tau 1e-3 is one-hot whatever the noise
+    rng = np.random.default_rng(SEED + 15)
+    grid = np.stack(np.meshgrid(*[np.arange(26)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    lat = np.stack([grid[rng.permutation(len(grid))[:m]] * 30.0 for _ in range(len(sources))])
+    lat_y = np.concatenate([lat + rng.normal(scale=0.01, size=lat.shape),
+                            rng.normal(size=lat.shape)], axis=-1)
+    pick = rng.integers(0, m, size=(len(sources), n))
+    lat_x = np.take_along_axis(lat, pick[..., None], axis=1) + rng.normal(scale=2.0,
+                                                                         size=(len(sources), n, 3))
+    ly, lx = to_torch(lat_y, device), to_torch(lat_x, device)
+    soft = knn.gumbel_nn(lx, ly, SEED + 16, tau=1e-3)
+    hard = knn.find_nn_normalized(lx, ly, use_pallas=True)
+    gap = float((soft - hard).abs().max())
+    _check(gap <= 1e-4 * float(ly.abs().max()), f"lattice: soft NN equals hard NN ({gap})")
+    print(f"phase 15 ok: Gumbel solve at B={B_HEAD}; streamed gumbel_nn at "
+          f"{tuple(x.shape)} -> {tuple(y.shape)} {ms:.3f} ms (median of 3), inside the "
+          f"box; on the lattice max |soft - hard| {gap:.3e}")
+
+
 def main() -> None:
     card = phase0_device()
     device = torch.device("cuda", 0)
@@ -925,6 +1096,9 @@ def main() -> None:
     phase10_fused_build(libs)
     k4 = phase11_fused_kernel(device)
     k4_launches = phase12_headline(device)
+    scored = phase13_score_kernels(device, libs)
+    ab_launches = phase14_exp_knn()
+    phase15_gumbel(device, sources, targets)
     kernels = [{
         "name": "tiled_nn",
         "route": "cuda",
@@ -949,6 +1123,11 @@ def main() -> None:
                     "source": "dicp_tpu_torch/csrc/fused_gn.cu",
                     "replaces": "dicp_tpu/ops/fused_gn.py:167", "launches": k4_launches,
                     **k4})
+    for name, replaces in (("score_nn_v1", "benchmarks/exp_knn.py:69"),
+                           ("score_nn_v2", "benchmarks/exp_knn.py:137")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "dicp_tpu_torch/csrc/score_nn.cu", "replaces": replaces,
+                        "launches": ab_launches[name], **scored[name]})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

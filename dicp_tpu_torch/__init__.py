@@ -5,7 +5,8 @@ of the JAX package, running on the CPU or on an NVIDIA Hopper GPU.  The
 correspondence search's tiled tier (``csrc/tiled_nn.cu``) and cluster tier
 (``csrc/cluster_search.cu``, ``csrc/cluster_topk.cu``) and the whole-solve
 small-pair kernel (``csrc/fused_gn.cu``) are CUDA kernels written by hand,
-built with ``nvcc`` at first use on a CUDA tensor.
+built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
+1-NN kernels of the A/B (``csrc/score_nn.cu``).
 
 * :mod:`dicp_tpu_torch.api` / :mod:`dicp_tpu_torch.ICP`: the drop-in ``ICP``
   class and ragged-input batch handling.
@@ -17,12 +18,14 @@ built with ``nvcc`` at first use on a CUDA tensor.
 * :mod:`dicp_tpu_torch.ops.fused_gn`: the whole-solve kernel K4
   (``fused_small=True``).
 * :mod:`dicp_tpu_torch.knn`, :mod:`dicp_tpu_torch.ops.tiled_knn`: hard 1-NN,
-  dense and tiled.
+  dense and tiled, and Gumbel soft NN with an explicit noise source.
 * :mod:`dicp_tpu_torch.ops.cluster_knn`, :mod:`dicp_tpu_torch.ops.cluster_search`:
   the Hilbert cluster index and its certified 1-NN and k-NN searches.
 * :mod:`dicp_tpu_torch.ops.normals`: PCA surface normals.
 * :mod:`dicp_tpu_torch.convert`: configs and arrays carried across from the
   JAX package.
+* :mod:`dicp_tpu_torch.benchmarks.exp_knn`: the exact 1-NN kernels' A/B on
+  the card (``python -m dicp_tpu_torch.benchmarks.exp_knn``).
 
 This package imports neither ``jax`` nor ``dicp_tpu``.
 """

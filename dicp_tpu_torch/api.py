@@ -5,8 +5,9 @@ Semantics reproduced from the JAX package:
 
 * ragged sources zero-padded with zero weights;
 * ragged targets padded by repeating the cloud's last row, so a hard-NN
-  pad never changes a result (the soft-NN far-sentinel padding of
-  ``dicp_tpu/api.py`` comes with Gumbel NN, ROADMAP Queue 1 item 2);
+  pad never changes a result; with soft NN (Gumbel) by a far sentinel,
+  ``(max |source| + 1) * target_pad_val``, whose softmax mass is ~0 where a
+  repeated row would get a real share;
 * empty/None clouds become phony single-point clouds with zero weight, which
   makes every Gauss-Newton step a no-op and returns ``T_init``;
 * optional per-point prior weights, lists allowed, None meaning ones.
@@ -83,13 +84,16 @@ def _result_dtype(target_list) -> torch.dtype:
 
 
 def batch_size_handling(source, target, T_init=None, weight=None,
-                        keep_source_normals: bool = False, device=None):
+                        keep_source_normals: bool = False, device=None,
+                        target_pad_val: float = 1000.0, soft_nn: bool = False):
     """Normalize (possibly ragged) inputs to dense batched tensors.
 
     Returns (source (N, n, 3|6), target (N, m, 3|6), T_init (N, 4, 4) or
     None, weight (N, n)), all on one device (see the module docstring).  The
     weight is not pt2pt-expanded here; the functional core does that.
-    ``keep_source_normals`` keeps 6-column sources (symmetric ICP)."""
+    ``keep_source_normals`` keeps 6-column sources (symmetric ICP);
+    ``soft_nn`` pads ragged targets with the far sentinel scaled by
+    ``target_pad_val`` instead of repeated rows."""
     device = _resolve_device(device, source, target, T_init, weight)
     src_cols = 6 if keep_source_normals else 3
     # phony path: entire source or target missing -> T_init unchanged
@@ -182,6 +186,9 @@ def batch_size_handling(source, target, T_init=None, weight=None,
         tgt_dim = next((_as_tensor(t, device).shape[1] for t in target
                         if not _is_empty(t)), 6)
         m_max = max(max((len(t) if not _is_empty(t) else 1) for t in target), 1)
+        # the soft-NN sentinel, far outside every cloud even where all
+        # coordinates are <= 0
+        pad_val = (torch.max(torch.abs(src)) + 1.0) * target_pad_val if soft_nn else None
         tgt_rows, empty_rows = [], []
         for i, t in enumerate(target):
             if _is_empty(t):
@@ -192,7 +199,10 @@ def batch_size_handling(source, target, T_init=None, weight=None,
             if t.dim() != 2 or t.shape[1] != tgt_dim:
                 raise ValueError("target list must contain (m x 3/6) tensors with a "
                                  "consistent number of columns")
-            pad = t[-1:].expand(m_max - t.shape[0], tgt_dim)
+            if soft_nn:
+                pad = pad_val * t.new_ones((m_max - t.shape[0], tgt_dim))
+            else:
+                pad = t[-1:].expand(m_max - t.shape[0], tgt_dim)
             tgt_rows.append(torch.cat([t, pad], dim=0))
         tgt = torch.stack(tgt_rows)
         if empty_rows:
@@ -307,25 +317,29 @@ class ICP:
         )
 
     def icp(self, source, target, T_init, weight=None, trim_dist=None,
-            loss_fn=None, dim=3):
-        return self.dICP(source, target, T_init, weight, trim_dist, loss_fn, dim)
+            loss_fn=None, dim=3, key=None):
+        return self.dICP(source, target, T_init, weight, trim_dist, loss_fn, dim, key)
 
     def dICP(self, source, target, T_init, weight=None, trim_dist=None,
-             loss_fn=None, dim=3):
+             loss_fn=None, dim=3, key=None):
         """Main entry point.  ``icp_type='symmetric'`` requires 6-column
-        sources."""
+        sources.  ``key``: the Gumbel noise source (an int seed, a
+        ``torch.Generator`` or an object with a ``uniform`` method; see
+        :func:`dicp_tpu_torch.knn.gumbel_noise`), required with Gumbel NN."""
         if dim not in (2, 3):
             raise ValueError("dim must be 2 or 3")
         cfg = self._call_cfg(trim_dist, loss_fn, dim)
         src, tgt, ti, w = batch_size_handling(
             source, target, T_init, weight,
-            keep_source_normals=(self.icp_type == "symmetric"), device=self.device)
+            keep_source_normals=(self.icp_type == "symmetric"), device=self.device,
+            target_pad_val=cfg.target_pad_val,
+            soft_nn=(cfg.differentiable and cfg.use_gumbel))
         N = src.shape[0]
         if ti is None:
             ti = torch.eye(4, dtype=src.dtype, device=src.device).expand(N, 4, 4)
         elif ti.shape[0] == 1 and N > 1:
             ti = ti.expand(N, 4, 4)  # one T_init shared by the batch
-        result = slice_histories(register(src, tgt, ti.to(src.dtype), w, cfg=cfg))
+        result = slice_histories(register(src, tgt, ti.to(src.dtype), w, cfg=cfg, key=key))
         if self.verbose:
             print(f"ICP converged in {int(torch.max(result.iterations))} iterations")
             print(f"Final del_T_ts: {float(torch.linalg.norm(result.deltas[:, -1]))}")

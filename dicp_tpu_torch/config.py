@@ -13,9 +13,9 @@
   kernel tiers run the kernels' plain versions.
 * ``cluster_group``, ``cluster_probes`` and ``cluster_fixup`` configure the
   cluster tier as in JAX (:meth:`ICPConfig.resolved_cluster_fixup`).
-* Gumbel soft NN, which this port does not have yet, raises
-  ``NotImplementedError`` naming its ROADMAP item (item 2), with no silent
-  substitute.  ``fused_small`` gates the whole-solve kernel K4
+* ``use_gumbel`` selects Gumbel soft NN (:func:`dicp_tpu_torch.knn.gumbel_nn`)
+  as in JAX; its noise comes from the explicit source that ``register`` and
+  ``ICP.icp`` take as ``key``.  ``fused_small`` gates the whole-solve kernel K4
   (:func:`dicp_tpu_torch.ops.fused_gn.fused_eligible`; auto stays off, as in
   JAX) and ``anderson_m > 0`` selects the Anderson driver
   (:mod:`dicp_tpu_torch.anderson`), with JAX's validation.
@@ -64,11 +64,6 @@ DEFAULT_YAML = {
         },
     }
 }
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to dicp_tpu_torch yet (ROADMAP.md Queue 1 {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,9 +155,6 @@ class ICPConfig:
                 "driver, which autograd does not flow through; for gradients use "
                 "dicp_tpu_torch.ift (IFT backward, driver='while'), or drop "
                 "anderson_m for unrolled gradients")
-        if self.use_gumbel and self.differentiable:
-            raise _not_ported("Gumbel soft nearest neighbour (use_gumbel=True)",
-                              "item 2")
 
     def resolved_driver(self) -> str:
         """JAX's driver rule: 'scan' (unrolled, differentiable) or 'while'

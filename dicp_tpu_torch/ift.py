@@ -212,7 +212,7 @@ def register_ift(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tenso
         raise ValueError("IFT gradients require hard (deterministic) NN")
     if cfg.batch_chunk is not None and source.shape[0] > cfg.batch_chunk:
         sub = cfg.with_(batch_chunk=None)
-        return _chunked_over_batch(lambda s, t, ti, w: register_ift(s, t, ti, w, sub),
+        return _chunked_over_batch(lambda s, t, ti, w, _: register_ift(s, t, ti, w, sub),
                                    cfg.batch_chunk, source, target, T_init, weight)
     res = ICPResult(*_FixedPoint.apply(cfg, source, target, weight, T_init))
     # pc recomputed differentiably from T and the (z-masked) source

@@ -1,8 +1,11 @@
 """Compat shim: the class-based NN interface of ``dICP.nn.nn`` on top of the
 functional :mod:`dicp_tpu_torch.knn` (mirrors ``dicp_tpu/nn.py``).
 
-The reference class defaults to ``use_gumbel=True``; Gumbel soft NN is not
-ported yet, so ``find_nn`` raises for it and serves hard NN otherwise."""
+The reference class defaults to ``use_gumbel=True``, and so does this one.
+Gumbel noise comes from an explicit source (:func:`knn.gumbel_noise`):
+``find_nn`` takes one as ``key``, or uses the seed 0 so drop-in calls work
+and repeat (the JAX shim's default is ``jax.random.key(0)``, whose draws
+differ from torch's)."""
 
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ class nn:
         self.eps = eps
         self.tau = tau
 
-    def find_nn(self, x, y):
+    def find_nn(self, x, y, key=None):
+        if self.differentiable and self.use_gumbel and key is None:
+            key = 0
         return _knn.find_nn(x, y, differentiable=self.differentiable,
-                            use_gumbel=self.use_gumbel)
+                            use_gumbel=self.use_gumbel, key=key, tau=self.tau,
+                            eps=self.eps)

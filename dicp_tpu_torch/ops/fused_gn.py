@@ -47,15 +47,14 @@ MAX_M = 512
 _LOSS_CODES = {None: 0, "huber": 1, "cauchy": 2, "welsch": 3, "gm": 4, "trim": 5}
 
 
-def fused_eligible(cfg, source: torch.Tensor, target: torch.Tensor) -> bool:
+def fused_eligible(cfg, source: torch.Tensor, target: torch.Tensor, key=None) -> bool:
     """Gate for the whole-solve kernel, as ``dicp_tpu`` decides it.
 
     Auto (``cfg.fused_small is None``) is off, as in the JAX package: the
     H100 A/B against the port's loop is recorded in PERF.md, not acted on.
     ``True`` forces it where the kernel replicates the solve: the early-exit
-    driver with histories off, pt2pt/pt2pl, f32, n <= 256, m <= 512 on the
-    dense tier.  (JAX also requires no PRNG key; the port's config rejects
-    the Gumbel paths that would carry one.)"""
+    driver with histories off, pt2pt/pt2pl, no Gumbel noise source ``key``,
+    f32, n <= 256, m <= 512 on the dense tier."""
     if cfg.fused_small is not True:
         return False
     n, m = source.shape[-2], target.shape[-2]
@@ -63,6 +62,7 @@ def fused_eligible(cfg, source: torch.Tensor, target: torch.Tensor) -> bool:
             and not cfg.collect_histories
             and not cfg.const_iter
             and cfg.icp_type in ("pt2pt", "pt2pl")
+            and key is None
             and source.dtype == torch.float32
             and n <= MAX_N and m <= MAX_M
             and cfg.resolved_nn_method(n, m, source.device) == "dense")

@@ -22,6 +22,12 @@ driver (:mod:`dicp_tpu_torch.anderson`); else, where
 :func:`ops.fused_gn.fused_eligible` allows, to the whole-solve kernel K4;
 else to the loop.
 
+Gumbel soft NN (``differentiable`` and ``use_gumbel``) takes its noise from
+the source ``register`` is given as ``key`` (:func:`knn.gumbel_noise`), with
+one stream per GLOBAL batch element and iteration, as JAX derives its keys:
+a ``batch_chunk`` solve equals the unchunked one, and the first rows of a
+batch equal a smaller batch, bit for bit.  No hard-NN closure is built then.
+
 Shapes (ragged and unbatched inputs are handled in :mod:`dicp_tpu_torch.api`):
   source  (N, n, 3|6)   target (N, m, 3|6)   T_init (N, 4, 4)
   weight  (N, n) or None
@@ -228,15 +234,22 @@ def _normal_equations(J_w, res_w, chunk: int = 4096):
     return A, b
 
 
-def _gn_step(cfg: ICPConfig, source, target, w_init, C, r, corr_fn):
+def _gn_step(cfg: ICPConfig, source, target, w_init, C, r, corr_fn, noise=None,
+             pair_ids=None, it=None):
     """One Gauss-Newton iteration; returns (C_new, r_new, delta6 (N, 6),
-    w (N, P), cost (N,))."""
+    w (N, P), cost (N,)).  With Gumbel NN the correspondences are soft, drawn
+    from ``noise`` on the streams of ``pair_ids`` at iteration ``it``."""
     dtype, device = source.dtype, source.device
     N, n = source.shape[0], source.shape[1]
 
     cp = torch.einsum("nij,npj->npi", C, source[..., :3])  # rotated source
     ps_t = cp + r[:, None, :]
-    nn6, valid = corr_fn(ps_t)
+    if cfg.differentiable and cfg.use_gumbel:
+        nn6 = knn.gumbel_nn(ps_t, target, noise, tau=cfg.gumbel_tau, eps=cfg.gumbel_eps,
+                            pair_ids=pair_ids, iteration=it)
+        valid = None
+    else:
+        nn6, valid = corr_fn(ps_t)
     nn_err = ps_t - nn6[..., :3]                           # (N, n, 3)
 
     if cfg.icp_type == "pt2pl":
@@ -330,11 +343,12 @@ class _Carry(NamedTuple):
     w_raw: torch.Tensor        # raw w of the last executed iteration
 
 
-def _apply_step(cfg: ICPConfig, source, target, carry: _Carry, it: int, corr_fn):
+def _apply_step(cfg: ICPConfig, source, target, carry: _Carry, it: int, corr_fn,
+                noise=None, pair_ids=None):
     """One iteration plus bookkeeping; returns (carry', (delta, w_save, cost))."""
     dtype = source.dtype
     C, r, delta6, w, cost = _gn_step(cfg, source, target, carry.w_init,
-                                     carry.C, carry.r, corr_fn)
+                                     carry.C, carry.r, corr_fn, noise, pair_ids, it)
 
     # histories are detached; all-zero weights carry the previous values
     # forward, keyed on the mask and not on the cost being exactly 0.0
@@ -376,7 +390,8 @@ def _init_carry(source, weight, C, r) -> _Carry:
                   prev_w_save=zeros_np, prev_cost=zeros_n, w_raw=zeros_np)
 
 
-def _run_loop(cfg: ICPConfig, source, target, weight, C, r, corr_fn):
+def _run_loop(cfg: ICPConfig, source, target, weight, C, r, corr_fn, noise=None,
+              pair_ids=None):
     """Early-exit Gauss-Newton loop for both drivers.
 
     Returns (carry, deltas (T|1, N, 6), weights (T|1, N, P), costs (T|1, N),
@@ -386,7 +401,7 @@ def _run_loop(cfg: ICPConfig, source, target, weight, C, r, corr_fn):
     carry = _init_carry(source, weight, C, r)
 
     def step(carry, it):
-        return _apply_step(cfg, source, target, carry, it, corr_fn)
+        return _apply_step(cfg, source, target, carry, it, corr_fn, noise, pair_ids)
 
     hist = []
     it = 0
@@ -442,29 +457,39 @@ def _check_devices(*tensors) -> None:
 
 
 def register(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tensor,
-             weight: Optional[torch.Tensor] = None, cfg: ICPConfig = ICPConfig()) -> ICPResult:
+             weight: Optional[torch.Tensor] = None, cfg: ICPConfig = ICPConfig(),
+             key=None) -> ICPResult:
     """Batched ICP registration on pre-batched inputs (N, n, 3|6),
-    (N, m, 3|6), (N, 4, 4); all on one device."""
+    (N, m, 3|6), (N, 4, 4); all on one device.  ``key``: the Gumbel noise
+    source (:func:`knn.gumbel_noise`), required with Gumbel NN and ignored
+    otherwise."""
     if source.dim() != 3 or target.dim() != 3 or T_init.dim() != 3:
         raise ValueError("register() expects batched (N, n, 3), (N, m, 3|6), (N, 4, 4); "
                          "use dicp_tpu_torch.api.ICP for ragged/unbatched inputs")
     _check_devices(source, target, T_init, weight)
+    noise = None
+    if cfg.differentiable and cfg.use_gumbel:
+        if key is None:
+            raise ValueError("Gumbel NN requires an explicit noise source (key)")
+        noise = knn.gumbel_noise(key)
     if cfg.batch_chunk is not None and source.shape[0] > cfg.batch_chunk:
         return _chunked_over_batch(
-            lambda s, t, ti, w: _register_impl(s, t, ti, w, cfg),
+            lambda s, t, ti, w, ids: _register_impl(s, t, ti, w, cfg, noise, ids),
             cfg.batch_chunk, source, target, T_init, weight)
-    return _register_impl(source, target, T_init, weight, cfg)
+    return _register_impl(source, target, T_init, weight, cfg, noise)
 
 
 def _chunked_over_batch(call, chunk: int, source, target, T_init, weight):
-    """Apply ``call(source, target, T_init, weight)`` to sequential chunks of
-    ``chunk`` batch elements and concatenate the ``ICPResult``s.
+    """Apply ``call(source, target, T_init, weight, pair_ids)`` to sequential
+    chunks of ``chunk`` batch elements and concatenate the ``ICPResult``s;
+    ``pair_ids`` lists the chunk's global batch indices (the Gumbel streams).
 
     Identical to one big call: batch elements are independent, and every
     chunk's histories have the same fixed length.  As in JAX the batch is
-    edge-padded to a whole number of chunks (repeating its last element) and
-    the results are sliced back, so every chunk has ``batch_chunk`` elements
-    and takes the same correspondence branch as JAX's chunks."""
+    edge-padded to a whole number of chunks (repeating its last element, and
+    its index) and the results are sliced back, so every chunk has
+    ``batch_chunk`` elements and takes the same correspondence branch as
+    JAX's chunks."""
     N = source.shape[0]
     pad = -(-N // chunk) * chunk - N
     if weight is None:
@@ -474,14 +499,16 @@ def _chunked_over_batch(call, chunk: int, source, target, T_init, weight):
         return torch.cat([a, a[-1:].expand((pad,) + a.shape[1:])]) if pad else a
 
     source, target, T_init, weight = map(prep, (source, target, T_init, weight))
+    ids = list(range(N)) + [N - 1] * pad
     parts = []
     for lo in range(0, N + pad, chunk):
         hi = lo + chunk
-        parts.append(call(source[lo:hi], target[lo:hi], T_init[lo:hi], weight[lo:hi]))
+        parts.append(call(source[lo:hi], target[lo:hi], T_init[lo:hi], weight[lo:hi],
+                          ids[lo:hi]))
     return ICPResult(*(torch.cat(field)[:N] for field in zip(*parts)))
 
 
-def _register_impl(source, target, T_init, weight, cfg):
+def _register_impl(source, target, T_init, weight, cfg, noise=None, pair_ids=None):
     if cfg.anderson_m > 0:
         # the Anderson-accelerated driver (does its own preprocessing);
         # differentiable=True still selects the smooth weight forms whose
@@ -492,7 +519,7 @@ def _register_impl(source, target, T_init, weight, cfg):
                               1e-8, cfg.anderson_cap)
 
     source, target, weight, C, r = _preprocess(cfg, source, target, T_init, weight)
-    if fused_eligible(cfg, source, target):
+    if fused_eligible(cfg, source, target, noise):
         # the whole solve in one kernel launch (K4, ops/fused_gn); it takes
         # per-point weights, so the pt2pt expansion is undone and redone here
         w_pt = weight[:, ::3] if cfg.icp_type == "pt2pt" else weight
@@ -509,9 +536,15 @@ def _register_impl(source, target, T_init, weight, cfg):
             weights=wsave[:, None, :, None],
             converged=conv, iterations=iters, matched_ratio=ratio)
 
-    corr_fn = _make_corr_fn(cfg, source, target, C, r)
+    if noise is not None:
+        # Gumbel soft NN draws its own correspondences in _gn_step: no
+        # hard-NN closure (nor a cluster index) is built
+        corr_fn = None
+        pair_ids = list(range(source.shape[0])) if pair_ids is None else pair_ids
+    else:
+        corr_fn = _make_corr_fn(cfg, source, target, C, r)
     carry, deltas, weights, costs, it_final = _run_loop(
-        cfg, source, target, weight, C, r, corr_fn)
+        cfg, source, target, weight, C, r, corr_fn, noise, pair_ids)
     return _finalize(cfg, source, carry, deltas, weights, costs, it_final)
 
 

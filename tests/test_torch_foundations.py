@@ -213,14 +213,9 @@ def test_resolved_nn_method_table(n, m):
                                        "differentiable": False}, "item 11"),
                                      ({"use_gumbel": True}, "item 2")])
 def test_not_ported_paths_raise(kw, item):
-    """Gumbel soft NN (item 2) still raises naming its ROADMAP item; K4
-    (fused_small) and Anderson (anderson_m) of item 11 are ported and
-    accepted exactly where the JAX package accepts them."""
-    jcfg.ICPConfig(**kw)  # valid in the JAX package
-    if item == "item 2":
-        with pytest.raises(NotImplementedError, match=item):
-            tcfg.ICPConfig(**kw)
-        return
+    """The paths once left for later are ported: Gumbel soft NN (item 2), K4
+    (fused_small) and Anderson (anderson_m) of item 11 are accepted exactly
+    where the JAX package accepts them, with the same fields."""
     t, j = tcfg.ICPConfig(**kw), jcfg.ICPConfig(**kw)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert t.resolved_driver() == j.resolved_driver()
@@ -232,7 +227,9 @@ def test_not_ported_paths_raise(kw, item):
                                 {"anderson_m": 4},
                                 {"anderson_m": 4, "collect_histories": False,
                                  "const_iter": True},
-                                {"anderson_m": 4, "collect_histories": False}])
+                                {"anderson_m": 4, "collect_histories": False},
+                                {"anderson_m": 4, "collect_histories": False,
+                                 "use_gumbel": True, "driver": "while"}])
 def test_config_validation_matches_jax(kw):
     with pytest.raises(ValueError):
         jcfg.ICPConfig(**kw)

@@ -152,14 +152,21 @@ def test_ift_batched_and_chunked(source_np, target_np):
 
 
 def test_ift_rejects_gumbel(source_np, target_np):
-    """Gumbel NN with differentiable=True is not in the port (its config
-    raises); a config that names it is still refused by register_ift."""
-    with pytest.raises(NotImplementedError, match="item 2"):
-        ICPConfig(**BASE, use_gumbel=True)
-    cfg = ICPConfig(**{**BASE, "differentiable": False}, use_gumbel=True)
-    with pytest.raises(ValueError, match="hard"):
-        register_ift(_t(source_np[None, :, :3]), _t(target_np[None]),
-                     _t(np.eye(4)[None]), None, cfg)
+    """JAX's own refusals: register_ift takes no Gumbel NN (differentiable or
+    not), and Anderson acceleration with Gumbel NN is an invalid config."""
+    args = (source_np[None, :, :3], target_np[None], np.eye(4)[None])
+    for diff in (True, False):
+        kw = {**BASE, "differentiable": diff, "use_gumbel": True}
+        with pytest.raises(ValueError, match="hard"):
+            jregister_ift(*map(jnp.asarray, args), None, JConfig(**kw))
+        with pytest.raises(ValueError, match="hard"):
+            register_ift(*map(_t, args), None, ICPConfig(**kw))
+    kw = {**BASE, "use_gumbel": True, "anderson_m": 4, "collect_histories": False,
+          "driver": "while"}
+    with pytest.raises(ValueError, match="deterministic"):
+        JConfig(**kw)
+    with pytest.raises(ValueError, match="deterministic"):
+        ICPConfig(**kw)
 
 
 def test_ift_symmetric(planes_scene):

@@ -12,6 +12,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from dicp_tpu import knn as jknn  # noqa: E402
+from dicp_tpu.nn import nn as jnn_shim  # noqa: E402
 from dicp_tpu.ops.pallas_knn import nn_distances_pallas  # noqa: E402
 
 from dicp_tpu_torch import knn as tknn  # noqa: E402
@@ -189,9 +190,34 @@ def test_tiled_tier_gradient_equals_dense_tier():
     np.testing.assert_array_equal(grads[0][1].numpy(), grads[1][1].numpy())
 
 
+class _JaxStream:
+    """The port's noise protocol serving JAX's draws for one unbatched dense
+    call: uniform(key) of the logits' shape, as ``dicp_tpu.knn.gumbel_nn``
+    draws it."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def uniform(self, pair_ids, iteration, chunk, shape, dtype, device):
+        assert pair_ids is None and iteration is None and chunk is None
+        u = jax.random.uniform(self.key, tuple(shape), dtype=jnp.float64)
+        return torch.as_tensor(np.array(u), dtype=dtype, device=device)
+
+
 def test_gumbel_raises_and_nn_shim():
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tnn_shim(differentiable=True).find_nn(torch.zeros(4, 3), torch.zeros(5, 3))
+    """The shim's defaults are the JAX shim's: Gumbel soft NN with eps 1e-20
+    and tau 0.1.  With JAX's default key's draws injected the soft neighbour
+    equals JAX's; without a key the port's seed 0 gives a finite soft
+    neighbour inside the targets' box, the same on every call."""
+    rng = np.random.default_rng(4)
+    x, y = rng.normal(size=(6, 3)), rng.normal(size=(9, 6))
+    want = np.asarray(jnn_shim().find_nn(jnp.asarray(x), jnp.asarray(y)))
+    got = tnn_shim().find_nn(_t(x), _t(y), key=_JaxStream(jax.random.key(0)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-10)
+    soft = tnn_shim().find_nn(_t(x), _t(y))
+    assert soft.shape == want.shape and bool(torch.isfinite(soft).all())
+    assert torch.equal(soft, tnn_shim().find_nn(_t(x), _t(y)))
+    assert bool((soft >= _t(y).amin(0) - 1e-12).all() and (soft <= _t(y).amax(0) + 1e-12).all())
     out = tnn_shim(differentiable=True, use_gumbel=False).find_nn(
         torch.tensor([[9.0, 4.0, 0.0]]), torch.tensor(POINTS))
     np.testing.assert_array_equal(out.numpy()[0, 0], [8.0, 7.0, 0.0])
