@@ -12,7 +12,12 @@ Phases, each raising on failure (the script then exits non-zero):
    fused_gn.cu, score_nn.cu);
    prints K1's -Xptxas=-v report.
 2. K1 against its plain PyTorch version on the card, bit for bit: indices and
-   squared distances identical, at the main path's shapes and at edge cases.
+   squared distances identical, at the main path's shapes and at edge cases
+   (a duplicated nearest target split across K1's target-slice boundary, m
+   not a multiple of the slice or stage width, fewer targets than slices,
+   targets that are not 16-byte aligned); timed; and the share of (warp,
+   query slot, 32-target chunk) triples in which some lane would find a new
+   best, the re-scan rate of a chunked argmin, at the main path's shape.
 3. the reference contract on the dense tier: the 65-point pair of tests/data
    at B=256, pt2pl, dim 2, trim 5, huber 1, tol 1e-6, f32; transform error
    against the known truth < 1e-3.
@@ -23,7 +28,13 @@ Phases, each raising on failure (the script then exits non-zero):
 5. the cluster kernels' -Xptxas=-v reports (K2 and K5: csrc/cluster_search.cu,
    K3: csrc/cluster_topk.cu).
 6. K2 and K5 against their plain PyTorch versions on the card, bit for bit
-   (best, row, bound) at the two raw-scan shapes and at edge cases; timed.
+   (best, row, bound) at the two raw-scan shapes and at edge cases (among
+   them a duplicated candidate split across K2's column-slice boundary, g = 7
+   served by 4-byte copies, points that are not 16-byte aligned, g = 2000 in
+   three staging passes, a NaN target point and a NaN query, which must leave
+   their queries uncertified); timed; then a subprocess launches K2 with a
+   group id outside [0, G) and must fail with a CUDA error (the kernel's
+   __trap).
 7. K3 against its plain version, bit for bit, at 100k x 100k (k = 16, 1, 32)
    and with duplicate distances; timed.
 8. the single-pair raw-scan path: weighted PCA normals of a 100,000-point map
@@ -66,6 +77,15 @@ Phases, each raising on failure (the script then exits non-zero):
     finite with transform error < 0.5; one streamed gumbel_nn at phase 4's
     8 x 12,288 -> 16,000 shape, finite and inside the targets' bounding box,
     and equal to hard NN on a well-separated lattice at tau = 1e-3.
+16. a torch.profiler pass over 3 calls each of phases 4, 8, 9 and 12's
+    calls: host wall time, device busy share, K1's or K2's share of device
+    time.  It comes last: host-bound timings taken after the profiler has
+    been on in a process run slower.
+
+Phases 2 and 6 time K1, K2 and K5 call by call through their wrappers, as
+runs before them did (the kernels line's ``ms``), and print beside it the
+time back to back (20 launches between two CUDA events, median of 7 rounds:
+the kernel's time, free of the host's launch overhead).
 
 Each main path (phases 4, 8, 9, 12 and 14) is driven with the kernels' launch
 counts set to 0 just before it and read just after.  The line before the last
@@ -74,6 +94,17 @@ larger of its operations at the H100's f32 rate and its bytes (each input
 read once, each output written once) at its memory rate, for this run's
 inputs.  The last line is ``{"ok": true, "device": {...}}``.  Imports nothing
 of JAX.
+
+    python3 chip_smoke.py --ab DIR
+
+times instead, on one card in one process, K1, K2 and K5 built from
+``DIR/dicp_tpu_torch/csrc`` (another checkout, e.g. an earlier commit
+unpacked with ``git archive``, whose launchers have this checkout's C
+signatures: checked in the sources) against this checkout's, in turns
+(DIR's, this, this, DIR's), at the main path's shapes, after holding both to
+the plain versions, call by call and back to back; then phases 4, 8 and 9
+end to end, each checkout's own, one process each, in the same turns.  The
+last line holds every time as JSON.
 """
 
 from __future__ import annotations
@@ -81,8 +112,10 @@ from __future__ import annotations
 import json
 import statistics
 import subprocess
+import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -115,6 +148,9 @@ SCORE_TILES = ((256, 2048), (512, 4096), (256, 4096), (512, 2048))
 SCORE_OPS = 7.0                    # per (query, column): 3 mul, 3 add, 1 compare
 TOL_GUMBEL = 0.5                   # phase 15: tests/test_icp.py:189's bound
 F32_FLOPS, HBM_BYTES = 67e12, 3.35e12  # H100 SXM: f32 non-tensor-core, HBM3 per s
+# instructions per s the CUDA cores can issue: 132 SMs x 128 lanes x 1.98 GHz;
+# built --fmad=false each f32 operation is one instruction
+ISSUE_RATE = 132 * 128 * 1.98e9
 # the headline configuration (bench.py): pt2pl, dim 2, trim 5, huber 1
 HEAD = dict(icp_type="pt2pl", differentiable=True, max_iterations=100, tolerance=1e-6,
             dim=2, trim_dist=5.0, loss_name="huber", loss_metric=1.0)
@@ -244,21 +280,77 @@ def pose_errors(T_true: torch.Tensor, T_est: torch.Tensor):
     return rot, trans
 
 
+def _issue_ms(ops: float) -> float:
+    """The no-FMA issue ceiling: one instruction per f32 operation."""
+    return ops / ISSUE_RATE * 1e3
+
+
+def _rescan_share(x: torch.Tensor, y: torch.Tensor, chunk: int = 32) -> float:
+    """For K1's schedule (a warp's 32 lanes x LANE_Q query slots over one
+    target slice), the share of (warp, slot, chunk) triples in which some lane
+    finds a chunk minimum strictly below its running best: how often a chunked
+    fminf argmin would have to re-scan a chunk."""
+    B, n, m = x.shape[0], x.shape[1], y.shape[1]
+    lanes, slots = 32, tiled_knn.LANE_Q
+    width = tiled_knn.slice_width(m)
+    hits = total = 0
+    for b in range(B):
+        for lo in range(0, m, width):
+            d2 = _pairwise_d2(x[b], y[b, lo:lo + width])
+            pad = -d2.shape[1] % chunk
+            d2 = torch.nn.functional.pad(d2, (0, pad), value=float("inf"))
+            mins = d2.reshape(n, -1, chunk).amin(-1)
+            before = torch.cat([torch.full_like(mins[:, :1], float("inf")),
+                                torch.cummin(mins, dim=1).values[:, :-1]], dim=1)
+            better = mins < before
+            qpad = -n % (lanes * slots)
+            better = torch.nn.functional.pad(better, (0, 0, 0, qpad))
+            per_warp = better.reshape(-1, slots, lanes, better.shape[1]).any(dim=2)
+            hits += int(per_warp.sum())
+            total += per_warp.numel()
+    return hits / total
+
+
+def _pairwise_d2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    diff = x[:, None, 0] - y[None, :, 0]
+    d2 = diff * diff
+    for c in (1, 2):
+        diff = x[:, None, c] - y[None, :, c]
+        d2 = d2 + diff * diff
+    return d2
+
+
 def phase2_kernel(device, sources: np.ndarray, targets: np.ndarray) -> dict:
     """K1 and its plain version on the same card tensors: exact agreement."""
     rng = np.random.default_rng(SEED + 2)
     near = rng.normal(size=(1, 4000, 3)).astype(np.float32)
+    # K1 cuts m = 1000 targets into slices of 252: a duplicated nearest target
+    # at 251 | 252 must resolve to 251
+    dup = rng.normal(size=(1, 1000, 3))
+    dup[0, 252] = dup[0, 251]
     cases = {
         "main path (8, 12288, 16000)": (sources, targets[..., :3]),
         "n=1, m=1": (rng.normal(size=(1, 1, 3)), rng.normal(size=(1, 1, 3))),
         "ragged n, m": (rng.normal(size=(3, 1000, 3)) * 5, rng.normal(size=(3, 3001, 3)) * 5),
         "all equidistant": (np.zeros((1, 7, 3)), np.ones((1, 2500, 3))),
         "far query": (np.full((1, 1, 3), 1e4), near),
+        "duplicate across the slice boundary": (dup[:, [251, 251]] + [[[1e-3] * 3, [-1e-3] * 3]],
+                                                dup),
+        "m not a multiple of the slice or stage": (rng.normal(size=(2, 300, 3)),
+                                                   rng.normal(size=(2, 1001, 3))),
+        "m = 3, fewer targets than slices": (rng.normal(size=(1, 200, 3)),
+                                             rng.normal(size=(1, 3, 3))),
     }
+    cases = {name: (to_torch(x, device, torch.float32), to_torch(y, device, torch.float32))
+             for name, (x, y) in cases.items()}
+    # the ragged case's targets 4 bytes past a 16-byte boundary: 4-byte copies
+    x, y = cases["ragged n, m"]
+    buf = torch.empty(y.numel() + 1, dtype=torch.float32, device=device)
+    buf[1:] = y.reshape(-1)
+    cases["targets not 16-byte aligned"] = (x, buf[1:].view(y.shape))
+    _check(buf[1:].data_ptr() % 16 != 0, "the moved targets are not 16-byte aligned")
     main_err = None
-    for name, (x_np, y_np) in cases.items():
-        x = to_torch(x_np, device, torch.float32)
-        y = to_torch(y_np, device, torch.float32)
+    for name, (x, y) in cases.items():
         idx_k, d2_k = tiled_knn.nn_distances(x, y)
         idx_p, d2_p = tiled_knn.nn_distances_plain(x, y)
         torch.cuda.synchronize()
@@ -267,6 +359,8 @@ def phase2_kernel(device, sources: np.ndarray, targets: np.ndarray) -> dict:
         err = float((d2_k - d2_p).abs().max())
         if name == "all equidistant":
             _check(bool((idx_k == 0).all()), "ties resolve to index 0")
+        if name.startswith("duplicate"):
+            _check(idx_k[0].tolist() == [251, 251], "the duplicate resolves to the lower index")
         if name.startswith("main"):
             main_err = err
         print(f"  K1 == plain: {name}: {tuple(x.shape)} x {tuple(y.shape)}, "
@@ -275,13 +369,19 @@ def phase2_kernel(device, sources: np.ndarray, targets: np.ndarray) -> dict:
     x = to_torch(sources, device, torch.float32)
     y = to_torch(targets[..., :3], device, torch.float32)
     ms = cuda_median_ms(lambda: tiled_knn.nn_distances(x, y), warmup=3, iters=20)
+    chain_ms = _chain_ms(lambda: tiled_knn.nn_distances(x, y))
     plain_ms = cuda_median_ms(lambda: tiled_knn.nn_distances_plain(x, y), warmup=1, iters=5)
     pairs = x.shape[0] * x.shape[1] * y.shape[1]
     # 9 flops per (query, target) pair; read both clouds, write idx and d2
     bound = _bound(9.0 * pairs, 4.0 * (x.numel() + y.numel()) + 8.0 * x.shape[0] * x.shape[1])
-    print(f"phase 2 ok: K1 {ms:.4f} ms, plain {plain_ms:.4f} ms at "
-          f"{tuple(x.shape)} x {tuple(y.shape)} ({pairs / ms / 1e6:.1f} Gpair/s); bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    share = _rescan_share(x, y)
+    print(f"phase 2 ok: K1 {ms:.4f} ms call by call ({chain_ms:.4f} ms back to back), "
+          f"plain {plain_ms:.4f} ms at "
+          f"{tuple(x.shape)} x {tuple(y.shape)} ({pairs / chain_ms / 1e6:.1f} Gpair/s back "
+          f"to back); bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), issue ceiling "
+          f"{_issue_ms(9.0 * pairs):.4f} ms; a chunked argmin would re-scan "
+          f"{share:.4f} of (warp, slot, 32-target chunk) triples")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **bound,
             "library_ms": None}
 
@@ -332,7 +432,7 @@ def _launches() -> dict:
 
 
 def phase4_slice(device, sources: np.ndarray, targets: np.ndarray, T_true: np.ndarray):
-    """The main path at real size; returns (K1 launches in one solve, ms/solve)."""
+    """The main path at real size; returns (K1 launches in one solve, the solve)."""
     n, m = sources.shape[1], targets.shape[1]
     _check(ICPConfig().resolved_nn_method(n, m, device) == "pallas",
            f"({n}, {m}) resolves to the tiled kernel tier")
@@ -369,7 +469,7 @@ def phase4_slice(device, sources: np.ndarray, targets: np.ndarray, T_true: np.nd
     print(f"phase 4 ok: {len(sources)} x {n} -> {m} pt2pl, {ms:.3f} ms per icp call "
           f"(median of 5), {float(iters.mean()):.2f} iterations per pair, "
           f"K1 launches {launches}")
-    return launches, ms
+    return launches, solve
 
 
 def phase5_cluster_build(libs: dict) -> None:
@@ -422,9 +522,104 @@ def _edge_cases(device, rng: np.random.Generator) -> dict:
                               base + rng.normal(scale=1e-3, size=base.shape), 4, 64),
         "all targets equidistant": (np.ones((2500, 3)), np.zeros((130, 3)), 4, 128),
         "far query": (near, np.full((1, 3), 1e4), 4, 128),
+        "g = 7, not a multiple of 4 (4-byte copies)": (rng.uniform(-5, 5, (900, 3)),
+                                                       rng.uniform(-5, 5, (300, 3)), 5, 7),
+        "g = 2000: three staging passes": (rng.uniform(-5, 5, (14000, 3)),
+                                           rng.uniform(-5, 5, (200, 3)), 5, 2000),
     }
     return {name: (to_torch(y, device, torch.float32), to_torch(x, device, torch.float32), p, g)
             for name, (y, x, p, g) in cases.items()}
+
+
+def _raw_cases(device, rng: np.random.Generator, aligned_ix) -> dict:
+    """name -> (index-like (points, centers, radius), xb, bsel) given directly."""
+    # P = 8 groups of 64: 512 columns in K2's 8 slices of 64; one point at
+    # columns 63 | 64 (the end of slice 0, the start of slice 1), queries on it
+    G, g, P = 20, 64, 8
+    pts = rng.uniform(-5, 5, (G, g, 3))
+    sel = rng.permutation(G)[:P]
+    pts[sel[1], 0] = pts[sel[0], 63]
+    xb = rng.uniform(-5, 5, (1, 128, 3))
+    xb[0, :4] = pts[sel[0], 63] + rng.normal(scale=1e-4, size=(4, 3))
+    centers = pts.mean(axis=1)
+    radius = np.linalg.norm(pts - centers[:, None], axis=-1).max(axis=1)
+    f32 = lambda a: to_torch(a, device, torch.float32)  # noqa: E731
+    dup = SimpleNamespace(points=f32(pts), centers=f32(centers), radius=f32(radius))
+    bsel = torch.as_tensor(sel[None].astype(np.int32), device=device)
+    # the same index with its points 4 bytes past a 16-byte boundary
+    ix, xq, sq = aligned_ix
+    buf = torch.empty(ix.points.numel() + 1, dtype=torch.float32, device=device)
+    buf[1:] = ix.points.reshape(-1)
+    moved = SimpleNamespace(points=buf[1:].view(ix.points.shape), centers=ix.centers,
+                            radius=ix.radius)
+    _check(moved.points.data_ptr() % 16 != 0, "the moved points are not 16-byte aligned")
+    # compact groups with a NaN point in group 3, so its center and radius are
+    # NaN (as the cluster index computes them), left out by block 1's
+    # selection; and a NaN query in block 1
+    nan_pts = rng.uniform(-0.5, 0.5, (G, g, 3)) + rng.uniform(-5, 5, (G, 1, 3))
+    nan_pts[3, 5] = np.nan
+    nan_xb = rng.uniform(-5, 5, (3, 128, 3))
+    nan_xb[0, :8] = nan_pts[3, 6] + 1e-3
+    nan_xb[1, 7] = np.nan
+    nan_c = nan_pts.mean(axis=1)
+    nan_r = np.linalg.norm(nan_pts - nan_c[:, None], axis=-1).max(axis=1)
+    nan = SimpleNamespace(points=f32(nan_pts), centers=f32(nan_c), radius=f32(nan_r))
+    nan_sel = torch.tensor([[3, 1, 2, 0], [4, 5, 6, 7], [8, 3, 9, 10]], dtype=torch.int32,
+                           device=device)
+    return {"duplicate across the column-slice boundary": (dup, f32(xb), bsel),
+            "points not 16-byte aligned (4-byte copies)": (moved, xq, sq),
+            NAN_CASE: (nan, f32(nan_xb), nan_sel)}
+
+
+NAN_CASE = "a NaN target point and a NaN query"
+
+
+def _nan_expected(args):
+    """What K2 and K5 must give on NAN_CASE, where the plain bound is NaN for
+    every query: the plain versions with each NaN point at inf (a NaN
+    candidate loses like an inf one) and each NaN group given radius inf (a
+    bound term of 0 unless the block selected it); a NaN query finds nothing
+    (best inf, column 0's row for K2, row 0 for K5) and gets the bound 0."""
+    points, centers, radius, xb, bsel = args
+    finite = torch.where(torch.isnan(points), torch.inf, points)
+    bad = torch.isnan(centers).any(-1) | torch.isnan(radius)
+    best, row, bound = cluster_search.fused_search_plain(
+        finite, torch.where(bad[:, None], 0.0, centers), torch.where(bad, torch.inf, radius),
+        xb, bsel)
+    best5, row5 = cluster_search.block_search_plain(finite, xb, bsel)
+    lost = torch.isnan(xb).any(-1)
+    first = (bsel[..., :1] * points.shape[-2]).expand_as(row)
+    return ((torch.where(lost, torch.inf, best), torch.where(lost, first, row),
+             torch.where(lost, 0.0, bound)),
+            (torch.where(lost, torch.inf, best5), torch.where(lost, 0, row5)))
+
+
+TRAP_SNIPPET = """
+import torch
+from dicp_tpu_torch.ops import cluster_search
+dev = torch.device("cuda", 0)
+points = torch.zeros(10, 8, 3, device=dev)
+centers, radius = torch.zeros(10, 3, device=dev), torch.zeros(10, device=dev)
+xb = torch.zeros(2, 128, 3, device=dev)
+bsel = torch.tensor([[0, 1], [2, 10]], dtype=torch.int32, device=dev)  # 10 is not in [0, 10)
+cluster_search.fused_search(points, centers, radius, xb, bsel)
+print("launched", flush=True)
+torch.cuda.synchronize()
+print("no error", flush=True)
+"""
+
+
+def _trap_check() -> str:
+    """K2 with a group id outside [0, G), in a process of its own: the launch
+    is taken without a host check, and the kernel's __trap surfaces at the
+    synchronisation as a CUDA error."""
+    run = subprocess.run([sys.executable, "-c", TRAP_SNIPPET], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    errors = [line for line in run.stderr.splitlines() if "CUDA error" in line]
+    _check(run.returncode != 0 and "launched" in run.stdout and "no error" not in run.stdout
+           and bool(errors), f"an out-of-range group id fails with a CUDA error "
+           f"(rc {run.returncode}, stdout {run.stdout!r}, stderr tail {run.stderr[-400:]!r})")
+    return errors[-1]
 
 
 def phase6_search_kernels(device, mp: np.ndarray, scan: np.ndarray,
@@ -436,34 +631,50 @@ def phase6_search_kernels(device, mp: np.ndarray, scan: np.ndarray,
         f"batched {raw_sources.shape[0]} x {raw_sources.shape[1]} -> {raw_targets.shape[1]}": (
             to_torch(raw_targets[..., :3], device), to_torch(raw_sources, device), PROBES, GROUP),
     }
-    shapes.update(_edge_cases(device, np.random.default_rng(SEED + 6)))
+    rng = np.random.default_rng(SEED + 6)
+    shapes.update(_edge_cases(device, rng))
+    inputs = {name: _search_inputs(y, x, probes, group)
+              for name, (y, x, probes, group) in shapes.items()}
+    inputs.update(_raw_cases(device, rng, inputs["m not a multiple of g"]))
     err = {"cluster_search": 0.0, "cluster_block_search": 0.0}
-    inputs = {}
-    for name, (y, x, probes, group) in shapes.items():
-        ix, xb, bsel = inputs[name] = _search_inputs(y, x, probes, group)
+    for name, (ix, xb, bsel) in inputs.items():
         args = (ix.points, ix.centers, ix.radius, xb, bsel)
+        group = ix.points.shape[-2]
         k2 = cluster_search.fused_search(*args)
-        p2 = cluster_search.fused_search_plain(*args)
         k5 = cluster_search.block_search(ix.points, xb, bsel)
-        p5 = cluster_search.block_search_plain(ix.points, xb, bsel)
+        if name == NAN_CASE:
+            p2, p5 = _nan_expected(args)
+        else:
+            p2 = cluster_search.fused_search_plain(*args)
+            p5 = cluster_search.block_search_plain(ix.points, xb, bsel)
         torch.cuda.synchronize()
         for what, a, b in zip(("best", "row", "bound"), k2, p2):
             _check(torch.equal(a, b), f"K2 {what} bit-equal to the plain version's ({name})")
         for what, a, b in zip(("best", "row"), k5, p5):
             _check(torch.equal(a, b), f"K5 {what} bit-equal to the plain version's ({name})")
-        _check(torch.equal(k5[0], k2[0]) and torch.equal(k5[1], k2[1]),
+        found = k2[0] < torch.inf  # else K2's row is column 0's, K5's row 0
+        _check(torch.equal(k5[0], k2[0]) and torch.equal(k5[1][found], k2[1][found]),
                f"K5's argmin equals K2's ({name})")
         if name == "P = G":
             _check(bool(torch.isinf(k2[2]).all()), "every group selected: bound inf")
         if name == "all targets equidistant":
             _check(bool((k2[1] == bsel[..., :1] * group).all()),
                    "ties resolve to the first candidate column")
+        if name.startswith("duplicate across"):
+            _check(bool((k2[1][0, :4] == bsel[0, 0] * group + 63).all()),
+                   "the duplicate resolves to the lower column")
+        if name == NAN_CASE:
+            past = (bsel != 3).all(-1)[:, None] | torch.isnan(xb).any(-1)
+            _check(bool((k2[2][past] == 0).all()) and not bool((k2[0] <= k2[2])[past].any())
+                   and bool((k2[2][~past] > 0).any()),
+                   "no query is certified past the NaN group or for the NaN query")
         e2 = max(_max_abs_diff(k2[0], p2[0]), _max_abs_diff(k2[2], p2[2]))
         e5 = _max_abs_diff(k5[0], p5[0])
         err["cluster_search"] = max(err["cluster_search"], e2)
         err["cluster_block_search"] = max(err["cluster_block_search"], e5)
         print(f"  K2, K5 == plain: {name}: xb {tuple(xb.shape)}, bsel {tuple(bsel.shape)}, "
-              f"G {ix.points.shape[-3]}, max |diff| {e2}, {e5}")
+              f"G {ix.points.shape[-3]}, g {group}, max |diff| {e2}, {e5}")
+    print(f"  out-of-range group id, in a subprocess: {_trap_check()}")
 
     times = []
     for label in list(shapes)[:2]:  # the two raw-scan shapes
@@ -472,21 +683,29 @@ def phase6_search_kernels(device, mp: np.ndarray, scan: np.ndarray,
         t = {
             "cluster_search": cuda_median_ms(lambda: cluster_search.fused_search(*args),
                                              warmup=3, iters=20),
+            "cluster_search chain": _chain_ms(lambda: cluster_search.fused_search(*args)),
             "cluster_search plain": cuda_median_ms(
                 lambda: cluster_search.fused_search_plain(*args), warmup=1, iters=5),
             "cluster_block_search": cuda_median_ms(
                 lambda: cluster_search.block_search(ix.points, xb, bsel), warmup=3, iters=20),
+            "cluster_block_search chain": _chain_ms(
+                lambda: cluster_search.block_search(ix.points, xb, bsel)),
             "cluster_block_search plain": cuda_median_ms(
                 lambda: cluster_search.block_search_plain(ix.points, xb, bsel),
                 warmup=1, iters=5),
         }
         pairs = xb.shape[:-1].numel() * bsel.shape[-1] * ix.points.shape[-2]
-        k2_bound = _bound(*_search_work(ix, xb, bsel, 1, True))
-        print(f"  {label}: K2 {t['cluster_search']:.4f} ms (plain "
+        work2, work5 = _search_work(ix, xb, bsel, 1, True), _search_work(ix, xb, bsel, 1, False)
+        k2_bound = _bound(*work2)
+        print(f"  {label}: K2 {t['cluster_search']:.4f} ms call by call "
+              f"({t['cluster_search chain']:.4f} ms back to back; plain "
               f"{t['cluster_search plain']:.4f}), K5 {t['cluster_block_search']:.4f} ms "
-              f"(plain {t['cluster_block_search plain']:.4f}); {pairs:.3e} (query, "
-              f"candidate) pairs, K2 {pairs / t['cluster_search'] / 1e6:.1f} Gpair/s; "
-              f"K2 bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']})")
+              f"({t['cluster_block_search chain']:.4f} back to back; plain "
+              f"{t['cluster_block_search plain']:.4f}); {pairs:.3e} (query, candidate) pairs, "
+              f"K2 {pairs / t['cluster_search chain'] / 1e6:.1f} Gpair/s back to back; "
+              f"K2 bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']}), issue "
+              f"ceiling {_issue_ms(work2[0]):.4f} ms; K5 bound "
+              f"{_bound(*work5)['bound_ms']:.4f} ms, issue ceiling {_issue_ms(work5[0]):.4f} ms")
         times.append(t)
     single = times[0]
     ix, xb, bsel = inputs[list(shapes)[0]]
@@ -560,7 +779,7 @@ def _angles_deg(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def phase8_single_pair(device, mp: np.ndarray, scan: np.ndarray, T_true: np.ndarray) -> dict:
     """The single-pair raw-scan path: normals for the map, then pt2pl through
-    the cluster index.  Returns the launch counts of the path."""
+    the cluster index.  Returns the launch counts of the path and the solve."""
     pts = to_torch(mp[:, :3], device)
     exact = to_torch(mp[:, 3:6], device)
     src = to_torch(scan, device)
@@ -632,11 +851,12 @@ def phase8_single_pair(device, mp: np.ndarray, scan: np.ndarray, T_true: np.ndar
                                 warmup=1, iters=5)
     print(f"phase 8 ok: {n} -> {m} pt2pl through the cluster tier, {ms:.3f} ms per icp call "
           f"(median of 5), weighted normals {normals_ms:.3f} ms; launches {launches}")
-    return launches
+    return launches, solve
 
 
 def phase9_batched(device, sources: np.ndarray, targets: np.ndarray, T_true: np.ndarray) -> dict:
-    """Batched raw scans through the cluster tier; returns the launch counts."""
+    """Batched raw scans through the cluster tier; returns the launch counts
+    and the solve."""
     n, m = sources.shape[1], targets.shape[1]
     _check(ICPConfig().resolved_nn_method(n, m, device) == "cluster",
            f"({n}, {m}) resolves to the cluster tier")
@@ -667,7 +887,7 @@ def phase9_batched(device, sources: np.ndarray, targets: np.ndarray, T_true: np.
     ms = cuda_median_ms(solve, warmup=1, iters=5)
     print(f"phase 9 ok: {len(sources)} x {n} -> {m} pt2pl through the cluster tier, "
           f"{ms:.3f} ms per icp call (median of 5); launches {launches}")
-    return launches
+    return launches, solve
 
 
 def phase10_fused_build(libs: dict) -> None:
@@ -845,10 +1065,11 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.dot(a, b) / (torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)))
 
 
-def _profile(fn, label: str, calls: int = 3) -> None:
+def _profile(fn, label: str, calls: int = 3, focus: tuple = ()) -> None:
     """Device busy share of ``calls`` calls under torch.profiler: the kernels'
     summed device time over the host wall time of the window (the profiler's
-    own overhead included), the launches per call and the top kernels."""
+    own overhead included), the launches per call, the top kernels, and the
+    share of device time of each kernel named in ``focus``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -865,16 +1086,20 @@ def _profile(fn, label: str, calls: int = 3) -> None:
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     launches = sum(e.count for e in rows)
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    shares = {name: sum(e.self_device_time_total for e in rows if name in e.key) / 1e3
+              / max(busy_ms, 1e-9) for name in focus}
     print(f"  profile of {label} ({calls} calls): wall {wall_ms / calls:.3f} ms, device busy "
           f"{busy_ms / calls:.3f} ms per call, busy share {busy_ms / wall_ms:.3f}; "
-          f"{launches / calls:.0f} device ops per call; top: "
+          f"{launches / calls:.0f} device ops per call; share of device time "
+          + ", ".join(f"{name} {share:.3f}" for name, share in shares.items())
+          + "; top: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / calls:.3f} ms x"
                       f"{e.count / calls:.0f}" for e in top))
 
 
-def phase12_headline(device) -> int:
+def phase12_headline(device):
     """bench.py's headline through register_ift with K4 as the forward;
-    returns K4's launches in one call."""
+    returns K4's launches in one call and the call."""
     src, tgt, ti = reference_batch(device)
     cfg = ICPConfig(**HEAD, collect_histories=False, fused_small=True)
     variants = {
@@ -923,7 +1148,6 @@ def phase12_headline(device) -> int:
         times[name].append(cuda_median_ms(lambda: value_and_grad(name), warmup=1, iters=5))
     for name, ms in times.items():
         print(f"  {name}: {ms} ms per forward+backward (median of 5, order {order})")
-    _profile(lambda: value_and_grad("IFT, K4 forward"), "IFT, K4 forward")
     ms = statistics.median(times["IFT, K4 forward"])
     rate = B_HEAD / ms * 1e3
     print(f"pt2pl_diff_B256_fwdbwd_registrations_per_s = {rate} registrations/s "
@@ -931,7 +1155,7 @@ def phase12_headline(device) -> int:
     print(f"phase 12 ok: register_ift with K4 as the forward, {ms:.4f} ms per "
           f"forward+backward at B={B_HEAD} ({rate:.1f} registrations/s); K4 launches "
           f"{launches}")
-    return launches
+    return launches, lambda: value_and_grad("IFT, K4 forward")
 
 
 def _score_bound(n: int, m: int) -> dict:
@@ -1084,21 +1308,27 @@ def main() -> None:
     sources, targets, T_true = scene_pairs(np.random.default_rng(SEED), B, N_SRC, M_TGT)
     k1 = phase2_kernel(device, sources, targets)
     phase3_reference(device)
-    launches, _ = phase4_slice(device, sources, targets, T_true)
+    launches, slice_solve = phase4_slice(device, sources, targets, T_true)
     phase5_cluster_build(libs)
     mp, scan, T_pair = raw_scan_pair(np.random.default_rng(SEED + 8), M_MAP)
     raw_sources, raw_targets, T_raw = scene_pairs(np.random.default_rng(SEED + 9),
                                                   B_RAW, N_RAW, M_RAW)
     timed = phase6_search_kernels(device, mp, scan, raw_targets, raw_sources)
     timed["cluster_topk"] = phase7_topk_kernel(device, mp, scan)
-    single = phase8_single_pair(device, mp, scan, T_pair)
-    batched = phase9_batched(device, raw_sources, raw_targets, T_raw)
+    single, single_solve = phase8_single_pair(device, mp, scan, T_pair)
+    batched, batched_solve = phase9_batched(device, raw_sources, raw_targets, T_raw)
     phase10_fused_build(libs)
     k4 = phase11_fused_kernel(device)
-    k4_launches = phase12_headline(device)
+    k4_launches, headline_call = phase12_headline(device)
     scored = phase13_score_kernels(device, libs)
     ab_launches = phase14_exp_knn()
     phase15_gumbel(device, sources, targets)
+    # last, so that no timing above runs after the profiler has been on
+    _profile(slice_solve, "phase 4", focus=("tiled_nn_kernel",))
+    _profile(single_solve, "phase 8 (icp call)", focus=("cluster_search_kernel",))
+    _profile(batched_solve, "phase 9", focus=("cluster_search_kernel",))
+    _profile(headline_call, "phase 12, IFT, K4 forward", focus=("fused_gn_kernel",))
+    print("phase 16 ok: profiles of phases 4, 8, 9 and 12")
     kernels = [{
         "name": "tiled_nn",
         "route": "cuda",
@@ -1135,5 +1365,189 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
+def _chain_ms(fn, reps: int = 20, rounds: int = 7) -> float:
+    """Median over ``rounds`` of the device ms per call of ``reps`` calls
+    queued back to back between two CUDA events (the host's launch overhead
+    hides behind the queue)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def _launch_signature(source: Path, name: str) -> str:
+    """The ``extern "C"`` declaration of ``name`` in a kernel source,
+    whitespace collapsed."""
+    import re
+
+    found = re.search(rf'extern "C" int {name}\(([^)]*)\)', source.read_text())
+    _check(found is not None, f"{source} declares {name}")
+    return " ".join(found.group(1).split())
+
+
+def _build_other(parent: Path) -> dict:
+    """K1 and K2/K5 built from ``parent``'s sources with this checkout's
+    flags, one nvcc each, started together.  Each launcher must have this
+    checkout's C signature (checked in the sources), and is bound with it."""
+    import ctypes
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in ("tiled_nn", "cluster_search"):
+        lib = _build.BUILD_DIR / f"other-lib{name}.so"
+        src = parent / "dicp_tpu_torch" / "csrc" / f"{name}.cu"
+        mine = _launch_signature(ROOT / "dicp_tpu_torch" / "csrc" / f"{name}.cu",
+                                 f"{name}_launch")
+        _check(_launch_signature(src, f"{name}_launch") == mine,
+               f"{src}'s {name}_launch has this checkout's signature ({mine})")
+        jobs[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                                        str(src)], stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True), lib)
+    fns = {}
+    for name, (proc, lib) in jobs.items():
+        _, err = proc.communicate()
+        _check(proc.returncode == 0, f"nvcc built {name} from {parent}: {err[-2000:]}")
+        fns[name] = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
+    fns["tiled_nn"].argtypes = tiled_knn._kernel().argtypes
+    fns["cluster_search"].argtypes = cluster_search._search_kernel().argtypes
+    for fn in fns.values():
+        fn.restype = ctypes.c_int
+    return fns
+
+
+PATHS_SNIPPET = """
+import numpy as np, torch
+import chip_smoke as c
+dev = torch.device("cuda", 0)
+src, tgt, T = c.scene_pairs(np.random.default_rng(c.SEED), c.B, c.N_SRC, c.M_TGT)
+c.phase4_slice(dev, src, tgt, T)
+mp, scan, Tp = c.raw_scan_pair(np.random.default_rng(c.SEED + 8), c.M_MAP)
+c.phase8_single_pair(dev, mp, scan, Tp)
+rs, rt, Tr = c.scene_pairs(np.random.default_rng(c.SEED + 9), c.B_RAW, c.N_RAW, c.M_RAW)
+c.phase9_batched(dev, rs, rt, Tr)
+"""
+
+
+def _ab_paths(parent: Path) -> dict:
+    """Phases 4, 8 and 9 end to end (ms per icp call, median of 5), each
+    checkout in a process of its own, in turns (parent, this, this, parent)."""
+    import re
+
+    rows = {f"phase {k} icp call": {"parent": [], "this": []} for k in (4, 8, 9)}
+    for who in ("parent", "this", "this", "parent"):
+        run = subprocess.run([sys.executable, "-c", PATHS_SNIPPET],
+                             cwd=parent if who == "parent" else ROOT, capture_output=True,
+                             text=True, timeout=600)
+        _check(run.returncode == 0, f"phases 4, 8, 9 of {who}: {run.stderr[-2000:]}")
+        for k, ms in re.findall(r"^phase (\d) ok: .*?([\d.]+) ms per icp call", run.stdout,
+                                flags=re.M):
+            rows[f"phase {k} icp call"][who].append(float(ms))
+    for name, times in rows.items():
+        _check(all(len(t) == 2 for t in times.values()), f"{name} timed twice each")
+        print(f"  {name}: parent {times['parent']} ms, this {times['this']} ms "
+              f"(order parent, this, this, parent; one process each)")
+    return rows
+
+
+def main_ab(parent: Path) -> None:
+    """K1, K2 and K5 of ``parent`` against this checkout's, on one card, in
+    turns (parent, this, this, parent) at the main path's shapes, each
+    launcher called directly on the same tensors: timed call by call (as
+    phases 2 and 6 time the wrappers) and back to back."""
+    card = phase0_device()
+    device = torch.device("cuda", 0)
+    _build.build_all(("tiled_nn", "cluster_search"))
+    other = _build_other(parent)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rows = {}
+
+    def record(name, calls, check):
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+        check()
+        for how, timer in (("call by call", lambda f: cuda_median_ms(f, warmup=3, iters=20)),
+                           ("back to back", _chain_ms)):
+            times = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                times[who].append(timer(calls[who]))
+            rows[f"{name}, {how}"] = times
+            print(f"  {name}, {how}: parent {times['parent']} ms, this {times['this']} ms "
+                  f"(order parent, this, this, parent)")
+
+    sources, targets, _ = scene_pairs(np.random.default_rng(SEED), B, N_SRC, M_TGT)
+    x = to_torch(sources, device, torch.float32).contiguous()
+    y = to_torch(targets[..., :3], device, torch.float32).contiguous()
+    nb, n, m = x.shape[0], x.shape[1], y.shape[1]
+    out = {who: (torch.empty(nb, n, dtype=torch.int32, device=device),
+                 torch.empty(nb, n, device=device)) for who in ("parent", "this")}
+
+    def k1(fn, who):
+        return lambda: fn(x.data_ptr(), y.data_ptr(), nb, n, m, out[who][0].data_ptr(),
+                          out[who][1].data_ptr(), 0, stream)
+
+    def k1_check():
+        ref = tiled_knn.nn_distances_plain(x, y)
+        for who in ("parent", "this"):
+            _check(all(torch.equal(a, b) for a, b in zip(out[who], ref)),
+                   f"K1 ({who}) equals the plain version")
+
+    record(f"K1 ({nb}, {n}, {m})", {"parent": k1(other["tiled_nn"], "parent"),
+                                    "this": k1(tiled_knn._kernel(), "this")}, k1_check)
+
+    mp, scan, _ = raw_scan_pair(np.random.default_rng(SEED + 8), M_MAP)
+    raw_sources, raw_targets, _ = scene_pairs(np.random.default_rng(SEED + 9), B_RAW, N_RAW,
+                                              M_RAW)
+    shapes = {f"{len(scan)} -> {len(mp)}": (mp[:, :3], scan),
+              f"{B_RAW} x {N_RAW} -> {M_RAW}": (raw_targets[..., :3], raw_sources)}
+    for label, (y_np, x_np) in shapes.items():
+        ix, xb, bsel = _search_inputs(to_torch(y_np, device), to_torch(x_np, device))
+        args = [t.contiguous() for t in (ix.points, ix.centers, ix.radius, xb, bsel)]
+        Bq, nbq, Qs = xb.shape[:3]
+        G, g, P = ix.points.shape[1], ix.points.shape[2], bsel.shape[-1]
+        for with_bound, kname in ((1, "K2"), (0, "K5")):
+            res = {who: [torch.empty(Bq, nbq, Qs, device=device),
+                         torch.empty(Bq, nbq, Qs, dtype=torch.int32, device=device),
+                         torch.empty(Bq, nbq, Qs, device=device)] for who in ("parent", "this")}
+
+            def k2(fn, who, with_bound=with_bound, res=res, args=args):
+                ptrs = [t.data_ptr() for t in args]
+                outs = [t.data_ptr() for t in res[who]]
+                return lambda: fn(*ptrs, Bq, G, g, nbq, Qs, P, with_bound, *outs, 0, stream)
+
+            def k2_check(with_bound=with_bound, res=res, args=args, kname=kname):
+                if with_bound:
+                    ref = cluster_search.fused_search_plain(*args)
+                else:
+                    ref = cluster_search.block_search_plain(args[0], args[3], args[4])
+                for who in ("parent", "this"):
+                    _check(all(torch.equal(a, b) for a, b in zip(res[who], ref)),
+                           f"{kname} ({who}) equals the plain version ({label})")
+
+            record(f"{kname} {label}", {"parent": k2(other["cluster_search"], "parent"),
+                                        "this": k2(cluster_search._search_kernel(), "this")},
+                   k2_check)
+    rows.update(_ab_paths(parent))
+    summary = {"card": card, "parent": str(parent),
+               "ms": {name: {who: statistics.median(t) for who, t in times.items()}
+                      for name, times in rows.items()}, "runs": rows}
+    print(f"card: {card}")
+    print(json.dumps(summary))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        main_ab(Path(sys.argv[2]).resolve())
+    elif len(sys.argv) > 1:
+        raise SystemExit("usage: python3 chip_smoke.py [--ab DIR]")
+    else:
+        main()

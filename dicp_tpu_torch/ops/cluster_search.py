@@ -25,7 +25,10 @@ One deviation from Pallas: it pads the centers to a multiple of 128 with
 1e15 sentinels, so when every real group is selected (P = G) its bound is
 about 3e30; here the bound is the min over the G real groups only and is inf
 then, like the XLA path (``cluster_knn._query_bounds``).  The certificate is
-the same.
+the same.  A group whose center or radius is NaN (from a NaN point) makes
+the plain versions' bound NaN for every query; the kernels' bound is 0 for a
+block that did not select the group (and for a NaN query), and leaves the
+group out where it was selected and searched.  Neither certifies past it.
 
 Routing is by device only: CPU tensors go to the ``*_plain`` versions, CUDA
 tensors launch the hand-written kernels ``csrc/cluster_search.cu`` (K2, K5)
@@ -45,14 +48,26 @@ from dicp_tpu_torch.ops import _build
 _EPS8 = 8.0 * float(torch.finfo(torch.float32).eps)
 # Elements of one (blocks, Qs, P*g) candidate tile in the plain versions.
 _PLAIN_BLOCK = 1 << 24
-# Kernel limits (csrc/cluster_search.cu, csrc/cluster_topk.cu): one thread
-# per query of a block (K3 keeps a 32-entry list in registers, hence fewer),
-# the selected-group bitmap in shared memory.
+# Kernel limits (csrc/cluster_search.cu, csrc/cluster_topk.cu): up to 1024
+# queries per block (K3: one thread per query with a 32-entry list in
+# registers, hence fewer), the selected-group bitmap in shared memory.
 MAX_QS = 1024
 MAX_QS_TOPK = 256
 MAX_GROUPS = 1 << 20
 MAX_K = 32
 _MAX_BATCH = 65535  # gridDim.y
+# K2/K5's schedule (csrc/cluster_search.cu): LANE_Q queries per lane, so a
+# warp holds GROUP_Q queries; a block of at most WARPS warps splits the
+# staged candidate columns into S = WARPS // ceil(Qs / GROUP_Q) slices; the
+# selected slabs are staged MAX_SLAB_BYTES at a time (one pass at P = 32,
+# g = 128), so a group holds at most MAX_GROUP_SIZE points; a slice keeps a
+# running minimum per CHUNK columns.
+LANE_Q = 4
+CHUNK = 32
+GROUP_Q = 32 * LANE_Q
+WARPS = 8
+MAX_SLAB_BYTES = 64 * 1024
+MAX_GROUP_SIZE = MAX_SLAB_BYTES // 12
 
 
 def _prepare(points, centers, radius, xb, bsel):
@@ -223,8 +238,21 @@ def _topk_kernel():
     return fn
 
 
-def _check_cuda(points, xb, bsel, name: str, max_qs: int = MAX_QS) -> None:
-    """Limits of the kernels, checked before any pointer is passed."""
+def search_plan(Qs: int, g: int, P: int):
+    """K2/K5's schedule, as ``cluster_search_launch`` computes it: (query
+    groups of GROUP_Q, column slices, selected groups staged per pass).
+    Raises on a group the kernel cannot stage."""
+    if g > MAX_GROUP_SIZE:
+        raise ValueError(f"cluster_search stages whole (g, 3) f32 groups of at most "
+                         f"{MAX_SLAB_BYTES} bytes: g = {g} > {MAX_GROUP_SIZE}")
+    qg = -(-Qs // GROUP_Q)
+    return qg, WARPS // qg, min(P, MAX_SLAB_BYTES // (12 * g))
+
+
+def _check_cuda(points, xb, name: str, max_qs: int = MAX_QS) -> None:
+    """Limits of the kernels, checked before any pointer is passed.  No
+    device-to-host synchronisation: the group ids are checked in the kernel
+    (K2/K5) or by :func:`_check_range` (K3)."""
     B, G, g = points.shape[0], points.shape[1], points.shape[2]
     nb, Qs = xb.shape[1], xb.shape[2]
     if not 1 <= Qs <= max_qs:
@@ -233,6 +261,11 @@ def _check_cuda(points, xb, bsel, name: str, max_qs: int = MAX_QS) -> None:
         raise ValueError(f"{name} takes at most {MAX_GROUPS} groups, got {G}")
     if B > _MAX_BATCH or B * G * g * 3 >= 2**31 or B * nb * Qs * MAX_K >= 2**31:
         raise ValueError(f"{name}: batch {B} or sizes beyond the kernel's 32-bit grid")
+
+
+def _check_range(bsel, G: int, name: str) -> None:
+    """Group ids in [0, G); reads bsel on the host (a synchronisation on the
+    card)."""
     if bool(((bsel < 0) | (bsel >= G)).any()):
         raise ValueError(f"{name}: bsel holds group ids outside [0, {G})")
 
@@ -256,8 +289,11 @@ def _launch(kernel, name, tensors, width: int, out) -> bool:
 
 
 def _cuda_search(points, centers, radius, xb, bsel, with_bound: bool):
+    """A group id outside [0, G) stops the kernel (``__trap``): the stream
+    reports a CUDA error at its next synchronisation."""
     name = "cluster_search" if with_bound else "cluster_block_search"
-    _check_cuda(points, xb, bsel, name)
+    _check_cuda(points, xb, name)
+    search_plan(xb.shape[2], points.shape[2], bsel.shape[2])
     B, nb, Qs = xb.shape[:3]
     best = torch.empty((B, nb, Qs), dtype=torch.float32, device=xb.device)
     row = torch.empty((B, nb, Qs), dtype=torch.int32, device=xb.device)
@@ -279,6 +315,7 @@ def fused_search(points, centers, radius, xb, bsel):
     """K2: (best d2 (…, nb, Qs) f32, sorted-cloud row (…, nb, Qs) int32,
     bound (…, nb, Qs) f32).  No gradient."""
     if _route(xb) == "cpu":
+        _check_range(bsel, points.shape[-3], "cluster_search")
         return fused_search_plain(points, centers, radius, xb, bsel)
     *t, batched = _prepare(points, centers, radius, xb, bsel)
     best, row, bound, launched = _cuda_search(*t, with_bound=True)
@@ -291,6 +328,7 @@ def block_search(points, xb, bsel):
     """K5: (best d2 (…, nb, Qs) f32, sorted-cloud row (…, nb, Qs) int32), K2's
     kernel with the bound phase off.  No gradient."""
     if _route(xb) == "cpu":
+        _check_range(bsel, points.shape[-3], "cluster_block_search")
         return block_search_plain(points, xb, bsel)
     p, _, _, x, s, batched = _prepare(points, None, None, xb, bsel)
     best, row, _, launched = _cuda_search(p, None, None, x, s, with_bound=False)
@@ -307,7 +345,8 @@ def fused_topk(points, centers, radius, xb, bsel, k: int):
     _check_k(k, p.shape[2] * s.shape[2])
     if k > MAX_K:
         raise ValueError(f"cluster_topk takes k <= {MAX_K} on CUDA, got {k}")
-    _check_cuda(p, x, s, "cluster_topk", MAX_QS_TOPK)
+    _check_cuda(p, x, "cluster_topk", MAX_QS_TOPK)
+    _check_range(s, p.shape[1], "cluster_topk")
     B, nb, Qs = x.shape[:3]
     d2k = torch.empty((B, nb, Qs, k), dtype=torch.float32, device=x.device)
     rows = torch.empty((B, nb, Qs, k), dtype=torch.int32, device=x.device)

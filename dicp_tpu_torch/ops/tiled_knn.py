@@ -33,6 +33,20 @@ launches = 0
 # Elements of one (batch, n, chunk) distance block in the plain version.
 _PLAIN_BLOCK = 1 << 24
 _MAX_BATCH = 65535  # gridDim.y of the kernel
+# The kernel's schedule (csrc/tiled_nn.cu): LANE_Q queries per lane, one warp
+# per contiguous target slice (:func:`slice_width`), SLICES slices per block,
+# TILE targets per cp.async stage, a running minimum per CHUNK targets; the
+# block's 32 * LANE_Q queries share the slices.
+LANE_Q = 4
+SLICES = 4
+TILE = 128
+CHUNK = 32
+
+
+def slice_width(m: int) -> int:
+    """Targets per warp slice: ceil(m / SLICES) rounded up to a multiple of
+    4, so that every staged tile starts on a 16-byte boundary."""
+    return (-(-m // SLICES) + 3) // 4 * 4
 
 
 def _check(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -94,14 +108,19 @@ def _kernel():
     return fn
 
 
+def _check_sizes(nb: int, n: int, m: int) -> None:
+    """The kernel's limits: gridDim.y and 32-bit element offsets."""
+    if nb > _MAX_BATCH or max(n, m) >= 2**31 // 3:
+        raise ValueError(f"tiled_nn takes batch <= {_MAX_BATCH} and fewer "
+                         f"than {2**31 // 3} points, got batch {nb}, n {n}, m {m}")
+
+
 def _nn_distances_cuda(x: torch.Tensor, y: torch.Tensor):
     global launches
     batch, n, m = x.shape[:-2], x.shape[-2], y.shape[-2]
     nb = math.prod(batch)
-    if nb > _MAX_BATCH or max(n, m) >= 2**31 // 3:
-        raise ValueError(f"tiled_nn takes batch <= {_MAX_BATCH} and fewer "
-                         f"than {2**31 // 3} points, got batch {nb}, n {n}, m {m}")
-    # the kernel reads contiguous (batch, n|m, 3) f32
+    _check_sizes(nb, n, m)
+    # the kernel reads contiguous (batch, n|m, 3) f32, aligned or not
     xc = x.detach().to(torch.float32).contiguous().reshape(nb, n, 3)
     yc = y.detach().to(torch.float32).contiguous().reshape(nb, m, 3)
     idx = torch.empty((nb, n), dtype=torch.int32, device=x.device)

@@ -1,0 +1,379 @@
+"""The schedules of the CUDA kernels K1 (``csrc/tiled_nn.cu``) and K2/K5
+(``csrc/cluster_search.cu``), emulated in PyTorch on the CPU and held bit for
+bit against the plain versions they must equal.
+
+The kernels cannot run here, but the orders they visit and merge candidates
+in can: both keep a running minimum per CHUNK candidates and the first
+chunk that attains a slice's minimum (a strict '<'), merge the slices, and
+find the first index of the minimum again inside the winning chunk.  K1
+cuts each block's targets into SLICES contiguous slices and merges them in
+order; K2/K5 cut the staged candidate columns into S slices of a multiple of
+4 columns, pass by pass, merge the slices by the lexicographic minimum of
+(d2, chunk start) and take the bound's minimum over groups split across the
+slices.  The emulations read the schedule's constants from the wrapper
+modules, and a test holds those to the ``constexpr`` values of the ``.cu``
+sources.  No JAX is needed.
+"""
+
+import math
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from dicp_tpu_torch.ops import cluster_search, tiled_knn  # noqa: E402
+
+CSRC = Path(tiled_knn.__file__).resolve().parent.parent / "csrc"
+INF = math.inf
+
+
+def _f32(a):
+    return torch.as_tensor(np.asarray(a, dtype=np.float32))
+
+
+def _d2(x, y):
+    """((x0-y0)^2 + (x1-y1)^2) + (x2-y2)^2 of x (..., n, 3) against y (..., k, 3)."""
+    diff = x[..., :, None, 0] - y[..., None, :, 0]
+    d2 = diff * diff
+    for c in (1, 2):
+        diff = x[..., :, None, c] - y[..., None, :, c]
+        d2 = d2 + diff * diff
+    return d2
+
+
+def _carry(best, arg, b2, a2):
+    """Fold a later part into the running (best, arg) with a strict '<'."""
+    better = b2 < best
+    return torch.where(better, b2, best), torch.where(better, a2, arg)
+
+
+def _chunk_minima(d2, chunk):
+    """A running minimum per chunk of the last axis (a slice's columns in
+    order) and a strict '<' between chunks: (best, first column of the first
+    chunk that attains it), (inf, 0) when no distance is below inf."""
+    d2 = torch.where(torch.isnan(d2), INF, d2)  # fminf and '<' skip a NaN
+    best = torch.full(d2.shape[:-1], INF)
+    start = torch.zeros(d2.shape[:-1], dtype=torch.int64)
+    for c0 in range(0, d2.shape[-1], chunk):
+        best, start = _carry(best, start, d2[..., c0:c0 + chunk].amin(-1),
+                             torch.full_like(start, c0))
+    return best, start
+
+
+def _first_in_chunk(d2, best, start, chunk):
+    """The re-scan: the first column of [start, start + chunk) whose d2
+    equals best, or 0 when best is inf."""
+    cols = torch.arange(d2.shape[-1])
+    inside = (cols >= start[..., None]) & (cols < start[..., None] + chunk)
+    first = torch.where(inside & (d2 == best[..., None]), cols, d2.shape[-1]).amin(-1)
+    return torch.where(best < INF, first, torch.zeros_like(first))
+
+
+# ---------------------------------------------------------------- K1
+
+def emulate_k1(x, y):
+    """csrc/tiled_nn.cu's schedule: slice s of slice_width(m) targets per
+    warp, walked in TILE-target stages of CHUNK-target running minima,
+    slices merged in order, the first index re-found in the winning chunk."""
+    x, y = x.to(torch.float32), y.to(torch.float32)
+    m = y.shape[-2]
+    assert tiled_knn.TILE % tiled_knn.CHUNK == 0  # chunks never straddle stages
+    d2 = _d2(x, y)
+    width = tiled_knn.slice_width(m)
+    merged = None
+    for s in range(tiled_knn.SLICES):
+        lo = min(m, s * width)
+        best, start = _chunk_minima(d2[..., lo:min(m, lo + width)], tiled_knn.CHUNK)
+        merged = (best, start + lo) if merged is None else _carry(*merged, best, start + lo)
+    best, start = merged
+    return _first_in_chunk(d2, best, start, tiled_knn.CHUNK).to(torch.int32), best
+
+
+def _k1_cases():
+    rng = np.random.default_rng(50)
+    cases = {}
+    # the nearest target duplicated at 251 | 252, a slice boundary of m = 1000
+    # (slices of 252), and at 127 | 128, a stage boundary inside slice 0
+    y = rng.normal(size=(1, 1000, 3))
+    y[0, 252] = y[0, 251]
+    y[0, 128] = y[0, 127]
+    cases["duplicates across a slice and a stage boundary"] = (
+        y[0, [251, 127]][None] + 1e-3, y)
+    cases["all targets equidistant"] = (np.zeros((1, 9, 3)), np.ones((1, 700, 3)))
+    cases["far query"] = (np.full((1, 1, 3), 1e4), rng.uniform(-1, 1, (1, 900, 3)))
+    cases["all distances inf"] = (np.zeros((1, 4, 3)), np.full((1, 600, 3), 1e20))
+    cases["m and n ragged: 130 x 1001"] = (rng.normal(size=(2, 130, 3)),
+                                           rng.normal(size=(2, 1001, 3)))
+    cases["n = 1"] = (rng.normal(size=(1, 1, 3)), rng.normal(size=(1, 517, 3)))
+    cases["m = 3 < slices"] = (rng.normal(size=(1, 40, 3)), rng.normal(size=(1, 3, 3)))
+    cases["m = 13: the last slice empty"] = (rng.normal(size=(1, 70, 3)),
+                                             rng.normal(size=(1, 13, 3)))
+    for seed in (1, 2, 3):
+        r = np.random.default_rng(seed)
+        cases[f"random clouds, seed {seed}"] = (r.normal(size=(3, 150, 3)) * 5,
+                                                r.normal(size=(3, 640, 3)) * 5)
+    return cases
+
+
+K1_CASES = _k1_cases()
+
+
+@pytest.mark.parametrize("name", list(K1_CASES))
+def test_k1_schedule_equals_plain(name):
+    x, y = (_f32(a) for a in K1_CASES[name])
+    idx, d2 = emulate_k1(x, y)
+    idx_p, d2_p = tiled_knn.nn_distances_plain(x, y)
+    assert torch.equal(idx, idx_p)
+    assert torch.equal(d2, d2_p)
+    if name.startswith("duplicates"):
+        assert idx[0].tolist() == [251, 127]
+    if name in ("all targets equidistant", "all distances inf"):
+        assert bool((idx == 0).all())
+
+
+@pytest.mark.parametrize("m", [1, 3, 13, 1000, 1001, 16000])
+def test_k1_slices_start_on_16_byte_boundaries(m):
+    width = tiled_knn.slice_width(m)
+    assert width % 4 == 0 and tiled_knn.TILE % 4 == 0  # 12-byte rows: 48-byte runs
+    assert tiled_knn.SLICES * width >= m > (tiled_knn.SLICES - 1) * (width - 4)
+
+
+def test_k1_sizes_that_raise_and_cpu_launches():
+    tiled_knn._check_sizes(65535, 12288, 16000)
+    with pytest.raises(ValueError, match="batch"):
+        tiled_knn._check_sizes(65536, 10, 10)
+    with pytest.raises(ValueError, match="points"):
+        tiled_knn._check_sizes(1, 10, 2**30)
+    before = tiled_knn.launches
+    tiled_knn.nn_distances(torch.randn(2, 5, 3), torch.randn(2, 7, 3))
+    assert tiled_knn.launches == before
+
+
+# ---------------------------------------------------------------- K2 / K5
+
+def emulate_k2(points, centers, radius, xb, bsel, with_bound):
+    """csrc/cluster_search.cu's schedule on (B, G, g, 3) points, (B, nb, Qs,
+    3) query blocks and (B, nb, P) groups: per slice s, columns
+    [s w, s w + w) of each pass of gpass groups (w a multiple of 4), in
+    CHUNK-column running minima, passes carried with a strict '<'; the S
+    partials merged by the lexicographic minimum of (d2, chunk start), the
+    first column re-found in the winning chunk; the bound's groups s, s + S,
+    ... per slice, min of max(sqrt(dc2) (1 - 8 eps) - r, 0) (fmaxf: a NaN
+    term gives 0) merged by min, then squared."""
+    B, G, g = points.shape[:3]
+    nb, Qs, P = xb.shape[1], xb.shape[2], bsel.shape[2]
+    _, slices, gpass = cluster_search.search_plan(Qs, g, P)
+    sel = bsel.long()
+    cand = torch.stack([points[b][sel[b]] for b in range(B)]).reshape(B, nb, P * g, 3)
+    d2 = _d2(xb, cand)                                              # (B, nb, Qs, P g)
+    parts = []
+    for s in range(slices):
+        best = torch.full(xb.shape[:-1], INF)
+        col = torch.zeros(xb.shape[:-1], dtype=torch.int64)
+        for j0 in range(0, P, gpass):
+            cols = min(gpass, P - j0) * g
+            width = (-(-cols // slices) + 3) // 4 * 4
+            lo = min(cols, s * width)
+            hi = min(cols, lo + width)
+            if hi > lo:
+                tb, tc = _chunk_minima(d2[..., j0 * g + lo:j0 * g + hi], cluster_search.CHUNK)
+                best, col = _carry(best, col, tb, tc + j0 * g + lo)
+        parts.append((best, col))
+    d = torch.stack([p[0] for p in parts])
+    c = torch.stack([p[1] for p in parts])
+    best = d.amin(0)
+    start = torch.where(d == best, c, torch.full_like(c, P * g)).amin(0)
+    col = _first_in_chunk(d2, best, start, cluster_search.CHUNK)
+    grp = torch.gather(sel, 2, torch.div(col, g, rounding_mode="floor").reshape(B, nb, -1))
+    row = (grp.reshape(col.shape) * g + col % g).to(torch.int32)
+    if not with_bound:
+        return best, torch.where(best < INF, row, torch.zeros_like(row))
+    diff = xb[..., None, 0] - centers[:, None, None, :, 0]
+    dc2 = diff * diff
+    for k in (1, 2):
+        diff = xb[..., None, k] - centers[:, None, None, :, k]
+        dc2 = dc2 + diff * diff
+    a = torch.sqrt(dc2) * (1.0 - cluster_search._EPS8) - radius[:, None, None, :]
+    a = torch.where(torch.isnan(a), 0.0, torch.clamp(a, min=0.0))
+    chosen = torch.zeros(B, nb, G, dtype=torch.bool).scatter_(-1, sel, True)
+    a = torch.where(chosen[:, :, None, :], INF, a)
+    amin = torch.stack([a[..., s::slices].amin(-1) if s < G else torch.full(best.shape, INF)
+                        for s in range(slices)]).amin(0)
+    return best, row, amin * amin
+
+
+def _groups(rng, G, g, scale=5.0):
+    points = rng.uniform(-scale, scale, (G, g, 3))
+    centers = points.mean(axis=1)
+    radius = np.linalg.norm(points - centers[:, None], axis=-1).max(axis=1)
+    return points, centers, radius
+
+
+def _k2_cases():
+    rng = np.random.default_rng(60)
+    cases = {}
+
+    def case(name, points, centers, radius, xb, bsel):
+        cases[name] = tuple(_f32(a) for a in (points, centers, radius, xb)) + (
+            torch.as_tensor(np.asarray(bsel, dtype=np.int32)),)
+
+    # P = 8, g = 64: 512 columns, slices of 64; one point duplicated at
+    # columns 63 | 64, the boundary of slices 0 and 1, and the query on it
+    p, c, r = _groups(rng, 20, 64)
+    sel = rng.permutation(20)[:8]
+    p[sel[1], 0] = p[sel[0], 63]
+    xb = rng.uniform(-5, 5, (1, 128, 3))
+    xb[0, :4] = p[sel[0], 63] + rng.normal(scale=1e-4, size=(4, 3))
+    case("duplicates across a slice boundary", p, c, r, xb, [sel])
+    p = np.ones((6, 128, 3))
+    case("all candidates equidistant", p, p.mean(1), np.zeros(6), np.zeros((2, 128, 3)),
+         [[4, 1, 2, 0]] * 2)
+    p, c, r = _groups(rng, 12, 128, 1.0)
+    case("far query", p, c, r, np.full((1, 1, 3), 1e4), [[3, 7, 0, 11]])
+    p = np.full((5, 64, 3), 1e20)
+    case("all distances inf", p, p.mean(1), np.zeros(5), np.zeros((1, 5, 3)), [[2, 0, 4]])
+    p, c, r = _groups(rng, 9, 7)
+    case("P g = 21 not a multiple of the slice width, g = 7", p, c, r,
+         rng.uniform(-5, 5, (3, 128, 3)), [rng.permutation(9)[:3] for _ in range(3)])
+    p, c, r = _groups(rng, 10, 64)
+    case("one query", p, c, r, rng.uniform(-5, 5, (1, 1, 3)), [[5, 2, 9]])
+    p, c, r = _groups(rng, 7, 2000)
+    case("three passes: g = 2000, P = 5", p, c, r, rng.uniform(-5, 5, (2, 128, 3)),
+         [rng.permutation(7)[:5] for _ in range(2)])
+    p, c, r = _groups(rng, 30, 16)
+    case("Qs = 300: 3 query groups, 2 slices", p, c, r, rng.uniform(-5, 5, (2, 300, 3)),
+         [rng.permutation(30)[:6] for _ in range(2)])
+    p, c, r = _groups(rng, 6, 32)
+    case("every group selected (P = G)", p, c, r, rng.uniform(-5, 5, (2, 128, 3)),
+         [rng.permutation(6) for _ in range(2)])
+    for seed in (1, 2):
+        r_ = np.random.default_rng(seed)
+        grouped = [_groups(r_, 40, 32) for _ in range(2)]
+        p, c, r = (np.stack(a) for a in zip(*grouped))
+        case(f"batched random groups, seed {seed}", p, c, r,
+             r_.uniform(-5, 5, (2, 3, 128, 3)),
+             [[r_.permutation(40)[:12] for _ in range(3)] for _ in range(2)])
+    return cases
+
+
+K2_CASES = _k2_cases()
+
+
+def _batched(args):
+    points, centers, radius, xb, bsel = args
+    if points.dim() == 4:
+        return args
+    return points[None], centers[None], radius[None], xb[None], bsel[None]
+
+
+@pytest.mark.parametrize("name", list(K2_CASES))
+def test_k2_k5_schedule_equals_plain(name):
+    args = K2_CASES[name]
+    batched = _batched(args)
+    best, row, bound = emulate_k2(*batched, with_bound=True)
+    best5, row5 = emulate_k2(*batched, with_bound=False)
+    plain = [o if args[0].dim() == 4 else o[None]
+             for o in cluster_search.fused_search_plain(*args)]
+    plain5 = [o if args[0].dim() == 4 else o[None]
+              for o in cluster_search.block_search_plain(args[0], args[3], args[4])]
+    for a, b in zip((best, row, bound, best5, row5), plain + plain5):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if name.startswith("duplicates"):
+        sel0 = int(args[4][0, 0])
+        assert bool((row[0, 0, :4] == sel0 * 64 + 63).all())
+    if name.startswith("all"):
+        assert torch.equal(row, batched[4][..., :1].expand_as(row) * args[0].shape[-2])
+    if name == "all distances inf":
+        assert bool((row5 == 0).all())
+    if name.startswith("every group"):
+        assert bool(torch.isinf(bound).all())
+
+
+@pytest.mark.parametrize("where", ["target", "query"])
+def test_k2_nan_point_stays_uncertified(where):
+    """A NaN point makes its group's center and radius NaN (as the cluster
+    index computes them), and the plain version's bound NaN for every query.
+    The kernels skip a NaN distance as they skip inf, and clamp a NaN bound
+    term to 0: bound 0 where the NaN group is not selected or the query is
+    NaN, so no query is certified past it; where the group is selected it is
+    searched and leaves the bound alone."""
+    rng = np.random.default_rng(70)
+    points = rng.uniform(-0.5, 0.5, (20, 64, 3)) + rng.uniform(-5, 5, (20, 1, 3))
+    xb = rng.uniform(-5, 5, (3, 128, 3))
+    if where == "target":
+        points[3, 5] = np.nan
+        xb[0, :8] = points[3, 6] + 1e-3  # nearest to the NaN point's group
+    else:
+        xb[1, 7] = np.nan
+    centers = points.mean(axis=1)
+    radius = np.linalg.norm(points - centers[:, None], axis=-1).max(axis=1)
+    bsel = torch.as_tensor(np.array([[3, 1, 2, 0], [4, 5, 6, 7], [8, 3, 9, 10]], np.int32))
+    args = tuple(_f32(a) for a in (points, centers, radius, xb)) + (bsel,)
+    best, row, bound = emulate_k2(*_batched(args), with_bound=True)
+    best5, row5 = emulate_k2(*_batched(args), with_bound=False)
+    # best and row: a NaN candidate loses like an inf one; a NaN query finds
+    # no candidate (best inf, column 0's row, or 0 for K5)
+    finite = args[0].clone()
+    finite[torch.isnan(finite)] = INF
+    ref = cluster_search.fused_search_plain(finite, *args[1:])
+    ref5 = cluster_search.block_search_plain(finite, args[3], args[4])
+    real = ~torch.isnan(args[3]).any(-1)
+    for a, b in zip((best[0], row[0], best5[0], row5[0]), ref[:2] + ref5):
+        assert torch.equal(a[real], b[real])
+    assert bool(torch.isinf(best[0][~real]).all()) and bool((row5[0][~real] == 0).all())
+    assert torch.equal(row[0][~real], (bsel[:, :1] * 64).expand(3, 128)[~real])
+    # the bound: a NaN group as one of radius inf (a term of 0 unless
+    # selected), then 0 for a NaN query
+    lost = torch.isnan(args[1]).any(-1) | torch.isnan(args[2])
+    ref = cluster_search.fused_search_plain(finite, torch.where(lost[:, None], 0.0, args[1]),
+                                            torch.where(lost, INF, args[2]), *args[3:])[2]
+    assert torch.equal(bound[0], torch.where(torch.isnan(ref), 0.0, ref))
+    plain = cluster_search.fused_search_plain(*args)[2]
+    if where == "target":
+        assert bool(torch.isnan(plain).all())  # the NaN group selected or not
+        past = (bsel != 3).all(-1)[:, None].expand(3, 128)  # block 1 left it out
+    else:
+        past = ~real
+        assert torch.equal(torch.isnan(plain), past)
+    assert bool((bound[0][past] == 0).all())
+    assert not bool((best[0] <= bound[0])[past].any())  # none certified
+    assert bool((bound[0][~past] > 0).any())  # elsewhere the bound still certifies
+
+
+def test_k2_plan_and_wrapper_checks():
+    assert cluster_search.search_plan(128, 128, 32) == (1, 8, 32)
+    assert cluster_search.search_plan(300, 16, 6) == (3, 2, 6)
+    assert cluster_search.search_plan(128, 2000, 5)[2] == 2
+    with pytest.raises(ValueError, match="g = 5462"):
+        cluster_search.search_plan(128, cluster_search.MAX_GROUP_SIZE + 1, 4)
+    points, centers, radius, xb, bsel = K2_CASES["one query"]
+    before = (cluster_search.fused_search.launches, cluster_search.block_search.launches)
+    cluster_search.fused_search(points, centers, radius, xb, bsel)
+    cluster_search.block_search(points, xb, bsel)
+    assert (cluster_search.fused_search.launches,
+            cluster_search.block_search.launches) == before
+    for bad in (-1, points.shape[0]):
+        wrong = bsel.clone()
+        wrong[0, 1] = bad
+        with pytest.raises(ValueError, match="outside"):
+            cluster_search.fused_search(points, centers, radius, xb, wrong)
+        with pytest.raises(ValueError, match="outside"):
+            cluster_search.block_search(points, xb, wrong)
+
+
+@pytest.mark.parametrize("source, constants", [
+    ("tiled_nn.cu", {"kLaneQ": tiled_knn.LANE_Q, "kSlices": tiled_knn.SLICES,
+                     "kTile": tiled_knn.TILE, "kChunk": tiled_knn.CHUNK}),
+    ("cluster_search.cu", {"kLaneQ": cluster_search.LANE_Q, "kWarps": cluster_search.WARPS,
+                           "kMaxSlabBytes": cluster_search.MAX_SLAB_BYTES,
+                           "kChunk": cluster_search.CHUNK}),
+])
+def test_schedule_constants_mirror_the_sources(source, constants):
+    text = (CSRC / source).read_text()
+    for name, value in constants.items():
+        found = re.search(rf"constexpr int {name} = ([0-9* ]+);", text)
+        assert found, name
+        assert math.prod(int(f) for f in found.group(1).split("*")) == value, name
