@@ -26,7 +26,9 @@ Phases, each raising on failure (the script then exits non-zero):
    normals, pt2pl, dim 3; every pair's rotation and translation error < 1e-3,
    and K1 launched at least once per Gauss-Newton iteration.
 5. the cluster kernels' -Xptxas=-v reports (K2 and K5: csrc/cluster_search.cu,
-   K3: csrc/cluster_topk.cu).
+   which must show no register spills; K3: csrc/cluster_topk.cu), and K3's
+   launch geometry at the cluster tier's block for each list length
+   (threads, registers, spilled bytes).
 6. K2 and K5 against their plain PyTorch versions on the card, bit for bit
    (best, row, bound) at the two raw-scan shapes and at edge cases (among
    them a duplicated candidate split across K2's column-slice boundary, g = 7
@@ -35,8 +37,14 @@ Phases, each raising on failure (the script then exits non-zero):
    their queries uncertified); timed; then a subprocess launches K2 with a
    group id outside [0, G) and must fail with a CUDA error (the kernel's
    __trap).
-7. K3 against its plain version, bit for bit, at 100k x 100k (k = 16, 1, 32)
-   and with duplicate distances; timed.
+7. K3 against its plain version, bit for bit (d2, rows, bound), at 100k x
+   100k (k = 16, 1, 2, 5, 32) and at edge cases: duplicated points across
+   group boundaries, k beyond a query's finite candidates (the column-0
+   fill), g = 7, g = 2000 in four staging tiles per group, points that are
+   not 16-byte aligned, a NaN target point and a NaN
+   query (held to the plain version as phase 6 holds K2); a subprocess
+   launches K3 with a group id outside [0, G) and must fail with a CUDA
+   error.  Timed call by call and back to back.
 8. the single-pair raw-scan path: weighted PCA normals of a 100,000-point map
    (median angle to the exact normals < 2 deg), cluster k-NN normals (K3),
    and ICP.icp of the map's points, permuted and moved, through the cluster
@@ -45,16 +53,20 @@ Phases, each raising on failure (the script then exits non-zero):
 9. batched raw scans: 8 pairs of 50,000 -> 60,000 points through the cluster
    tier; every pair's errors < 1e-3, K2 launched.
 10. the whole-solve kernel K4's -Xptxas=-v report (csrc/fused_gn.cu, built in
-    phase 1 with the others).
+    phase 1 with the others), which must show no register spills, and its
+    launch geometry (lanes per point, threads, registers) at phase 11's two
+    main shapes.
 11. K4 against its plain version on the same card tensors: the headline's
     configuration (the reference pair at B=256, pt2pl, dim 2, trim 5,
     huber 1, tol 1e-6), the gate's largest shape (256 pairs of 256 -> 512
     points of the LiDAR-like scene, pt2pl, dim 3) and edge cases (pt2pt dim 3
     cauchy, prior weights with zeros, B=5, n=1, the trim loss at steepness 2,
-    every loss); convergence, iterations and matched ratio equal, T within
-    1e-5, pc within 1e-4, two launches identical.  Timed against the plain
-    version, and the forward A/B: register(fused_small=True) against the loop,
-    alternated in one process.
+    every loss with pt2pl dim 3 and with pt2pt dim 2, n=256 with m=512 at
+    dim 2, m=1, n and m not multiples of the lane split); convergence,
+    iterations and matched ratio equal, T within 1e-5, pc within 1e-4, two
+    launches identical.  Timed call by call and back to back against the
+    plain version, and the forward A/B: register(fused_small=True) against
+    the loop, alternated in one process.
 12. the headline path: the reference pair at B=256 through register_ift with
     K4 as the forward, value sum(T) and its gradient with respect to the
     sources; transform error < 1e-3, gradients finite and nonzero, cosine
@@ -82,10 +94,10 @@ Phases, each raising on failure (the script then exits non-zero):
     time.  It comes last: host-bound timings taken after the profiler has
     been on in a process run slower.
 
-Phases 2 and 6 time K1, K2 and K5 call by call through their wrappers, as
-runs before them did (the kernels line's ``ms``), and print beside it the
-time back to back (20 launches between two CUDA events, median of 7 rounds:
-the kernel's time, free of the host's launch overhead).
+Phases 2, 6, 7 and 11 time K1, K2, K5, K3 and K4 call by call through their
+wrappers, as runs before them did (the kernels line's ``ms``), and print
+beside it the time back to back (20 launches between two CUDA events, median
+of 7 rounds: the kernel's time, free of the host's launch overhead).
 
 Each main path (phases 4, 8, 9, 12 and 14) is driven with the kernels' launch
 counts set to 0 just before it and read just after.  The line before the last
@@ -97,19 +109,22 @@ of JAX.
 
     python3 chip_smoke.py --ab DIR
 
-times instead, on one card in one process, K1, K2 and K5 built from
+times instead, on one card in one process, K1, K2, K5, K3 and K4 built from
 ``DIR/dicp_tpu_torch/csrc`` (another checkout, e.g. an earlier commit
 unpacked with ``git archive``, whose launchers have this checkout's C
 signatures: checked in the sources) against this checkout's, in turns
-(DIR's, this, this, DIR's), at the main path's shapes, after holding both to
-the plain versions, call by call and back to back; then phases 4, 8 and 9
-end to end, each checkout's own, one process each, in the same turns.  The
-last line holds every time as JSON.
+(DIR's, this, this, DIR's), at the main path's shapes (K3 at 100k -> 100k
+and 8 x 50k -> 60k with k = 16; K4 at the headline and at 256 x 256 -> 512),
+after holding both to the plain versions, call by call and back to back;
+then phases 4, 8, 9 and 12 end to end and K4 through its wrapper, each
+checkout's own, one process each, in the same turns.  The last line holds
+every time as JSON.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -472,12 +487,44 @@ def phase4_slice(device, sources: np.ndarray, targets: np.ndarray, T_true: np.nd
     return launches, solve
 
 
+def _ptxas(report: str) -> list:
+    """(entry function, registers, spill bytes, stack bytes) for each kernel
+    of a -Xptxas=-v report."""
+    rows = []
+    for block in report.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        stack = re.search(r"(\d+) bytes stack frame", block)
+        _check(regs is not None and spill is not None, f"a ptxas report for {name}")
+        rows.append((name, int(regs.group(1)), int(spill.group(1)) + int(spill.group(2)),
+                     int(stack.group(1)) if stack else 0))
+    return rows
+
+
+def _no_spills(report: str, what: str) -> list:
+    rows = _ptxas(report)
+    _check(bool(rows), f"{what}: ptxas reported its kernels")
+    for name, regs, spill, _ in rows:
+        _check(spill == 0, f"{what}: no register spills in {name} ({spill} bytes)")
+    return rows
+
+
 def phase5_cluster_build(libs: dict) -> None:
     cluster_search._search_kernel()  # load and bind
     cluster_search._topk_kernel()
     for name in ("cluster_search", "cluster_topk"):
         print(f"  {libs[name].name}:\n{_report(libs[name])}")
-    print("phase 5 ok: cluster kernels built and bound")
+    _no_spills(_report(libs["cluster_search"]), "cluster_search")
+    regs = {}
+    for name, r, spill, _ in _ptxas(_report(libs["cluster_topk"])):
+        regs[int(re.search(r"cluster_topk_kernelILi(\d+)E", name).group(1))] = (r, spill)
+    for k in (1, 2, 4, 8, 16, 32):
+        plan = cluster_search.topk_plan(ck.FUSED_QBLOCK, k)
+        r, spill = regs[plan["K"]]
+        print(f"  K3 at Qs = {ck.FUSED_QBLOCK}, k = {k}: list K = {plan['K']}, one query per "
+              f"thread, {plan['threads']} threads, {r} registers, {spill} bytes spilled")
+    print("phase 5 ok: cluster kernels built and bound, no register spills in K2/K5")
 
 
 def raw_scan_pair(rng: np.random.Generator, m: int):
@@ -595,29 +642,32 @@ def _nan_expected(args):
 
 
 TRAP_SNIPPET = """
-import torch
+import sys, torch
 from dicp_tpu_torch.ops import cluster_search
 dev = torch.device("cuda", 0)
 points = torch.zeros(10, 8, 3, device=dev)
 centers, radius = torch.zeros(10, 3, device=dev), torch.zeros(10, device=dev)
 xb = torch.zeros(2, 128, 3, device=dev)
 bsel = torch.tensor([[0, 1], [2, 10]], dtype=torch.int32, device=dev)  # 10 is not in [0, 10)
-cluster_search.fused_search(points, centers, radius, xb, bsel)
+if sys.argv[1] == "K2":
+    cluster_search.fused_search(points, centers, radius, xb, bsel)
+else:
+    cluster_search.fused_topk(points, centers, radius, xb, bsel, 4)
 print("launched", flush=True)
 torch.cuda.synchronize()
 print("no error", flush=True)
 """
 
 
-def _trap_check() -> str:
-    """K2 with a group id outside [0, G), in a process of its own: the launch
-    is taken without a host check, and the kernel's __trap surfaces at the
-    synchronisation as a CUDA error."""
-    run = subprocess.run([sys.executable, "-c", TRAP_SNIPPET], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
+def _trap_check(kernel: str) -> str:
+    """K2 or K3 with a group id outside [0, G), in a process of its own: the
+    launch is taken without a host check, and the kernel's __trap surfaces at
+    the synchronisation as a CUDA error."""
+    run = subprocess.run([sys.executable, "-c", TRAP_SNIPPET, kernel], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
     errors = [line for line in run.stderr.splitlines() if "CUDA error" in line]
     _check(run.returncode != 0 and "launched" in run.stdout and "no error" not in run.stdout
-           and bool(errors), f"an out-of-range group id fails with a CUDA error "
+           and bool(errors), f"{kernel}: an out-of-range group id fails with a CUDA error "
            f"(rc {run.returncode}, stdout {run.stdout!r}, stderr tail {run.stderr[-400:]!r})")
     return errors[-1]
 
@@ -674,7 +724,7 @@ def phase6_search_kernels(device, mp: np.ndarray, scan: np.ndarray,
         err["cluster_block_search"] = max(err["cluster_block_search"], e5)
         print(f"  K2, K5 == plain: {name}: xb {tuple(xb.shape)}, bsel {tuple(bsel.shape)}, "
               f"G {ix.points.shape[-3]}, g {group}, max |diff| {e2}, {e5}")
-    print(f"  out-of-range group id, in a subprocess: {_trap_check()}")
+    print(f"  out-of-range group id, in a subprocess: {_trap_check('K2')}")
 
     times = []
     for label in list(shapes)[:2]:  # the two raw-scan shapes
@@ -736,38 +786,111 @@ def _search_work(ix, xb, bsel, k: int, with_bound: bool):
     return flops, nbytes
 
 
+def _topk_nan_expected(args, k: int):
+    """What K3 must give on NAN_CASE, as _nan_expected for K2: the plain
+    version with each NaN point at inf and each NaN group at radius inf; a
+    NaN query lists nothing (d2 inf, column 0's row) and gets the bound 0."""
+    points, centers, radius, xb, bsel = args
+    finite = torch.where(torch.isnan(points), torch.inf, points)
+    bad = torch.isnan(centers).any(-1) | torch.isnan(radius)
+    d2, rows, bound = cluster_search.fused_topk_plain(
+        finite, torch.where(bad[:, None], 0.0, centers), torch.where(bad, torch.inf, radius),
+        xb, bsel, k)
+    lost = torch.isnan(xb).any(-1)
+    first = (bsel[..., :1] * points.shape[-2])[..., None].expand_as(rows)
+    return (torch.where(lost[..., None], torch.inf, d2), torch.where(lost[..., None], first, rows),
+            torch.where(lost, 0.0, bound))
+
+
+def _topk_cases(device, rng: np.random.Generator, main) -> list:
+    """(name, (points, centers, radius, xb, bsel), k) for phase 7."""
+    f32 = lambda a: to_torch(a, device, torch.float32)  # noqa: E731
+
+    def index_of(pts):
+        centers = pts.mean(axis=1)
+        radius = np.linalg.norm(pts - centers[:, None], axis=-1).max(axis=1)
+        return f32(pts), f32(centers), f32(radius)
+
+    ix, xb, bsel = main
+    cases = [(f"{M_MAP} -> {M_MAP}, k = {k}", (ix.points, ix.centers, ix.radius, xb, bsel), k)
+             for k in (16, 1, 2, 5, 32)]
+    # P = 8 groups of 64: points duplicated at columns 63 | 64 and 127 | 128
+    G, g, P = 20, 64, 8
+    pts = rng.uniform(-5, 5, (G, g, 3))
+    sel = rng.permutation(G)[:P]
+    pts[sel[1], 0] = pts[sel[0], 63]
+    pts[sel[2], 0] = pts[sel[1], 63]
+    q = rng.uniform(-5, 5, (1, 128, 3))
+    q[0, :4] = pts[sel[0], 63] + rng.normal(scale=1e-4, size=(4, 3))
+    q[0, 4:8] = pts[sel[1], 63] + rng.normal(scale=1e-4, size=(4, 3))
+    dup = index_of(pts) + (f32(q), torch.as_tensor(sel[None].astype(np.int32), device=device))
+    cases += [(f"duplicates across group boundaries, k = {k}", dup, k) for k in (5, 16)]
+    # 3 selected groups of 32 with 3 finite points each: 9 finite candidates
+    pts = rng.uniform(-5, 5, (6, 32, 3))
+    pts[:, 3:] = 1e20
+    few = index_of(pts) + (f32(rng.uniform(-5, 5, (2, 128, 3))),
+                           torch.as_tensor(np.stack([rng.permutation(6)[:3] for _ in range(2)])
+                                           .astype(np.int32), device=device))
+    cases += [(f"k = {k} beyond the 9 finite candidates (column-0 fill)", few, k)
+              for k in (16, 32)]
+    searched = {}
+    for name, (y, x, probes, group), k in (
+            ("g = 7",
+             (rng.uniform(-5, 5, (900, 3)), rng.uniform(-5, 5, (300, 3)), 5, 7), 16),
+            ("g = 2000: four staging tiles per group",
+             (rng.uniform(-5, 5, (14000, 3)), rng.uniform(-5, 5, (200, 3)), 5, 2000), 32),
+            ("m not a multiple of g",
+             (rng.uniform(-5, 5, (777, 3)), rng.uniform(-5, 5, (300, 3)), 3, 128), 8)):
+        i, qb, sb = searched[name] = _search_inputs(f32(y), f32(x), probes, group)
+        cases.append((name, (i.points, i.centers, i.radius, qb, sb), k))
+    raw = _raw_cases(device, rng, searched["m not a multiple of g"])
+    for name in ("points not 16-byte aligned (4-byte copies)", NAN_CASE):
+        i, qb, sb = raw[name]
+        cases.append((name, (i.points, i.centers, i.radius, qb, sb), 16))
+    return cases
+
+
 def phase7_topk_kernel(device, mp: np.ndarray, scan: np.ndarray) -> dict:
-    """K3 against its plain version on the same card tensors."""
+    """K3 against its plain version on the same card tensors, bit for bit."""
     y, x = to_torch(mp[:, :3], device), to_torch(scan, device)
     ix, xb, bsel = _search_inputs(y, x)
     rng = np.random.default_rng(SEED + 7)
-    base = rng.uniform(-10, 10, (2000, 3))
-    dup_y = to_torch(np.concatenate([base, base, base]), device, torch.float32)
-    dup_x = to_torch(base[:700] + rng.normal(scale=1e-3, size=(700, 3)), device, torch.float32)
-    dix, dxb, dbsel = _search_inputs(dup_y, dup_x, 4, 64)
-    cases = [(f"{len(scan)} -> {len(mp)}, k = {k}", ix, xb, bsel, k) for k in (16, 1, 32)]
-    cases.append(("duplicate distances, k = 5", dix, dxb, dbsel, 5))
     err = 0.0
-    for name, index, q, sel, k in cases:
-        args = (index.points, index.centers, index.radius, q, sel, k)
-        kern = cluster_search.fused_topk(*args)
-        plain = cluster_search.fused_topk_plain(*args)
+    for name, args, k in _topk_cases(device, rng, (ix, xb, bsel)):
+        kern = cluster_search.fused_topk(*args, k)
+        plain = _topk_nan_expected(args, k) if name == NAN_CASE \
+            else cluster_search.fused_topk_plain(*args, k)
         torch.cuda.synchronize()
         for what, a, b in zip(("d2", "rows", "bound"), kern, plain):
             _check(torch.equal(a, b), f"K3 {what} bit-equal to the plain version's ({name})")
-        if name.startswith("duplicate"):
-            _check(bool((kern[0][..., 0] == kern[0][..., 1]).any()),
+        if name.startswith("duplicates"):
+            _check(bool((kern[0][0, :8, 0] == kern[0][0, :8, 1]).all()),
                    "duplicate distances are kept for later ranks")
+        if "column-0 fill" in name:
+            fill = ~torch.isfinite(kern[0])
+            first = (args[4][..., :1] * args[0].shape[-2])[..., None].expand_as(kern[1])
+            _check(bool(fill.any()) and torch.equal(kern[1][fill], first[fill]),
+                   "past the finite candidates K3 fills with column 0's row")
+        if name == NAN_CASE:
+            past = (args[4] != 3).all(-1)[:, None] | torch.isnan(args[3]).any(-1)
+            _check(bool((kern[2][past] == 0).all())
+                   and not bool((kern[0][..., -1] <= kern[2])[past].any()),
+                   "no query is certified past the NaN group or for the NaN query")
         e = max(_max_abs_diff(kern[0], plain[0]), _max_abs_diff(kern[2], plain[2]))
         err = max(err, e)
-        print(f"  K3 == plain: {name}: xb {tuple(q.shape)}, P {sel.shape[-1]}, max |diff| {e}")
+        print(f"  K3 == plain: {name}: xb {tuple(args[3].shape)}, P {args[4].shape[-1]}, "
+              f"g {args[0].shape[-2]}, max |diff| {e}")
+    print(f"  out-of-range group id, in a subprocess: {_trap_check('K3')}")
     args = (ix.points, ix.centers, ix.radius, xb, bsel, 16)
     ms = cuda_median_ms(lambda: cluster_search.fused_topk(*args), warmup=3, iters=20)
+    chain_ms = _chain_ms(lambda: cluster_search.fused_topk(*args))
     plain_ms = cuda_median_ms(lambda: cluster_search.fused_topk_plain(*args), warmup=1, iters=3)
-    bound = _bound(*_search_work(ix, xb, bsel, 16, True))
-    print(f"phase 7 ok: K3 {ms:.4f} ms, plain {plain_ms:.4f} ms at {len(scan)} -> "
-          f"{len(mp)}, k = 16, P = {PROBES}; bound {bound['bound_ms']:.4f} ms "
-          f"({bound['bound_by']})")
+    work = _search_work(ix, xb, bsel, 16, True)
+    bound = _bound(*work)
+    print(f"phase 7 ok: K3 {ms:.4f} ms call by call ({chain_ms:.4f} ms back to back), plain "
+          f"{plain_ms:.4f} ms at {len(scan)} -> {len(mp)}, k = 16, P = {PROBES}; bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), issue ceiling "
+          f"{_issue_ms(work[0]):.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
@@ -892,9 +1015,19 @@ def phase9_batched(device, sources: np.ndarray, targets: np.ndarray, T_true: np.
 
 def phase10_fused_build(libs: dict) -> None:
     fused_gn._kernel()  # load and bind
-    print(f"  {libs['fused_gn'].name}:\n{_report(libs['fused_gn'])}")
-    print("phase 10 ok: K4 built and bound (four instances: pt2pl/pt2pt x dim 3/2; "
-          "the solve runs on thread 0 of each block, inside the same kernel)")
+    report = _report(libs["fused_gn"])
+    print(f"  {libs['fused_gn'].name}:\n{report}")
+    regs = {}
+    for name, r, _, stack in _no_spills(report, "fused_gn"):
+        found = re.search(r"fused_gn_kernelILi(\d)ELb([01])E", name)
+        regs[(int(found.group(1)), found.group(2) == "1")] = (r, stack)
+    for label, n, m, k in (("headline", 65, 65, 3), ("gate's largest", N_GATE, M_GATE, 6)):
+        plan = fused_gn.launch_plan(n, m)
+        r, stack = regs[(k, True)]
+        print(f"  K4 at the {label} ({n} -> {m}, pt2pl, k = {k}): {plan['lanes']} lanes per "
+              f"point, {plan['threads']} threads, {r} registers, {stack} bytes stack")
+    print("phase 10 ok: K4 built and bound (four instances: pt2pl/pt2pt x dim 3/2), no "
+          "register spills")
 
 
 def reference_batch(device, batch: int = B_HEAD):
@@ -956,19 +1089,14 @@ def _k4_work(args, iters: torch.Tensor, tcols: int):
 def phase11_fused_kernel(device) -> dict:
     """K4 against its plain version on the same card tensors; timed; and the
     forward A/B of register(fused_small=True) against the loop."""
-    rng = np.random.default_rng(SEED + 11)
+    rng = np.random.default_rng(SEED + 12)
     base = dict(differentiable=False, driver="while", collect_histories=False,
                 max_iterations=40, tolerance=1e-5, nn_method="dense")
-    head_cfg = ICPConfig(**HEAD, driver="while", collect_histories=False, fused_small=True)
-    src, tgt, ti = reference_batch(device)
-    cases = {"headline: reference pair B=256, pt2pl dim 2": (head_cfg, (src, tgt, ti, None))}
-
-    g_src, g_tgt, _ = scene_pairs(rng, B_HEAD, N_GATE, M_GATE)
-    cases["gate's largest: 256 x 256 -> 512 LiDAR-like, pt2pl dim 3"] = (
-        ICPConfig(**base, icp_type="pt2pl", dim=3, trim_dist=2.0, loss_name="huber",
-                  loss_metric=0.5, fused_small=True),
-        (to_torch(g_src, device), to_torch(g_tgt, device),
-         torch.eye(4, device=device).expand(B_HEAD, 4, 4), None))
+    main = _k4_main_inputs(device)
+    (head_cfg, (src, tgt, ti)), (gate_cfg, gate) = main.values()
+    cases = {"headline: reference pair B=256, pt2pl dim 2": (head_cfg, (src, tgt, ti, None)),
+             "gate's largest: 256 x 256 -> 512 LiDAR-like, pt2pl dim 3": (gate_cfg,
+                                                                          (*gate, None))}
 
     def edge(name, batch, n, m, dim, normals, weight=None, **kw):
         e_src, e_tgt = random_pairs(rng, batch, n, m, dim, normals)
@@ -988,6 +1116,24 @@ def phase11_fused_kernel(device) -> dict:
          loss_name="trim", loss_metric=2.0, tanh_steepness=2.0)
     for loss in VALID_LOSSES + (None,):
         edge(f"loss {loss}, pt2pl dim 3", 3, 48, 64, 3, True, icp_type="pt2pl",
+             differentiable=True, loss_name=loss, loss_metric=2.0 if loss else 1.0,
+             trim_dist=4.0)
+    # the lane split's edges: the most threads, one target, ragged n and m
+    edge("n=256, m=512 pt2pl dim 2", 4, N_GATE, M_GATE, 2, True, icp_type="pt2pl",
+         loss_name="huber")
+    # one target for 40 points (n = 1 would leave the rotation to the damping
+    # alone, a singular solve): the translation fits the mean and the rotation
+    # step vanishes, through one padded chunk of targets
+    m1_src = rng.uniform(-2.0, 2.0, (3, 40, 3)).astype(np.float32)
+    m1_tgt = rng.uniform(-2.0, 2.0, (3, 1, 3)).astype(np.float32)
+    cases["m=1: 40 points against one target, pt2pt dim 3"] = (
+        ICPConfig(**base, dim=3, fused_small=True, icp_type="pt2pt"),
+        (to_torch(m1_src, device), to_torch(m1_tgt, device),
+         torch.eye(4, device=device).expand(3, 4, 4), None))
+    edge(f"n=37, m=43: not multiples of the lane split ({fused_gn.lanes_for(37, 43)} lanes) "
+         f"or of {fused_gn.CHUNK}", 5, 37, 43, 3, True, icp_type="pt2pl", loss_name="huber")
+    for loss in VALID_LOSSES + (None,):
+        edge(f"loss {loss}, pt2pt dim 2", 3, 48, 64, 2, False, icp_type="pt2pt",
              differentiable=True, loss_name=loss, loss_metric=2.0 if loss else 1.0,
              trim_dist=4.0)
 
@@ -1025,12 +1171,14 @@ def phase11_fused_kernel(device) -> dict:
     for name in list(cases)[:2]:
         args, cfg, iters = work[name]
         ms = cuda_median_ms(lambda: fused_gn.fused_gn_solve(*args, cfg), warmup=3, iters=20)
+        chain_ms = _chain_ms(lambda: fused_gn.fused_gn_solve(*args, cfg))
         plain_ms = cuda_median_ms(lambda: fused_gn.fused_gn_solve_plain(*args, cfg),
                                   warmup=1, iters=5)
         bound = _bound(*_k4_work(args, iters, 6 if cfg.icp_type == "pt2pl" else 3))
         timed[name] = {"ms": ms, "plain_ms": plain_ms, **bound}
-        print(f"  {name}: K4 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}), "
+        print(f"  {name}: K4 {ms:.4f} ms call by call ({chain_ms:.4f} ms back to back through "
+              f"the wrapper; the difference {ms - chain_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"bound {bound['bound_ms']:.6f} ms ({bound['bound_by']}), "
               f"{float(iters.sum()):.0f} element-iterations")
 
     # the forward A/B at the headline's configuration, alternated in one process
@@ -1387,22 +1535,24 @@ def _chain_ms(fn, reps: int = 20, rounds: int = 7) -> float:
 def _launch_signature(source: Path, name: str) -> str:
     """The ``extern "C"`` declaration of ``name`` in a kernel source,
     whitespace collapsed."""
-    import re
-
     found = re.search(rf'extern "C" int {name}\(([^)]*)\)', source.read_text())
     _check(found is not None, f"{source} declares {name}")
     return " ".join(found.group(1).split())
 
 
+AB_KERNELS = ("tiled_nn", "cluster_search", "cluster_topk", "fused_gn")
+
+
 def _build_other(parent: Path) -> dict:
-    """K1 and K2/K5 built from ``parent``'s sources with this checkout's
-    flags, one nvcc each, started together.  Each launcher must have this
-    checkout's C signature (checked in the sources), and is bound with it."""
+    """K1, K2/K5, K3 and K4 built from ``parent``'s sources with this
+    checkout's flags, one nvcc each, started together.  Each launcher must
+    have this checkout's C signature (checked in the sources), and is bound
+    with it."""
     import ctypes
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in ("tiled_nn", "cluster_search"):
+    for name in AB_KERNELS:
         lib = _build.BUILD_DIR / f"other-lib{name}.so"
         src = parent / "dicp_tpu_torch" / "csrc" / f"{name}.cu"
         mine = _launch_signature(ROOT / "dicp_tpu_torch" / "csrc" / f"{name}.cu",
@@ -1419,6 +1569,8 @@ def _build_other(parent: Path) -> dict:
         fns[name] = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
     fns["tiled_nn"].argtypes = tiled_knn._kernel().argtypes
     fns["cluster_search"].argtypes = cluster_search._search_kernel().argtypes
+    fns["cluster_topk"].argtypes = cluster_search._topk_kernel().argtypes
+    fns["fused_gn"].argtypes = fused_gn._kernel().argtypes
     for fn in fns.values():
         fn.restype = ctypes.c_int
     return fns
@@ -1427,6 +1579,8 @@ def _build_other(parent: Path) -> dict:
 PATHS_SNIPPET = """
 import numpy as np, torch
 import chip_smoke as c
+from dicp_tpu_torch import ICPConfig
+from dicp_tpu_torch.ops import fused_gn
 dev = torch.device("cuda", 0)
 src, tgt, T = c.scene_pairs(np.random.default_rng(c.SEED), c.B, c.N_SRC, c.M_TGT)
 c.phase4_slice(dev, src, tgt, T)
@@ -1434,38 +1588,69 @@ mp, scan, Tp = c.raw_scan_pair(np.random.default_rng(c.SEED + 8), c.M_MAP)
 c.phase8_single_pair(dev, mp, scan, Tp)
 rs, rt, Tr = c.scene_pairs(np.random.default_rng(c.SEED + 9), c.B_RAW, c.N_RAW, c.M_RAW)
 c.phase9_batched(dev, rs, rt, Tr)
+c.phase12_headline(dev)
+cfg = ICPConfig(**c.HEAD, driver="while", collect_histories=False, fused_small=True)
+args = c._k4_args(cfg, *c.reference_batch(dev))
+call = lambda: fused_gn.fused_gn_solve(*args, cfg)
+print("K4 wrapper ms", c.cuda_median_ms(call, warmup=3, iters=20), c._chain_ms(call))
 """
 
 
 def _ab_paths(parent: Path) -> dict:
-    """Phases 4, 8 and 9 end to end (ms per icp call, median of 5), each
-    checkout in a process of its own, in turns (parent, this, this, parent)."""
-    import re
-
-    rows = {f"phase {k} icp call": {"parent": [], "this": []} for k in (4, 8, 9)}
+    """Phases 4, 8 and 9 end to end (ms per icp call, median of 5), phase 12's
+    registrations/s, and K4 through its wrapper at the headline (call by
+    call and back to back), each checkout in a process of its own, in turns
+    (parent, this, this, parent)."""
+    rows = {name: {"parent": [], "this": []}
+            for name in ("phase 4 icp call", "phase 8 icp call", "phase 9 icp call",
+                         "phase 12 registrations/s", "K4 wrapper, call by call",
+                         "K4 wrapper, back to back")}
     for who in ("parent", "this", "this", "parent"):
         run = subprocess.run([sys.executable, "-c", PATHS_SNIPPET],
                              cwd=parent if who == "parent" else ROOT, capture_output=True,
                              text=True, timeout=600)
-        _check(run.returncode == 0, f"phases 4, 8, 9 of {who}: {run.stderr[-2000:]}")
+        _check(run.returncode == 0, f"phases 4, 8, 9, 12 of {who}: {run.stderr[-2000:]}")
         for k, ms in re.findall(r"^phase (\d) ok: .*?([\d.]+) ms per icp call", run.stdout,
                                 flags=re.M):
             rows[f"phase {k} icp call"][who].append(float(ms))
+        rate = re.search(r"^pt2pl_diff_B256_fwdbwd_registrations_per_s = ([\d.]+)", run.stdout,
+                         flags=re.M)
+        wrapper = re.search(r"^K4 wrapper ms ([\d.]+) ([\d.]+)", run.stdout, flags=re.M)
+        _check(rate is not None and wrapper is not None, f"phase 12 and K4 timed ({who})")
+        rows["phase 12 registrations/s"][who].append(float(rate.group(1)))
+        rows["K4 wrapper, call by call"][who].append(float(wrapper.group(1)))
+        rows["K4 wrapper, back to back"][who].append(float(wrapper.group(2)))
     for name, times in rows.items():
         _check(all(len(t) == 2 for t in times.values()), f"{name} timed twice each")
-        print(f"  {name}: parent {times['parent']} ms, this {times['this']} ms "
+        print(f"  {name}: parent {times['parent']}, this {times['this']} "
               f"(order parent, this, this, parent; one process each)")
     return rows
 
 
+def _k4_main_inputs(device) -> dict:
+    """K4's two main shapes (phase 11 and --ab): label -> (config, (source,
+    target, T_init))."""
+    head_cfg = ICPConfig(**HEAD, driver="while", collect_histories=False, fused_small=True)
+    g_src, g_tgt, _ = scene_pairs(np.random.default_rng(SEED + 11), B_HEAD, N_GATE, M_GATE)
+    gate_cfg = ICPConfig(differentiable=False, driver="while", collect_histories=False,
+                         max_iterations=40, tolerance=1e-5, nn_method="dense", icp_type="pt2pl",
+                         dim=3, trim_dist=2.0, loss_name="huber", loss_metric=0.5,
+                         fused_small=True)
+    return {f"headline B={B_HEAD}, 65 -> 65": (head_cfg, reference_batch(device)),
+            f"{B_HEAD} x {N_GATE} -> {M_GATE}": (
+                gate_cfg, (to_torch(g_src, device), to_torch(g_tgt, device),
+                           torch.eye(4, device=device).expand(B_HEAD, 4, 4)))}
+
+
 def main_ab(parent: Path) -> None:
-    """K1, K2 and K5 of ``parent`` against this checkout's, on one card, in
-    turns (parent, this, this, parent) at the main path's shapes, each
-    launcher called directly on the same tensors: timed call by call (as
-    phases 2 and 6 time the wrappers) and back to back."""
+    """K1, K2, K5, K3 and K4 of ``parent`` against this checkout's, on one
+    card, in turns (parent, this, this, parent) at the main path's shapes,
+    each launcher called directly on the same tensors after holding both to
+    the plain versions: timed call by call (as phases 2, 6, 7 and 11 time the
+    wrappers) and back to back.  Then the paths end to end (_ab_paths)."""
     card = phase0_device()
     device = torch.device("cuda", 0)
-    _build.build_all(("tiled_nn", "cluster_search"))
+    _build.build_all(AB_KERNELS)
     other = _build_other(parent)
     stream = torch.cuda.current_stream(device).cuda_stream
     rows = {}
@@ -1536,6 +1721,60 @@ def main_ab(parent: Path) -> None:
             record(f"{kname} {label}", {"parent": k2(other["cluster_search"], "parent"),
                                         "this": k2(cluster_search._search_kernel(), "this")},
                    k2_check)
+        k = 16
+        res3 = {who: [torch.empty(Bq, nbq, Qs, k, device=device),
+                      torch.empty(Bq, nbq, Qs, k, dtype=torch.int32, device=device),
+                      torch.empty(Bq, nbq, Qs, device=device)] for who in ("parent", "this")}
+
+        def k3(fn, who, res=res3, args=args):
+            ptrs = [t.data_ptr() for t in args]
+            outs = [t.data_ptr() for t in res[who]]
+            return lambda: fn(*ptrs, Bq, G, g, nbq, Qs, P, k, *outs, 0, stream)
+
+        def k3_check(res=res3, args=args):
+            ref = cluster_search.fused_topk_plain(*args, k)
+            for who in ("parent", "this"):
+                _check(all(torch.equal(a, b) for a, b in zip(res[who], ref)),
+                       f"K3 ({who}) equals the plain version ({label}, k = {k})")
+
+        record(f"K3 {label}, k = {k}", {"parent": k3(other["cluster_topk"], "parent"),
+                                        "this": k3(cluster_search._topk_kernel(), "this")},
+               k3_check)
+
+    for label, (cfg, inputs) in _k4_main_inputs(device).items():
+        kargs = _k4_args(cfg, *inputs)
+        source, target = kargs[0], kargs[1]
+        nbk, n, m = source.shape[0], source.shape[1], target.shape[1]
+        tcols = 6 if cfg.icp_type == "pt2pl" else 3
+        ins = [t.detach().float().contiguous()
+               for t in (source, target[..., :tcols], kargs[2], kargs[3], kargs[4])]
+        res4 = {who: [torch.empty(nbk, 3, 3, device=device), torch.empty(nbk, 3, device=device)]
+                + [torch.empty(nbk, device=device) for _ in range(3)]
+                + [torch.empty(nbk, n, device=device), torch.empty(nbk, device=device)]
+                for who in ("parent", "this")}
+
+        def k4(fn, who, res=res4, ins=ins, cfg=cfg, shape=(nbk, n, m)):
+            ptrs = [t.data_ptr() for t in ins] + [t.data_ptr() for t in res[who]]
+            flags = (int(cfg.icp_type == "pt2pl"), cfg.dim, fused_gn._LOSS_CODES[cfg.loss_name],
+                     int(cfg.differentiable), int(cfg.trim_dist is not None),
+                     int(cfg.tikhonov is not None))
+            values = (0.0 if cfg.trim_dist is None else cfg.trim_dist, cfg.loss_metric,
+                      cfg.tanh_steepness, cfg.tolerance, cfg.match_ratio_thresh,
+                      0.0 if cfg.tikhonov is None else cfg.tikhonov)
+            return lambda: fn(*ptrs, *shape, *flags, *values, cfg.max_iterations, 0, stream)
+
+        def k4_check(res=res4, kargs=kargs, cfg=cfg, label=label):
+            ref = fused_gn.fused_gn_solve_plain(*kargs, cfg)
+            for who in ("parent", "this"):
+                C, r, conv, iters, ratio = res[who][:5]
+                _check(torch.equal(conv > 0, ref[2]) and torch.equal(iters, ref[3])
+                       and torch.equal(ratio, ref[4])
+                       and float((C - ref[0]).abs().max()) < 1e-5
+                       and float((r - ref[1]).abs().max()) < 1e-5,
+                       f"K4 ({who}) matches the plain version ({label})")
+
+        record(f"K4 {label}", {"parent": k4(other["fused_gn"], "parent"),
+                               "this": k4(fused_gn._kernel(), "this")}, k4_check)
     rows.update(_ab_paths(parent))
     summary = {"card": card, "parent": str(parent),
                "ms": {name: {who: statistics.median(t) for who, t in times.items()}

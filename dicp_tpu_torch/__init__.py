@@ -10,7 +10,9 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
 
 * :mod:`dicp_tpu_torch.api` / :mod:`dicp_tpu_torch.ICP`: the drop-in ``ICP``
   class and ragged-input batch handling.
-* :mod:`dicp_tpu_torch.registration`: the functional core, :func:`register`.
+* :mod:`dicp_tpu_torch.registration`: the functional core, :func:`register`
+  (``register_jit``, like the other ``*_jit`` names, is an alias of its
+  eager function: PyTorch runs eagerly).
 * :mod:`dicp_tpu_torch.ift`: :func:`register_ift`, implicit-function-theorem
   gradients through the fixed point.
 * :mod:`dicp_tpu_torch.anderson`: :func:`register_anderson`, the
@@ -30,18 +32,21 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
 This package imports neither ``jax`` nor ``dicp_tpu``.
 """
 
-from dicp_tpu_torch.anderson import register_anderson
+from dicp_tpu_torch.anderson import register_anderson, register_anderson_jit
 from dicp_tpu_torch.api import ICP, batch_size_handling
-from dicp_tpu_torch.config import ICPConfig
+from dicp_tpu_torch.config import ICPConfig, config_from_yaml
 from dicp_tpu_torch.ops.cluster_knn import (build_cluster_index, cluster_knn,
                                             cluster_nn, cluster_nn_verified)
 from dicp_tpu_torch.ops.normals import estimate_normals, estimate_normals_weighted
-from dicp_tpu_torch.ift import register_ift
-from dicp_tpu_torch.registration import ICPResult, register
+from dicp_tpu_torch.ift import register_ift, register_ift_jit
+from dicp_tpu_torch.registration import ICPResult, register, register_jit
 
 __version__ = "0.1.0"
 
+# In the order of ``dicp_tpu.__all__``; the JAX package's other names come
+# with their slices (ROADMAP.md, Queue 1).
 __all__ = ["ICP", "ICPConfig", "ICPResult", "batch_size_handling",
            "build_cluster_index", "cluster_knn", "cluster_nn", "cluster_nn_verified",
-           "estimate_normals", "estimate_normals_weighted", "register", "register_anderson",
-           "register_ift", "__version__"]
+           "config_from_yaml", "estimate_normals", "estimate_normals_weighted", "register",
+           "register_anderson", "register_anderson_jit", "register_ift", "register_ift_jit",
+           "register_jit", "__version__"]

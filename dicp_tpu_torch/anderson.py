@@ -84,6 +84,12 @@ def register_anderson(source: torch.Tensor, target: torch.Tensor, T_init: torch.
                           float(cap))
 
 
+# The JAX package's ``register_anderson_jit`` is ``jax.jit(register_anderson)``.
+# PyTorch runs eagerly, so the port's is :func:`register_anderson` itself: the
+# same signature and results, no compilation.
+register_anderson_jit = register_anderson
+
+
 @torch.no_grad()
 def _anderson_impl(source, target, T_init, weight, cfg, m, eps_rel, cap):
     source, target, weight, C0, r0 = _preprocess(cfg, source, target, T_init, weight)

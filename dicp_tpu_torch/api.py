@@ -84,8 +84,8 @@ def _result_dtype(target_list) -> torch.dtype:
 
 
 def batch_size_handling(source, target, T_init=None, weight=None,
-                        keep_source_normals: bool = False, device=None,
-                        target_pad_val: float = 1000.0, soft_nn: bool = False):
+                        target_pad_val: float = 1000.0, keep_source_normals: bool = False,
+                        soft_nn: bool = False, device=None):
     """Normalize (possibly ragged) inputs to dense batched tensors.
 
     Returns (source (N, n, 3|6), target (N, m, 3|6), T_init (N, 4, 4) or
@@ -93,7 +93,8 @@ def batch_size_handling(source, target, T_init=None, weight=None,
     weight is not pt2pt-expanded here; the functional core does that.
     ``keep_source_normals`` keeps 6-column sources (symmetric ICP);
     ``soft_nn`` pads ragged targets with the far sentinel scaled by
-    ``target_pad_val`` instead of repeated rows."""
+    ``target_pad_val`` instead of repeated rows.  The positional order is the
+    JAX package's; ``device`` (see the module docstring) comes last."""
     device = _resolve_device(device, source, target, T_init, weight)
     src_cols = 6 if keep_source_normals else 3
     # phony path: entire source or target missing -> T_init unchanged

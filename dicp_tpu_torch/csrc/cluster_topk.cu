@@ -27,6 +27,13 @@
 // list holds near neighbours, because candidates arrive group by group in
 // block-selection order.  Registers, not shared memory, hold the list: at
 // K = 32 that is 64 of them per thread.
+//
+// A group id outside [0, G) stops the kernel with __trap() before anything
+// is read from that group: the launch's stream then reports a CUDA error at
+// its next synchronisation, and the wrapper needs no host-side check.  (A
+// redesign on K2's schedule, the columns split into slices across warps with
+// a list per query and slice, was slower than this one from k = 5 up; its
+// times are in PERF.md.)
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -73,6 +80,7 @@ __global__ void __launch_bounds__(kMaxQs) cluster_topk_kernel(
 
   for (int j = 0; j < P; ++j) {
     const int32_t grp = sel[j];
+    if (grp < 0 || grp >= G) __trap();
     const float* src = pts + static_cast<int64_t>(grp) * g * 3;
     for (int t0 = 0; t0 < g; t0 += kTile) {
       const int tn = min(kTile, g - t0);
@@ -170,7 +178,7 @@ int launch(const float* points, const float* centers, const float* radius,
 
 // Inputs as cluster_search_launch; outputs d2 and rows (batch, nb, Qs, k) and
 // bound (batch, nb, Qs) preallocated by the caller.  1 <= k <= min(32, P*g),
-// 1 <= Qs <= 256.
+// 1 <= Qs <= 256; bsel values in [0, G) (others stop the kernel).
 // Returns the CUDA error code of the launch.
 extern "C" int cluster_topk_launch(const float* points, const float* centers,
                                    const float* radius, const float* xb,

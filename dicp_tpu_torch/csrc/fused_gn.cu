@@ -13,25 +13,47 @@
 // torch.sum.
 //
 // What bounds it: not the card's rates.  The work is tiny (B=256 pairs of 65
-// points take ~1e8 flops and under 1 MB) and it is a serial chain: per
-// iteration a block does m distance evaluations per thread, one reduction
-// with two barriers, and a solve on one thread while the others wait.  The
-// time is the latency of that chain times the iterations, for ceil(B/132)
-// waves of blocks.  The design keeps everything of an element on one SM for
-// the whole solve: the inputs are read from device memory once and only the
-// results are written back; there is no launch per iteration and no host sync.
+// points take ~1e8 flops and under 1 MB) and it is a serial chain: the time
+// is the iterations (~7 for the reference pair) times the per-iteration
+// critical path, for ceil(B/132) waves of blocks, plus the launch.  The
+// design keeps everything of an element on one SM for the whole solve: the
+// inputs are read from device memory once and only the results are written
+// back; there is no launch per iteration and no host sync.
 //
-// Design: one block per batch element, one thread per source point
-// (blockDim = 32 * ceil(n / 32) <= 256; threads past n carry weight 0).  The
+// Design: one block per batch element; each source point gets L lanes (L a
+// power of two, at most kMaxLanes, chosen at launch so that the block stays
+// within kMaxThreads and no lane is left without targets: L = 2 at the
+// reference pair's 65 points, 160 threads; L = 1 at 256 points).  The
 // target's columns (3 for pt2pt, 6 for pt2pl, m <= 512) are staged once in
-// shared memory as SoA (<= 12 KB).  Each iteration every thread transforms
-// its point, walks the m targets in index order with a strict '<' (the first
-// index of the minimum), and forms its residual, weights and Jacobian
-// products.  The normal-equation sums (21 of A and 6 of b for k = 6, 6 and 3
-// for k = 3), the cost, the weight sum and the two match counts go through a
-// warp-shuffle tree and a sum over the warps in warp order: no atomics, so a
-// launch repeats bit for bit.  Thread 0 then solves, retracts, and updates C,
-// r and the stats in shared memory; a barrier, and the next iteration.
+// shared memory as SoA, each padded to a multiple of 4 with +inf
+// coordinates.  Per iteration:
+//   1. every lane transforms its point and walks its share of the targets,
+//      4 at a time (chunks part, part + L, ...: three 16-byte loads per 4
+//      targets), keeps the first chunk whose minimum is below its running
+//      best (fminf within the chunk, a strict '<' across chunks: 1.5
+//      instructions per target for the argmin instead of 3) and walks that
+//      chunk again for the first index of the minimum; the L partial
+//      (d2, index) pairs are merged by the lexicographic minimum, so the
+//      first index of the minimum wins as in one walk (a padded target's d2
+//      is inf or NaN and is never taken);
+//   2. the point's residual, weights and normal-equation terms (21 of A and
+//      6 of b for k = 6, 6 and 3 for k = 3, the cost, the weight sum and the
+//      two match counts) are summed over the warp's points by a fixed
+//      shuffle tree and written per warp into shared memory;
+//   3. a barrier; warp 0 then adds term q over the warps in warp order on
+//      lane q (in parallel over q; the parent's thread 0 added them alone),
+//      broadcasts the totals with shuffles, and runs the solve, the
+//      Rodrigues retraction and the bookkeeping, with the solve's divisions
+//      and square roots spread over its lanes: lane j computes output j with
+//      that output's own expression (the same bits) and the warp exchanges
+//      them with shuffles, so the warp issues one division where a lone
+//      thread issues nine;
+//   4. thread 0 writes C, r and the flags to shared memory, a second
+//      barrier, and every thread reads them.
+// Running the solve in every warp instead (the same bits in every warp, and
+// one barrier per iteration) was slower at every lane count: its issue
+// slots cost more than the barrier it saves (PERF.md, PR 6).
+// No atomics: a launch repeats bit for bit.  Thread 0 writes the results.
 //
 // icp_type and dim pick one of four template instances at launch, so the
 // per-thread arrays have compile-time sizes and stay in registers; the loss,
@@ -50,10 +72,13 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 256;  // threads per block
+constexpr int kMaxLanes = 4;      // lanes per source point
+constexpr int kMaxN = 256;
+constexpr int kMaxM = 512;
 
 struct Params {
-  int n, m, loss, diff, has_trim, has_tik, max_iters;
+  int n, m, mp, lanes, loss, diff, has_trim, has_tik, max_iters;
   float trim, metric, steep, tol, thresh, tik;
 };
 
@@ -87,6 +112,28 @@ __device__ __forceinline__ float loss_w(int code, float le2, float metric, int d
 }
 
 // ---- the scalar solve of the Pallas kernel (fused_gn.py:55-108) ----------
+//
+// Warp 0 runs it.  Its divisions and square roots, the longest instructions
+// of the chain, are spread over the lanes: lane j computes output j with the
+// output's own expression (the same bits) and the warp exchanges the results
+// with shuffles.
+
+// v[j] of lane j (j < N; other lanes keep v[0]), by selects: no dynamic
+// register indexing
+template <int N>
+__device__ __forceinline__ float lane_pick(const float (&v)[N]) {
+  const int lane = threadIdx.x & 31;
+  float x = v[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) x = lane == j ? v[j] : x;
+  return x;
+}
+
+template <int N>
+__device__ __forceinline__ void lane_gather(float x, float (&out)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) out[j] = __shfl_sync(0xffffffffu, x, j);
+}
 
 __device__ __forceinline__ void inv3(float a[3][3], float out[3][3]) {
   const float c00 = a[1][1] * a[2][2] - a[1][2] * a[2][1];
@@ -99,11 +146,13 @@ __device__ __forceinline__ void inv3(float a[3][3], float out[3][3]) {
   const float c20 = a[0][1] * a[1][2] - a[0][2] * a[1][1];
   const float c21 = a[0][2] * a[1][0] - a[0][0] * a[1][2];
   const float c22 = a[0][0] * a[1][1] - a[0][1] * a[1][0];
-  const float adj[3][3] = {{c00, c10, c20}, {c01, c11, c21}, {c02, c12, c22}};
+  const float adj[9] = {c00, c10, c20, c01, c11, c21, c02, c12, c22};
+  float q[9];
+  lane_gather<9>(lane_pick<9>(adj) / det, q);  // out[i][j] = adj[i][j] / det
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) out[i][j] = adj[i][j] / det;
+    for (int j = 0; j < 3; ++j) out[i][j] = q[3 * i + j];
 }
 
 __device__ __forceinline__ void mv3(float m[3][3], const float v[3], float out[3]) {
@@ -159,9 +208,10 @@ __device__ __forceinline__ void solve6(float a[6][6], const float b[6], float x[
 template <int K>
 __device__ __forceinline__ void solve_spd(float a[K][K], const float b[K],
                                           float x[K]) {
-  float dinv[K], a_eq[K][K], b_eq[K], y[K];
+  float diag[K], dinv[K], a_eq[K][K], b_eq[K], y[K];
 #pragma unroll
-  for (int i = 0; i < K; ++i) dinv[i] = 1.0f / sqrtf(fmaxf(a[i][i], 1e-30f));
+  for (int i = 0; i < K; ++i) diag[i] = a[i][i];
+  lane_gather<K>(1.0f / sqrtf(fmaxf(lane_pick<K>(diag), 1e-30f)), dinv);
 #pragma unroll
   for (int i = 0; i < K; ++i) {
 #pragma unroll
@@ -198,28 +248,51 @@ __device__ __forceinline__ void exp_so3(const float w[3], float R[3][3]) {
       R[i][j] = (i == j ? 1.0f : 0.0f) + a * k[i][j] + b * kk[i][j];
 }
 
-// Sum of each v[q] over the block in a fixed order: a shuffle tree inside
-// each warp, then thread 0 adds the warps in warp order into tot.  Every
-// thread calls it; tot is meaningful on thread 0 only.
+// Sum each v[q] over the lanes 0, L, 2L, ... of the warp (the points'
+// first lanes; the others hold zeros) by a fixed shuffle tree; lane 0 gets
+// the warp's sums and stores them at out[q].
 template <int NV>
-__device__ __forceinline__ void block_sum(float (&v)[NV], float* red, float (&tot)[NV]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+__device__ __forceinline__ void warp_sums(float (&v)[NV], int lanes, float* out) {
 #pragma unroll
   for (int q = 0; q < NV; ++q) {
     float x = v[q];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-    if (lane == 0) red[warp * NV + q] = x;
+    for (int off = 16; off >= lanes; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+    if ((threadIdx.x & 31) == 0) out[q] = x;
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
+}
+
+// After the barrier: lane q (< NV) adds term q over the warps in warp order,
+// and every lane receives all NV totals, the same bits in every warp.
+template <int NV>
+__device__ __forceinline__ void block_totals(const float* red, int nwarps, float (&tot)[NV]) {
+  const int lane = threadIdx.x & 31;
+  float x = 0.0f;
+  if (lane < NV) {
+    x = red[lane];
+    for (int wi = 1; wi < nwarps; ++wi) x += red[wi * NV + lane];
+  }
 #pragma unroll
-    for (int q = 0; q < NV; ++q) {
-      float s = red[q];
-      for (int wi = 1; wi < nwarps; ++wi) s += red[wi * NV + q];
-      tot[q] = s;
-    }
+  for (int q = 0; q < NV; ++q) tot[q] = __shfl_sync(0xffffffffu, x, q);
+}
+
+// d2 of the point ps to the targets 4 ch .. 4 ch + 3 of the (3, 4 chunks)
+// SoA, in the difference form ((dx^2 + dy^2) + dz^2)
+__device__ __forceinline__ void dist4(const float4* st4, int chunks, int ch, const float (&ps)[3],
+                                      float (&d)[4]) {
+  const float4 X = st4[ch];
+  const float4 Y = st4[chunks + ch];
+  const float4 Z = st4[2 * chunks + ch];
+  const float tx[4] = {X.x, X.y, X.z, X.w};
+  const float ty[4] = {Y.x, Y.y, Y.z, Y.w};
+  const float tz[4] = {Z.x, Z.y, Z.z, Z.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float dx = ps[0] - tx[u];
+    float e = dx * dx;
+    const float dy = ps[1] - ty[u];
+    e = e + dy * dy;
+    const float dz = ps[2] - tz[u];
+    d[u] = e + dz * dz;
   }
 }
 
@@ -234,69 +307,89 @@ fused_gn_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   constexpr int TC = PT2PL ? 6 : 3;
   constexpr int NA = K * (K + 1) / 2;
   constexpr int NV = NA + K + 4;  // A, b, cost, sum w, matches now, matches at start
-  extern __shared__ float smem[];
-  float* st = smem;               // (TC, m) target columns
-  float* red = smem + TC * p.m;   // (warps, NV) partial sums
-  __shared__ float sC[9], sr[3];
-  __shared__ float s_conv, s_iters, s_ratio, s_cost, s_below, s_keep_w;
-  __shared__ int s_it_final;
+  extern __shared__ __align__(16) float smem[];
+  const int n = p.n, m = p.m, mp = p.mp, L = p.lanes;
+  const int nwarps = blockDim.x >> 5;
+  float* st = smem;                          // (TC, mp) target columns
+  float* red = smem + TC * mp;               // (warps, NV) partial sums
+  float* red_post = red + nwarps * NV;       // (warps, 2) for the post-loop counts
+  float* state = red_post + 2 * nwarps;      // C, r, conv, below, sum_w from warp 0
 
   const int64_t b = blockIdx.x;
   const int t = threadIdx.x;
-  const int n = p.n, m = p.m;
-  const bool valid = t < n;
+  const int warp = t >> 5;
+  const int part = t & (L - 1);
+  const int pt = t / L;
+  const bool valid = pt < n;
+  const bool owner = valid && part == 0;  // the lane that adds the point's terms
 
   const float* tb = tgt + b * m * TC;
-  for (int e = t; e < TC * m; e += blockDim.x) st[(e % TC) * m + e / TC] = tb[e];
-  if (t < 9) sC[t] = C0[b * 9 + t];
-  if (t < 3) sr[t] = r0[b * 3 + t];
-  if (t == 0) {
-    s_conv = 0.0f;
-    s_iters = 0.0f;
-    s_ratio = 0.0f;
-    s_cost = 0.0f;
-    s_it_final = 0;
+  for (int e = t; e < TC * m; e += blockDim.x) st[(e % TC) * mp + e / TC] = tb[e];
+  for (int e = t; e < TC * (mp - m); e += blockDim.x) {
+    const int c = e / (mp - m);
+    st[c * mp + m + e % (mp - m)] = c < 3 ? CUDART_INF_F : 0.0f;
   }
+  float C[9], r[3];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) C[i] = C0[b * 9 + i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) r[i] = r0[b * 3 + i];
   float sx = 0.0f, sy = 0.0f, sz = 0.0f, winit = 0.0f;
   if (valid) {
-    sx = src[(b * n + t) * 3 + 0];
-    sy = src[(b * n + t) * 3 + 1];
-    sz = src[(b * n + t) * 3 + 2];
-    winit = w0[b * n + t];
+    sx = src[(b * n + pt) * 3 + 0];
+    sy = src[(b * n + pt) * 3 + 1];
+    sz = src[(b * n + pt) * 3 + 2];
+    winit = w0[b * n + pt];
   }
   float wsave = 0.0f, wraw = 0.0f;
+  float s_conv = 0.0f, s_iters = 0.0f, s_ratio = 0.0f, s_cost = 0.0f;
+  int it_final = 0;
+  const float4* st4 = reinterpret_cast<const float4*>(st);
+  const int chunks = mp >> 2;
   __syncthreads();
 
   for (int it = 0; it < p.max_iters; ++it) {
-    if (s_conv != 0.0f) break;  // uniform: written before the last barrier
-    float C[9], r[3];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) C[i] = sC[i];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) r[i] = sr[i];
     const float cp[3] = {sx * C[0] + sy * C[1] + sz * C[2],
                          sx * C[3] + sy * C[4] + sz * C[5],
                          sx * C[6] + sy * C[7] + sz * C[8]};
     const float ps[3] = {cp[0] + r[0], cp[1] + r[1], cp[2] + r[2]};
 
-    // hard 1-NN: index order, strict '<' -> the first index of the minimum
+    // hard 1-NN: this lane's chunks of 4 targets in index order, the minimum
+    // of each chunk (fminf skips a NaN as '<' does) against the running best
+    // with a strict '<', so the first chunk that attains the lane's minimum
+    // is kept; that chunk again for the first index whose d2 equals it (the
+    // same expression, the same bits); then the lexicographic minimum of
+    // (d2, index) over the point's L lanes
     float best = CUDART_INF_F;
+    int from = -1;
+    for (int ch = part; ch < chunks; ch += L) {
+      float d[4];
+      dist4(st4, chunks, ch, ps, d);
+      const float cmin = fminf(fminf(d[0], d[1]), fminf(d[2], d[3]));
+      if (cmin < best) {
+        best = cmin;
+        from = ch;
+      }
+    }
     int arg = 0;
-    for (int j = 0; j < m; ++j) {
-      const float dx = ps[0] - st[j];
-      float d = dx * dx;
-      const float dy = ps[1] - st[m + j];
-      d = d + dy * dy;
-      const float dz = ps[2] - st[2 * m + j];
-      d = d + dz * dz;
-      if (d < best) {
-        best = d;
-        arg = j;
+    if (from >= 0) {
+      float d[4];
+      dist4(st4, chunks, from, ps, d);
+      arg = d[2] == best ? 4 * from + 2 : 4 * from + 3;
+      arg = d[1] == best ? 4 * from + 1 : arg;
+      arg = d[0] == best ? 4 * from : arg;
+    }
+    for (int off = 1; off < L; off <<= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+      const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
+      if (ob < best || (ob == best && oa < arg)) {
+        best = ob;
+        arg = oa;
       }
     }
     float nn[TC];
 #pragma unroll
-    for (int c = 0; c < TC; ++c) nn[c] = st[c * m + arg];
+    for (int c = 0; c < TC; ++c) nn[c] = st[c * mp + arg];
     const float e[3] = {ps[0] - nn[0], ps[1] - nn[1], ps[2] - nn[2]};
     const float en2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2];
     const float trim = p.has_trim ? trim_w(en2, p.trim, p.diff, p.steep) : 1.0f;
@@ -341,29 +434,35 @@ fused_gn_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       v[NA + K] = ws2 * en2;
     }
     v[NA + K + 1] = w;
-    v[NA + K + 2] = (valid && w > p.thresh) ? 1.0f : 0.0f;
-    v[NA + K + 3] = (valid && winit > p.thresh) ? 1.0f : 0.0f;
-    if (!valid) {
+    v[NA + K + 2] = w > p.thresh ? 1.0f : 0.0f;
+    v[NA + K + 3] = winit > p.thresh ? 1.0f : 0.0f;
+    if (!owner) {
 #pragma unroll
-      for (int q = 0; q <= NA + K; ++q) v[q] = 0.0f;
+      for (int q = 0; q < NV; ++q) v[q] = 0.0f;
     }
 
-    float tot[NV];
-    block_sum<NV>(v, red, tot);
-    if (t == 0) {
+    warp_sums<NV>(v, L, red + warp * NV);
+    __syncthreads();
+    // ---- warp 0 solves on the block's totals; its lanes hold the same values
+    if (warp == 0) {
+      float tot[NV];
+      block_totals<NV>(red, nwarps, tot);
       float A[K][K], bb[K];
-      int q = 0;
+      {
+        int q = 0;
 #pragma unroll
-      for (int i = 0; i < K; ++i)
+        for (int i = 0; i < K; ++i)
 #pragma unroll
-        for (int j = i; j < K; ++j) {
-          A[i][j] = tot[q];
-          A[j][i] = tot[q];
-          ++q;
-        }
+          for (int j = i; j < K; ++j) {
+            A[i][j] = tot[q];
+            A[j][i] = tot[q];
+            ++q;
+          }
+      }
 #pragma unroll
       for (int i = 0; i < K; ++i) bb[i] = tot[NA + i];
-      const float cost = tot[NA + K], sum_w = tot[NA + K + 1];
+      const float cost = tot[NA + K];
+      const float sum_w = tot[NA + K + 1];
       const float num_curr = tot[NA + K + 2];
       float num_start = tot[NA + K + 3];
 
@@ -396,18 +495,19 @@ fused_gn_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       const bool below = sqrtf(dn2) < p.tol;
 
       // retraction C <- exp(w^)^T C, r <- r - rho
-      float dC[3][3];
+      float dC[3][3], Cn[9];
       exp_so3(d6, dC);
 #pragma unroll
       for (int i = 0; i < 3; ++i)
 #pragma unroll
         for (int j = 0; j < 3; ++j)
-          sC[3 * i + j] = dC[0][i] * C[j] + dC[1][i] * C[3 + j] + dC[2][i] * C[6 + j];
+          Cn[3 * i + j] = dC[0][i] * C[j] + dC[1][i] * C[3 + j] + dC[2][i] * C[6 + j];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) sr[c] = r[c] - d6[3 + c];
+      for (int i = 0; i < 9; ++i) C[i] = Cn[i];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) r[c] = r[c] - d6[3 + c];
 
       // bookkeeping (registration._apply_step, histories off)
-      s_keep_w = sum_w == 0.0f ? 0.0f : 1.0f;
       if (cost != 0.0f) s_cost = cost;
       const float itf = static_cast<float>(it + 1);
       if (below) s_iters = s_iters + itf * (s_iters == 0.0f ? 1.0f : 0.0f);
@@ -415,33 +515,51 @@ fused_gn_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       const float ratio = num_curr / num_start;
       if (below) s_ratio = s_ratio + ratio * (s_ratio == 0.0f ? 1.0f : 0.0f);
       s_conv = fmaxf(s_conv, below ? 1.0f : 0.0f);
-      s_below = below ? 1.0f : 0.0f;
-      s_it_final = it + 1;
+      if (t == 0) {
+#pragma unroll
+        for (int i = 0; i < 9; ++i) state[i] = C[i];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) state[9 + i] = r[i];
+        state[12] = s_conv;
+        state[13] = below ? 1.0f : 0.0f;
+        state[14] = sum_w;
+      }
     }
     __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 9; ++i) C[i] = state[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) r[i] = state[9 + i];
+    s_conv = state[12];
+    const bool below = state[13] != 0.0f;
+    const float sum_w = state[14];
+    it_final = it + 1;
     wraw = w;
-    if (s_keep_w != 0.0f) wsave = w;
-    winit = winit * (s_below != 0.0f ? 0.0f : 1.0f);
+    if (sum_w != 0.0f) wsave = w;
+    winit = winit * (below ? 0.0f : 1.0f);
+    if (s_conv != 0.0f) break;  // read by every thread from the same word
   }
 
   // post-loop stats fill (registration._finalize)
-  float cnt[2] = {(valid && wraw > p.thresh) ? 1.0f : 0.0f,
-                  (valid && winit > p.thresh) ? 1.0f : 0.0f};
+  float cnt[2] = {(owner && wraw > p.thresh) ? 1.0f : 0.0f,
+                  (owner && winit > p.thresh) ? 1.0f : 0.0f};
+  warp_sums<2>(cnt, L, red_post + warp * 2);
+  __syncthreads();
   float ctot[2];
-  block_sum<2>(cnt, red, ctot);
+  block_totals<2>(red_post, nwarps, ctot);
   if (t == 0) {
-    const float itf = static_cast<float>(s_it_final);
+    const float itf = static_cast<float>(it_final);
     const float ns = ctot[1] == 0.0f ? 1.0f : ctot[1];
 #pragma unroll
-    for (int i = 0; i < 9; ++i) C_out[b * 9 + i] = sC[i];
+    for (int i = 0; i < 9; ++i) C_out[b * 9 + i] = C[i];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) r_out[b * 3 + i] = sr[i];
+    for (int i = 0; i < 3; ++i) r_out[b * 3 + i] = r[i];
     conv_out[b] = s_conv;
     iters_out[b] = s_iters == 0.0f ? itf : s_iters;
     ratio_out[b] = s_ratio == 0.0f ? ctot[0] / ns : s_ratio;
     cost_out[b] = s_cost;
   }
-  if (valid) wsave_out[b * n + t] = wsave;
+  if (owner) wsave_out[b * n + pt] = wsave;
 }
 
 template <int K, bool PT2PL>
@@ -451,10 +569,23 @@ cudaError_t launch(const float* src, const float* tgt, const float* w0, const fl
                    const Params& p, cudaStream_t stream) {
   constexpr int TC = PT2PL ? 6 : 3;
   constexpr int NV = K * (K + 1) / 2 + K + 4;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(TC) * p.m + (threads / 32) * NV);
+  const int nwarps = threads / 32;
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(TC) * p.mp + nwarps * NV + 2 * nwarps + 16);
   fused_gn_kernel<K, PT2PL><<<batch, threads, smem, stream>>>(
       src, tgt, w0, C0, r0, C, r, conv, iters, ratio, wsave, cost, p);
   return cudaGetLastError();
+}
+
+// Lanes per point: the most, up to kMaxLanes, with the block within
+// kMaxThreads and every lane given at least one chunk of 4 targets.
+int lanes_for(int n, int m) {
+  const int chunks = (m + 3) / 4;
+  int lanes = kMaxLanes;
+  while (lanes > 1 && (32 * ((n * lanes + 31) / 32) > kMaxThreads || lanes > chunks)) {
+    lanes >>= 1;
+  }
+  return lanes;
 }
 
 }  // namespace
@@ -475,10 +606,10 @@ extern "C" int fused_gn_launch(const float* src, const float* tgt, const float* 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0 || n == 0) return 0;
-  const int threads = 32 * ((n + 31) / 32);
-  if (threads > kMaxThreads || m < 1 || m > 512)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{n, m, loss, diff, has_trim, has_tik, max_iters,
+  if (n < 0 || n > kMaxN || m < 1 || m > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
+  const int lanes = lanes_for(n, m);
+  const int threads = 32 * ((n * lanes + 31) / 32);
+  const Params p{n, m, 4 * ((m + 3) / 4), lanes, loss, diff, has_trim, has_tik, max_iters,
                  trim, metric, steep, tol, thresh, tik};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dim == 2) {

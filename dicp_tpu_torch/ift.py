@@ -222,3 +222,9 @@ def register_ift(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tenso
     pc = torch.einsum("nij,npj->npi", res.T[:, :3, :3], src.to(res.T.dtype)) \
         + res.T[:, None, :3, 3]
     return res._replace(pc=pc)
+
+
+# The JAX package's ``register_ift_jit`` is ``jax.jit(register_ift)``.  PyTorch
+# runs eagerly, so the port's is :func:`register_ift` itself: the same
+# signature and results, no compilation.
+register_ift_jit = register_ift

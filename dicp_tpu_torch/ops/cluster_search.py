@@ -32,8 +32,10 @@ group out where it was selected and searched.  Neither certifies past it.
 
 Routing is by device only: CPU tensors go to the ``*_plain`` versions, CUDA
 tensors launch the hand-written kernels ``csrc/cluster_search.cu`` (K2, K5)
-and ``csrc/cluster_topk.cu`` (K3) or raise.  Each wrapper counts its kernel
-launches in a plain integer attribute, ``fused_search.launches`` etc.
+and ``csrc/cluster_topk.cu`` (K3) or raise.  A group id outside [0, G)
+stops either kernel (``__trap``), so the CUDA routes never synchronise with
+the host.  Each wrapper counts its kernel launches in a plain integer
+attribute, ``fused_search.launches`` etc.
 """
 
 from __future__ import annotations
@@ -249,10 +251,23 @@ def search_plan(Qs: int, g: int, P: int):
     return qg, WARPS // qg, min(P, MAX_SLAB_BYTES // (12 * g))
 
 
+def topk_plan(Qs: int, k: int) -> dict:
+    """K3's schedule, as ``cluster_topk_launch`` computes it: one thread per
+    query keeps a sorted list of K = next power of two >= k (d2, column)
+    entries over all the block's candidates, in a block of Qs threads.
+    Raises on what the kernel cannot take."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"cluster_topk takes 1 <= k <= {MAX_K} on CUDA, got {k}")
+    if not 1 <= Qs <= MAX_QS_TOPK:
+        raise ValueError(f"cluster_topk takes 1 <= Qs <= {MAX_QS_TOPK} queries per block, "
+                         f"got {Qs}")
+    return {"K": 1 << (k - 1).bit_length(), "threads": Qs}
+
+
 def _check_cuda(points, xb, name: str, max_qs: int = MAX_QS) -> None:
     """Limits of the kernels, checked before any pointer is passed.  No
-    device-to-host synchronisation: the group ids are checked in the kernel
-    (K2/K5) or by :func:`_check_range` (K3)."""
+    device-to-host synchronisation: the group ids are checked in the
+    kernels."""
     B, G, g = points.shape[0], points.shape[1], points.shape[2]
     nb, Qs = xb.shape[1], xb.shape[2]
     if not 1 <= Qs <= max_qs:
@@ -264,8 +279,8 @@ def _check_cuda(points, xb, name: str, max_qs: int = MAX_QS) -> None:
 
 
 def _check_range(bsel, G: int, name: str) -> None:
-    """Group ids in [0, G); reads bsel on the host (a synchronisation on the
-    card)."""
+    """Group ids in [0, G), for the CPU routes (the kernels check in the
+    kernel)."""
     if bool(((bsel < 0) | (bsel >= G)).any()):
         raise ValueError(f"{name}: bsel holds group ids outside [0, {G})")
 
@@ -338,15 +353,15 @@ def block_search(points, xb, bsel):
 
 def fused_topk(points, centers, radius, xb, bsel, k: int):
     """K3: (d2 (…, nb, Qs, k) f32 ascending, rows (…, nb, Qs, k) int32,
-    bound (…, nb, Qs) f32), k <= 32 on CUDA.  No gradient."""
+    bound (…, nb, Qs) f32), k <= 32 on CUDA.  No gradient.  A group id
+    outside [0, G) stops the kernel (``__trap``): the stream reports a CUDA
+    error at its next synchronisation."""
     if _route(xb) == "cpu":
         return fused_topk_plain(points, centers, radius, xb, bsel, k)
     p, c, r, x, s, batched = _prepare(points, centers, radius, xb, bsel)
     _check_k(k, p.shape[2] * s.shape[2])
-    if k > MAX_K:
-        raise ValueError(f"cluster_topk takes k <= {MAX_K} on CUDA, got {k}")
     _check_cuda(p, x, "cluster_topk", MAX_QS_TOPK)
-    _check_range(s, p.shape[1], "cluster_topk")
+    topk_plan(x.shape[2], k)
     B, nb, Qs = x.shape[:3]
     d2k = torch.empty((B, nb, Qs, k), dtype=torch.float32, device=x.device)
     rows = torch.empty((B, nb, Qs, k), dtype=torch.int32, device=x.device)

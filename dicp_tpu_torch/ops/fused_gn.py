@@ -40,10 +40,34 @@ from dicp_tpu_torch.ops import _build
 # Kernel launches by this wrapper (CUDA tensors only).
 launches = 0
 
-# The kernel's limits: one thread per source point, the target staged in
-# shared memory (dicp_tpu/ops/fused_gn.py::fused_eligible uses the same).
+# The kernel's limits: one block per pair, the target staged in shared
+# memory (dicp_tpu/ops/fused_gn.py::fused_eligible uses the same).
 MAX_N = 256
 MAX_M = 512
+# Its schedule (csrc/fused_gn.cu): each source point gets lanes_for(n, m)
+# lanes, at most MAX_LANES, in blocks of at most MAX_THREADS threads; a lane
+# walks chunks of CHUNK targets.
+MAX_LANES = 4
+MAX_THREADS = 256
+CHUNK = 4
+
+
+def lanes_for(n: int, m: int) -> int:
+    """Lanes per source point, as ``fused_gn_launch`` picks them: the most,
+    up to MAX_LANES, with the block within MAX_THREADS threads and every lane
+    given at least one chunk of targets."""
+    chunks = -(-m // CHUNK)
+    lanes = MAX_LANES
+    while lanes > 1 and (32 * -(-(n * lanes) // 32) > MAX_THREADS or lanes > chunks):
+        lanes //= 2
+    return lanes
+
+
+def launch_plan(n: int, m: int) -> dict:
+    """K4's launch geometry for pairs of n -> m points: lanes per point and
+    threads per block."""
+    lanes = lanes_for(n, m)
+    return {"lanes": lanes, "threads": 32 * -(-(n * lanes) // 32)}
 _LOSS_CODES = {None: 0, "huber": 1, "cauchy": 2, "welsch": 3, "gm": 4, "trim": 5}
 
 
@@ -354,6 +378,14 @@ def _kernel():
     return fn
 
 
+def _f32_input(x: torch.Tensor) -> torch.Tensor:
+    """x as a contiguous f32 tensor, without a copy where it is one."""
+    x = x.detach()
+    if x.dtype != torch.float32:
+        x = x.to(torch.float32)
+    return x if x.is_contiguous() else x.contiguous()
+
+
 def _fused_gn_cuda(source, target, weight, C0, r0, cfg, tcols):
     global launches
     B, n = source.shape[:2]
@@ -362,16 +394,12 @@ def _fused_gn_cuda(source, target, weight, C0, r0, cfg, tcols):
         raise ValueError(f"the fused kernel takes n <= {MAX_N} and m <= {MAX_M}, "
                          f"got n {n}, m {m}")
     dev = source.device
-    f32 = torch.float32
-    src = source.detach().to(f32).contiguous()
-    tgt = target.detach()[..., :tcols].to(f32).contiguous()
-    w0 = weight.detach().to(f32).contiguous()
-    C0c = C0.detach().to(f32).contiguous()
-    r0c = r0.detach().to(f32).contiguous()
-    C = torch.empty((B, 3, 3), dtype=f32, device=dev)
-    r = torch.empty((B, 3), dtype=f32, device=dev)
-    conv, iters, ratio, cost = (torch.empty((B,), dtype=f32, device=dev) for _ in range(4))
-    wsave = torch.empty((B, n), dtype=f32, device=dev)
+    src, w0, C0c, r0c = (_f32_input(x) for x in (source, weight, C0, r0))
+    tgt = _f32_input(target if target.shape[-1] == tcols else target[..., :tcols])
+    # one allocation for the seven outputs: C (B, 9), r (B, 3), conv, iters,
+    # ratio, cost (B,) and wsave (B, n), each a contiguous run
+    out = torch.empty(B * (16 + n), dtype=torch.float32, device=dev)
+    C, r, conv, iters, ratio, cost, wsave = torch.split(out, (9 * B, 3 * B, B, B, B, B, B * n))
     if B and n:
         err = _kernel()(
             src.data_ptr(), tgt.data_ptr(), w0.data_ptr(), C0c.data_ptr(), r0c.data_ptr(),
@@ -387,9 +415,11 @@ def _fused_gn_cuda(source, target, weight, C0, r0, cfg, tcols):
         if err != 0:
             raise RuntimeError(f"fused_gn kernel launch failed: CUDA error {err}")
         launches += 1
-    dtype = source.dtype
-    return (C.to(dtype), r.to(dtype), conv > 0.0, iters.to(dtype), ratio.to(dtype),
-            wsave.to(dtype), cost.to(dtype))
+    outs = [C.view(B, 3, 3), r.view(B, 3), iters, ratio, wsave.view(B, n), cost]
+    if source.dtype != torch.float32:
+        outs = [o.to(source.dtype) for o in outs]
+    C, r, iters, ratio, wsave, cost = outs
+    return C, r, conv > 0.0, iters, ratio, wsave, cost
 
 
 def fused_gn_solve(source, target, weight, C0, r0, cfg):

@@ -479,6 +479,12 @@ def register(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tensor,
     return _register_impl(source, target, T_init, weight, cfg, noise)
 
 
+# The JAX package's ``register_jit`` is ``jax.jit(register)``.  PyTorch runs
+# eagerly, so the port's is :func:`register` itself: the same signature and
+# results, no compilation.
+register_jit = register
+
+
 def _chunked_over_batch(call, chunk: int, source, target, T_init, weight):
     """Apply ``call(source, target, T_init, weight, pair_ids)`` to sequential
     chunks of ``chunk`` batch elements and concatenate the ``ICPResult``s;

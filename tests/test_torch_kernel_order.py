@@ -1,6 +1,7 @@
-"""The schedules of the CUDA kernels K1 (``csrc/tiled_nn.cu``) and K2/K5
-(``csrc/cluster_search.cu``), emulated in PyTorch on the CPU and held bit for
-bit against the plain versions they must equal.
+"""The schedules of the CUDA kernels K1 (``csrc/tiled_nn.cu``), K2/K5
+(``csrc/cluster_search.cu``), K3 (``csrc/cluster_topk.cu``) and K4's
+lane-split 1-NN (``csrc/fused_gn.cu``), emulated in PyTorch on the CPU and
+held bit for bit against the plain versions they must equal.
 
 The kernels cannot run here, but the orders they visit and merge candidates
 in can: both keep a running minimum per CHUNK candidates and the first
@@ -10,9 +11,12 @@ cuts each block's targets into SLICES contiguous slices and merges them in
 order; K2/K5 cut the staged candidate columns into S slices of a multiple of
 4 columns, pass by pass, merge the slices by the lexicographic minimum of
 (d2, chunk start) and take the bound's minimum over groups split across the
-slices.  The emulations read the schedule's constants from the wrapper
-modules, and a test holds those to the ``constexpr`` values of the ``.cu``
-sources.  No JAX is needed.
+slices.  K3 keeps, per query, a register list of the first K candidates in
+(d2, column) order by stable insertion, then fills with column 0.  K4 splits
+each point's targets over L lanes in chunks of 4 and merges the lanes'
+(d2, index) pairs lexicographically.  The emulations
+read the schedule's constants from the wrapper modules, and a test holds
+those to the ``constexpr`` values of the ``.cu`` sources.  No JAX is needed.
 """
 
 import math
@@ -24,7 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from dicp_tpu_torch.ops import cluster_search, tiled_knn  # noqa: E402
+from dicp_tpu_torch.ops import cluster_search, fused_gn, tiled_knn  # noqa: E402
 
 CSRC = Path(tiled_knn.__file__).resolve().parent.parent / "csrc"
 INF = math.inf
@@ -191,6 +195,15 @@ def emulate_k2(points, centers, radius, xb, bsel, with_bound):
     row = (grp.reshape(col.shape) * g + col % g).to(torch.int32)
     if not with_bound:
         return best, torch.where(best < INF, row, torch.zeros_like(row))
+    return best, row, emulate_bound(centers, radius, xb, sel, slices)
+
+
+def emulate_bound(centers, radius, xb, sel, slices):
+    """csrc/cluster_common.cuh's bound: the groups s, s + S, ... per slice,
+    min of max(sqrt(dc2) (1 - 8 eps) - r, 0) (fmaxf: a NaN term gives 0)
+    merged by min over the slices, then squared."""
+    B, G = centers.shape[:2]
+    nb = xb.shape[1]
     diff = xb[..., None, 0] - centers[:, None, None, :, 0]
     dc2 = diff * diff
     for k in (1, 2):
@@ -198,11 +211,11 @@ def emulate_k2(points, centers, radius, xb, bsel, with_bound):
         dc2 = dc2 + diff * diff
     a = torch.sqrt(dc2) * (1.0 - cluster_search._EPS8) - radius[:, None, None, :]
     a = torch.where(torch.isnan(a), 0.0, torch.clamp(a, min=0.0))
-    chosen = torch.zeros(B, nb, G, dtype=torch.bool).scatter_(-1, sel, True)
+    chosen = torch.zeros(B, nb, G, dtype=torch.bool).scatter_(-1, sel.long(), True)
     a = torch.where(chosen[:, :, None, :], INF, a)
-    amin = torch.stack([a[..., s::slices].amin(-1) if s < G else torch.full(best.shape, INF)
+    amin = torch.stack([a[..., s::slices].amin(-1) if s < G else torch.full(xb.shape[:-1], INF)
                         for s in range(slices)]).amin(0)
-    return best, row, amin * amin
+    return amin * amin
 
 
 def _groups(rng, G, g, scale=5.0):
@@ -364,12 +377,257 @@ def test_k2_plan_and_wrapper_checks():
             cluster_search.block_search(points, xb, wrong)
 
 
+# ---------------------------------------------------------------- K3
+
+def emulate_k3(points, centers, radius, xb, bsel, k):
+    """csrc/cluster_topk.cu's schedule on (B, G, g, 3) points: one list per
+    query of K = next power of two >= k entries over the block's candidates
+    in column order, each candidate below the last entry inserted after the
+    entries of equal d2 (a NaN or inf d2 is never listed: the list starts as
+    (inf, column 0)), the first k entries written out, past the finite ones
+    (inf, column 0's row); the bound as K2's, over one walk of the groups."""
+    B, G, g = points.shape[:3]
+    nb, Qs, P = xb.shape[1], xb.shape[2], bsel.shape[2]
+    K = cluster_search.topk_plan(Qs, k)["K"]
+    sel = bsel.long()
+    cand = torch.stack([points[b][sel[b]] for b in range(B)]).reshape(B, nb, P * g, 3)
+    d2 = _d2(xb, cand)
+    d2 = torch.where(torch.isnan(d2), INF, d2)
+    order = torch.argsort(d2, dim=-1, stable=True)[..., :K]  # (d2, column) order
+    d = torch.gather(d2, -1, order)[..., :k]
+    c = torch.where(d < INF, order[..., :k], torch.zeros_like(order[..., :k]))
+    grp = torch.gather(sel, 2, torch.div(c, g, rounding_mode="floor").reshape(B, nb, -1))
+    rows = (grp.reshape(c.shape) * g + c % g).to(torch.int32)
+    return d, rows, emulate_bound(centers, radius, xb, sel, 1)
+
+
+def insert_stable(vals, cols, d, col):
+    """The kernel's register insertion, entry by entry: d goes to the last
+    slot and moves ahead only of strictly larger entries."""
+    if not d < vals[-1]:
+        return
+    vals[-1], cols[-1] = d, col
+    for i in range(len(vals) - 1, 0, -1):
+        if vals[i] < vals[i - 1]:
+            vals[i], vals[i - 1] = vals[i - 1], vals[i]
+            cols[i], cols[i - 1] = cols[i - 1], cols[i]
+
+
+def _k3_cases():
+    rng = np.random.default_rng(80)
+    cases = {}
+
+    def case(name, points, centers, radius, xb, bsel, ks):
+        t = tuple(_f32(a) for a in (points, centers, radius, xb)) + (
+            torch.as_tensor(np.asarray(bsel, dtype=np.int32)),)
+        for k in ks:
+            cases[f"{name}, k = {k}"] = t + (k,)
+
+    # P = 8, g = 64: one point duplicated at columns 63 | 64 (groups 0 and 1)
+    # and one at 127 | 128, and queries on them
+    p, c, r = _groups(rng, 20, 64)
+    sel = rng.permutation(20)[:8]
+    p[sel[1], 0] = p[sel[0], 63]
+    p[sel[2], 0] = p[sel[1], 63]
+    xb = rng.uniform(-5, 5, (1, 128, 3))
+    xb[0, :4] = p[sel[0], 63] + rng.normal(scale=1e-4, size=(4, 3))
+    xb[0, 4:8] = p[sel[1], 63] + rng.normal(scale=1e-4, size=(4, 3))
+    case("duplicates across group boundaries", p, c, r, xb, [sel], (5, 16, 2))
+    # few finite candidates: the column-0 fill past them
+    p, c, r = _groups(rng, 6, 32)
+    p[:, 3:] = 1e20
+    case("k beyond the finite candidates", p, c, r, rng.uniform(-5, 5, (2, 128, 3)),
+         [rng.permutation(6)[:3] for _ in range(2)], (16, 32))
+    p = np.full((5, 64, 3), 1e20)
+    case("all distances inf", p, p.mean(1), np.zeros(5), np.zeros((1, 5, 3)), [[2, 0, 4]], (1, 8))
+    p, c, r = _groups(rng, 9, 7)
+    case("g = 7", p, c, r, rng.uniform(-5, 5, (3, 128, 3)),
+         [rng.permutation(9)[:3] for _ in range(3)], (1, 5, 21))
+    p, c, r = _groups(rng, 7, 2000)
+    case("g = 2000, P = 5: staging tiles within groups", p, c, r,
+         rng.uniform(-5, 5, (1, 128, 3)),
+         [rng.permutation(7)[:5]], (32,))
+    p, c, r = _groups(rng, 40, 32)
+    case("Qs = 256", p, c, r, rng.uniform(-5, 5, (2, 256, 3)),
+         [rng.permutation(40)[:12] for _ in range(2)], (1, 16, 32))
+    p, c, r = _groups(rng, 12, 128, 1.0)
+    case("one query", p, c, r, rng.uniform(-1, 1, (1, 1, 3)), [[3, 7, 0, 11]], (4,))
+    base = rng.uniform(-10, 10, (64, 3))
+    p = np.concatenate([base, base, base, base])[rng.permutation(256)].reshape(8, 32, 3)
+    c = p.mean(axis=1)
+    r = np.linalg.norm(p - c[:, None], axis=-1).max(axis=1)
+    case("every point four times", p, c, r, base[None, :50] + 1e-3, [rng.permutation(8)[:6]],
+         (5, 16))
+    return cases
+
+
+K3_CASES = _k3_cases()
+
+
+@pytest.mark.parametrize("name", list(K3_CASES))
+def test_k3_schedule_equals_plain(name):
+    *args, k = K3_CASES[name]
+    out = emulate_k3(*_batched(tuple(args)), k)
+    plain = [o[None] for o in cluster_search.fused_topk_plain(*args, k)]
+    for a, b in zip(out, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if name.startswith("duplicates"):
+        d = out[0][0, 0]
+        assert bool((d[:4, 0] == d[:4, 1]).all()) and bool((d[4:8, 0] == d[4:8, 1]).all())
+    if name.startswith("k beyond") or name.startswith("all distances"):
+        fill = ~torch.isfinite(out[0])
+        first = (args[4][:, :1] * args[0].shape[-2])[None, :, :, None].expand_as(out[1])
+        assert bool(fill.any()) and torch.equal(out[1][fill], first[fill])
+
+
+def test_k3_register_insertion_is_the_stable_order():
+    """The kernel's insertion, candidate by candidate, keeps a slice's first
+    K candidates in (d2, column) order, ties in column order, NaN and inf
+    never listed."""
+    rng = np.random.default_rng(81)
+    d = rng.integers(0, 6, 200).astype(np.float32)
+    d[rng.integers(0, 200, 10)] = np.nan
+    d[rng.integers(0, 200, 10)] = np.inf
+    for K in (1, 2, 4, 8, 16, 32):
+        vals, cols = [INF] * K, [0] * K
+        for col, x in enumerate(d):
+            insert_stable(vals, cols, float(x), col)
+        dd = torch.as_tensor(np.where(np.isnan(d), np.inf, d))
+        want = torch.argsort(dd, stable=True)[:K]
+        want_d = dd[want]
+        assert vals == [float(x) if x < INF else INF for x in want_d.tolist()]
+        assert cols == [int(c) if x < INF else 0 for c, x in zip(want.tolist(), want_d.tolist())]
+
+
+@pytest.mark.parametrize("where", ["target", "query"])
+def test_k3_nan_point_stays_uncertified(where):
+    """As K2: a NaN candidate is never listed, a NaN query lists nothing
+    (d2 inf, column 0's row) and gets the bound 0; the bound is 0 past a NaN
+    group.  Held to the plain version with the NaN point at inf and the NaN
+    group at radius inf, as phase 7 of chip_smoke.py holds the kernel."""
+    rng = np.random.default_rng(82)
+    points = rng.uniform(-0.5, 0.5, (20, 64, 3)) + rng.uniform(-5, 5, (20, 1, 3))
+    xb = rng.uniform(-5, 5, (3, 128, 3))
+    if where == "target":
+        points[3, 5] = np.nan
+        xb[0, :8] = points[3, 6] + 1e-3
+    else:
+        xb[1, 7] = np.nan
+    centers = points.mean(axis=1)
+    radius = np.linalg.norm(points - centers[:, None], axis=-1).max(axis=1)
+    bsel = torch.as_tensor(np.array([[3, 1, 2, 0], [4, 5, 6, 7], [8, 3, 9, 10]], np.int32))
+    args = tuple(_f32(a) for a in (points, centers, radius, xb)) + (bsel,)
+    d, rows, bound = (o[0] for o in emulate_k3(*_batched(args), 16))
+    finite = torch.where(torch.isnan(args[0]), INF, args[0])
+    lost = torch.isnan(args[1]).any(-1) | torch.isnan(args[2])
+    ref = cluster_search.fused_topk_plain(finite, torch.where(lost[:, None], 0.0, args[1]),
+                                          torch.where(lost, INF, args[2]), *args[3:], 16)
+    nanq = torch.isnan(args[3]).any(-1)
+    first = (bsel[:, :1] * 64)[:, :, None].expand(3, 128, 16)
+    assert torch.equal(d, torch.where(nanq[..., None], INF, ref[0]))
+    assert torch.equal(rows, torch.where(nanq[..., None], first, ref[1]))
+    assert torch.equal(bound, torch.where(nanq | torch.isnan(ref[2]), 0.0, ref[2]))
+    past = (bsel != 3).all(-1)[:, None].expand(3, 128) if where == "target" else nanq
+    assert bool((bound[past] == 0).all()) and not bool((d[..., -1] <= bound)[past].any())
+
+
+def test_k3_plan_and_wrapper_checks():
+    assert [cluster_search.topk_plan(128, k)["K"] for k in (1, 2, 5, 16, 17, 32)] \
+        == [1, 2, 8, 16, 32, 32]
+    assert cluster_search.topk_plan(256, 32) == {"K": 32, "threads": 256}
+    for bad in (dict(Qs=257, k=4), dict(Qs=128, k=33), dict(Qs=128, k=0)):
+        with pytest.raises(ValueError):
+            cluster_search.topk_plan(bad["Qs"], bad["k"])
+    *args, k = K3_CASES["one query, k = 4"]
+    before = cluster_search.fused_topk.launches
+    cluster_search.fused_topk(*args, k)
+    assert cluster_search.fused_topk.launches == before
+
+
+def test_k3_cuda_route_does_not_synchronise():
+    """fused_topk's CUDA route checks shapes only: no host range check and
+    nothing that reads a device tensor on the host."""
+    import inspect
+
+    code = "".join(inspect.getsource(f) for f in (
+        cluster_search.fused_topk, cluster_search._prepare, cluster_search._check_cuda,
+        cluster_search.topk_plan, cluster_search._launch))
+    cuda_route = code[code.index('if _route(xb) == "cpu":'):]
+    cuda_route = cuda_route[cuda_route.index("\n", cuda_route.index("fused_topk_plain")):]
+    for sync in ("_check_range", ".item(", "bool(", ".tolist(", ".cpu(", "synchronize",
+                 ".numpy("):
+        assert sync not in cuda_route, sync
+
+
+# ---------------------------------------------------------------- K4's 1-NN
+
+def emulate_k4_nn(ps, tgt):
+    """csrc/fused_gn.cu's lane-split 1-NN of points ps (n, 3) over targets
+    (m, 3): lanes_for(n, m) lanes per point, lane l walks chunks l, l + L,
+    ... of CHUNK targets (the targets padded with +inf to a multiple of
+    CHUNK) with a strict '<' in index order, then the lanes' (d2, index)
+    pairs are merged by xor-shuffle rounds of the lexicographic minimum."""
+    n, m = ps.shape[0], tgt.shape[0]
+    L, ch = fused_gn.lanes_for(n, m), fused_gn.CHUNK
+    mp = -(-m // ch) * ch
+    pad = torch.cat([tgt, torch.full((mp - m, 3), INF)])
+    d2 = _d2(ps, pad)
+    best = torch.full((n, L), INF)
+    arg = torch.zeros((n, L), dtype=torch.int64)
+    for lane in range(L):
+        for c0 in range(lane * ch, mp, L * ch):
+            for j in range(c0, c0 + ch):
+                better = d2[:, j] < best[:, lane]
+                best[:, lane] = torch.where(better, d2[:, j], best[:, lane])
+                arg[:, lane] = torch.where(better, j, arg[:, lane])
+    off = 1
+    while off < L:
+        partner = torch.arange(L) ^ off
+        ob, oa = best[:, partner], arg[:, partner]
+        take = (ob < best) | ((ob == best) & (oa < arg))
+        best, arg = torch.where(take, ob, best), torch.where(take, oa, arg)
+        off *= 2
+    assert bool((best == best[:, :1]).all()) and bool((arg == arg[:, :1]).all())
+    return arg[:, 0], best[:, 0]
+
+
+@pytest.mark.parametrize("n, m", [(65, 65), (256, 512), (37, 43), (1, 1), (3, 8), (40, 13)])
+def test_k4_lane_merge_is_the_first_index_argmin(n, m):
+    rng = np.random.default_rng(90 + n + m)
+    tgt = rng.integers(-3, 4, (m, 3)).astype(np.float32)  # many exact ties
+    if m > 4:
+        tgt[m // 2] = np.nan
+        tgt[m // 3] = np.inf
+    ps = rng.integers(-3, 4, (n, 3)).astype(np.float32)
+    ps[0] = np.nan if n > 2 else ps[0]
+    idx, best = emulate_k4_nn(_f32(ps), _f32(tgt))
+    d2 = _d2(_f32(ps), _f32(tgt))
+    d2 = torch.where(torch.isnan(d2), INF, d2)  # a NaN d2 is never taken
+    assert torch.equal(idx, torch.argmin(d2, dim=-1))  # the first index on ties
+    assert torch.equal(best, d2.amin(-1))
+
+
+def test_k4_launch_plan():
+    assert fused_gn.launch_plan(65, 65) == {"lanes": 2, "threads": 160}
+    assert fused_gn.launch_plan(40, 48) == {"lanes": 4, "threads": 160}
+    assert fused_gn.launch_plan(256, 512) == {"lanes": 1, "threads": 256}
+    assert fused_gn.launch_plan(1, 1) == {"lanes": 1, "threads": 32}
+    for n in range(1, fused_gn.MAX_N + 1, 17):
+        for m in (1, 5, 64, 511, 512):
+            plan = fused_gn.launch_plan(n, m)
+            assert plan["threads"] <= fused_gn.MAX_THREADS
+            assert plan["lanes"] <= -(-m // fused_gn.CHUNK)
+
+
 @pytest.mark.parametrize("source, constants", [
     ("tiled_nn.cu", {"kLaneQ": tiled_knn.LANE_Q, "kSlices": tiled_knn.SLICES,
                      "kTile": tiled_knn.TILE, "kChunk": tiled_knn.CHUNK}),
     ("cluster_search.cu", {"kLaneQ": cluster_search.LANE_Q, "kWarps": cluster_search.WARPS,
                            "kMaxSlabBytes": cluster_search.MAX_SLAB_BYTES,
                            "kChunk": cluster_search.CHUNK}),
+    ("cluster_topk.cu", {"kMaxQs": cluster_search.MAX_QS_TOPK}),
+    ("fused_gn.cu", {"kMaxLanes": fused_gn.MAX_LANES, "kMaxThreads": fused_gn.MAX_THREADS,
+                     "kMaxN": fused_gn.MAX_N, "kMaxM": fused_gn.MAX_M}),
 ])
 def test_schedule_constants_mirror_the_sources(source, constants):
     text = (CSRC / source).read_text()
