@@ -75,11 +75,15 @@ Phases, each raising on failure (the script then exits non-zero):
     and with the unrolled gradient.
 
 13. the score-form 1-NN kernels K6 and K7 (csrc/score_nn.cu, built in phase 1):
-    their -Xptxas=-v report, then each against its plain version on the same
-    card tensors, bit for bit (indices and scores): 4096 x 4096 at every
-    (tq, tm) of the A/B table, one 100k x 100k call each, m < tm, m not a
-    multiple of tm, n = 1, n not a multiple of tq, duplicated targets (ties
-    to the first copy) and f64 inputs.  Timed at 100k x 100k.
+    their -Xptxas=-v report, which must show no register spills, then each
+    against its plain version on the same card tensors, bit for bit (indices
+    and scores): 4096 x 4096 at every (tq, tm) of the A/B table, one
+    100k x 100k call each, m < tm, m not a multiple of tm, K6 at tm not a
+    multiple of 4 (4-byte copies), n = 1, n not a multiple of tq, duplicated
+    targets (ties to the first copy), f64 inputs, a NaN target point (held
+    to the plain version with that point out of reach: the kernels skip its
+    column, the plain versions drop its target tile) and a NaN query
+    ((inf, 0)).  Timed at 100k x 100k, call by call and back to back.
 14. the A/B entry point itself, ``dicp_tpu_torch.benchmarks.exp_knn.main()``:
     v0 (K1), v1 (K6) and v2 (K7) correct within the tie tolerance at
     4096 x 4096 against an f64 argmin, then the seven rows timed at
@@ -94,8 +98,8 @@ Phases, each raising on failure (the script then exits non-zero):
     time.  It comes last: host-bound timings taken after the profiler has
     been on in a process run slower.
 
-Phases 2, 6, 7 and 11 time K1, K2, K5, K3 and K4 call by call through their
-wrappers, as runs before them did (the kernels line's ``ms``), and print
+Phases 2, 6, 7, 11 and 13 time K1, K2, K5, K3, K4, K6 and K7 call by call
+through their wrappers, as runs before them did (the kernels line's ``ms``), and print
 beside it the time back to back (20 launches between two CUDA events, median
 of 7 rounds: the kernel's time, free of the host's launch overhead).
 
@@ -109,16 +113,21 @@ of JAX.
 
     python3 chip_smoke.py --ab DIR
 
-times instead, on one card in one process, K1, K2, K5, K3 and K4 built from
-``DIR/dicp_tpu_torch/csrc`` (another checkout, e.g. an earlier commit
-unpacked with ``git archive``, whose launchers have this checkout's C
+times instead, on one card in one process, K1, K2, K5, K3, K4, K6 and K7
+built from ``DIR/dicp_tpu_torch/csrc`` (another checkout, e.g. an earlier
+commit unpacked with ``git archive``, whose launchers have this checkout's C
 signatures: checked in the sources) against this checkout's, in turns
 (DIR's, this, this, DIR's), at the main path's shapes (K3 at 100k -> 100k
-and 8 x 50k -> 60k with k = 16; K4 at the headline and at 256 x 256 -> 512),
-after holding both to the plain versions, call by call and back to back;
-then phases 4, 8, 9 and 12 end to end and K4 through its wrapper, each
-checkout's own, one process each, in the same turns.  The last line holds
-every time as JSON.
+and 8 x 50k -> 60k with k = 16; K4 at the headline and at 256 x 256 -> 512;
+K6 and K7 at 100k x 100k for 256 x 2048 and 512 x 4096, beside this
+checkout's score_nn.cu built at the other slice count), after holding each
+to the plain versions, call by call and back to back; then phases 4, 8, 9
+and 12 end to end and K4 through its wrapper, each checkout's own, one
+process each, in the same turns.  The last line holds every time as JSON.
+
+    python3 chip_smoke.py --ab DIR --only score
+
+times K6 and K7 alone that way: neither lies on a path.
 """
 
 from __future__ import annotations
@@ -1312,67 +1321,112 @@ def _score_bound(n: int, m: int) -> dict:
     return _bound(SCORE_OPS * n * m, 12.0 * (n + m) + 8.0 * n)
 
 
+def _score_cases(cloud) -> list:
+    """(name, queries, targets, (tq, tm) list, targets for the plain
+    version or None) for phase 13."""
+    base = cloud(3000)
+    first = [SCORE_TILES[0]]
+    # a NaN coordinate in one target point: the kernels skip its column, the
+    # plain versions drop its target tile, so they are held to the plain
+    # version with the point moved out of reach (|y|^2 overflows to inf)
+    nan_y = cloud(5000)
+    nan_x = cloud(1000)
+    nan_x[:4] = nan_y[11:15] + 1e-3
+    nan_y[10, 1] = np.nan
+    far = nan_y.copy()
+    far[10] = 1e30
+    nan_q = cloud(1000)
+    nan_q[7, 2] = np.nan
+    return [
+        ("4096 x 4096", cloud(4096), cloud(4096), SCORE_TILES, None),
+        (f"{N_SCORE} x {N_SCORE}", cloud(N_SCORE), cloud(N_SCORE), first, None),
+        ("m < tm: 1000 x 300", cloud(1000), cloud(300), first, None),
+        ("m not a multiple of tm: 777 x 5001", cloud(777), cloud(5001), SCORE_TILES, None),
+        ("tm not a multiple of 4 (K6's 4-byte copies): 777 x 5001", cloud(777), cloud(5001),
+         [(256, 2047), (64, 1001)], None),
+        ("n = 1", cloud(1), cloud(5000), first, None),
+        ("n not a multiple of tq: 1000 x 5000 at 64 x 256", cloud(1000), cloud(5000),
+         [(64, 256)], None),
+        ("duplicated targets", base[:1000] + cloud(1000) * 2e-4,
+         np.concatenate([base, base]), first, None),
+        ("f64 inputs", cloud(2000, np.float64), cloud(3000, np.float64), first, None),
+        (NAN_TARGET, nan_x, nan_y, [SCORE_TILES[0], (64, 1001)], far),
+        ("a NaN query", nan_q, cloud(5000), first, None),
+    ]
+
+
+NAN_TARGET = "a NaN target point"
+
+
 def phase13_score_kernels(device, libs: dict) -> dict:
     """K6 and K7 against their plain versions on the same card tensors, bit
-    for bit; timed at 100k x 100k."""
+    for bit; no register spills; timed at 100k x 100k, call by call and back
+    to back."""
     exp_knn._kernels()  # load and bind
-    print(f"  {libs['score_nn'].name}:\n{_report(libs['score_nn'])}")
+    report = _report(libs["score_nn"])
+    print(f"  {libs['score_nn'].name}:\n{report}")
+    for name, regs, _, _ in _no_spills(report, "score_nn"):
+        print(f"  {name}: {regs} registers, no spills")
     rng = np.random.default_rng(SEED + 13)
 
     def cloud(n, dtype=np.float32):
         return rng.uniform(-50, 50, (n, 3)).astype(dtype)
 
-    base = cloud(3000)
-    first = [SCORE_TILES[0]]
-    cases = [  # (name, queries, targets, (tq, tm) list)
-        ("4096 x 4096", cloud(4096), cloud(4096), SCORE_TILES),
-        (f"{N_SCORE} x {N_SCORE}", cloud(N_SCORE), cloud(N_SCORE), first),
-        ("m < tm: 1000 x 300", cloud(1000), cloud(300), first),
-        ("m not a multiple of tm: 777 x 5001", cloud(777), cloud(5001), SCORE_TILES),
-        ("n = 1", cloud(1), cloud(5000), first),
-        ("n not a multiple of tq: 1000 x 5000 at 64 x 256", cloud(1000), cloud(5000),
-         [(64, 256)]),
-        ("duplicated targets", base[:1000] + cloud(1000) * 2e-4,
-         np.concatenate([base, base]), first),
-        ("f64 inputs", cloud(2000, np.float64), cloud(3000, np.float64), first),
-    ]
     err = {"score_nn_v1": 0.0, "score_nn_v2": 0.0}
-    for name, x_np, y_np, tiles in cases:
+    for name, x_np, y_np, tiles, y_plain in _score_cases(cloud):
         x, y = to_torch(x_np, device), to_torch(y_np, device)
+        yp = y if y_plain is None else to_torch(y_plain, device)
         for tq, tm in tiles:
-            runs = [("score_nn_v1", exp_knn.nn_v1, exp_knn.nn_v1_plain, {}),
-                    ("score_nn_v2", exp_knn.nn_v2, exp_knn.nn_v2_plain, {})]
+            runs = [("score_nn_v1", exp_knn.nn_v1, exp_knn.nn_v1_plain, {})]
+            if tm % 4 == 0:  # K7 takes tm a multiple of 4
+                runs.append(("score_nn_v2", exp_knn.nn_v2, exp_knn.nn_v2_plain, {}))
             if (tq, tm) == SCORE_TILES[0]:
                 runs.append(("score_nn_v1", exp_knn.nn_v1, exp_knn.nn_v1_plain,
                              {"semantics": True}))
             for kname, fn, plain_fn, kw in runs:
                 idx_k, s_k = fn(x, y, tq=tq, tm=tm, **kw)
-                idx_p, s_p = plain_fn(x, y, tq=tq, tm=tm, **kw)
+                idx_p, s_p = plain_fn(x, yp, tq=tq, tm=tm, **kw)
                 torch.cuda.synchronize()
                 what = f"{kname} {tq}x{tm}{' semantics' if kw else ''} ({name})"
                 _check(idx_k.shape == (x.shape[0],) and idx_k.dtype == torch.int32,
                        f"{what}: (n,) int32 indices")
                 _check(torch.equal(idx_k, idx_p), f"{what}: indices equal the plain version's")
                 _check(torch.equal(s_k, s_p), f"{what}: scores bit-equal to the plain version's")
-                err[kname] = max(err[kname], _max_abs_diff(s_k, s_p))
+                if y_plain is None:
+                    err[kname] = max(err[kname], _max_abs_diff(s_k, s_p))
                 if name == "duplicated targets":
-                    _check(bool((idx_k < len(base)).all()), f"{what}: ties to the first copy")
+                    _check(bool((idx_k < len(y_np) // 2).all()),
+                           f"{what}: ties to the first copy")
+                if name == NAN_TARGET:
+                    _check(idx_k[:4].tolist() == [11, 12, 13, 14], f"{what}: nearest found")
+                    dropped = int((plain_fn(x, y, tq=tq, tm=tm, **kw)[0] != idx_k).sum())
+                    _check(dropped > 0, f"{what}: the plain version drops the NaN's tile")
+                    print(f"    {what}: the plain version on the NaN targets differs in "
+                          f"{dropped} of {len(idx_k)} queries (its tile dropped)")
+                if name == "a NaN query":
+                    _check(int(idx_k[7]) == 0 and float(s_k[7]) == float("inf"),
+                           f"{what}: a NaN query gives (inf, 0)")
         print(f"  K6, K7 == plain: {name}: {tuple(x.shape)} x {tuple(y.shape)} {x.dtype}, "
               f"tiles {list(tiles)}")
 
     x, y = (to_torch(cloud(N_SCORE), device) for _ in range(2))
     out = {}
+    bound = _score_bound(N_SCORE, N_SCORE)
+    ops = SCORE_OPS * N_SCORE * N_SCORE
     for kname, fn, plain_fn in (("score_nn_v1", exp_knn.nn_v1, exp_knn.nn_v1_plain),
                                 ("score_nn_v2", exp_knn.nn_v2, exp_knn.nn_v2_plain)):
         ms = cuda_median_ms(lambda: fn(x, y), warmup=3, iters=20)
+        chain_ms = _chain_ms(lambda: fn(x, y))
         plain_ms = cuda_median_ms(lambda: plain_fn(x, y), warmup=1, iters=3)
-        bound = _score_bound(N_SCORE, N_SCORE)
         out[kname] = {"max_abs_err": err[kname], "ms": ms, "plain_ms": plain_ms, **bound,
                       "library_ms": None}
-        print(f"  {kname} at {N_SCORE} x {N_SCORE}, 256 x 2048: {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
-              f"{SCORE_OPS:.0f} f32 operations per pair)")
-    print("phase 13 ok: K6 and K7 bit-equal to their plain versions in every case")
+        print(f"  {kname} at {N_SCORE} x {N_SCORE}, 256 x 2048: {ms:.4f} ms call by call "
+              f"({chain_ms:.4f} ms back to back), plain {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {SCORE_OPS:.0f} f32 "
+              f"operations per pair; {bound['bound_ms'] / chain_ms:.3f} of it back to back), "
+              f"issue ceiling {_issue_ms(ops):.4f} ms ({chain_ms / _issue_ms(ops):.2f} x)")
+    print("phase 13 ok: K6 and K7 bit-equal to their plain versions in every case, no "
+          "register spills")
     return out
 
 
@@ -1540,39 +1594,50 @@ def _launch_signature(source: Path, name: str) -> str:
     return " ".join(found.group(1).split())
 
 
-AB_KERNELS = ("tiled_nn", "cluster_search", "cluster_topk", "fused_gn")
+AB_KERNELS = ("tiled_nn", "cluster_search", "cluster_topk", "fused_gn", "score_nn")
+# each source's launchers, bound with this checkout's argtypes
+LAUNCHERS = {"tiled_nn": ("tiled_nn",), "cluster_search": ("cluster_search",),
+             "cluster_topk": ("cluster_topk",), "fused_gn": ("fused_gn",),
+             "score_nn": ("score_nn_v1", "score_nn_v2")}
 
 
-def _build_other(parent: Path) -> dict:
-    """K1, K2/K5, K3 and K4 built from ``parent``'s sources with this
-    checkout's flags, one nvcc each, started together.  Each launcher must
-    have this checkout's C signature (checked in the sources), and is bound
-    with it."""
+def _argtypes() -> dict:
+    v1, v2 = exp_knn._kernels()
+    return {"tiled_nn": tiled_knn._kernel().argtypes,
+            "cluster_search": cluster_search._search_kernel().argtypes,
+            "cluster_topk": cluster_search._topk_kernel().argtypes,
+            "fused_gn": fused_gn._kernel().argtypes,
+            "score_nn_v1": v1.argtypes, "score_nn_v2": v2.argtypes}
+
+
+def _build_other(root: Path, names) -> dict:
+    """The launchers of ``names`` built from ``root``'s sources with this
+    checkout's flags, one nvcc each, started together:
+    {launcher without "_launch": function}.  Each launcher must have this
+    checkout's C signature (checked in the sources), and is bound with it."""
     import ctypes
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in AB_KERNELS:
+    for name in names:
         lib = _build.BUILD_DIR / f"other-lib{name}.so"
-        src = parent / "dicp_tpu_torch" / "csrc" / f"{name}.cu"
-        mine = _launch_signature(ROOT / "dicp_tpu_torch" / "csrc" / f"{name}.cu",
-                                 f"{name}_launch")
-        _check(_launch_signature(src, f"{name}_launch") == mine,
-               f"{src}'s {name}_launch has this checkout's signature ({mine})")
-        jobs[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                                        str(src)], stdout=subprocess.PIPE,
+        src = root / "dicp_tpu_torch" / "csrc" / f"{name}.cu"
+        for fn in LAUNCHERS[name]:
+            mine = _launch_signature(ROOT / "dicp_tpu_torch" / "csrc" / f"{name}.cu",
+                                     f"{fn}_launch")
+            _check(_launch_signature(src, f"{fn}_launch") == mine,
+                   f"{src}'s {fn}_launch has this checkout's signature ({mine})")
+        jobs[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                                        str(lib), str(src)], stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True), lib)
-    fns = {}
+    fns, argtypes = {}, _argtypes()
     for name, (proc, lib) in jobs.items():
         _, err = proc.communicate()
-        _check(proc.returncode == 0, f"nvcc built {name} from {parent}: {err[-2000:]}")
-        fns[name] = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
-    fns["tiled_nn"].argtypes = tiled_knn._kernel().argtypes
-    fns["cluster_search"].argtypes = cluster_search._search_kernel().argtypes
-    fns["cluster_topk"].argtypes = cluster_search._topk_kernel().argtypes
-    fns["fused_gn"].argtypes = fused_gn._kernel().argtypes
-    for fn in fns.values():
-        fn.restype = ctypes.c_int
+        _check(proc.returncode == 0, f"nvcc built {name} from {root}: {err[-2000:]}")
+        for fn in LAUNCHERS[name]:
+            fns[fn] = getattr(ctypes.CDLL(str(lib)), f"{fn}_launch")
+            fns[fn].argtypes = argtypes[fn]
+            fns[fn].restype = ctypes.c_int
     return fns
 
 
@@ -1642,16 +1707,19 @@ def _k4_main_inputs(device) -> dict:
                            torch.eye(4, device=device).expand(B_HEAD, 4, 4)))}
 
 
-def main_ab(parent: Path) -> None:
-    """K1, K2, K5, K3 and K4 of ``parent`` against this checkout's, on one
-    card, in turns (parent, this, this, parent) at the main path's shapes,
-    each launcher called directly on the same tensors after holding both to
-    the plain versions: timed call by call (as phases 2, 6, 7 and 11 time the
-    wrappers) and back to back.  Then the paths end to end (_ab_paths)."""
+def main_ab(parent: Path, only: str | None = None) -> None:
+    """K1, K2, K5, K3, K4, K6 and K7 of ``parent`` against this checkout's,
+    on one card, in turns (parent, this, this, parent) at the main path's
+    shapes (K6/K7 at the A/B's), each launcher called directly on the same
+    tensors after holding both to the plain versions: timed call by call (as
+    phases 2, 6, 7, 11 and 13 time the wrappers) and back to back.  Then the
+    paths end to end (_ab_paths).  ``only="score"`` times K6 and K7 alone
+    (neither lies on a path)."""
     card = phase0_device()
     device = torch.device("cuda", 0)
-    _build.build_all(AB_KERNELS)
-    other = _build_other(parent)
+    names = ("score_nn",) if only == "score" else AB_KERNELS
+    _build.build_all(names)
+    other = _build_other(parent, names)
     stream = torch.cuda.current_stream(device).cuda_stream
     rows = {}
 
@@ -1660,15 +1728,32 @@ def main_ab(parent: Path) -> None:
             fn()
         torch.cuda.synchronize()
         check()
+        order = list(calls) + list(calls)[::-1]
         for how, timer in (("call by call", lambda f: cuda_median_ms(f, warmup=3, iters=20)),
                            ("back to back", _chain_ms)):
-            times = {"parent": [], "this": []}
-            for who in ("parent", "this", "this", "parent"):
+            times = {who: [] for who in calls}
+            for who in order:
                 times[who].append(timer(calls[who]))
             rows[f"{name}, {how}"] = times
-            print(f"  {name}, {how}: parent {times['parent']} ms, this {times['this']} ms "
-                  f"(order parent, this, this, parent)")
+            print(f"  {name}, {how}: " + ", ".join(f"{who} {t} ms" for who, t in times.items())
+                  + f" (order {', '.join(order)})")
 
+    if only != "score":
+        _ab_main_kernels(record, other, device, stream)
+    mine = dict(zip(LAUNCHERS["score_nn"], exp_knn._kernels()))
+    _ab_score(record, {"parent": other, "this": mine}, device, stream)
+    if only != "score":
+        rows.update(_ab_paths(parent))
+    summary = {"card": card, "parent": str(parent),
+               "ms": {name: {who: statistics.median(t) for who, t in times.items()}
+                      for name, times in rows.items()}, "runs": rows}
+    print(f"card: {card}")
+    print(json.dumps(summary))
+
+
+def _ab_main_kernels(record, other: dict, device, stream) -> None:
+    """K1, K2, K5, K3 and K4 of the parent and this checkout, at the main
+    paths' shapes."""
     sources, targets, _ = scene_pairs(np.random.default_rng(SEED), B, N_SRC, M_TGT)
     x = to_torch(sources, device, torch.float32).contiguous()
     y = to_torch(targets[..., :3], device, torch.float32).contiguous()
@@ -1775,18 +1860,54 @@ def main_ab(parent: Path) -> None:
 
         record(f"K4 {label}", {"parent": k4(other["fused_gn"], "parent"),
                                "this": k4(fused_gn._kernel(), "this")}, k4_check)
-    rows.update(_ab_paths(parent))
-    summary = {"card": card, "parent": str(parent),
-               "ms": {name: {who: statistics.median(t) for who, t in times.items()}
-                      for name, times in rows.items()}, "runs": rows}
-    print(f"card: {card}")
-    print(json.dumps(summary))
+
+
+def _ab_score(record, contenders: dict, device, stream) -> None:
+    """K6 and K7 of each contender ({who: {"score_nn_v1": launcher,
+    "score_nn_v2": launcher}}) at 100k x 100k for 256 x 2048 and 512 x 4096,
+    after holding each to the plain versions, bit for bit."""
+    rng = np.random.default_rng(SEED + 13)
+    x, y = (to_torch(rng.uniform(-50, 50, (N_SCORE, 3)).astype(np.float32), device)
+            for _ in range(2))
+    n = N_SCORE
+    for tq, tm in SCORE_TILES[:2]:
+        m_pad = -(-n // tm) * tm
+        y4 = exp_knn._pack_y8(y, m_pad)[:4].contiguous()
+        for kname, label, plain_fn in (("score_nn_v1", "K6", exp_knn.nn_v1_plain),
+                                       ("score_nn_v2", "K7", exp_knn.nn_v2_plain)):
+            res = {who: (torch.full((n,), -1, dtype=torch.int32, device=device),
+                         torch.full((n,), float("nan"), device=device),
+                         torch.empty((m_pad // tm, n), device=device),
+                         torch.empty((m_pad // tm, n), dtype=torch.int32, device=device))
+                   for who in contenders}
+
+            def call(who, kname=kname, res=res, m_pad=m_pad, y4=y4, tq=tq, tm=tm):
+                fn = contenders[who][kname]
+                idx, s, part_s, part_i = (t.data_ptr() for t in res[who])
+                args = (part_s, part_i, idx, s) if kname == "score_nn_v1" else (idx, s)
+                what = f"{kname} ({who}) launched at {tq} x {tm}"
+
+                def launch():
+                    _check(fn(x.data_ptr(), y4.data_ptr(), n, m_pad, tq, tm, *args, 0,
+                              stream) == 0, what)
+                return launch
+
+            def check(res=res, plain_fn=plain_fn, tq=tq, tm=tm, label=label):
+                ref = plain_fn(x, y, tq=tq, tm=tm)
+                for who in contenders:
+                    _check(torch.equal(res[who][0], ref[0]) and torch.equal(res[who][1], ref[1]),
+                           f"{label} ({who}) equals the plain version ({tq} x {tm})")
+
+            record(f"{label} {n} x {n}, {tq} x {tm}", {who: call(who) for who in contenders},
+                   check)
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         main_ab(Path(sys.argv[2]).resolve())
+    elif sys.argv[1:2] == ["--ab"] and sys.argv[3:] == ["--only", "score"]:
+        main_ab(Path(sys.argv[2]).resolve(), only="score")
     elif len(sys.argv) > 1:
-        raise SystemExit("usage: python3 chip_smoke.py [--ab DIR]")
+        raise SystemExit("usage: python3 chip_smoke.py [--ab DIR [--only score]]")
     else:
         main()

@@ -8,10 +8,17 @@ Variants (all exact on the winner):
         |x|^2 dropped (it cannot change a row's argmin), split over target
         tiles: grid (query tiles, target tiles), then a reduction in tile order
   v2    K7 (``csrc/score_nn.cu``), the same function with one block per
-        query tile streaming every target tile through a cp.async double
-        buffer
+        query tile streaming every target tile
   v1b   v1 with ``semantics=True``: Mosaic's grid-dimension annotation,
         which has no counterpart on the card (the same launch as v1)
+
+Both kernels run one scoring core, K1's warp schedule: a warp holds 128
+queries (4 per lane) and streams a contiguous column slice through its own
+two-stage cp.async ring, with a running fminf per 32-column chunk, the
+slices merged in order and the winning chunk re-scanned (:func:`score_plan`
+gives a block's groups, slices and shared memory).  A NaN target point
+loses only its own column there, where the plain versions, like the TPU
+kernels, drop its whole target tile.
 
 v1 and v2 return the score s, not a squared distance.  Their function is
 defined once, by :func:`_pack_x8`, :func:`_pack_y8` and the plain versions
@@ -20,8 +27,9 @@ are columns whose |y|^2 is 1e30; s = ((x0 a0 + x1 a1) + x2 a2) + |y|^2 with
 a = -2 y and |y|^2 = (y0 y0 + y1 y1) + y2 y2, in that order; the first column
 wins ties inside a target tile, and a strict '<' keeps the earlier tile,
 from a carry that starts at (inf, 0).  The kernels, built ``--fmad=false``,
-agree with the plain versions bit for bit.  No tensor core and no TF32 take
-part: a one-pass low-precision score flips real argmins at R = 50.
+agree with the plain versions bit for bit where no target point is NaN.  No
+tensor core and no TF32 take part: a one-pass low-precision score flips real
+argmins at R = 50.
 
 Routing is by device: CPU tensors take the plain versions, CUDA tensors
 launch the kernels or raise.  ``nn_v1.launches`` and ``nn_v2.launches``
@@ -51,14 +59,29 @@ from dicp_tpu_torch.utils.timing import cuda_median_ms
 _PAD_VAL = 1e30
 # Elements of one (queries, columns) score block in the plain versions.
 _PLAIN_BLOCK = 1 << 24
-# Kernel limits (csrc/score_nn.cu): up to 128 threads of at most 8 queries,
-# and at most 65535 target tiles in K6's grid.
-MAX_TQ = 1024
+# The kernels' schedule and limits (csrc/score_nn.cu): a block holds
+# ceil(tq / 128) query groups of 128 queries (LANE_Q per lane of a warp), and
+# each group's columns are cut into min(SLICES, MAX_WARPS / groups) slices,
+# one warp each, so tq <= 1024 keeps a block at 32 warps.  A warp streams its
+# slice through a two-stage ring of TILE columns x 4 rows, 32 TILE bytes of
+# shared memory, with a running minimum per CHUNK columns.  K6's grid has at
+# most 65535 target tiles.
+LANE_Q, SLICES, MAX_WARPS, TILE, CHUNK = 4, 4, 32, 128, 32
+MAX_TQ = MAX_WARPS // 4 * 32 * LANE_Q
 _MAX_TILES = 65535
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def score_plan(tq: int) -> dict:
+    """The block of a query tile of ``tq``: query groups, column slices per
+    group, warps, and bytes of dynamic shared memory (one ring per warp)."""
+    groups = _cdiv(tq, 32 * LANE_Q)
+    slices = min(SLICES, MAX_WARPS // groups)
+    return {"groups": groups, "slices": slices, "warps": groups * slices,
+            "smem": 32 * TILE * groups * slices}
 
 
 def _pack_x8(x: torch.Tensor) -> torch.Tensor:
@@ -190,7 +213,8 @@ def _cuda_inputs(name: str, x, y, tq: int, tm: int, smem: int):
     n, m = x.shape[0], y.shape[0]
     m_pad = _cdiv(m, tm) * tm
     if tq > MAX_TQ:
-        raise ValueError(f"{name} takes tq <= {MAX_TQ} (128 threads x 8 queries), got {tq}")
+        raise ValueError(f"{name} takes tq <= {MAX_TQ} ({MAX_WARPS} warps: 8 query groups of "
+                         f"128 x 4 slices), got {tq}")
     if m_pad // tm > _MAX_TILES or 3 * max(n, 1) >= 2**31 or 4 * m_pad >= 2**31:
         raise ValueError(f"{name}: n={n}, m={m}, tm={tm} exceed the kernel's 32-bit grid")
     allowed = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
@@ -216,7 +240,7 @@ def nn_v1(x: torch.Tensor, y: torch.Tensor, tq: int = 256, tm: int = 2048,
     _check(x, y, tq, tm)
     if _route(x) == "cpu":
         return nn_v1_plain(x, y, tq, tm, semantics)
-    smem = 16 * tm
+    smem = score_plan(tq)["smem"]  # each warp's ring; tm sets only the grid
     xc, y4, m_pad = _cuda_inputs("score_nn_v1", x, y, tq, tm, smem)
     n, nt = xc.shape[0], m_pad // tm
     idx = torch.empty(n, dtype=torch.int32, device=x.device)
@@ -234,15 +258,16 @@ def nn_v1(x: torch.Tensor, y: torch.Tensor, tq: int = 256, tm: int = 2048,
 
 
 def nn_v2(x: torch.Tensor, y: torch.Tensor, tq: int = 256, tm: int = 2048):
-    """K7: the function of :func:`nn_v1`, one block per query tile streaming
-    the target tiles through a cp.async double buffer (tm a multiple of 4)."""
+    """K7: the function of :func:`nn_v1`, one block per query tile whose
+    warps stream every column through their cp.async rings (tm a multiple
+    of 4; it sets only the padding)."""
     _check(x, y, tq, tm)
     if _route(x) == "cpu":
         return nn_v2_plain(x, y, tq, tm)
     if tm % 4:
         raise ValueError(f"score_nn_v2 copies 16-byte chunks: tm must be a multiple of 4, "
                          f"got {tm}")
-    smem = 32 * tm
+    smem = score_plan(tq)["smem"]  # each warp's ring; tm sets only m_pad
     xc, y4, m_pad = _cuda_inputs("score_nn_v2", x, y, tq, tm, smem)
     n = xc.shape[0]
     idx = torch.empty(n, dtype=torch.int32, device=x.device)

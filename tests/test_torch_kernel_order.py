@@ -1,7 +1,8 @@
 """The schedules of the CUDA kernels K1 (``csrc/tiled_nn.cu``), K2/K5
 (``csrc/cluster_search.cu``), K3 (``csrc/cluster_topk.cu``) and K4's
-lane-split 1-NN (``csrc/fused_gn.cu``), emulated in PyTorch on the CPU and
-held bit for bit against the plain versions they must equal.
+lane-split 1-NN (``csrc/fused_gn.cu``) and K6/K7's scoring core
+(``csrc/score_nn.cu``), emulated in PyTorch on the CPU and held bit for bit
+against the plain versions they must equal.
 
 The kernels cannot run here, but the orders they visit and merge candidates
 in can: both keep a running minimum per CHUNK candidates and the first
@@ -14,7 +15,10 @@ order; K2/K5 cut the staged candidate columns into S slices of a multiple of
 slices.  K3 keeps, per query, a register list of the first K candidates in
 (d2, column) order by stable insertion, then fills with column 0.  K4 splits
 each point's targets over L lanes in chunks of 4 and merges the lanes'
-(d2, index) pairs lexicographically.  The emulations
+(d2, index) pairs lexicographically.  K6 and K7 run K1's schedule over the
+score columns: K6 per target tile, its partials carried in tile order, K7
+over every column; where a target point is NaN they lose only its column,
+and the plain versions its whole tile.  The emulations
 read the schedule's constants from the wrapper modules, and a test holds
 those to the ``constexpr`` values of the ``.cu`` sources.  No JAX is needed.
 """
@@ -28,6 +32,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from dicp_tpu_torch.benchmarks import exp_knn  # noqa: E402
 from dicp_tpu_torch.ops import cluster_search, fused_gn, tiled_knn  # noqa: E402
 
 CSRC = Path(tiled_knn.__file__).resolve().parent.parent / "csrc"
@@ -559,6 +564,146 @@ def test_k3_cuda_route_does_not_synchronise():
         assert sync not in cuda_route, sync
 
 
+# ---------------------------------------------------------------- K6 / K7
+
+def _scores(x, y, tm):
+    """csrc/score_nn.cu's scores (n, m_pad): ((x0 a0 + x1 a1) + x2 a2) + |y|^2
+    over the packed targets, pad columns included."""
+    x8, y8, m_pad = exp_knn._packed(x, y, tm)
+    s = x8[:, 0:1] * y8[0]
+    s = s + x8[:, 1:2] * y8[1]
+    s = s + x8[:, 2:3] * y8[2]
+    return s + y8[3], m_pad
+
+
+def _score_block(s, lo, hi, slices):
+    """score_nn.cu's block_argmin over columns [lo, hi): S slices of a
+    multiple of 4 columns, CHUNK-column running minima in each, the slices
+    merged in order with a strict '<', the first column of the minimum
+    re-found in the winning chunk, inside [lo, hi)."""
+    span = hi - lo
+    width = (-(-span // slices) + 3) // 4 * 4
+    merged = None
+    for k in range(slices):
+        a, b = lo + min(span, k * width), lo + min(span, k * width + width)
+        best, start = _chunk_minima(s[:, a:b], exp_knn.CHUNK)
+        merged = (best, start + a) if merged is None else _carry(*merged, best, start + a)
+    best, start = merged
+    return _first_in_chunk(s[:, :hi], best, start, exp_knn.CHUNK), best
+
+
+def emulate_k6(x, y, tq, tm):
+    """K6: block (i, t) runs the core over target tile t into a (tiles, n)
+    partial buffer; score_reduce_kernel carries the partials in tile order."""
+    s, m_pad = _scores(x, y, tm)
+    slices = exp_knn.score_plan(tq)["slices"]
+    best = torch.full(s.shape[:1], INF)
+    arg = torch.zeros(s.shape[:1], dtype=torch.int64)
+    for t in range(m_pad // tm):
+        part_i, part_s = _score_block(s, t * tm, t * tm + tm, slices)
+        best, arg = _carry(best, arg, part_s, part_i)
+    return arg.to(torch.int32), best
+
+
+def emulate_k7(x, y, tq, tm):
+    """K7: one block per query tile runs the core over all m_pad columns."""
+    s, m_pad = _scores(x, y, tm)
+    idx, best = _score_block(s, 0, m_pad, exp_knn.score_plan(tq)["slices"])
+    return idx.to(torch.int32), best
+
+
+def _score_cases():
+    rng = np.random.default_rng(100)
+
+    def cloud(n):
+        return rng.uniform(-50, 50, (n, 3)).astype(np.float32)
+
+    cases = {f"300 x 5000 at {tq} x {tm}": (cloud(300), cloud(5000), tq, tm)
+             for tq, tm in SCORE_TILES}
+    # the nearest target duplicated at 511 | 512 (K6's slices of 512 at
+    # 256 x 2048), 2047 | 2048 (a target tile) and 1535 | 1536 (K7's slices
+    # of 1536 over m_pad = 6144), and a query on each
+    y = cloud(4100)
+    for j in (511, 2047, 1535):
+        y[j + 1] = y[j]
+    cases["duplicates across a slice and a tile boundary"] = (
+        y[[511, 2047, 1535]] + 1e-3, y, 256, 2048)
+    cases["tm = 1001, not a multiple of 4"] = (cloud(200), cloud(3001), 256, 1001)
+    cases["tm = 7"] = (cloud(70), cloud(30), 64, 7)
+    cases["m = 3 < slices"] = (cloud(50), cloud(3), 256, 2048)
+    cases["n = 1"] = (cloud(1), cloud(900), 256, 256)
+    cases["n = 200: a ragged query group"] = (cloud(200), cloud(1500), 256, 512)
+    cases["tq = 1024: 8 query groups"] = (cloud(1100), cloud(700), 1024, 256)
+    cases["all targets at 1e20: |y|^2 inf, a pad column wins"] = (
+        cloud(5), np.full((600, 3), 1e20, np.float32), 64, 256)
+    return cases
+
+
+SCORE_TILES = ((256, 2048), (512, 4096), (256, 4096), (512, 2048))  # chip_smoke.py's
+SCORE_CASES = _score_cases()
+
+
+@pytest.mark.parametrize("name", list(SCORE_CASES))
+def test_k6_k7_schedule_equals_plain(name):
+    x, y, tq, tm = SCORE_CASES[name]
+    x, y = _f32(x), _f32(y)
+    runs = [(emulate_k6, exp_knn.nn_v1_plain)]
+    if tm % 4 == 0:  # K7 takes tm a multiple of 4
+        runs.append((emulate_k7, exp_knn.nn_v2_plain))
+    for emulate, plain in runs:
+        idx, s = emulate(x, y, tq, tm)
+        idx_p, s_p = plain(x, y, tq=tq, tm=tm)
+        assert idx.dtype == idx_p.dtype and torch.equal(idx, idx_p)
+        assert torch.equal(s, s_p)
+        if name.startswith("duplicates"):
+            assert idx.tolist() == [511, 2047, 1535]
+        if name.startswith("all targets"):
+            assert bool((idx == 600).all())
+
+
+@pytest.mark.parametrize("tq, tm", [(256, 2048), (64, 256), (128, 999)])
+def test_k6_k7_nan_target_loses_only_its_column(tq, tm):
+    """The kernels skip a NaN score, as K1 and K2 skip a NaN distance: they
+    equal the plain versions on the same targets with the NaN point moved
+    out of reach.  The plain versions, like the TPU kernels, drop the NaN
+    point's whole target tile (its minimum is NaN and fails the strict
+    '<'): the recorded deviation.  A NaN query gives (inf, 0) on both."""
+    rng = np.random.default_rng(101)
+    y = rng.uniform(-50, 50, (3000, 3)).astype(np.float32)
+    x = rng.uniform(-50, 50, (400, 3)).astype(np.float32)
+    x[:3] = y[11:14] + 1e-3
+    y[10, 1] = np.nan
+    x[5, 0] = np.nan
+    far = y.copy()
+    far[10] = 1e30  # |y|^2 overflows: its score is inf and never wins
+    x, y, far = _f32(x), _f32(y), _f32(far)
+    runs = [(emulate_k6, exp_knn.nn_v1_plain)]
+    if tm % 4 == 0:
+        runs.append((emulate_k7, exp_knn.nn_v2_plain))
+    for emulate, plain in runs:
+        idx, s = emulate(x, y, tq, tm)
+        idx_f, s_f = plain(x, far, tq=tq, tm=tm)
+        assert torch.equal(idx, idx_f) and torch.equal(s, s_f)
+        assert idx[5] == 0 and s[5] == INF
+        assert idx[:3].tolist() == [11, 12, 13]
+        idx_p, s_p = plain(x, y, tq=tq, tm=tm)
+        assert idx_p[5] == 0 and s_p[5] == INF
+        dropped = idx_p != idx  # tile 0 (columns [0, tm)) lost in the plain version
+        assert bool(dropped.any()) and bool((idx[dropped] < tm).all())
+        assert bool((s_p[dropped] > s[dropped]).all())
+
+
+def test_score_plan():
+    assert exp_knn.score_plan(256) == {"groups": 2, "slices": 4, "warps": 8, "smem": 32768}
+    assert exp_knn.score_plan(64)["warps"] == 4
+    assert exp_knn.score_plan(exp_knn.MAX_TQ) == {"groups": 8, "slices": 4, "warps": 32,
+                                                  "smem": 131072}
+    assert exp_knn.MAX_TQ == 1024
+    for tq in range(1, exp_knn.MAX_TQ + 1, 37):
+        plan = exp_knn.score_plan(tq)
+        assert plan["warps"] <= exp_knn.MAX_WARPS and 32 * plan["slices"] >= 32 * exp_knn.LANE_Q
+
+
 # ---------------------------------------------------------------- K4's 1-NN
 
 def emulate_k4_nn(ps, tgt):
@@ -628,6 +773,9 @@ def test_k4_launch_plan():
     ("cluster_topk.cu", {"kMaxQs": cluster_search.MAX_QS_TOPK}),
     ("fused_gn.cu", {"kMaxLanes": fused_gn.MAX_LANES, "kMaxThreads": fused_gn.MAX_THREADS,
                      "kMaxN": fused_gn.MAX_N, "kMaxM": fused_gn.MAX_M}),
+    ("score_nn.cu", {"kLaneQ": exp_knn.LANE_Q, "kSlices": exp_knn.SLICES,
+                     "kMaxWarps": exp_knn.MAX_WARPS, "kTile": exp_knn.TILE,
+                     "kChunk": exp_knn.CHUNK}),
 ])
 def test_schedule_constants_mirror_the_sources(source, constants):
     text = (CSRC / source).read_text()
