@@ -93,23 +93,47 @@ Phases, each raising on failure (the script then exits non-zero):
     finite with transform error < 0.5; one streamed gumbel_nn at phase 4's
     8 x 12,288 -> 16,000 shape, finite and inside the targets' bounding box,
     and equal to hard NN on a well-separated lattice at tau = 1e-3.
-16. a torch.profiler pass over 3 calls each of phases 4, 8, 9 and 12's
-    calls: host wall time, device busy share, K1's or K2's share of device
-    time.  It comes last: host-bound timings taken after the profiler has
-    been on in a process run slower.
+17. LiDAR odometry over raw scans (benchmarks/bench_suite.py:585-660): 64
+    lidar_scene scans of 60,000 points moved along a constant step, written
+    as .bin files and read back through ScanDataset(max_points=61440,
+    workers=4, prefetch=4); pt2pt, trim 1, Huber 0.5, 30 iterations, tol
+    1e-5, the cluster tier.  stream_odometry at W = 1 warm, W = 8 warm and
+    cold (f32) and W = 1 warm quantized and weightless (pads replaced by real
+    rows): frames/s (median of 3 runs after one) and rel err, <= 1e-4 (f32)
+    and <= 1e-3 (quantized), K2 launched on every pair; W = 1 warm again
+    with the scans read before the run (what ScanDataset in the loop
+    costs); the 63 pairs in one
+    batched odometry call (iterations and convergence equal to the cold
+    W = 8 stream's, transforms within 1e-5; peak memory); K2 against its
+    plain version bit for bit (best, row, bound) on the arguments of the
+    first and last K2 call of each f32 stream's first run and of a batched
+    odometry call, recorded as the solver passed them: padded targets, whose
+    zero rows form groups of radius 0 at the origin, and the source pads as
+    queries on them; the pose graph with
+    loop closures (i, i+8) (ATE < 1e-3, two calls bit-equal); resume from a
+    checkpoint (within 1e-5 of one shot); voxel_downsample of one scan (two
+    calls bit-equal, the count equal to numpy's); pt2pt_svd_icp on the
+    reference pair at B=256 (error < 1e-3) and the 180-degree Kabsch case in
+    f64; the host preprocessing time per scan.
+16. (run after 17) a torch.profiler pass over 3 calls each of phases 4, 8,
+    9 and 12's calls and one W = 1 warm stream of phase 17's first 9 scans:
+    host wall time, device busy share, K1's or K2's share of device time,
+    device ops per pair.  It comes last: host-bound timings taken after the
+    profiler has been on in a process run slower.
 
 Phases 2, 6, 7, 11 and 13 time K1, K2, K5, K3, K4, K6 and K7 call by call
 through their wrappers, as runs before them did (the kernels line's ``ms``), and print
 beside it the time back to back (20 launches between two CUDA events, median
 of 7 rounds: the kernel's time, free of the host's launch overhead).
 
-Each main path (phases 4, 8, 9, 12 and 14) is driven with the kernels' launch
-counts set to 0 just before it and read just after.  The line before the last
-is a JSON object describing each kernel of the paths, with its bound: the
-larger of its operations at the H100's f32 rate and its bytes (each input
-read once, each output written once) at its memory rate, for this run's
-inputs.  The last line is ``{"ok": true, "device": {...}}``.  Imports nothing
-of JAX.
+Each main path (phases 4, 8, 9, 12, 14 and each run of 17) is driven with
+the kernels' launch counts set to 0 just before it and read just after.  The
+line before the last is a JSON object describing each kernel of the paths,
+with its bound: the larger of its operations at the H100's f32 rate and its
+bytes (each input read once, each output written once) at its memory rate,
+for this run's inputs; K2's entry also holds its launches per streamed pair
+and per batched odometry call (phase 17).  The last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
     python3 chip_smoke.py --ab DIR
 
@@ -132,11 +156,13 @@ times K6 and K7 alone that way: neither lies on a path.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -144,14 +170,17 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from dicp_tpu_torch import ICP, ICPConfig, register, register_ift, se3
-from dicp_tpu_torch import knn
+from dicp_tpu_torch import ICP, ICPConfig, io, knn, pt2pt_svd_icp, register, register_ift
+from dicp_tpu_torch import se3, svd_icp
 from dicp_tpu_torch.benchmarks import exp_knn
 from dicp_tpu_torch.convert import to_torch
 from dicp_tpu_torch.losses import VALID_LOSSES
+from dicp_tpu_torch.odometry import ate, odometry, odometry_pose_graph, resumable_odometry
 from dicp_tpu_torch.ops import _build, cluster_search, fused_gn, tiled_knn
 from dicp_tpu_torch.ops import cluster_knn as ck
 from dicp_tpu_torch.ops.normals import estimate_normals
+from dicp_tpu_torch.ops.voxel import voxel_downsample
+from dicp_tpu_torch.pipeline import stream_odometry
 from dicp_tpu_torch.registration import _preprocess
 from dicp_tpu_torch.utils.timing import cuda_median_ms
 
@@ -1222,11 +1251,12 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.dot(a, b) / (torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)))
 
 
-def _profile(fn, label: str, calls: int = 3, focus: tuple = ()) -> None:
+def _profile(fn, label: str, calls: int = 3, focus: tuple = ()) -> float:
     """Device busy share of ``calls`` calls under torch.profiler: the kernels'
     summed device time over the host wall time of the window (the profiler's
     own overhead included), the launches per call, the top kernels, and the
-    share of device time of each kernel named in ``focus``."""
+    share of device time of each kernel named in ``focus``.  Returns the
+    device ops per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1252,6 +1282,7 @@ def _profile(fn, label: str, calls: int = 3, focus: tuple = ()) -> None:
           + "; top: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / calls:.3f} ms x"
                       f"{e.count / calls:.0f}" for e in top))
+    return launches / calls
 
 
 def phase12_headline(device):
@@ -1503,6 +1534,285 @@ def phase15_gumbel(device, sources: np.ndarray, targets: np.ndarray) -> None:
           f"box; on the lattice max |soft - hard| {gap:.3e}")
 
 
+# --- phase 17: LiDAR odometry over raw 60k-point scans ------------------------
+
+# benchmarks/bench_suite.py:585-660 (pipeline_stream): 64 raw scans of 60,000
+# points read through ScanDataset(max_points=61440), moved along a constant
+# step (benchmarks/exp_pipeline.py:50-51), pt2pt on the cluster tier
+S_SEQ, N_SCAN, MAX_POINTS = 64, 60_000, 61_440
+STEP_XI = (0.04, 0.02, 0.01, 0.004, 0.002, 0.01)
+ODO_CFG = ICPConfig(icp_type="pt2pt", differentiable=False, max_iterations=30, tolerance=1e-5,
+                    dim=3, trim_dist=1.0, loss_name="huber", loss_metric=0.5,
+                    nn_method="cluster")
+# (window, warm start, quantized) of the streamed modes
+STREAM_MODES = ((1, True, False), (8, True, False), (8, False, False), (1, True, True))
+TOL_REL, TOL_REL_Q16 = 1e-4, 1e-3   # bench_suite.py:657's bar for the quantized stream
+TOL_ODO = 1e-5                      # batched odometry and resume against the streams
+TOL_ATE = 1e-3
+CLOSURE_GAP = 8
+PROFILE_SCANS = 9                   # phase 16's profiled stream: 8 pairs
+
+
+def write_sequence(directory: Path, rng: np.random.Generator):
+    """S_SEQ scans of one lidar_scene as 4-column .bin files (x, y, z, 0):
+    scan i is the scene seen from pose step^i.  Returns the true poses
+    (S_SEQ, 4, 4) f64 and the step."""
+    scene = lidar_scene(rng, N_SCAN)[:, :3]
+    step = se3.vec2tran(torch.tensor(STEP_XI, dtype=torch.float64)).numpy()
+    poses, T = [], np.eye(4)
+    for i in range(S_SEQ):
+        Ti = np.linalg.inv(T)
+        scan = (scene @ Ti[:3, :3].T + Ti[:3, 3]).astype(np.float32)
+        io.save_bin(str(directory / f"{i:04d}.bin"),
+                    np.hstack([scan, np.zeros((N_SCAN, 1), np.float32)]))
+        poses.append(T)
+        T = T @ step
+    return np.stack(poses), step
+
+
+def _stream_items(ds, weightless: bool):
+    """(points (n, 3), weight) per scan; weightless, the zero-row pads are
+    replaced by real rows first (bench_suite.py:608-617): pads at the
+    origin would act as real points."""
+    for pts, w in ds:
+        p = pts[:, :3]
+        if weightless:
+            p = p.copy()
+            pad = w == 0
+            p[pad] = p[~pad][:int(pad.sum())]
+            yield p, None
+        else:
+            yield p, w
+
+
+def _rel_errors(rel: torch.Tensor, step: np.ndarray) -> torch.Tensor:
+    """|log(rel step^-1)| per pair, in f64 on the host."""
+    step_inv = torch.as_tensor(np.linalg.inv(step))
+    return torch.linalg.vector_norm(se3.tran2vec(rel.detach().cpu().double() @ step_inv), dim=-1)
+
+
+@contextlib.contextmanager
+def _recording_k2(calls: dict):
+    """While active, K2's wrapper also keeps copies of the arguments of its
+    first and its latest call under "first" and "last" (the cluster tier
+    reaches K2 through the module attribute, and the wrapper counts its
+    launches on that attribute: the count moves to the recorder and back)."""
+    kernel = cluster_search.fused_search
+
+    def record(*args):
+        calls["last"] = tuple(a.clone() for a in args)
+        calls.setdefault("first", calls["last"])
+        return kernel(*args)
+
+    record.launches = kernel.launches
+    cluster_search.fused_search = record
+    try:
+        yield calls
+    finally:
+        cluster_search.fused_search = kernel
+        kernel.launches = record.launches
+
+
+def _k2_on_recorded(recorded: dict) -> float:
+    """K2 against its plain version, bit for bit, on K2 calls recorded from
+    phase 17's main path; returns the largest |difference| (0 when equal)."""
+    err, flat_groups = 0.0, 0
+    for label, calls in recorded.items():
+        for which in ("first", "last"):
+            args = calls[which]
+            points, centers, radius, xb, bsel = args
+            k2 = cluster_search.fused_search(*args)
+            plain = cluster_search.fused_search_plain(*args)
+            torch.cuda.synchronize()
+            for what, a, b in zip(("best", "row", "bound"), k2, plain):
+                _check(torch.equal(a, b), f"K2 {what} bit-equal to the plain version's on the "
+                       f"{which} K2 call of {label}")
+            err = max(err, _max_abs_diff(k2[0], plain[0]), _max_abs_diff(k2[2], plain[2]))
+            flat = (radius == 0) & (centers == 0).all(-1)
+            flat_groups += int(flat.sum())
+            at_origin = (xb == 0).all(-1)
+            print(f"  K2 == plain on the {which} K2 call of {label}: xb {tuple(xb.shape)}, G "
+                  f"{points.shape[-3]}, {int(flat.sum())} groups of radius 0 at the origin, "
+                  f"{int(at_origin.sum())} queries at the origin, {int((k2[0] == 0).sum())} "
+                  f"queries at distance 0, {int((k2[0] <= k2[2]).sum())}/{k2[0].numel()} "
+                  f"certified")
+    _check(flat_groups > 0, "the recorded K2 calls hold the pads' groups of radius 0")
+    return err
+
+
+def phase17_lidar_odometry(device, workdir: Path):
+    """The raw-scan odometry front end of the serving path; returns K2's
+    launch counts, the W = 1 warm stream (for phase 16's profile) and K2's
+    largest |difference| to its plain version on the path's own calls."""
+    t_phase = time.perf_counter()
+    poses_true, step = write_sequence(workdir, np.random.default_rng(SEED + 17))
+    ds = io.ScanDataset.from_dir(str(workdir), max_points=MAX_POINTS, voxel=None,
+                                 workers=4, prefetch=4)
+    pairs = S_SEQ - 1
+    native = io.native_available()   # builds the host runtime on first use
+    host = list(ds)
+    _check(len(host) == S_SEQ and host[0][0].shape == (MAX_POINTS, 4),
+           f"{S_SEQ} scans of ({MAX_POINTS}, 4) from the dataset")
+    _check(all(np.all(np.any(p[w > 0, :3] != 0, axis=1)) for p, w in host),
+           "no real point lies exactly at the origin (zero rows are the pads)")
+    passes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in ds:
+            pass
+        passes.append((time.perf_counter() - t0) * 1e3 / S_SEQ)
+    print(f"  native runtime available: {native}; ScanDataset alone "
+          f"{statistics.median(passes):.3f} ms per scan (4 workers, prefetch 4; median of 3 "
+          f"passes: {', '.join(f'{t:.3f}' for t in passes)})")
+
+    def stream(window, warm, quant, scans=ds):
+        res = stream_odometry(_stream_items(scans, quant), ODO_CFG, window=window,
+                              warm_start=warm, quantize=quant, device=device)
+        return res._replace(rel_transforms=res.rel_transforms.cpu())  # the host fetch
+
+    launches = {}
+    streams = {}
+    rates = {}
+    recorded = {}
+    for window, warm, quant in STREAM_MODES:
+        label = f"W={window} {'warm' if warm else 'cold'}{' quantized' if quant else ' f32'}"
+        _reset_launches()
+        if quant:
+            res = stream(window, warm, quant)
+        else:
+            with _recording_k2(recorded.setdefault(f"the {label} stream", {})):
+                res = stream(window, warm, quant)
+        torch.cuda.synchronize()
+        k2 = _launches()["cluster_search"]
+        _check(k2 >= pairs // window, f"{label}: K2 launched ({k2})")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            stream(window, warm, quant)
+            times.append(time.perf_counter() - t0)
+        err = float(_rel_errors(res.rel_transforms, step).max())
+        tol = TOL_REL_Q16 if quant else TOL_REL
+        print(f"  stream {label}: {S_SEQ / statistics.median(times):.3f} frames/s (median of "
+              f"3 after one run; runs {', '.join(f'{t:.4f}' for t in times)} s), rel err "
+              f"{err:.3e}, iterations {float(res.iterations.float().mean()):.3f} per pair, "
+              f"{int(res.converged.sum())}/{pairs} converged, K2 {k2 / pairs:.3f} launches "
+              f"per pair")
+        _check(err <= tol, f"{label}: rel err {err} <= {tol}")
+        launches[label] = k2
+        streams[(window, warm, quant)] = res
+        rates[label] = S_SEQ / statistics.median(times)
+    times = []
+    for _ in range(3):   # the same stream without ScanDataset in the loop
+        t0 = time.perf_counter()
+        stream(1, True, False, host)
+        times.append(time.perf_counter() - t0)
+    print(f"  stream W=1 warm f32, the {S_SEQ} scans read before the run: "
+          f"{S_SEQ / statistics.median(times):.3f} frames/s (runs "
+          f"{', '.join(f'{t:.4f}' for t in times)} s), through ScanDataset "
+          f"{rates['W=1 warm f32']:.3f}")
+
+    # odometry takes no weights: the flag gives its zero-row pads the weight 0
+    # that ScanDataset's weights give them in the streams
+    cfg = ODO_CFG.with_(source_zeroes_are_pad=True)
+    scans = torch.as_tensor(np.stack([p[:, :3] for p, _ in host]), device=device)
+    cold = streams[(8, False, False)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    _reset_launches()
+    t0 = time.perf_counter()
+    odo = odometry(scans, cfg)
+    torch.cuda.synchronize()
+    odo_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    k2_odo = _launches()["cluster_search"]
+    launches["batched odometry"] = k2_odo
+    diff = float((odo.rel_transforms.cpu() - cold.rel_transforms).abs().max())
+    same_iters = torch.equal(odo.iterations.cpu(), cold.iterations.cpu())
+    same_conv = torch.equal(odo.converged.cpu(), cold.converged.cpu())
+    print(f"  batched odometry: {pairs} pairs in one register call, {odo_s * 1e3:.3f} ms, "
+          f"peak memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB held before), K2 {k2_odo} launches per call; against the "
+          f"cold W=8 stream: max |rel diff| {diff:.3e}, iterations equal {same_iters}, "
+          f"converged equal {same_conv}")
+    _check(k2_odo > 0, "batched odometry launched K2")
+    _check(same_iters and same_conv, "batched odometry's iterations and convergence equal "
+           "the cold W=8 stream's")
+    _check(diff <= TOL_ODO, f"batched odometry within {TOL_ODO} of the cold W=8 stream")
+    with _recording_k2(recorded.setdefault("a batched odometry call", {})):
+        odometry(scans, cfg)   # outside the counted runs: only to record K2's arguments
+    k2_err = _k2_on_recorded(recorded)
+    del recorded
+
+    li = torch.arange(0, S_SEQ - CLOSURE_GAP, CLOSURE_GAP)
+    closures = (li, li + CLOSURE_GAP)
+    truth = torch.as_tensor(poses_true, device=device)
+    graphs, pg_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        graphs.append(odometry_pose_graph(scans, cfg, loop_closures=closures))
+        torch.cuda.synchronize()
+        pg_s.append(time.perf_counter() - t0)
+    same_bits = torch.equal(graphs[0].poses, graphs[1].poses)
+    err_pg = float(ate(graphs[0].poses.double(), truth, align=False))
+    err_odo = float(ate(odo.poses.double(), truth, align=False))
+    print(f"  pose graph: {len(li)} loop closures (i, i+{CLOSURE_GAP}), odometry_pose_graph "
+          f"{pg_s[1] * 1e3:.3f} ms (the first call in the process {pg_s[0] * 1e3:.3f} ms); "
+          f"ATE (align=False) {err_pg:.3e} (odometry alone {err_odo:.3e}); two calls "
+          f"bit-equal: {same_bits}")
+    _check(err_pg < TOL_ATE, f"pose-graph ATE {err_pg} < {TOL_ATE}")
+
+    ckpt = workdir / "odometry.npz"
+    half = S_SEQ // 2       # an interrupted run over scans [0, half]
+    resumable_odometry(scans[:half + 1], cfg, checkpoint_path=str(ckpt), chunk=16)
+    _check(int(np.load(ckpt)["step"]) == half, f"the interrupted run checkpointed {half} pairs")
+    resumed = resumable_odometry(scans, cfg, checkpoint_path=str(ckpt), chunk=16)
+    diff_resume = float((resumed.poses - odo.poses).abs().max())
+    print(f"  resume: {half} pairs, then all {pairs} from the checkpoint in chunks of 16; "
+          f"max |pose diff| to one-shot odometry {diff_resume:.3e}")
+    _check(diff_resume <= TOL_ODO, f"resumed poses within {TOL_ODO} of one-shot odometry")
+
+    pts = scans[0]
+    vox = [voxel_downsample(pts, 0.1) for _ in range(2)]
+    cells = len(np.unique(np.floor(pts.cpu().numpy() / np.float32(0.1)).astype(np.int32),
+                          axis=0))
+    same_vox = all(torch.equal(a, b) for a, b in zip(*vox))
+    print(f"  voxel grid: {MAX_POINTS} points at 0.1 m -> {int(vox[0].count)} cells "
+          f"(numpy {cells}); two calls bit-equal: {same_vox}")
+    _check(same_vox, "voxel_downsample gives the same bits twice")
+    _check(int(vox[0].count) == cells, "voxel count equals numpy's count of distinct cells")
+
+    src, tgt, ti = reference_batch(device)
+    t0 = time.perf_counter()
+    svd = pt2pt_svd_icp(src, tgt[..., :3], ti, max_iterations=100, tolerance=1e-10,
+                        differentiable=False)
+    torch.cuda.synchronize()
+    svd_ms = (time.perf_counter() - t0) * 1e3
+    xi = torch.tensor([1.0, 1.0, 0.0, 0.0, 0.0, 0.1], dtype=torch.float64)
+    T_true = se3.tran_inv(se3.vec2tran(xi)).to(device)
+    err_svd = torch.linalg.vector_norm(
+        se3.tran2vec(T_true @ torch.linalg.inv(svd.T.double())), dim=-1)
+    # tests/test_icp.py:210-223 in f64 (in f32, 32 power-iteration steps
+    # leave ~5e-4 of this case unconverged)
+    p = torch.as_tensor(np.random.default_rng(SEED).normal(size=(1, 200, 3)), device=device)
+    Rz = torch.diag(torch.tensor([-1.0, -1.0, 1.0], dtype=torch.float64, device=device))
+    C, r = svd_icp._kabsch(p, p @ Rz.T, torch.ones((1, 200), dtype=torch.float64,
+                                                    device=device))
+    err_180 = float((C[0] - Rz).abs().max())
+    print(f"  SVD-ICP: B={B_HEAD} reference pair (dense), {svd_ms:.3f} ms, max transform "
+          f"error {float(err_svd.max()):.3e}, iterations {int(svd.iterations.max())}; "
+          f"180-degree Kabsch (f64) max |C - Rz| {err_180:.3e}")
+    _check(float(err_svd.max()) < TOL_POSE, f"SVD-ICP error < {TOL_POSE}")
+    _check(err_180 < 1e-6, "Kabsch recovers the 180-degree rotation")
+    print(f"phase 17 ok: {S_SEQ} raw scans, K2 launches {launches}, "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    # the profile's W = 1 stream is cut to PROFILE_SCANS scans: the profiler's
+    # own processing of the full stream's ~95,000 device ops took ~50 s
+    head = io.ScanDataset(ds.paths[:PROFILE_SCANS], max_points=MAX_POINTS, voxel=None,
+                          workers=4, prefetch=4)
+    return launches, lambda: stream(1, True, False, head), k2_err
+
+
 def main() -> None:
     card = phase0_device()
     device = torch.device("cuda", 0)
@@ -1525,12 +1835,19 @@ def main() -> None:
     scored = phase13_score_kernels(device, libs)
     ab_launches = phase14_exp_knn()
     phase15_gumbel(device, sources, targets)
-    # last, so that no timing above runs after the profiler has been on
-    _profile(slice_solve, "phase 4", focus=("tiled_nn_kernel",))
-    _profile(single_solve, "phase 8 (icp call)", focus=("cluster_search_kernel",))
-    _profile(batched_solve, "phase 9", focus=("cluster_search_kernel",))
-    _profile(headline_call, "phase 12, IFT, K4 forward", focus=("fused_gn_kernel",))
-    print("phase 16 ok: profiles of phases 4, 8, 9 and 12")
+    with tempfile.TemporaryDirectory(prefix="dicp_smoke_scans_") as workdir:
+        odo_launches, stream_w1, k2_err = phase17_lidar_odometry(device, Path(workdir))
+        timed["cluster_search"]["max_abs_err"] = max(timed["cluster_search"]["max_abs_err"],
+                                                     k2_err)
+        # last, so that no timing above runs after the profiler has been on
+        _profile(slice_solve, "phase 4", focus=("tiled_nn_kernel",))
+        _profile(single_solve, "phase 8 (icp call)", focus=("cluster_search_kernel",))
+        _profile(batched_solve, "phase 9", focus=("cluster_search_kernel",))
+        _profile(headline_call, "phase 12, IFT, K4 forward", focus=("fused_gn_kernel",))
+        ops = _profile(stream_w1, f"phase 17, W=1 warm stream of {PROFILE_SCANS} scans",
+                       calls=1, focus=("cluster_search_kernel",))
+        print(f"  phase 17 stream: {ops / (PROFILE_SCANS - 1):.1f} device ops per pair")
+    print("phase 16 ok: profiles of phases 4, 8, 9, 12 and 17")
     kernels = [{
         "name": "tiled_nn",
         "route": "cuda",
@@ -1548,8 +1865,15 @@ def main() -> None:
     for name, (source, replaces) in sources_of.items():
         count = single[name] + batched[name]
         _check(count > 0, f"{name} launched on the raw-scan paths ({count})")
+        extra = {}
+        if name == "cluster_search":
+            count += sum(odo_launches.values())
+            extra = {"launches_per_streamed_pair": {
+                         label: k / (S_SEQ - 1) for label, k in odo_launches.items()
+                         if label != "batched odometry"},
+                     "launches_per_batched_odometry_call": odo_launches["batched odometry"]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": count, **timed[name]})
+                        "launches": count, **timed[name], **extra})
     _check(k4_launches > 0, f"fused_gn launched on the headline path ({k4_launches})")
     kernels.append({"name": "fused_gn", "route": "cuda",
                     "source": "dicp_tpu_torch/csrc/fused_gn.cu",

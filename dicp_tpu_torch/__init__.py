@@ -24,6 +24,15 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
 * :mod:`dicp_tpu_torch.ops.cluster_knn`, :mod:`dicp_tpu_torch.ops.cluster_search`:
   the Hilbert cluster index and its certified 1-NN and k-NN searches.
 * :mod:`dicp_tpu_torch.ops.normals`: PCA surface normals.
+* :mod:`dicp_tpu_torch.svd_icp`: :func:`pt2pt_svd_icp`, closed-form (Kabsch)
+  pt2pt ICP.
+* :mod:`dicp_tpu_torch.odometry`: chained scan-to-scan odometry, ATE, the
+  pose graph and checkpoint/resume (:mod:`dicp_tpu_torch.utils.checkpoint`).
+* :mod:`dicp_tpu_torch.pipeline`: the streaming serving loop over raw scans
+  (:func:`stream_registrations`, :func:`stream_odometry`), fed by
+  :mod:`dicp_tpu_torch.io` (``ScanDataset``, ``.bin`` I/O and host
+  preprocessing over the shared ``native/`` runtime).
+* :mod:`dicp_tpu_torch.ops.voxel`: fixed-shape voxel-grid downsampling.
 * :mod:`dicp_tpu_torch.convert`: configs and arrays carried across from the
   JAX package.
 * :mod:`dicp_tpu_torch.benchmarks.exp_knn`: the exact 1-NN kernels' A/B on
@@ -39,7 +48,9 @@ from dicp_tpu_torch.ops.cluster_knn import (build_cluster_index, cluster_knn,
                                             cluster_nn, cluster_nn_verified)
 from dicp_tpu_torch.ops.normals import estimate_normals, estimate_normals_weighted
 from dicp_tpu_torch.ift import register_ift, register_ift_jit
+from dicp_tpu_torch.pipeline import stream_odometry, stream_registrations
 from dicp_tpu_torch.registration import ICPResult, register, register_jit
+from dicp_tpu_torch.svd_icp import pt2pt_svd_icp
 
 __version__ = "0.1.0"
 
@@ -47,6 +58,7 @@ __version__ = "0.1.0"
 # with their slices (ROADMAP.md, Queue 1).
 __all__ = ["ICP", "ICPConfig", "ICPResult", "batch_size_handling",
            "build_cluster_index", "cluster_knn", "cluster_nn", "cluster_nn_verified",
-           "config_from_yaml", "estimate_normals", "estimate_normals_weighted", "register",
-           "register_anderson", "register_anderson_jit", "register_ift", "register_ift_jit",
-           "register_jit", "__version__"]
+           "config_from_yaml", "estimate_normals", "estimate_normals_weighted",
+           "pt2pt_svd_icp", "register", "register_anderson", "register_anderson_jit",
+           "register_ift", "register_ift_jit", "register_jit", "stream_odometry",
+           "stream_registrations", "__version__"]

@@ -24,8 +24,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # dicp_tpu's public names that come with later slices (ROADMAP.md, Queue 1)
 STILL_TO_PORT = {
-    "pt2pt_svd_icp": 1,
-    "stream_registrations": 2, "stream_odometry": 2,
     "SGDICPResult": 3, "register_sgd": 3, "register_sgd_jit": 3,
     "LocalMap": 3, "empty_map": 3, "map_merge": 3, "map_step": 3, "map_target": 3,
     "scan_to_map_odometry": 3,

@@ -347,8 +347,9 @@ def test_remat_lu_and_histories_off_match(source_np, target_np):
 
 def test_port_never_imports_jax():
     """In a fresh interpreter: import the port, run a small solve on each
-    tier and the normals on both large-cloud paths, and find neither jax nor
-    the JAX package in sys.modules."""
+    tier, the normals on both large-cloud paths and a small stream_odometry
+    (with the odometry, SVD-ICP, pipeline, io and voxel modules imported),
+    and find neither jax nor the JAX package in sys.modules."""
     code = (
         "import sys, numpy as np\n"
         "import dicp_tpu_torch\n"
@@ -365,6 +366,12 @@ def test_port_never_imports_jax():
         "pts = torch.as_tensor(mp[:, :3])\n"
         "for method in ('weighted', 'cluster'):\n"
         "    assert dicp_tpu_torch.estimate_normals(pts, method=method).shape == (65, 3)\n"
+        "import dicp_tpu_torch.odometry, dicp_tpu_torch.svd_icp, dicp_tpu_torch.pipeline\n"
+        "import dicp_tpu_torch.io, dicp_tpu_torch.ops.voxel\n"
+        "scans = [mp, mp + [0.05, 0.02, 0, 0, 0, 0], mp + [0.1, 0.04, 0, 0, 0, 0]]\n"
+        "odo = dicp_tpu_torch.stream_odometry(((s, None) for s in scans),\n"
+        "    dicp_tpu_torch.ICPConfig(max_iterations=10, dim=2), window=2, device='cpu')\n"
+        "assert odo.poses.shape == (3, 4, 4)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dicp_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
