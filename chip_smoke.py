@@ -115,10 +115,27 @@ Phases, each raising on failure (the script then exits non-zero):
     calls bit-equal, the count equal to numpy's); pt2pt_svd_icp on the
     reference pair at B=256 (error < 1e-3) and the 180-degree Kabsch case in
     f64; the host preprocessing time per scan.
-16. (run after 17) a torch.profiler pass over 3 calls each of phases 4, 8,
-    9 and 12's calls and one W = 1 warm stream of phase 17's first 9 scans:
-    host wall time, device busy share, K1's or K2's share of device time,
-    device ops per pair.  It comes last: host-bound timings taken after the
+18. scan-to-map odometry at the JAX suite's deployment (benchmarks/
+    bench_suite.py:688-840, no cut): 12 scans of a +-20 m wavy 60,000-point
+    surface along a constant step against a 65,536-row fused voxel map
+    (voxel 0.25; pt2pl, trim 2, Huber 0.5, 30 iterations, tol 1e-6, the
+    cluster tier).  scan_to_map_odometry with gn, sgd (2,048 per
+    mini-batch, 30 iterations, a fixed seed), sgd with merge_subsample
+    20,000, and quantized gn: frames/s (median of 3 runs after one, poses
+    fetched), final-pose error and ATE against the exact truth, iterations
+    and K2 launches per scan; gates: every scan converged, ATE < 1e-3 (gn),
+    < 5e-3 (sgd), < max(5 x gn's, 2e-3) (quantized), four same-seed sgd
+    runs bit-equal, K2 on every gn scan and never on the sgd path.  K2
+    against its plain version bit for bit on the first and last K2 call of
+    the gn stream, whose targets hold groups of the map's sentinel rows (a
+    gate).  A mature map built by map_step: at most 65,536 occupied rows,
+    its empty rows beyond the occupied box; map_step with insert=True and
+    insert=False and map_merge of one scan alone (CUDA events, median of 5).
+16. (run after 17 and 18) a torch.profiler pass over 3 calls each of phases
+    4, 8, 9 and 12's calls, one W = 1 warm stream of phase 17's first 9
+    scans and one gn scan-to-map stream of phase 18's first 4 scans: host
+    wall time, device busy share, K1's or K2's share of device time, device
+    ops per pair or scan.  It comes last: host-bound timings taken after the
     profiler has been on in a process run slower.
 
 Phases 2, 6, 7, 11 and 13 time K1, K2, K5, K3, K4, K6 and K7 call by call
@@ -126,13 +143,14 @@ through their wrappers, as runs before them did (the kernels line's ``ms``), and
 beside it the time back to back (20 launches between two CUDA events, median
 of 7 rounds: the kernel's time, free of the host's launch overhead).
 
-Each main path (phases 4, 8, 9, 12, 14 and each run of 17) is driven with
+Each main path (phases 4, 8, 9, 12, 14 and each run of 17 and 18) is driven with
 the kernels' launch counts set to 0 just before it and read just after.  The
 line before the last is a JSON object describing each kernel of the paths,
 with its bound: the larger of its operations at the H100's f32 rate and its
 bytes (each input read once, each output written once) at its memory rate,
 for this run's inputs; K2's entry also holds its launches per streamed pair
-and per batched odometry call (phase 17).  The last line is
+and per batched odometry call (phase 17) and per scan of each scan-to-map
+stream (phase 18).  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
     python3 chip_smoke.py --ab DIR
@@ -175,7 +193,9 @@ from dicp_tpu_torch import se3, svd_icp
 from dicp_tpu_torch.benchmarks import exp_knn
 from dicp_tpu_torch.convert import to_torch
 from dicp_tpu_torch.losses import VALID_LOSSES
-from dicp_tpu_torch.odometry import ate, odometry, odometry_pose_graph, resumable_odometry
+from dicp_tpu_torch.mapping import empty_map, map_merge, map_step, scan_to_map_odometry
+from dicp_tpu_torch.odometry import (OdometryResult, ate, odometry, odometry_pose_graph,
+                                     resumable_odometry)
 from dicp_tpu_torch.ops import _build, cluster_search, fused_gn, tiled_knn
 from dicp_tpu_torch.ops import cluster_knn as ck
 from dicp_tpu_torch.ops.normals import estimate_normals
@@ -1613,10 +1633,12 @@ def _recording_k2(calls: dict):
         kernel.launches = record.launches
 
 
-def _k2_on_recorded(recorded: dict) -> float:
-    """K2 against its plain version, bit for bit, on K2 calls recorded from
-    phase 17's main path; returns the largest |difference| (0 when equal)."""
-    err, flat_groups = 0.0, 0
+def _k2_on_recorded(recorded: dict, pad_point=None, pad_label: str = "at the origin") -> float:
+    """K2 against its plain version, bit for bit, on K2 calls recorded from a
+    main path; returns the largest |difference| (0 when equal).  Gates that
+    some recorded target holds a group whose points all sit on the pad point
+    (``pad_point(points)``, default the origin: phase 17's zero-row pads)."""
+    err, pad_groups = 0.0, 0
     for label, calls in recorded.items():
         for which in ("first", "last"):
             args = calls[which]
@@ -1628,15 +1650,19 @@ def _k2_on_recorded(recorded: dict) -> float:
                 _check(torch.equal(a, b), f"K2 {what} bit-equal to the plain version's on the "
                        f"{which} K2 call of {label}")
             err = max(err, _max_abs_diff(k2[0], plain[0]), _max_abs_diff(k2[2], plain[2]))
-            flat = (radius == 0) & (centers == 0).all(-1)
-            flat_groups += int(flat.sum())
-            at_origin = (xb == 0).all(-1)
+            pad = (torch.zeros(3, dtype=points.dtype, device=points.device)
+                   if pad_point is None else pad_point(points))
+            on_pad = (points == pad).all(-1).all(-1)                  # (..., G)
+            pad_groups += int(on_pad.sum())
+            radii = radius[on_pad]
+            at_pad = (xb == pad).all(-1)
             print(f"  K2 == plain on the {which} K2 call of {label}: xb {tuple(xb.shape)}, G "
-                  f"{points.shape[-3]}, {int(flat.sum())} groups of radius 0 at the origin, "
-                  f"{int(at_origin.sum())} queries at the origin, {int((k2[0] == 0).sum())} "
-                  f"queries at distance 0, {int((k2[0] <= k2[2]).sum())}/{k2[0].numel()} "
-                  f"certified")
-    _check(flat_groups > 0, "the recorded K2 calls hold the pads' groups of radius 0")
+                  f"{points.shape[-3]}, {int(on_pad.sum())} groups of pad rows {pad_label} "
+                  f"(radius {float(radii.max()) if radii.numel() else float('nan'):.3e} at "
+                  f"most), {int(at_pad.sum())} queries {pad_label}, "
+                  f"{int((k2[0] == 0).sum())} queries at distance 0, "
+                  f"{int((k2[0] <= k2[2]).sum())}/{k2[0].numel()} certified")
+    _check(pad_groups > 0, f"the recorded K2 calls hold groups of pad rows {pad_label}")
     return err
 
 
@@ -1813,6 +1839,137 @@ def phase17_lidar_odometry(device, workdir: Path):
     return launches, lambda: stream(1, True, False, head), k2_err
 
 
+# phase 18: the JAX suite's scan_to_map deployment (benchmarks/bench_suite.py:688-840),
+# no cut: 12 scans of a 60,000-point wavy surface against a 65,536-row map
+S_S2M, N_S2M, CAP_S2M, VOXEL_S2M = 12, 60_000, 65_536, 0.25
+S2M_STEP_XI = (0.06, 0.03, 0.01, 0.004, 0.002, 0.015)
+S2M_CFG = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=30, tolerance=1e-6,
+                    dim=3, trim_dist=2.0, loss_name="huber", loss_metric=0.5,
+                    nn_method="cluster", collect_histories=False)
+SGD_KW = dict(solver="sgd", sgd_minibatch=2048, sgd_iterations=30, seed=SEED + 18)
+# (label, scan_to_map_odometry keywords, ATE gate)
+S2M_STREAMS = (("gn", {}, 1e-3), ("sgd", SGD_KW, 5e-3),
+               ("sgd, merge_subsample 20000", dict(SGD_KW, merge_subsample=20_000), 5e-3),
+               ("gn, quantized", dict(quantize=True), None))
+PROFILE_S2M_SCANS = 4               # phase 16's profiled scan-to-map stream
+
+
+def wavy_sequence(S: int, n: int, step_xi, seed: int = 0):
+    """bench_suite.py's _wavy_sequence (:664-685): S f32 scans of a +-20 m wavy
+    surface seen along a constant step, built on the host in f64; returns the
+    scans, the exact poses (S, 4, 4) f64 and the step."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-20, 20, (n, 3))
+    base[:, 2] = np.sin(base[:, 0] * 0.35) * np.cos(base[:, 1] * 0.3) * 2.0
+    step = se3.vec2tran(torch.tensor(step_xi, dtype=torch.float32)).double().numpy()
+    scans, poses, T = [], [], np.eye(4)
+    for _ in range(S):
+        Ti = np.linalg.inv(T)
+        scans.append((base @ Ti[:3, :3].T + Ti[:3, 3]).astype(np.float32))
+        poses.append(T.copy())
+        T = T @ step
+    return scans, np.stack(poses), step
+
+
+def _sentinel(points: torch.Tensor) -> torch.Tensor:
+    """The map's empty-row sentinel hi + 2 extent + 1: the coordinate-wise
+    largest row of a map target (the index's own pads at 1e15 left out)."""
+    rows = points.reshape(-1, 3)
+    return rows[(rows < ck.SENTINEL).all(-1)].amax(0)
+
+
+def phase18_scan_to_map(device):
+    """Scan-to-map odometry at the JAX suite's deployment; returns K2's
+    launches per stream, K2's largest |difference| on the path's own calls
+    and a short gn stream for phase 16's profile."""
+    t_phase = time.perf_counter()
+    scans, poses_true, step = wavy_sequence(S_S2M, N_S2M, S2M_STEP_XI, seed=SEED)
+    truth = torch.as_tensor(poses_true)
+
+    def stream(kw, count=S_S2M):
+        res = scan_to_map_odometry(((s, None) for s in scans[:count]), S2M_CFG,
+                                   capacity=CAP_S2M, voxel=VOXEL_S2M, device=device, **kw)
+        return OdometryResult(*(a.cpu() for a in res))   # the host fetch
+
+    launches, ates, recorded = {}, {}, {}
+    for label, kw, gate in S2M_STREAMS:
+        _reset_launches()
+        if label == "gn":
+            with _recording_k2(recorded.setdefault("the gn scan-to-map stream", {})):
+                res = stream(kw)
+        else:
+            res = stream(kw)
+        torch.cuda.synchronize()
+        k2 = _launches()["cluster_search"]
+        times, runs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            runs.append(stream(kw))
+            times.append(time.perf_counter() - t0)
+        final = torch.linalg.inv(truth[-1]) @ res.poses[-1].double()
+        err = float(torch.linalg.vector_norm(se3.tran2vec(final)))
+        ates[label] = float(ate(res.poses.double(), truth, align=False))
+        its = res.iterations[1:].double()
+        print(f"  stream {label}: {S_S2M / statistics.median(times):.3f} frames/s (median of "
+              f"3 after one run; runs {', '.join(f'{t:.4f}' for t in times)} s), final-pose "
+              f"error {err:.3e}, ATE (align=False) {ates[label]:.3e}, "
+              f"{int(res.converged.sum())}/{S_S2M} converged, iterations per scan "
+              f"{float(its.mean()):.3f} (min {float(its.min()):.0f}, max "
+              f"{float(its.max()):.0f}), K2 {k2 / (S_S2M - 1):.3f} launches per scan")
+        _check(bool(res.converged.all()), f"{label}: every scan converged")
+        if gate is None:   # tests/test_mapping.py:146's bar for the quantized stream
+            gate = max(5 * ates["gn"], 2e-3)
+        _check(ates[label] < gate, f"{label}: ATE {ates[label]} < {gate}")
+        if label.startswith("gn"):
+            _check(k2 >= S_S2M - 1, f"{label}: K2 launched on every solved scan ({k2})")
+        else:
+            _check(k2 == 0, f"{label}: the SGD mini-batch search runs no kernel ({k2})")
+            same = all(torch.equal(r.poses, res.poses) for r in runs)
+            print(f"  {label}: four runs with one seed give equal poses, bit for bit: {same}")
+            _check(same, f"{label}: two runs with one seed give the same poses")
+        launches[label] = k2
+    k2_err = _k2_on_recorded(recorded, _sentinel, "on the map's sentinel")
+
+    # a mature map built by map_step over scans 0-10 at the gn stream's poses
+    # (bench_suite.py's chained step: insert=True against insert=False)
+    gn = stream({})
+    dev_scans = [torch.as_tensor(s, device=device) for s in scans]
+    m = map_merge(empty_map(CAP_S2M, torch.float32, device), dev_scans[0], VOXEL_S2M,
+                  mode="mean")
+    step_dev = torch.as_tensor(step, dtype=torch.float32, device=device)
+    for k in range(1, S_S2M - 1):
+        t_pred = gn.poses[k - 1].to(device) @ step_dev
+        _, _, _, m = map_step(m, dev_scans[k], t_pred, None, S2M_CFG, VOXEL_S2M,
+                              merge_mode="mean")
+    t_pred = gn.poses[S_S2M - 2].to(device) @ step_dev
+    last = dev_scans[-1]
+
+    def step_call(insert):
+        return lambda: map_step(m, last, t_pred, None, S2M_CFG, VOXEL_S2M, insert=insert,
+                                merge_mode="mean")
+
+    pose, ok, iters, final_map = step_call(True)()
+    full_ms = cuda_median_ms(step_call(True), warmup=1, iters=5)
+    solve_ms = cuda_median_ms(step_call(False), warmup=1, iters=5)
+    merge_ms = cuda_median_ms(lambda: map_merge(m, last @ pose[:3, :3].T + pose[:3, 3],
+                                                VOXEL_S2M, mode="mean"), warmup=1, iters=5)
+    occupied = final_map.count > 0
+    n_occ = int(occupied.sum())
+    empty_rows, rows = final_map.pos[~occupied], final_map.pos[occupied]
+    beyond = bool((empty_rows > rows.amax(0)).all()) if empty_rows.numel() else True
+    print(f"  mature map after {S_S2M} scans: {n_occ}/{CAP_S2M} occupied rows, "
+          f"{CAP_S2M - n_occ} empty rows beyond the occupied box: {beyond}; map_step of scan "
+          f"{S_S2M - 1} ({float(iters):.0f} iterations, converged {bool(ok)}): insert=True "
+          f"{full_ms:.3f} ms, insert=False {solve_ms:.3f} ms (merge by difference "
+          f"{full_ms - solve_ms:.3f} ms), map_merge of the {N_S2M}-point scan alone "
+          f"{merge_ms:.3f} ms (CUDA events, median of 5)")
+    _check(n_occ <= CAP_S2M, "the map holds at most its capacity")
+    _check(beyond, "the map's empty rows sit beyond its occupied bounding box")
+    print(f"phase 18 ok: {S_S2M} scans of {N_S2M} points against a {CAP_S2M}-row map, K2 "
+          f"launches {launches}, {time.perf_counter() - t_phase:.1f} s")
+    return launches, k2_err, lambda: stream({}, PROFILE_S2M_SCANS)
+
+
 def main() -> None:
     card = phase0_device()
     device = torch.device("cuda", 0)
@@ -1837,8 +1994,9 @@ def main() -> None:
     phase15_gumbel(device, sources, targets)
     with tempfile.TemporaryDirectory(prefix="dicp_smoke_scans_") as workdir:
         odo_launches, stream_w1, k2_err = phase17_lidar_odometry(device, Path(workdir))
+        s2m_launches, k2_err_s2m, s2m_stream = phase18_scan_to_map(device)
         timed["cluster_search"]["max_abs_err"] = max(timed["cluster_search"]["max_abs_err"],
-                                                     k2_err)
+                                                     k2_err, k2_err_s2m)
         # last, so that no timing above runs after the profiler has been on
         _profile(slice_solve, "phase 4", focus=("tiled_nn_kernel",))
         _profile(single_solve, "phase 8 (icp call)", focus=("cluster_search_kernel",))
@@ -1847,7 +2005,10 @@ def main() -> None:
         ops = _profile(stream_w1, f"phase 17, W=1 warm stream of {PROFILE_SCANS} scans",
                        calls=1, focus=("cluster_search_kernel",))
         print(f"  phase 17 stream: {ops / (PROFILE_SCANS - 1):.1f} device ops per pair")
-    print("phase 16 ok: profiles of phases 4, 8, 9, 12 and 17")
+        ops = _profile(s2m_stream, f"phase 18, gn scan-to-map stream of {PROFILE_S2M_SCANS} "
+                       "scans", calls=1, focus=("cluster_search_kernel",))
+        print(f"  phase 18 stream: {ops / PROFILE_S2M_SCANS:.1f} device ops per scan")
+    print("phase 16 ok: profiles of phases 4, 8, 9, 12, 17 and 18")
     kernels = [{
         "name": "tiled_nn",
         "route": "cuda",
@@ -1867,11 +2028,13 @@ def main() -> None:
         _check(count > 0, f"{name} launched on the raw-scan paths ({count})")
         extra = {}
         if name == "cluster_search":
-            count += sum(odo_launches.values())
+            count += sum(odo_launches.values()) + sum(s2m_launches.values())
             extra = {"launches_per_streamed_pair": {
                          label: k / (S_SEQ - 1) for label, k in odo_launches.items()
                          if label != "batched odometry"},
-                     "launches_per_batched_odometry_call": odo_launches["batched odometry"]}
+                     "launches_per_batched_odometry_call": odo_launches["batched odometry"],
+                     "launches_per_scan_to_map_scan": {
+                         label: k / (S_S2M - 1) for label, k in s2m_launches.items()}}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": count, **timed[name], **extra})
     _check(k4_launches > 0, f"fused_gn launched on the headline path ({k4_launches})")

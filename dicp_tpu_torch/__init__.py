@@ -33,6 +33,10 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
   :mod:`dicp_tpu_torch.io` (``ScanDataset``, ``.bin`` I/O and host
   preprocessing over the shared ``native/`` runtime).
 * :mod:`dicp_tpu_torch.ops.voxel`: fixed-shape voxel-grid downsampling.
+* :mod:`dicp_tpu_torch.sgd_icp`: :func:`register_sgd`, stochastic
+  mini-batch ICP with an explicit mini-batch source.
+* :mod:`dicp_tpu_torch.mapping`: scan-to-map odometry against a fused voxel
+  map (:func:`scan_to_map_odometry`, :func:`map_step`, :func:`map_merge`).
 * :mod:`dicp_tpu_torch.convert`: configs and arrays carried across from the
   JAX package.
 * :mod:`dicp_tpu_torch.benchmarks.exp_knn`: the exact 1-NN kernels' A/B on
@@ -48,8 +52,11 @@ from dicp_tpu_torch.ops.cluster_knn import (build_cluster_index, cluster_knn,
                                             cluster_nn, cluster_nn_verified)
 from dicp_tpu_torch.ops.normals import estimate_normals, estimate_normals_weighted
 from dicp_tpu_torch.ift import register_ift, register_ift_jit
+from dicp_tpu_torch.mapping import (LocalMap, empty_map, map_merge, map_step, map_target,
+                                    scan_to_map_odometry)
 from dicp_tpu_torch.pipeline import stream_odometry, stream_registrations
 from dicp_tpu_torch.registration import ICPResult, register, register_jit
+from dicp_tpu_torch.sgd_icp import SGDICPResult, register_sgd, register_sgd_jit
 from dicp_tpu_torch.svd_icp import pt2pt_svd_icp
 
 __version__ = "0.1.0"
@@ -59,6 +66,7 @@ __version__ = "0.1.0"
 __all__ = ["ICP", "ICPConfig", "ICPResult", "batch_size_handling",
            "build_cluster_index", "cluster_knn", "cluster_nn", "cluster_nn_verified",
            "config_from_yaml", "estimate_normals", "estimate_normals_weighted",
-           "pt2pt_svd_icp", "register", "register_anderson", "register_anderson_jit",
-           "register_ift", "register_ift_jit", "register_jit", "stream_odometry",
-           "stream_registrations", "__version__"]
+           "pt2pt_svd_icp", "LocalMap", "empty_map", "map_merge", "map_step", "map_target",
+           "scan_to_map_odometry", "register", "register_anderson", "register_anderson_jit",
+           "register_ift", "register_ift_jit", "register_jit", "SGDICPResult", "register_sgd",
+           "register_sgd_jit", "stream_odometry", "stream_registrations", "__version__"]

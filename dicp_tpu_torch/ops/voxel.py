@@ -38,6 +38,16 @@ def _lexsort(keys) -> torch.Tensor:
     return order
 
 
+def segment_sum(x: torch.Tensor, seg_idx: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Row sums of ``x`` (R, c) per sorted segment id, (num_segments, c), each
+    segment summed in row order.  The segments' lengths come from their ends
+    in the sorted ids: a fixed shape and no host sync (bincount and
+    segment_reduce's own checks would sync)."""
+    ends = torch.searchsorted(seg_idx, torch.arange(num_segments, device=x.device), right=True)
+    lengths = torch.diff(ends, prepend=ends.new_zeros((1,)))
+    return torch.segment_reduce(x, "sum", lengths=lengths, axis=0, initial=0, unsafe=True)
+
+
 def voxel_downsample(points: torch.Tensor, voxel_size: float,
                      origin: float = 0.0) -> VoxelResult:
     """Average all points falling in each (voxel_size)^3 cell.
@@ -61,11 +71,7 @@ def voxel_downsample(points: torch.Tensor, voxel_size: float,
     # one pass for sums and counts (a ones column), n segments of which the
     # ones past num_seg are empty
     aug = torch.cat([pts_s, torch.ones((n, 1), dtype=dtype, device=points.device)], dim=1)
-    # the segments' lengths from their ends in the sorted ids: a fixed shape
-    # and no host sync (bincount and segment_reduce's own checks would sync)
-    ends = torch.searchsorted(seg_idx, torch.arange(n, device=points.device), right=True)
-    lengths = torch.diff(ends, prepend=ends.new_zeros((1,)))
-    agg = torch.segment_reduce(aug, "sum", lengths=lengths, axis=0, initial=0, unsafe=True)
+    agg = segment_sum(aug, seg_idx, n)
     sums, counts = agg[:, :-1], agg[:, -1]
     centroids = sums / torch.where(counts[:, None] == 0, 1.0, counts[:, None])
 

@@ -24,9 +24,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # dicp_tpu's public names that come with later slices (ROADMAP.md, Queue 1)
 STILL_TO_PORT = {
-    "SGDICPResult": 3, "register_sgd": 3, "register_sgd_jit": 3,
-    "LocalMap": 3, "empty_map": 3, "map_merge": 3, "map_step": 3, "map_target": 3,
-    "scan_to_map_odometry": 3,
     "Closure": 4, "SlamResult": 4, "build_pose_graph": 4, "rebuild_map": 4,
     "refine_robust": 4, "slam_odometry": 4,
     "GICPResult": 5, "register_gicp": 5, "register_gicp_ift": 5, "register_gicp_jit": 5,

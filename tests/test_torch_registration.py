@@ -349,6 +349,7 @@ def test_port_never_imports_jax():
     """In a fresh interpreter: import the port, run a small solve on each
     tier, the normals on both large-cloud paths and a small stream_odometry
     (with the odometry, SVD-ICP, pipeline, io and voxel modules imported),
+    then a small scan_to_map_odometry (with sgd_icp and mapping imported),
     and find neither jax nor the JAX package in sys.modules."""
     code = (
         "import sys, numpy as np\n"
@@ -372,6 +373,11 @@ def test_port_never_imports_jax():
         "odo = dicp_tpu_torch.stream_odometry(((s, None) for s in scans),\n"
         "    dicp_tpu_torch.ICPConfig(max_iterations=10, dim=2), window=2, device='cpu')\n"
         "assert odo.poses.shape == (3, 4, 4)\n"
+        "import dicp_tpu_torch.sgd_icp, dicp_tpu_torch.mapping\n"
+        "s2m = dicp_tpu_torch.scan_to_map_odometry(((s, None) for s in scans),\n"
+        "    dicp_tpu_torch.ICPConfig(icp_type='pt2pt', max_iterations=10,\n"
+        "                             collect_histories=False), capacity=256, device='cpu')\n"
+        "assert s2m.poses.shape == (3, 4, 4) and s2m.converged.shape == (3,)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dicp_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
