@@ -131,26 +131,62 @@ Phases, each raising on failure (the script then exits non-zero):
     gate).  A mature map built by map_step: at most 65,536 occupied rows,
     its empty rows beyond the occupied box; map_step with insert=True and
     insert=False and map_merge of one scan alone (CUDA events, median of 5).
-16. (run after 17 and 18) a torch.profiler pass over 3 calls each of phases
+19. GICP and the multiscale pyramid at the JAX suite's deployments.  GICP
+    (benchmarks/exp_gicp.py:27-100): B = 64 pairs of a 600-point saddle
+    (seed 11), register_gicp (30 iterations, tol 1e-6; no kernel: a dense
+    600 x 600 block per pair) timed and its error < 1e-3; the same-shape
+    pt2pt register for the cost ratio; register_gicp_ift forward and
+    backward, its gradient finite, nonzero and of cosine > 0.99 with the
+    unrolled differentiable=True gradient; the f32 ~50 m radius case of
+    tests/test_gicp.py:190 finite with error < 5e-4.  The pyramid
+    (benchmarks/exp_multiscale.py:27-120): bench_suite's 100,000-point
+    three-plane scene from the FAR init, pt2pl, trim 2, Huber 1, the cluster
+    tier; single scale (40 iterations, tol 1e-5) against the pyramid (a 1 m,
+    4,096-slot dense level of 15 iterations at tol 1e-3 and trim 8, then
+    full resolution): ms per registration (CUDA events, median of 5 after
+    one), both errors < 1e-3, level iterations and K2 launches per call;
+    K2 against its plain version bit for bit on the first and last K2 call
+    of the pyramid's full-resolution level.
+20. closed-loop SLAM at real scan size: tests/test_slam.py:54-98's circuit
+    (a 5 m circle, scan radius 6 m, noise 0.04, seed 3) with 60,000-point
+    f32 scans drawn without replacement from a 1,000,000-point world, 2
+    laps of 32 scans (65), the test's configuration with slam_odometry's
+    default 8,192-row map: the front end on the tiled tier (K1), each
+    closure against a 60,000-row anchor on the cluster tier (K2).  Frames/s
+    (65 / wall s, refined poses fetched; median of 3 after one run),
+    accepted closures of the attempts, front and refined ATE (align=False),
+    the median closure error; ms per map_step, _closure_solve and
+    refine_robust in the first run (CUDA events); K1 launches per scan and
+    K2 per closure attempt.  Gates: a closure accepted, each with gap >= 24
+    and ratio >= 0.5; median closure error < 0.03; refined ATE <= front ATE
+    + 1e-3; K1 and K2 bit-equal to their plain versions on the first and
+    last call of each recorded by the stream (K1's first target holds the
+    map's empty rows, all on its sentinel: exact ties); a half lap accepts
+    no closure.  Then refine_robust's first call in a fresh process
+    (functorch's first use) against its second.
+16. (run after 17-20) a torch.profiler pass over 3 calls each of phases
     4, 8, 9 and 12's calls, one W = 1 warm stream of phase 17's first 9
-    scans and one gn scan-to-map stream of phase 18's first 4 scans: host
-    wall time, device busy share, K1's or K2's share of device time, device
-    ops per pair or scan.  It comes last: host-bound timings taken after the
-    profiler has been on in a process run slower.
+    scans, one gn scan-to-map stream of phase 18's first 4 scans and one
+    SLAM stream of phase 20's first 6 scans: host wall time, device busy
+    share, K1's or K2's share of device time, device ops per pair or scan.
+    It comes last: host-bound timings taken after the profiler has been on
+    in a process run slower.
 
 Phases 2, 6, 7, 11 and 13 time K1, K2, K5, K3, K4, K6 and K7 call by call
 through their wrappers, as runs before them did (the kernels line's ``ms``), and print
 beside it the time back to back (20 launches between two CUDA events, median
 of 7 rounds: the kernel's time, free of the host's launch overhead).
 
-Each main path (phases 4, 8, 9, 12, 14 and each run of 17 and 18) is driven with
+Each main path (phases 4, 8, 9, 12, 14, each run of 17 and 18, the pyramid of 19
+and the first SLAM run of 20) is driven with
 the kernels' launch counts set to 0 just before it and read just after.  The
 line before the last is a JSON object describing each kernel of the paths,
 with its bound: the larger of its operations at the H100's f32 rate and its
 bytes (each input read once, each output written once) at its memory rate,
-for this run's inputs; K2's entry also holds its launches per streamed pair
-and per batched odometry call (phase 17) and per scan of each scan-to-map
-stream (phase 18).  The last line is
+for this run's inputs; K1's entry also holds its launches per SLAM scan
+(phase 20), K2's its launches per streamed pair and per batched odometry
+call (phase 17), per scan of each scan-to-map stream (phase 18), per SLAM
+closure attempt (phase 20) and per pyramid call (phase 19).  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
     python3 chip_smoke.py --ab DIR
@@ -189,11 +225,13 @@ import numpy as np
 import torch
 
 from dicp_tpu_torch import ICP, ICPConfig, io, knn, pt2pt_svd_icp, register, register_ift
-from dicp_tpu_torch import se3, svd_icp
+from dicp_tpu_torch import se3, slam, svd_icp
 from dicp_tpu_torch.benchmarks import exp_knn
 from dicp_tpu_torch.convert import to_torch
+from dicp_tpu_torch.gicp import register_gicp, register_gicp_ift
 from dicp_tpu_torch.losses import VALID_LOSSES
 from dicp_tpu_torch.mapping import empty_map, map_merge, map_step, scan_to_map_odometry
+from dicp_tpu_torch.multiscale import ScaleLevel, register_multiscale
 from dicp_tpu_torch.odometry import (OdometryResult, ate, odometry, odometry_pose_graph,
                                      resumable_odometry)
 from dicp_tpu_torch.ops import _build, cluster_search, fused_gn, tiled_knn
@@ -1633,11 +1671,14 @@ def _recording_k2(calls: dict):
         kernel.launches = record.launches
 
 
-def _k2_on_recorded(recorded: dict, pad_point=None, pad_label: str = "at the origin") -> float:
+def _k2_on_recorded(recorded: dict, pad_point=None, pad_label: str = "at the origin",
+                    pads: bool = True) -> float:
     """K2 against its plain version, bit for bit, on K2 calls recorded from a
-    main path; returns the largest |difference| (0 when equal).  Gates that
-    some recorded target holds a group whose points all sit on the pad point
-    (``pad_point(points)``, default the origin: phase 17's zero-row pads)."""
+    main path; returns the largest |difference| (0 when equal).  With
+    ``pads``, gates that some recorded target holds a group whose points all
+    sit on the pad point (``pad_point(points)``, default the origin: phase
+    17's zero-row pads); phases 19 and 20's targets (keyframe anchors, the
+    100k scene) have no pad rows."""
     err, pad_groups = 0.0, 0
     for label, calls in recorded.items():
         for which in ("first", "last"):
@@ -1650,6 +1691,11 @@ def _k2_on_recorded(recorded: dict, pad_point=None, pad_label: str = "at the ori
                 _check(torch.equal(a, b), f"K2 {what} bit-equal to the plain version's on the "
                        f"{which} K2 call of {label}")
             err = max(err, _max_abs_diff(k2[0], plain[0]), _max_abs_diff(k2[2], plain[2]))
+            if not pads:
+                print(f"  K2 == plain on the {which} K2 call of {label}: xb {tuple(xb.shape)}, "
+                      f"G {points.shape[-3]}, {int((k2[0] <= k2[2]).sum())}/{k2[0].numel()} "
+                      f"certified")
+                continue
             pad = (torch.zeros(3, dtype=points.dtype, device=points.device)
                    if pad_point is None else pad_point(points))
             on_pad = (points == pad).all(-1).all(-1)                  # (..., G)
@@ -1662,7 +1708,58 @@ def _k2_on_recorded(recorded: dict, pad_point=None, pad_label: str = "at the ori
                   f"most), {int(at_pad.sum())} queries {pad_label}, "
                   f"{int((k2[0] == 0).sum())} queries at distance 0, "
                   f"{int((k2[0] <= k2[2]).sum())}/{k2[0].numel()} certified")
-    _check(pad_groups > 0, f"the recorded K2 calls hold groups of pad rows {pad_label}")
+    _check(not pads or pad_groups > 0,
+           f"the recorded K2 calls hold groups of pad rows {pad_label}")
+    return err
+
+
+@contextlib.contextmanager
+def _recording_k1(calls: dict):
+    """While active, K1's launcher also keeps copies of the arguments of its
+    first and its latest call under "first" and "last" (the tiled tier
+    reaches the launcher through the module attribute, which counts the
+    launch)."""
+    kernel = tiled_knn._nn_distances_cuda
+
+    def record(x, y):
+        calls["last"] = (x.detach().clone(), y.detach().clone())
+        calls.setdefault("first", calls["last"])
+        return kernel(x, y)
+
+    tiled_knn._nn_distances_cuda = record
+    try:
+        yield calls
+    finally:
+        tiled_knn._nn_distances_cuda = kernel
+
+
+def _k1_on_recorded(recorded: dict) -> float:
+    """K1 against its plain version, bit for bit (indices and squared
+    distances), on K1 calls recorded from a main path; returns the largest
+    |difference| of the distances (0 when equal).  Reports the targets'
+    duplicated rows (a map's empty rows all sit on its sentinel): exact
+    ties that K1 resolves to the first index, as the plain version does."""
+    err = 0.0
+    for label, calls in recorded.items():
+        for which in ("first", "last"):
+            x, y = calls[which]
+            k1 = tiled_knn._nn_distances_cuda(x, y)
+            plain = tiled_knn.nn_distances_plain(x, y)
+            torch.cuda.synchronize()
+            for what, a, b in zip(("index", "d2"), k1, plain):
+                _check(torch.equal(a, b), f"K1 {what} bit-equal to the plain version's on the "
+                       f"{which} K1 call of {label}")
+            err = max(err, _max_abs_diff(k1[1], plain[1]))
+            rows = y.reshape(-1, 3)
+            uniq, counts = torch.unique(rows, dim=0, return_counts=True)
+            dup = int(counts[counts > 1].sum())
+            on_dup = int(torch.isin(k1[0].reshape(-1), torch.nonzero(
+                (rows[:, None, :] == uniq[counts > 1][None]).all(-1).any(-1))[:, 0]).sum()) \
+                if dup else 0
+            print(f"  K1 == plain on the {which} K1 call of {label}: {tuple(x.shape)} queries, "
+                  f"{tuple(y.shape)} targets of which {dup} rows are duplicates "
+                  f"({int((counts > 1).sum())} distinct points), {on_dup} queries matched to a "
+                  f"duplicated row")
     return err
 
 
@@ -1970,6 +2067,344 @@ def phase18_scan_to_map(device):
     return launches, k2_err, lambda: stream({}, PROFILE_S2M_SCANS)
 
 
+# --- phase 19: GICP and the multiscale pyramid at the JAX suite's deployments -----
+
+# benchmarks/exp_gicp.py:27-100: B = 64 pairs of a 600-point saddle, seed 11
+B_GICP, N_GICP = 64, 600
+GICP_XI = (0.2, -0.15, 0.1, 0.06, -0.04, 0.08)
+GICP_PT2PT = ICPConfig(icp_type="pt2pt", differentiable=False, driver="while", max_iterations=30,
+                       tolerance=1e-6, dim=3, trim_dist=100.0, loss_name="huber",
+                       loss_metric=1e9, collect_histories=False)
+# benchmarks/exp_multiscale.py:27-120: 100k points of bench_suite's scene, FAR init
+N_MS = 100_000
+MS_XI = (0.8, -0.5, 0.2, 0.05, -0.08, 0.12)
+MS_CFG = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=40, tolerance=1e-5,
+                   dim=3, trim_dist=2.0, loss_name="huber", loss_metric=1.0,
+                   nn_method="cluster", collect_histories=False)
+MS_LEVELS = (ScaleLevel(1.0, 4096, 4096, 15, 1e-3, trim_dist=8.0, nn_method="dense"),
+             ScaleLevel(0.0, 0, 0, 40, 1e-5))
+
+
+def three_planes(n: int) -> np.ndarray:
+    """benchmarks/bench_suite.py:181's _make_scene: (n, 6) f32 points with
+    exact normals on three orthogonal 40 m planes, seed 0."""
+    rng = np.random.default_rng(0)
+    normals = np.array([[0, 0, 1.0], [1.0, 0, 0], [0, 1.0, 0]])
+    pts, nrm = [], []
+    for k in range(3):
+        uv = rng.uniform(-20, 20, size=(n // 3 + 1, 2)).astype(np.float32)
+        basis = np.eye(3)[[i for i in range(3) if i != np.argmax(normals[k])]]
+        pts.append(uv @ basis + normals[k] * (2.0 + k))
+        nrm.append(np.tile(normals[k], (n // 3 + 1, 1)))
+    return np.hstack([np.vstack(pts)[:n], np.vstack(nrm)[:n]]).astype(np.float32)
+
+
+def _log_err(T_true: np.ndarray, T_est: torch.Tensor) -> torch.Tensor:
+    """|log(T_true T_est^-1)| per element, in f64 on the host."""
+    T_est = T_est.detach().cpu().double()
+    return torch.linalg.vector_norm(
+        se3.tran2vec(torch.as_tensor(T_true) @ torch.linalg.inv(T_est)), dim=-1)
+
+
+def phase19_gicp_multiscale(device) -> dict:
+    """GICP (exp_gicp.py's deployment) and the pyramid (exp_multiscale.py's);
+    returns K2's launches per pyramid call and its largest |difference| on
+    the pyramid's own calls."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(11)
+    xy = rng.uniform(-3, 3, size=(N_GICP, 2))
+    scene = np.column_stack([xy, 0.09 * (xy[:, 0] ** 2 - xy[:, 1] ** 2)])
+    T_np = se3.vec2tran(torch.tensor(GICP_XI, dtype=torch.float32)).double().numpy()
+    src = (scene @ T_np[:3, :3].T + T_np[:3, 3]).astype(np.float32)
+    S = torch.as_tensor(np.stack([src] * B_GICP), device=device)
+    Tg = torch.as_tensor(np.stack([scene.astype(np.float32)] * B_GICP), device=device)
+    Ti = torch.eye(4, dtype=torch.float32, device=device).expand(B_GICP, 4, 4).contiguous()
+    T_true = np.linalg.inv(T_np)
+
+    def gicp():
+        return register_gicp(S, Tg, Ti, max_iterations=30, tolerance=1e-6)
+
+    def pt2pt():
+        return register(S, Tg, Ti, None, GICP_PT2PT)
+
+    def ift():
+        a = S.clone().requires_grad_(True)
+        res = register_gicp_ift(a, Tg, Ti, max_iterations=30, tolerance=1e-6)
+        return torch.autograd.grad(res.T.sum(), a)[0]
+
+    res_g, res_p = gicp(), pt2pt()
+    err_g, err_p = float(_log_err(T_true, res_g.T).max()), float(_log_err(T_true, res_p.T).max())
+    t0 = time.perf_counter()
+    g_ift = ift()
+    torch.cuda.synchronize()
+    first_ift_s = time.perf_counter() - t0
+    a = S.clone().requires_grad_(True)
+    unrolled = register_gicp(a, Tg, Ti, max_iterations=30, tolerance=1e-6, differentiable=True)
+    g_unr = torch.autograd.grad(unrolled.T.sum(), a)[0]
+    cos = _cosine(g_ift, g_unr)
+    ms_g = cuda_median_ms(gicp, warmup=1, iters=5)
+    ms_p = cuda_median_ms(pt2pt, warmup=1, iters=5)
+    ms_i = cuda_median_ms(ift, warmup=1, iters=5)
+    print(f"  GICP B={B_GICP}, n = m = {N_GICP} (saddle): {B_GICP / ms_g * 1e3:.1f} "
+          f"registrations/s ({ms_g:.3f} ms per batch; CUDA events, median of 5 after one), "
+          f"max transform error {err_g:.3e}, iterations {float(res_g.iterations.mean()):.2f} "
+          f"(all converged: {bool(res_g.converged.all())}); same-shape pt2pt register "
+          f"{ms_p:.3f} ms, error {err_p:.3e}, iterations {float(res_p.iterations.mean()):.2f}; "
+          f"cost ratio GICP / pt2pt {ms_g / ms_p:.3f}")
+    print(f"  register_gicp_ift fwd+bwd: {B_GICP / ms_i * 1e3:.1f} registrations/s "
+          f"({ms_i:.3f} ms; the first call {first_ift_s * 1e3:.1f} ms); gradient cosine with "
+          f"the unrolled differentiable=True gradient {cos:.6f}")
+    _check(err_g < TOL_POSE and err_p < TOL_POSE, f"GICP and pt2pt errors < {TOL_POSE}")
+    for name, g in (("IFT", g_ift), ("unrolled", g_unr)):
+        _check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+               f"GICP {name} gradient finite and nonzero")
+    _check(cos > 0.99, f"GICP IFT gradient cosine with the unrolled one {cos} > 0.99")
+
+    # tests/test_gicp.py:190: ~50 m radius in f32, the equilibrated solve
+    rng = np.random.default_rng(3)
+    xy = rng.uniform(-50, 50, size=(800, 2))
+    wide = np.column_stack([xy, 0.02 * (xy[:, 0] ** 2 - xy[:, 1] ** 2) / 50.0]).astype(np.float32)
+    T_w = se3.vec2tran(torch.tensor([0.3, -0.2, 0.1, 0.004, -0.003, 0.006],
+                                    dtype=torch.float64)).numpy()
+    src_w = (wide.astype(np.float64) @ T_w[:3, :3].T + T_w[:3, 3]).astype(np.float32)
+    res_w = register_gicp(torch.as_tensor(src_w[None], device=device),
+                          torch.as_tensor(wide[None], device=device),
+                          torch.eye(4, dtype=torch.float32, device=device)[None],
+                          max_iterations=60, tolerance=1e-7)
+    finite = bool(torch.isfinite(res_w.T).all())
+    err_w = float(_log_err(np.linalg.inv(T_w), res_w.T)[0])
+    print(f"  GICP f32 at ~50 m radius: finite {finite}, error {err_w:.3e}")
+    _check(finite and err_w < 5e-4, f"GICP f32 realistic radius: finite, error {err_w} < 5e-4")
+
+    target = torch.as_tensor(three_planes(N_MS), device=device)
+    T_ms = se3.vec2tran(torch.tensor(MS_XI, dtype=torch.float64)).numpy()
+    source = torch.as_tensor((target[:, :3].double().cpu().numpy() @ T_ms[:3, :3].T
+                              + T_ms[:3, 3]).astype(np.float32), device=device)
+    eye = torch.eye(4, dtype=torch.float32, device=device)[None]
+    T_true = np.linalg.inv(T_ms)
+
+    def single():
+        return register(source[None], target[None], eye, None, MS_CFG)
+
+    def pyramid():
+        return register_multiscale(source[None], target[None], eye, None, MS_CFG, MS_LEVELS)
+
+    _reset_launches()
+    res_s = single()
+    torch.cuda.synchronize()
+    k2_single = _launches()["cluster_search"]
+    recorded = {}
+    _reset_launches()
+    with _recording_k2(recorded.setdefault("the pyramid's full-resolution level", {})):
+        res_m = pyramid()
+    torch.cuda.synchronize()
+    k2_pyr = _launches()["cluster_search"]
+    k2_err = _k2_on_recorded(recorded, pads=False)
+    err_s = float(_log_err(T_true, res_s.T)[0])
+    err_m = float(_log_err(T_true, res_m.result.T)[0])
+    ms_s = cuda_median_ms(single, warmup=1, iters=5)
+    ms_m = cuda_median_ms(pyramid, warmup=1, iters=5)
+    levels = [float(x) for x in res_m.level_iterations[:, 0]]
+    print(f"  multiscale, {N_MS} points, FAR init: single scale {ms_s:.3f} ms per registration "
+          f"(error {err_s:.3e}, {float(res_s.iterations[0]):.0f} iterations, K2 {k2_single} "
+          f"launches); pyramid {ms_m:.3f} ms (error {err_m:.3e}, level iterations {levels}, K2 "
+          f"{k2_pyr} launches); speed-up {ms_s / ms_m:.3f} (CUDA events, median of 5 after one)")
+    _check(err_s < TOL_POSE and err_m < TOL_POSE, f"multiscale errors < {TOL_POSE}")
+    _check(k2_single > 0 and k2_pyr > 0, "K2 launched on both full-resolution solves")
+    print(f"phase 19 ok: GICP and the pyramid, {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_per_multiscale_call": k2_pyr, "launches_single": k2_single,
+            "k2_err": k2_err}
+
+
+# --- phase 20: closed-loop SLAM at real scan size -----------------------------
+
+# tests/test_slam.py:44-98's circuit and configuration with 60,000-point scans
+# drawn from a 1,000,000-point world, two laps, and slam_odometry's default
+# capacity of 8,192 rows: the front end on the tiled tier (K1), the closures
+# against 60,000-row anchors on the cluster tier (K2)
+N_SLAM, WORLD_SLAM, LAPS_SLAM, PER_LAP = 60_000, 1_000_000, 2, 32
+SLAM_CFG = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=50, tolerance=1e-5,
+                     dim=3, trim_dist=2.0, loss_name="huber", loss_metric=0.5,
+                     collect_histories=False)
+SLAM_KW = dict(capacity=8192, voxel=0.25, anchor_every=4, closure_gap=24, detect_every=2,
+               detect_radius=5.0, accept_ratio=0.5, max_closures=100, closure_info=30.0,
+               refine_iterations=25)
+PROFILE_SLAM_SCANS = 6              # phase 16's SLAM stream (~10,700 ops per scan)
+FUNCTORCH_SNIPPET = """
+import json, time, torch
+from dicp_tpu_torch import se3
+from dicp_tpu_torch.odometry import PoseGraph
+from dicp_tpu_torch.slam import refine_robust
+dev = torch.device("cuda", 0)
+torch.linalg.solve(torch.eye(6, device=dev), torch.ones(6, device=dev))
+xi = torch.zeros((65, 6), device=dev)
+xi[:, 0] = torch.arange(65, device=dev) * 0.1
+poses = se3.vec2tran(xi)
+i = torch.arange(64, device=dev)
+graph = PoseGraph(torch.cat([i, i[:8]]), torch.cat([i + 1, i[:8] + 32]),
+                  torch.cat([se3.compose(se3.tran_inv(poses[:-1]), poses[1:]),
+                             se3.compose(se3.tran_inv(poses[:8]), poses[32:40])]),
+                  torch.ones(72, device=dev))
+torch.cuda.synchronize()
+times = []
+for _ in range(2):
+    t0 = time.perf_counter()
+    refine_robust(poses, graph, iterations=25)
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+print(json.dumps(times))
+"""
+
+
+def slam_circuit(laps: float, partial: bool = False):
+    """tests/test_slam.py's _make_scans at N_SLAM points per scan: local-frame
+    f32 scans along a 5 m circle (scan radius 6 m, noise 0.04, seed 3) drawn
+    without replacement from a WORLD_SLAM-point wavy surface; returns the
+    scans, the truth in the scan-0 gauge and the scan-0 pose."""
+    R, r, noise = 5.0, 6.0, 0.04
+    wrng = np.random.default_rng(0)
+    world = np.empty((WORLD_SLAM, 3))
+    world[:, 0] = wrng.uniform(-R - 8, R + 8, WORLD_SLAM)
+    world[:, 1] = wrng.uniform(-R - 8, R + 8, WORLD_SLAM)
+    world[:, 2] = np.sin(world[:, 0] * 0.6) * np.cos(world[:, 1] * 0.5) * 1.5
+    rng = np.random.default_rng(3)
+    n_scans = int(laps * PER_LAP) + (0 if partial else 1)
+    poses, scans = [], []
+    for k in range(n_scans):
+        th = 2 * np.pi * k / PER_LAP
+        t = np.array([R * np.cos(th), R * np.sin(th), 0.0])
+        yaw = th + np.pi / 2 + 0.05 * np.sin(k * 0.3)
+        c, s = np.cos(yaw), np.sin(yaw)
+        Rm = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = Rm, t
+        idx = np.flatnonzero(np.linalg.norm(world[:, :2] - t[None, :2], axis=1) < r)
+        sel = rng.choice(idx, N_SLAM, replace=len(idx) < N_SLAM)
+        local = (world[sel] - t) @ Rm + rng.normal(scale=noise, size=(N_SLAM, 3))
+        scans.append(local.astype(np.float32))
+        poses.append(T)
+    P = np.stack(poses)
+    return scans, np.einsum("ij,kjl->kil", np.linalg.inv(P[0]), P), P[0]
+
+
+@contextlib.contextmanager
+def _timed_calls(module, name: str, log: list, kernel_counts: bool = False):
+    """While active, each call of ``module.name`` is timed with CUDA events
+    (ms appended to ``log``; with ``kernel_counts``, K2's launches in the
+    call too)."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kw):
+        k2 = cluster_search.fused_search.launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        end.synchronize()
+        log.append((start.elapsed_time(end), cluster_search.fused_search.launches - k2)
+                   if kernel_counts else start.elapsed_time(end))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield log
+    finally:
+        setattr(module, name, fn)
+
+
+def phase20_slam(device):
+    """slam_odometry over two laps of 60,000-point scans; returns K1's
+    launches per scan, K2's per closure attempt, the largest |difference| of
+    each kernel on the path's own calls and a short stream for phase 16."""
+    t_phase = time.perf_counter()
+    scans, poses_true, T0 = slam_circuit(LAPS_SLAM)
+    S = len(scans)
+    truth = torch.as_tensor(poses_true)
+    t_gen = time.perf_counter() - t_phase
+
+    def run(count=S, src=scans):
+        res = slam.slam_odometry(((p, None) for p in src[:count]), SLAM_CFG, device=device,
+                                 **SLAM_KW)
+        return res._replace(poses=res.poses.cpu(), poses_front=res.poses_front.cpu())
+
+    rec1, rec2, closure_log, step_log, refine_log = {}, {}, [], [], []
+    _reset_launches()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_recording_k1(rec1.setdefault("the SLAM front end", {})))
+        stack.enter_context(_recording_k2(rec2.setdefault("the SLAM closure solves", {})))
+        stack.enter_context(_timed_calls(slam, "_closure_solve", closure_log, True))
+        stack.enter_context(_timed_calls(slam, "map_step", step_log))
+        stack.enter_context(_timed_calls(slam, "refine_robust", refine_log))
+        t0 = time.perf_counter()
+        res = run()
+        first_s = time.perf_counter() - t0
+    counts = _launches()
+    k1, k2 = counts["tiled_nn"], counts["cluster_search"]
+    attempts = len(closure_log)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    a_front = float(ate(res.poses_front.double(), truth, align=False))
+    a_ref = float(ate(res.poses.double(), truth, align=False))
+    # |log(T_true^-1 T_rel)| per closure, as tests/test_slam.py:108-115
+    errs = [float(torch.linalg.vector_norm(se3.tran2vec(
+        torch.as_tensor(np.linalg.inv(poses_true[c.anchor_idx]) @ poses_true[c.scan_idx]).inverse()
+        @ c.T_rel.cpu().double()))) for c in res.closures]
+    its = res.iterations[1:].double()
+    print(f"  SLAM, {LAPS_SLAM} laps x {PER_LAP} scans ({S}) of {N_SLAM} points from a "
+          f"{WORLD_SLAM}-point world (built in {t_gen:.1f} s), capacity "
+          f"{SLAM_KW['capacity']}: {S / statistics.median(times):.3f} frames/s (median of 3 "
+          f"after one; runs {', '.join(f'{t:.3f}' for t in times)} s; the instrumented first "
+          f"run {first_s:.3f} s)")
+    print(f"  closures: {len(res.closures)} accepted of {attempts} attempts, pairs "
+          f"{[(c.anchor_idx, c.scan_idx) for c in res.closures]}, ratios min "
+          f"{min((c.matched_ratio for c in res.closures), default=float('nan')):.3f}, median "
+          f"closure error {float(np.median(errs)) if errs else float('nan'):.3e}; ATE "
+          f"(align=False) front {a_front:.4f} m, refined {a_ref:.4f} m; front-end iterations "
+          f"per scan {float(its.mean()):.2f} (max {float(its.max()):.0f}), converged "
+          f"{int(res.converged.sum())}/{S}")
+    step_ms = statistics.median(step_log)
+    closure_ms = statistics.median(t for t, _ in closure_log) if closure_log else float("nan")
+    print(f"  per call (CUDA events, the first run): map_step {step_ms:.3f} ms (median of "
+          f"{len(step_log)}), _closure_solve {closure_ms:.3f} ms (median of {attempts}), "
+          f"refine_robust {', '.join(f'{t:.1f}' for t in refine_log)} ms; K1 "
+          f"{k1 / (S - 1):.3f} launches per scan ({k1}), K2 "
+          f"{k2 / max(attempts, 1):.3f} per closure attempt ({k2}; per attempt "
+          f"{[n for _, n in closure_log]})")
+    _check(len(res.closures) >= 1, "SLAM accepted a closure")
+    for c in res.closures:
+        _check(c.scan_idx - c.anchor_idx >= SLAM_KW["closure_gap"]
+               and c.matched_ratio >= SLAM_KW["accept_ratio"],
+               f"closure {c.anchor_idx} -> {c.scan_idx}: gap and ratio")
+    _check(float(np.median(errs)) < 0.03, "median closure error < 0.03")
+    _check(a_ref <= a_front + 1e-3, f"refined ATE {a_ref} <= front ATE {a_front} + 1e-3")
+    _check(k1 >= S - 1, f"K1 launched on every front-end solve ({k1})")
+    _check(k2 > 0 and k2 == sum(n for _, n in closure_log), "K2 launched only by the closures")
+    k1_err = _k1_on_recorded(rec1)
+    k2_err = _k2_on_recorded(rec2, pads=False)
+
+    half, _, _ = slam_circuit(0.5, partial=True)
+    res_half = run(len(half), half)
+    print(f"  half lap ({len(half)} scans): {len(res_half.closures)} closures, refined poses "
+          f"equal the front end's: {torch.equal(res_half.poses, res_half.poses_front)}")
+    _check(len(res_half.closures) == 0 and torch.equal(res_half.poses, res_half.poses_front),
+           "no closure without a revisit")
+    proc = subprocess.run([sys.executable, "-c", FUNCTORCH_SNIPPET], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    _check(proc.returncode == 0, f"the cold refine_robust subprocess ran: {proc.stderr[-2000:]}")
+    cold = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"  refine_robust in a fresh process (65 poses, 72 edges, 25 iterations, 2 passes): "
+          f"first call {cold[0] * 1e3:.1f} ms (functorch's first use), second "
+          f"{cold[1] * 1e3:.1f} ms")
+    print(f"phase 20 ok: SLAM, {len(res.closures)} closures, K1 {k1} and K2 {k2} launches, "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return ({"launches": k1, "launches_per_slam_scan": k1 / (S - 1), "k1_err": k1_err},
+            {"launches": k2, "launches_per_slam_closure": k2 / max(attempts, 1),
+             "k2_err": k2_err}, lambda: run(PROFILE_SLAM_SCANS))
+
+
 def main() -> None:
     card = phase0_device()
     device = torch.device("cuda", 0)
@@ -1995,8 +2430,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="dicp_smoke_scans_") as workdir:
         odo_launches, stream_w1, k2_err = phase17_lidar_odometry(device, Path(workdir))
         s2m_launches, k2_err_s2m, s2m_stream = phase18_scan_to_map(device)
+        pyramid = phase19_gicp_multiscale(device)
+        slam_k1, slam_k2, slam_stream = phase20_slam(device)
         timed["cluster_search"]["max_abs_err"] = max(timed["cluster_search"]["max_abs_err"],
-                                                     k2_err, k2_err_s2m)
+                                                     k2_err, k2_err_s2m, pyramid["k2_err"],
+                                                     slam_k2["k2_err"])
+        k1["max_abs_err"] = max(k1["max_abs_err"], slam_k1["k1_err"])
         # last, so that no timing above runs after the profiler has been on
         _profile(slice_solve, "phase 4", focus=("tiled_nn_kernel",))
         _profile(single_solve, "phase 8 (icp call)", focus=("cluster_search_kernel",))
@@ -2008,14 +2447,18 @@ def main() -> None:
         ops = _profile(s2m_stream, f"phase 18, gn scan-to-map stream of {PROFILE_S2M_SCANS} "
                        "scans", calls=1, focus=("cluster_search_kernel",))
         print(f"  phase 18 stream: {ops / PROFILE_S2M_SCANS:.1f} device ops per scan")
-    print("phase 16 ok: profiles of phases 4, 8, 9, 12, 17 and 18")
+        ops = _profile(slam_stream, f"phase 20, SLAM stream of {PROFILE_SLAM_SCANS} scans",
+                       calls=1, focus=("tiled_nn_kernel", "cluster_search_kernel"))
+        print(f"  phase 20 stream: {ops / PROFILE_SLAM_SCANS:.1f} device ops per scan")
+    print("phase 16 ok: profiles of phases 4, 8, 9, 12, 17, 18 and 20")
     kernels = [{
         "name": "tiled_nn",
         "route": "cuda",
         "source": "dicp_tpu_torch/csrc/tiled_nn.cu",
         "replaces": "dicp_tpu/ops/pallas_knn.py:50",
-        "launches": launches,
         **k1,
+        "launches": launches + slam_k1["launches"],
+        "launches_per_slam_scan": slam_k1["launches_per_slam_scan"],
     }]
     sources_of = {"cluster_search": ("dicp_tpu_torch/csrc/cluster_search.cu",
                                      "dicp_tpu/ops/pallas_cluster.py:126"),
@@ -2028,13 +2471,17 @@ def main() -> None:
         _check(count > 0, f"{name} launched on the raw-scan paths ({count})")
         extra = {}
         if name == "cluster_search":
-            count += sum(odo_launches.values()) + sum(s2m_launches.values())
+            count += (sum(odo_launches.values()) + sum(s2m_launches.values())
+                      + pyramid["launches_single"] + pyramid["launches_per_multiscale_call"]
+                      + slam_k2["launches"])
             extra = {"launches_per_streamed_pair": {
                          label: k / (S_SEQ - 1) for label, k in odo_launches.items()
                          if label != "batched odometry"},
                      "launches_per_batched_odometry_call": odo_launches["batched odometry"],
                      "launches_per_scan_to_map_scan": {
-                         label: k / (S_S2M - 1) for label, k in s2m_launches.items()}}
+                         label: k / (S_S2M - 1) for label, k in s2m_launches.items()},
+                     "launches_per_slam_closure": slam_k2["launches_per_slam_closure"],
+                     "launches_per_multiscale_call": pyramid["launches_per_multiscale_call"]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": count, **timed[name], **extra})
     _check(k4_launches > 0, f"fused_gn launched on the headline path ({k4_launches})")

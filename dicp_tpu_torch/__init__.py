@@ -37,6 +37,12 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
   mini-batch ICP with an explicit mini-batch source.
 * :mod:`dicp_tpu_torch.mapping`: scan-to-map odometry against a fused voxel
   map (:func:`scan_to_map_odometry`, :func:`map_step`, :func:`map_merge`).
+* :mod:`dicp_tpu_torch.slam`: closed-loop SLAM, the scan-to-map front end
+  with keyframe loop closures and a robust pose graph (:func:`slam_odometry`).
+* :mod:`dicp_tpu_torch.gicp`: plane-to-plane Generalized-ICP
+  (:func:`register_gicp`, :func:`register_gicp_ift`).
+* :mod:`dicp_tpu_torch.multiscale`: coarse-to-fine registration over a voxel
+  pyramid (:func:`register_multiscale`).
 * :mod:`dicp_tpu_torch.convert`: configs and arrays carried across from the
   JAX package.
 * :mod:`dicp_tpu_torch.benchmarks.exp_knn`: the exact 1-NN kernels' A/B on
@@ -48,25 +54,32 @@ This package imports neither ``jax`` nor ``dicp_tpu``.
 from dicp_tpu_torch.anderson import register_anderson, register_anderson_jit
 from dicp_tpu_torch.api import ICP, batch_size_handling
 from dicp_tpu_torch.config import ICPConfig, config_from_yaml
+from dicp_tpu_torch.gicp import GICPResult, register_gicp, register_gicp_ift, register_gicp_jit
 from dicp_tpu_torch.ops.cluster_knn import (build_cluster_index, cluster_knn,
                                             cluster_nn, cluster_nn_verified)
 from dicp_tpu_torch.ops.normals import estimate_normals, estimate_normals_weighted
 from dicp_tpu_torch.ift import register_ift, register_ift_jit
 from dicp_tpu_torch.mapping import (LocalMap, empty_map, map_merge, map_step, map_target,
                                     scan_to_map_odometry)
+from dicp_tpu_torch.multiscale import MultiscaleResult, ScaleLevel, register_multiscale
 from dicp_tpu_torch.pipeline import stream_odometry, stream_registrations
 from dicp_tpu_torch.registration import ICPResult, register, register_jit
 from dicp_tpu_torch.sgd_icp import SGDICPResult, register_sgd, register_sgd_jit
+from dicp_tpu_torch.slam import (Closure, SlamResult, build_pose_graph, rebuild_map,
+                                 refine_robust, slam_odometry)
 from dicp_tpu_torch.svd_icp import pt2pt_svd_icp
 
 __version__ = "0.1.0"
 
-# In the order of ``dicp_tpu.__all__``; the JAX package's other names come
-# with their slices (ROADMAP.md, Queue 1).
+# In the order of ``dicp_tpu.__all__``, every name of which the port exports.
 __all__ = ["ICP", "ICPConfig", "ICPResult", "batch_size_handling",
            "build_cluster_index", "cluster_knn", "cluster_nn", "cluster_nn_verified",
            "config_from_yaml", "estimate_normals", "estimate_normals_weighted",
-           "pt2pt_svd_icp", "LocalMap", "empty_map", "map_merge", "map_step", "map_target",
-           "scan_to_map_odometry", "register", "register_anderson", "register_anderson_jit",
+           "pt2pt_svd_icp", "GICPResult", "register_gicp", "register_gicp_ift",
+           "register_gicp_jit", "LocalMap", "empty_map", "map_merge", "map_step", "map_target",
+           "scan_to_map_odometry", "MultiscaleResult", "ScaleLevel", "register",
+           "register_multiscale", "register_anderson", "register_anderson_jit",
            "register_ift", "register_ift_jit", "register_jit", "SGDICPResult", "register_sgd",
-           "register_sgd_jit", "stream_odometry", "stream_registrations", "__version__"]
+           "register_sgd_jit", "Closure", "SlamResult", "build_pose_graph", "rebuild_map",
+           "refine_robust", "slam_odometry", "stream_odometry", "stream_registrations",
+           "__version__"]

@@ -51,11 +51,16 @@ def pairwise_sq_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Squared distances (..., n, 3) x (..., m, 3) -> (..., n, m), clipped at 0.
 
     The cross term is a matmul: on a GPU it must run in full f32 (TF32 off),
-    the twin of the TPU's bf16 trap (dicp_tpu/knn.py:45-48)."""
+    the twin of the TPU's bf16 trap (dicp_tpu/knn.py:45-48).  Without an
+    autograd graph to record, the exact product 2 xy is subtracted and the
+    clip done in place, in one (n, m) buffer: the same bits."""
     x2 = torch.sum(x * x, dim=-1, keepdim=True)
     y2 = torch.sum(y * y, dim=-1, keepdim=True)
     xy = x @ y.transpose(-1, -2)
-    return torch.clamp(x2 + y2.transpose(-1, -2) - 2.0 * xy, min=0.0)
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        return torch.clamp(x2 + y2.transpose(-1, -2) - 2.0 * xy, min=0.0)
+    d2 = x2 + y2.transpose(-1, -2)
+    return d2.sub_(xy, alpha=2.0).clamp_(min=0.0)
 
 
 def nn_indices(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

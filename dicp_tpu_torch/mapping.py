@@ -120,37 +120,44 @@ def map_merge(m: LocalMap, scan_world: torch.Tensor, voxel: float,
 
     ``mode``: ``"mean"`` (count-weighted running means) or ``"freeze"`` (a
     voxel keeps its first observation's position and normal; later scans
-    refresh its count and recency, and new voxels are appended)."""
+    refresh its count and recency, and new voxels are appended).
+
+    The union, its cells and the returned ``pos``, ``m2`` and ``count`` take
+    the wider of the map's and the scan's dtypes, as JAX promotes them: an
+    f32 map merged with an f64 scan becomes an f64 map.  The scan's normals
+    are estimated in the scan's own dtype."""
     if mode not in ("freeze", "mean"):
         raise ValueError(f"mode must be freeze|mean, got {mode}")
     cap = m.pos.shape[0]
-    dtype, device = m.pos.dtype, m.pos.device
-    pts = scan_world[:, :3].to(dtype)
+    dtype, device = torch.promote_types(m.pos.dtype, scan_world.dtype), m.pos.device
+    pts = scan_world[:, :3]
     n = pts.shape[0]
     if with_normals:
-        u_new = _outer6(estimate_normals_weighted(pts))
+        u_new = _outer6(estimate_normals_weighted(pts)).to(dtype)
     else:
         u_new = torch.zeros((n, 6), dtype=dtype, device=device)
+    pts = pts.to(dtype)
+    map_pos, map_count = m.pos.to(dtype), m.count.to(dtype)
 
-    big = torch.finfo(dtype).max
+    big = torch.finfo(m.pos.dtype).max
     old_valid = m.count > 0
     # invalid old rows: zero weight, parked just beyond the union's bounding
     # box, so that they share one cell and evict first
-    lo_u = torch.minimum(torch.amin(torch.where(old_valid[:, None], m.pos, big), dim=0),
+    lo_u = torch.minimum(torch.amin(torch.where(old_valid[:, None], map_pos, big), dim=0),
                          torch.amin(pts, dim=0))
-    hi_u = torch.maximum(torch.amax(torch.where(old_valid[:, None], m.pos, -big), dim=0),
+    hi_u = torch.maximum(torch.amax(torch.where(old_valid[:, None], map_pos, -big), dim=0),
                          torch.amax(pts, dim=0))
     park = hi_u + 4.0 * (hi_u - lo_u) + 1.0
-    old_pos = torch.where(old_valid[:, None], m.pos, park[None, :])
+    old_pos = torch.where(old_valid[:, None], map_pos, park[None, :])
     all_pos = torch.cat([old_pos, pts])
-    all_u = torch.cat([m.m2, u_new])
+    all_u = torch.cat([m.m2.to(dtype), u_new])
     ones = torch.ones((n,), dtype=dtype, device=device)
-    all_w = torch.where(torch.cat([old_valid, ones > 0]), torch.cat([m.count, ones]), 0.0)
+    all_w = torch.where(torch.cat([old_valid, ones > 0]), torch.cat([map_count, ones]), 0.0)
     all_last = torch.cat([m.last, (m.step + 1).to(torch.int32).expand(n)])
     all_last = torch.where(all_w > 0, all_last, -1)
 
     # XLA's rewrite of the division by the static voxel: x * (1 / voxel), the
-    # reciprocal rounded to the map's dtype (on the host: no device copy)
+    # reciprocal rounded to the union's dtype (on the host: no device copy)
     inv_voxel = (torch.ones((), dtype=dtype) / voxel).item()
     cell = torch.floor(all_pos * inv_voxel).to(torch.int32)
     order = _lexsort((cell[:, 2], cell[:, 1], cell[:, 0]))

@@ -421,3 +421,54 @@ def test_scan_to_map_odometry_matches_jax(par_seq, s2m_refs, jax_normals, solver
                                atol=1e-9)
     np.testing.assert_array_equal(res.iterations.numpy(), ref.iterations)
     np.testing.assert_array_equal(res.converged.numpy(), ref.converged)
+
+
+@pytest.mark.parametrize("mode", ["mean", "freeze"])
+@pytest.mark.parametrize("with_normals", [False, True])
+def test_map_merge_promotes_dtypes_like_jax(par_seq, jax_normals, mode, with_normals):
+    """An f32 map merged with f64 scans (x64): JAX promotes the union, its
+    cells and the returned pos, m2 and count to f64 (last and step stay
+    int32).  Each scan carries 200 points 1e-9 below a cell boundary, where
+    cells of f32 and f64 coordinates differ.  Fields and dtypes as JAX's,
+    within 1e-10."""
+    scans, _ = par_seq
+    rng = np.random.default_rng(9)
+    below = np.round(rng.uniform(-30, 30, (200, 3))) * 0.25 - 1e-9
+    mj, mt = jm.empty_map(4096), empty_map(4096)
+    assert mt.pos.dtype == torch.float32
+    for s in scans[:2]:
+        pts = np.concatenate([s, below])
+        mj = jm.map_merge(mj, jnp.asarray(pts), 0.25, with_normals=with_normals, mode=mode)
+        mt = map_merge(mt, torch.as_tensor(pts), 0.25, with_normals=with_normals, mode=mode)
+        for a, b in zip(mt, mj):
+            assert str(a.dtype).split(".")[-1] == str(np.asarray(b).dtype)
+        _assert_maps_match(mt, mj, atol=1e-10)
+
+
+# SHA-256 of every field after each of three merges into a 512-row map (voxel
+# 0.35, LRU eviction), recorded from map_merge as it was before it promoted
+# dtypes: a merge whose map and scan share a dtype must keep those bits.
+SAME_DTYPE_DIGESTS = {
+    ("float32", "mean"): "4e6f9f2658d97ded9220d42b1368cd97f9a29319e8ad36e21cd9611012737d3c",
+    ("float32", "freeze"): "cd7a64d6aa63288afe6eacc42ebb5d9e5d98e31971dd72575aa1dd1434f8e0ba",
+    ("float64", "mean"): "4aa4afdbac611bf676ca2b0583c7248e931fe7b05e55453125a14fffe86c4759",
+    ("float64", "freeze"): "c5df3c6e907a9f82f315c187df4e4ad28525f48eecc829639d7009ab87339c7c",
+}
+
+
+@pytest.mark.parametrize("dtype, mode", list(SAME_DTYPE_DIGESTS))
+def test_map_merge_same_dtype_bits_unchanged(dtype, mode):
+    import hashlib
+
+    rng = np.random.default_rng(5)
+    h = hashlib.sha256()
+    m = empty_map(512, getattr(torch, dtype))
+    for k in range(3):
+        p = rng.uniform(-6, 6, (900, 3))
+        p[:, 2] = np.sin(p[:, 0] * 0.6) * np.cos(p[:, 1] * 0.5)
+        m = map_merge(m, torch.as_tensor((p + 0.3 * k).astype(dtype)), 0.35,
+                      with_normals=True, mode=mode)
+        assert m.pos.dtype == m.m2.dtype == m.count.dtype == getattr(torch, dtype)
+        for f in m:
+            h.update(f.numpy().tobytes())
+    assert h.hexdigest() == SAME_DTYPE_DIGESTS[(dtype, mode)]

@@ -349,8 +349,9 @@ def test_port_never_imports_jax():
     """In a fresh interpreter: import the port, run a small solve on each
     tier, the normals on both large-cloud paths and a small stream_odometry
     (with the odometry, SVD-ICP, pipeline, io and voxel modules imported),
-    then a small scan_to_map_odometry (with sgd_icp and mapping imported),
-    and find neither jax nor the JAX package in sys.modules."""
+    then a small scan_to_map_odometry (with sgd_icp and mapping imported)
+    and a small GICP and pyramid solve (with gicp, multiscale and slam
+    imported), and find neither jax nor the JAX package in sys.modules."""
     code = (
         "import sys, numpy as np\n"
         "import dicp_tpu_torch\n"
@@ -378,6 +379,14 @@ def test_port_never_imports_jax():
         "    dicp_tpu_torch.ICPConfig(icp_type='pt2pt', max_iterations=10,\n"
         "                             collect_histories=False), capacity=256, device='cpu')\n"
         "assert s2m.poses.shape == (3, 4, 4) and s2m.converged.shape == (3,)\n"
+        "import dicp_tpu_torch.gicp, dicp_tpu_torch.multiscale, dicp_tpu_torch.slam\n"
+        "src = torch.as_tensor(mp[None, :, :3]); eye = torch.eye(4, dtype=src.dtype)[None]\n"
+        "g = dicp_tpu_torch.register_gicp(src, src, eye, max_iterations=3)\n"
+        "assert g.T.shape == (1, 4, 4)\n"
+        "ms = dicp_tpu_torch.register_multiscale(src, torch.as_tensor(mp[None]), eye, None,\n"
+        "    dicp_tpu_torch.ICPConfig(max_iterations=5, dim=2, collect_histories=False),\n"
+        "    (dicp_tpu_torch.ScaleLevel(0.5, 32, 32, 3, 1e-4), dicp_tpu_torch.ScaleLevel(0.0)))\n"
+        "assert ms.level_T.shape == (2, 1, 4, 4)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dicp_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
