@@ -164,21 +164,39 @@ Phases, each raising on failure (the script then exits non-zero):
     map's empty rows, all on its sentinel: exact ties); a half lap accepts
     no closure.  Then refine_robust's first call in a fresh process
     (functorch's first use) against its second.
-16. (run after 17-20) a torch.profiler pass over 3 calls each of phases
+21. dicp_tpu_torch.parallel in a world of one rank on NCCL (make_mesh((1, 1))
+    on the card; the backend must be nccl; the group is destroyed at the
+    end): register_map_sharded at phase 8's pair (converged, errors < 1e-3,
+    T within 1e-4 of register's, K2 once per iteration and once in the
+    final cost pass, bit-equal to its plain version on the first and last
+    call, iterations + 1 all-reduces of <= 87 elements; sharded_fused=False
+    gives the same iterations and T within 1e-4), timed beside register;
+    register_map_sharded_ift's gradient of sum(T * probe) into the source
+    (finite, nonzero, cosine > 0.99 with the unrolled gradient; fwd+bwd
+    ms; the collectives the backward adds); register_ring_sharded at phase
+    4's first pair (within 1e-5 of the dense map-sharded T, no kernel);
+    register_batch_sharded at phase 9's batch (T bit-equal to register's,
+    K2 launched, no collective); pose_graph_optimize_partitioned on phase
+    20's front-end graph (within 1e-4 of pose_graph_optimize) and
+    refine_robust(mesh=...) against the dense refine (positions within
+    1e-2, ATE within 5%), both timed.
+16. (run after 17-21) a torch.profiler pass over 3 calls each of phases
     4, 8, 9 and 12's calls, one W = 1 warm stream of phase 17's first 9
-    scans, one gn scan-to-map stream of phase 18's first 4 scans and one
-    SLAM stream of phase 20's first 6 scans: host wall time, device busy
-    share, K1's or K2's share of device time, device ops per pair or scan.
-    It comes last: host-bound timings taken after the profiler has been on
-    in a process run slower.
+    scans, one gn scan-to-map stream of phase 18's first 4 scans, one
+    SLAM stream of phase 20's first 6 scans and 3 of phase 21's map-sharded
+    calls (in a world of one of its own, NCCL's share of device time too):
+    host wall time, device busy share, K1's or K2's share of device time,
+    device ops per pair, scan or iteration. It comes last: host-bound
+    timings taken after the profiler has been on in a process run slower.
 
 Phases 2, 6, 7, 11 and 13 time K1, K2, K5, K3, K4, K6 and K7 call by call
 through their wrappers, as runs before them did (the kernels line's ``ms``), and print
 beside it the time back to back (20 launches between two CUDA events, median
 of 7 rounds: the kernel's time, free of the host's launch overhead).
 
-Each main path (phases 4, 8, 9, 12, 14, each run of 17 and 18, the pyramid of 19
-and the first SLAM run of 20) is driven with
+Each main path (phases 4, 8, 9, 12, 14, each run of 17 and 18, the pyramid of 19,
+the first SLAM run of 20 and phase 21's map-sharded and batch-sharded solves) is
+driven with
 the kernels' launch counts set to 0 just before it and read just after.  The
 line before the last is a JSON object describing each kernel of the paths,
 with its bound: the larger of its operations at the H100's f32 rate and its
@@ -186,7 +204,8 @@ bytes (each input read once, each output written once) at its memory rate,
 for this run's inputs; K1's entry also holds its launches per SLAM scan
 (phase 20), K2's its launches per streamed pair and per batched odometry
 call (phase 17), per scan of each scan-to-map stream (phase 18), per SLAM
-closure attempt (phase 20) and per pyramid call (phase 19).  The last line is
+closure attempt (phase 20), per pyramid call (phase 19) and per map-sharded
+call (phase 21).  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
     python3 chip_smoke.py --ab DIR
@@ -223,6 +242,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dicp_tpu_torch import ICP, ICPConfig, io, knn, pt2pt_svd_icp, register, register_ift
 from dicp_tpu_torch import se3, slam, svd_icp
@@ -233,11 +253,15 @@ from dicp_tpu_torch.losses import VALID_LOSSES
 from dicp_tpu_torch.mapping import empty_map, map_merge, map_step, scan_to_map_odometry
 from dicp_tpu_torch.multiscale import ScaleLevel, register_multiscale
 from dicp_tpu_torch.odometry import (OdometryResult, ate, odometry, odometry_pose_graph,
+                                     pose_graph_optimize,
                                      resumable_odometry)
 from dicp_tpu_torch.ops import _build, cluster_search, fused_gn, tiled_knn
 from dicp_tpu_torch.ops import cluster_knn as ck
 from dicp_tpu_torch.ops.normals import estimate_normals
 from dicp_tpu_torch.ops.voxel import voxel_downsample
+from dicp_tpu_torch.parallel import (_comm, make_mesh, pose_graph_optimize_partitioned,
+                                     register_batch_sharded, register_map_sharded,
+                                     register_map_sharded_ift, register_ring_sharded)
 from dicp_tpu_torch.pipeline import stream_odometry
 from dicp_tpu_torch.registration import _preprocess
 from dicp_tpu_torch.utils.timing import cuda_median_ms
@@ -998,7 +1022,8 @@ def _angles_deg(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def phase8_single_pair(device, mp: np.ndarray, scan: np.ndarray, T_true: np.ndarray) -> dict:
     """The single-pair raw-scan path: normals for the map, then pt2pl through
-    the cluster index.  Returns the launch counts of the path and the solve."""
+    the cluster index.  Returns the launch counts of the path, the solve and
+    its (source, target with normals) on the card."""
     pts = to_torch(mp[:, :3], device)
     exact = to_torch(mp[:, 3:6], device)
     src = to_torch(scan, device)
@@ -1070,7 +1095,7 @@ def phase8_single_pair(device, mp: np.ndarray, scan: np.ndarray, T_true: np.ndar
                                 warmup=1, iters=5)
     print(f"phase 8 ok: {n} -> {m} pt2pl through the cluster tier, {ms:.3f} ms per icp call "
           f"(median of 5), weighted normals {normals_ms:.3f} ms; launches {launches}")
-    return launches, solve
+    return launches, solve, (src, target)
 
 
 def phase9_batched(device, sources: np.ndarray, targets: np.ndarray, T_true: np.ndarray) -> dict:
@@ -2315,7 +2340,8 @@ def _timed_calls(module, name: str, log: list, kernel_counts: bool = False):
 def phase20_slam(device):
     """slam_odometry over two laps of 60,000-point scans; returns K1's
     launches per scan, K2's per closure attempt, the largest |difference| of
-    each kernel on the path's own calls and a short stream for phase 16."""
+    each kernel on the path's own calls, a short stream for phase 16 and the
+    first run's result with the truth (phase 21's pose graph)."""
     t_phase = time.perf_counter()
     scans, poses_true, T0 = slam_circuit(LAPS_SLAM)
     S = len(scans)
@@ -2402,7 +2428,202 @@ def phase20_slam(device):
           f"{time.perf_counter() - t_phase:.1f} s")
     return ({"launches": k1, "launches_per_slam_scan": k1 / (S - 1), "k1_err": k1_err},
             {"launches": k2, "launches_per_slam_closure": k2 / max(attempts, 1),
-             "k2_err": k2_err}, lambda: run(PROFILE_SLAM_SCANS))
+             "k2_err": k2_err}, lambda: run(PROFILE_SLAM_SCANS), (res, truth))
+
+
+def _collectives() -> dict:
+    """The collectives ``parallel._comm`` counted: (kind, ranks, elements) -> count."""
+    return dict(_comm.counts)
+
+
+def phase21_parallel(device, pair, T_pair: np.ndarray, sources: np.ndarray,
+                     targets: np.ndarray, T_true: np.ndarray, raw_sources: np.ndarray,
+                     raw_targets: np.ndarray, T_raw: np.ndarray, slam_case) -> dict:
+    """dicp_tpu_torch.parallel in a world of one rank on NCCL (make_mesh((1, 1))
+    on the card): the map-sharded solve of phase 8's pair (K2 in every
+    iteration), its IFT gradient, the ring at phase 4's shape, the
+    batch-sharded solve of phase 9's batch and the partitioned pose graph and
+    refine_robust(mesh=...) of phase 20's graph.  The group is destroyed at
+    the end of the phase.  Returns K2's launches and largest |difference| on
+    the path, and the map-sharded call (on a mesh given) for phase 16's
+    profile."""
+    t_phase = time.perf_counter()
+    mesh = make_mesh((1, 1))
+    _check(dist.get_backend() == "nccl", f"the world of one runs on NCCL ({dist.get_backend()})")
+    try:
+        out = _phase21_body(device, mesh, pair, T_pair, sources, targets, T_true, raw_sources,
+                            raw_targets, T_raw, slam_case)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 21 ok: dicp_tpu_torch.parallel on NCCL (world of one), "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _phase21_body(device, mesh, pair, T_pair, sources, targets, T_true, raw_sources,
+                  raw_targets, T_raw, slam_case) -> dict:
+    src, target = pair
+    n, m = src.shape[0], target.shape[0]
+    ti = torch.eye(4, dtype=torch.float32, device=device)
+    cfg = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=30, tolerance=1e-5,
+                    dim=3, trim_dist=2.0, loss_name="huber", loss_metric=1.0,
+                    cluster_probes=PROBES, cluster_group=GROUP, collect_histories=False)
+    _check(cfg.resolved_nn_method(n, m, device) == "cluster", "phase 8's pair is cluster-tier")
+
+    def sharded(c=cfg):
+        return register_map_sharded(mesh, src, target, ti, cfg=c)
+
+    def single():
+        return register(src[None], target[None], ti[None], None, cfg)
+
+    # the map-sharded solve: K2 once per iteration and once in the final cost
+    # pass, one all-reduce per iteration and one in the cost pass
+    rec = {}
+    _reset_launches()
+    _comm.reset_counts()
+    with _recording_k2(rec.setdefault("the map-sharded solve", {})):
+        res = sharded()
+        torch.cuda.synchronize()
+    k2_map = _launches()["cluster_search"]
+    counts = _collectives()
+    it = int(res.iterations)
+    ref = single()
+    rot, trans = pose_errors(torch.as_tensor(T_pair[None], device=device),
+                             res.T[None].to(torch.float64))
+    diff = float((res.T - ref.T[0]).abs().max())
+    print(f"  map-sharded {n} -> {m} pt2pl (cluster tier): {it} iterations, converged "
+          f"{bool(res.converged)}, rotation error {float(rot[0]):.3e} rad, translation error "
+          f"{float(trans[0]):.3e} m, |T - register's T| {diff:.3e} (register: "
+          f"{int(ref.iterations[0])} iterations); K2 {k2_map} launches; collectives {counts}")
+    _check(bool(res.converged), "the map-sharded solve converged")
+    _check(float(rot[0]) < TOL_POSE and float(trans[0]) < TOL_POSE,
+           f"map-sharded errors < {TOL_POSE}")
+    _check(diff < 1e-4, "map-sharded T within 1e-4 of register's (the same fixed point)")
+    _check(k2_map == it + 1, f"K2 launched once per iteration and in the cost pass ({k2_map}, "
+           f"{it} iterations)")
+    _check(sum(counts.values()) == it + 1
+           and all(kind == "all_reduce" and numel <= 2 * (36 + 6 + 1) + 1
+                   for kind, _, numel in counts), "one all-reduce of <= 87 elements per "
+           "iteration and one in the cost pass")
+    k2_err = _k2_on_recorded(rec, pads=False)
+
+    res_x = sharded(cfg.with_(sharded_fused=False))
+    diff_x = float((res_x.T - res.T).abs().max())
+    print(f"  sharded_fused=False (the group scan): {int(res_x.iterations)} iterations, "
+          f"converged {bool(res_x.converged)}, |T - K2 path's T| {diff_x:.3e}")
+    _check(int(res_x.iterations) == it and bool(res_x.converged) == bool(res.converged)
+           and diff_x < 1e-4, "the group-scan path gives K2's T, iterations and convergence")
+    ms_sharded = cuda_median_ms(sharded, warmup=1, iters=5)
+    ms_single = cuda_median_ms(single, warmup=1, iters=5)
+    print(f"  map-sharded call {ms_sharded:.3f} ms against register (phase 8's solve) "
+          f"{ms_single:.3f} ms (CUDA events, median of 5 after one)")
+
+    # the sharded IFT against the unrolled gradient
+    cfg_d = cfg.with_(differentiable=True)
+    probe = torch.linspace(0.5, 1.5, 16, device=device).reshape(4, 4)
+
+    def grad_of(fn):
+        s = src.clone().requires_grad_(True)
+        r = fn(mesh, s, target, ti, cfg=cfg_d)
+        return r, torch.autograd.grad(torch.sum(r.T * probe), s)[0]
+
+    _comm.reset_counts()
+    s = src.clone().requires_grad_(True)
+    r_i = register_map_sharded_ift(mesh, s, target, ti, cfg=cfg_d)
+    fwd = _collectives()
+    _comm.reset_counts()
+    g_i = torch.autograd.grad(torch.sum(r_i.T * probe), s)[0]
+    torch.cuda.synchronize()
+    bwd = _collectives()
+    _, g_u = grad_of(register_map_sharded)
+    cos = _cosine(g_i, g_u)
+    ms_ift = cuda_median_ms(lambda: grad_of(register_map_sharded_ift), warmup=1, iters=5)
+    print(f"  sharded IFT: {int(r_i.iterations)} iterations, converged {bool(r_i.converged)}; "
+          f"gradient cosine with the unrolled one {cos:.6f}, |g| {float(g_i.norm()):.3e}; "
+          f"fwd+bwd {ms_ift:.3f} ms; forward collectives {fwd}, the backward added {bwd}")
+    _check(bool(torch.isfinite(g_i).all()) and bool((g_i != 0).any()),
+           "finite, nonzero IFT gradient")
+    _check(cos > 0.99, f"IFT gradient cosine {cos} > 0.99")
+
+    # the ring at phase 4's shape (the dense tile fits; no kernel)
+    cfg4 = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=50, tolerance=1e-6,
+                     dim=3, trim_dist=2.0, loss_name="huber", loss_metric=0.5,
+                     collect_histories=False)
+    s4, t4 = to_torch(sources[0], device), to_torch(targets[0], device)
+    _reset_launches()
+    _comm.reset_counts()
+    ring = register_ring_sharded(mesh, s4, t4, cfg=cfg4)
+    ring_counts = _collectives()
+    ring_launches = _launches()
+    dense = register_map_sharded(mesh, s4, t4, cfg=cfg4.with_(nn_method="dense"))
+    rot4, trans4 = pose_errors(torch.as_tensor(T_true[:1], device=device),
+                               ring.T[None].to(torch.float64))
+    diff4 = float((ring.T - dense.T).abs().max())
+    ms_ring = cuda_median_ms(lambda: register_ring_sharded(mesh, s4, t4, cfg=cfg4), warmup=1,
+                             iters=5)
+    print(f"  ring {s4.shape[0]} -> {t4.shape[0]}: {int(ring.iterations)} iterations, "
+          f"|T - dense map-sharded T| {diff4:.3e}, rotation error {float(rot4[0]):.3e}, "
+          f"translation error {float(trans4[0]):.3e}; {ms_ring:.3f} ms; collectives "
+          f"{ring_counts}; kernel launches {ring_launches}")
+    _check(diff4 < 1e-5, "ring T within 1e-5 of the dense map-sharded T")
+    _check(float(rot4[0]) < TOL_POSE and float(trans4[0]) < TOL_POSE, "ring errors < 1e-3")
+    _check(not any(ring_launches.values()), "the ring runs no kernel")
+
+    # batch-sharded at phase 9's batch: register's bits, K2, no collective
+    cfg9 = cfg.with_(collect_histories=True)
+    s9, t9 = to_torch(raw_sources, device), to_torch(raw_targets, device)
+    ti9 = torch.eye(4, dtype=torch.float32, device=device).expand(len(raw_sources), 4, 4)
+    _reset_launches()
+    _comm.reset_counts()
+    res_b = register_batch_sharded(mesh, s9, t9, ti9, cfg=cfg9)
+    torch.cuda.synchronize()
+    k2_batch = _launches()["cluster_search"]
+    batch_counts = _collectives()
+    ref_b = register(s9, t9, ti9, None, cfg9)
+    rot9, trans9 = pose_errors(torch.as_tensor(T_raw, device=device), res_b.T.to(torch.float64))
+    print(f"  batch-sharded {tuple(s9.shape)} -> {tuple(t9.shape)}: T bit-equal to register's "
+          f"{torch.equal(res_b.T, ref_b.T)}, K2 {k2_batch} launches, collectives "
+          f"{batch_counts}, max rotation error {float(rot9.max()):.3e}")
+    _check(torch.equal(res_b.T, ref_b.T), "batch-sharded T bit-equal to register's")
+    _check(k2_batch > 0, "K2 launched by the batch-sharded solve")
+    _check(not batch_counts, "no collective in the batch-sharded solve")
+    _check(float(rot9.max()) < TOL_POSE and float(trans9.max()) < TOL_POSE,
+           "batch-sharded errors < 1e-3")
+
+    # the partitioned pose graph and refine_robust(mesh=...) on phase 20's
+    # front-end graph (functorch is warm: phases 12 and 20 used it)
+    slam_res, truth = slam_case
+    poses = slam_res.poses_front.to(device)
+    graph = slam.build_pose_graph(poses, slam_res.closures, SLAM_KW["closure_info"],
+                                  converged=slam_res.converged)
+    its = SLAM_KW["refine_iterations"]
+    _comm.reset_counts()
+    part = pose_graph_optimize_partitioned(poses, graph, mesh, iterations=its)
+    pg_counts = _collectives()
+    dense_pg, _ = pose_graph_optimize(poses, graph, iterations=its)
+    pg_diff = float((part - dense_pg).abs().max())
+    ref_mesh = slam.refine_robust(poses, graph, mesh=mesh, iterations=its)
+    ref_dense = slam.refine_robust(poses, graph, iterations=its)
+    pos_diff = float(torch.linalg.vector_norm(ref_mesh[:, :3, 3] - ref_dense[:, :3, 3],
+                                              dim=-1).max())
+    a_dense = float(ate(ref_dense.double().cpu(), truth, align=False))
+    a_mesh = float(ate(ref_mesh.double().cpu(), truth, align=False))
+    ms_part = cuda_median_ms(lambda: pose_graph_optimize_partitioned(poses, graph, mesh,
+                                                                     iterations=its),
+                             warmup=1, iters=3)
+    ms_dense = cuda_median_ms(lambda: pose_graph_optimize(poses, graph, iterations=its),
+                              warmup=1, iters=3)
+    print(f"  pose graph ({poses.shape[0]} poses, {graph.edges_i.shape[0]} edges, {its} "
+          f"iterations): |partitioned - dense| {pg_diff:.3e}; {ms_part:.1f} ms against dense "
+          f"{ms_dense:.1f} ms (median of 3 after one); collectives {pg_counts}; "
+          f"refine_robust(mesh) vs dense: position difference {pos_diff:.3e} m, ATE "
+          f"{a_mesh:.5f} against {a_dense:.5f} m")
+    _check(pg_diff < 1e-4, "partitioned pose graph within 1e-4 of the dense one")
+    _check(pos_diff < 1e-2, "refine_robust(mesh) positions within 1e-2 of the dense refine")
+    _check(abs(a_mesh - a_dense) < 0.05 * max(a_dense, 1e-9), "ATE within 5% of the dense")
+    return {"launches": k2_map + k2_batch, "launches_per_map_sharded_call": k2_map,
+            "k2_err": k2_err, "iterations": it,
+            "call": lambda mesh_: register_map_sharded(mesh_, src, target, ti, cfg=cfg)}
 
 
 def main() -> None:
@@ -2419,7 +2640,7 @@ def main() -> None:
                                                   B_RAW, N_RAW, M_RAW)
     timed = phase6_search_kernels(device, mp, scan, raw_targets, raw_sources)
     timed["cluster_topk"] = phase7_topk_kernel(device, mp, scan)
-    single, single_solve = phase8_single_pair(device, mp, scan, T_pair)
+    single, single_solve, pair = phase8_single_pair(device, mp, scan, T_pair)
     batched, batched_solve = phase9_batched(device, raw_sources, raw_targets, T_raw)
     phase10_fused_build(libs)
     k4 = phase11_fused_kernel(device)
@@ -2431,10 +2652,12 @@ def main() -> None:
         odo_launches, stream_w1, k2_err = phase17_lidar_odometry(device, Path(workdir))
         s2m_launches, k2_err_s2m, s2m_stream = phase18_scan_to_map(device)
         pyramid = phase19_gicp_multiscale(device)
-        slam_k1, slam_k2, slam_stream = phase20_slam(device)
+        slam_k1, slam_k2, slam_stream, slam_case = phase20_slam(device)
+        par = phase21_parallel(device, pair, T_pair, sources, targets, T_true, raw_sources,
+                               raw_targets, T_raw, slam_case)
         timed["cluster_search"]["max_abs_err"] = max(timed["cluster_search"]["max_abs_err"],
                                                      k2_err, k2_err_s2m, pyramid["k2_err"],
-                                                     slam_k2["k2_err"])
+                                                     slam_k2["k2_err"], par["k2_err"])
         k1["max_abs_err"] = max(k1["max_abs_err"], slam_k1["k1_err"])
         # last, so that no timing above runs after the profiler has been on
         _profile(slice_solve, "phase 4", focus=("tiled_nn_kernel",))
@@ -2450,7 +2673,16 @@ def main() -> None:
         ops = _profile(slam_stream, f"phase 20, SLAM stream of {PROFILE_SLAM_SCANS} scans",
                        calls=1, focus=("tiled_nn_kernel", "cluster_search_kernel"))
         print(f"  phase 20 stream: {ops / PROFILE_SLAM_SCANS:.1f} device ops per scan")
-    print("phase 16 ok: profiles of phases 4, 8, 9, 12, 17, 18 and 20")
+        # phase 21's map-sharded call in a world of one of its own
+        mesh = make_mesh((1, 1))
+        try:
+            ops = _profile(lambda: par["call"](mesh), "phase 21, map-sharded call on NCCL",
+                           focus=("cluster_search_kernel", "nccl"))
+        finally:
+            dist.destroy_process_group()
+        print(f"  phase 21 map-sharded: {ops / (par['iterations'] + 1):.1f} device ops per "
+              f"iteration ({par['iterations']} iterations and the cost pass)")
+    print("phase 16 ok: profiles of phases 4, 8, 9, 12, 17, 18, 20 and 21")
     kernels = [{
         "name": "tiled_nn",
         "route": "cuda",
@@ -2473,7 +2705,7 @@ def main() -> None:
         if name == "cluster_search":
             count += (sum(odo_launches.values()) + sum(s2m_launches.values())
                       + pyramid["launches_single"] + pyramid["launches_per_multiscale_call"]
-                      + slam_k2["launches"])
+                      + slam_k2["launches"] + par["launches"])
             extra = {"launches_per_streamed_pair": {
                          label: k / (S_SEQ - 1) for label, k in odo_launches.items()
                          if label != "batched odometry"},
@@ -2481,7 +2713,8 @@ def main() -> None:
                      "launches_per_scan_to_map_scan": {
                          label: k / (S_S2M - 1) for label, k in s2m_launches.items()},
                      "launches_per_slam_closure": slam_k2["launches_per_slam_closure"],
-                     "launches_per_multiscale_call": pyramid["launches_per_multiscale_call"]}
+                     "launches_per_multiscale_call": pyramid["launches_per_multiscale_call"],
+                     "launches_per_map_sharded_call": par["launches_per_map_sharded_call"]}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": count, **timed[name], **extra})
     _check(k4_launches > 0, f"fused_gn launched on the headline path ({k4_launches})")

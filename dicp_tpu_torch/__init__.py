@@ -43,6 +43,10 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
   (:func:`register_gicp`, :func:`register_gicp_ift`).
 * :mod:`dicp_tpu_torch.multiscale`: coarse-to-fine registration over a voxel
   pyramid (:func:`register_multiscale`).
+* :mod:`dicp_tpu_torch.parallel`: batch-, map- and ring-sharded ICP, the
+  sharded IFT and the Schur-partitioned pose graph on ``torch.distributed``
+  (a ``DeviceMesh`` of dims ``("batch", "map")``), with the multihost
+  helpers in :mod:`dicp_tpu_torch.parallel.multihost`.
 * :mod:`dicp_tpu_torch.convert`: configs and arrays carried across from the
   JAX package.
 * :mod:`dicp_tpu_torch.benchmarks.exp_knn`: the exact 1-NN kernels' A/B on

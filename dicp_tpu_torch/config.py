@@ -19,9 +19,11 @@
   (:func:`dicp_tpu_torch.ops.fused_gn.fused_eligible`; auto stays off, as in
   JAX) and ``anderson_m > 0`` selects the Anderson driver
   (:mod:`dicp_tpu_torch.anderson`), with JAX's validation.
-* ``scan_unroll`` and ``sharded_fused`` are accepted and inert: they tune
-  ``lax.scan`` and a ``shard_map`` body, which eager PyTorch does not have.
-  ``driver`` is validated and selects no loop: one early-exit loop gives the
+* ``scan_unroll`` is accepted and inert: it tunes ``lax.scan``, which eager
+  PyTorch does not have.  ``sharded_fused`` selects the cluster tier's search
+  in the map-sharded solve (:mod:`dicp_tpu_torch.parallel.sharding`), as in
+  JAX: None gives ``cluster_nn``'s own choice (K2 on CUDA queries), False the
+  group scan.  ``driver`` is validated and selects no loop: one early-exit loop gives the
   results of both JAX drivers (see :mod:`dicp_tpu_torch.registration`).
   :meth:`ICPConfig.resolved_driver` is read by K4's gate and by the
   Anderson validation, as in JAX.
@@ -114,7 +116,7 @@ class ICPConfig:
     scan_unroll: int = 1          # inert: no lax.scan in eager PyTorch
     anderson_m: int = 0           # > 0: Anderson-accelerated driver (anderson.py)
     anderson_cap: float = 5.0
-    sharded_fused: Optional[bool] = None  # inert: no shard_map in this port
+    sharded_fused: Optional[bool] = None  # the map-sharded solve's cluster search
 
     def __post_init__(self):
         if self.icp_type not in ("pt2pt", "pt2pl", "symmetric"):

@@ -38,6 +38,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed
 from torch.utils.checkpoint import checkpoint
 
 from dicp_tpu_torch import knn, losses, se3
@@ -124,7 +125,7 @@ def _preprocess(cfg: ICPConfig, source, target, T_init, weight):
     return source, target, weight, T_init[..., :3, :3], T_init[..., :3, 3]
 
 
-def _certified_gate(cert: torch.Tensor, dtype) -> torch.Tensor:
+def _certified_gate(cert: torch.Tensor, dtype, group=None) -> torch.Tensor:
     """Per-point validity weight from the cluster certificate.
 
     Uncertified correspondences (the neighbour is not provably the global
@@ -132,9 +133,19 @@ def _certified_gate(cert: torch.Tensor, dtype) -> torch.Tensor:
     they bias the fixed point (measured on the TPU: 2.8e-3 transform error on
     a 100k surface scene against 2e-7 masked).  If certification collapses
     below half the points (pathological geometry) everything is kept: a
-    biased estimate beats a degenerate one."""
+    biased estimate beats a degenerate one.
+
+    ``group``: the process group of a map-sharded solve, whose ranks each
+    hold an equal share of the cloud; the fraction is then the GLOBAL one
+    (one scalar all-reduce), so every rank gates alike."""
     w = cert.to(dtype)
-    frac = torch.mean(w, dim=-1, keepdim=True)
+    if group is None:
+        frac = torch.mean(w, dim=-1, keepdim=True)
+    else:
+        from dicp_tpu_torch.parallel._comm import psum
+
+        total = psum(torch.sum(w, dim=-1, keepdim=True), group)
+        frac = total / (w.shape[-1] * torch.distributed.get_world_size(group))
     return torch.where(frac >= 0.5, w, torch.ones_like(w))
 
 

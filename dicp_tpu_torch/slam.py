@@ -11,9 +11,9 @@ robust pose-graph back end; the counterpart of ``dicp_tpu/slam.py``.
    registered against that one snapshot.
 3. **Back end**: a pose graph of consecutive odometry edges and one relative
    edge (j -> k) per accepted closure, refined by Huber-IRLS around
-   :func:`odometry.pose_graph_optimize` (dense).  JAX's partitioned back end
-   over a device mesh comes with ``dicp_tpu_torch.parallel`` (ROADMAP.md,
-   Queue 1 item 6).
+   :func:`odometry.pose_graph_optimize` (dense) or, given a device mesh,
+   :func:`parallel.pose_graph.pose_graph_optimize_partitioned` (the
+   keyframe-partitioned Schur solve over the mesh's ranks).
 
 Why relative edges: registering scan k against anchor j's snapshot posed at
 T_j_est measures T_rel = T_j_est^-1 T_k_meas, in which the anchor's own pose
@@ -42,12 +42,9 @@ from dicp_tpu_torch.config import ICPConfig
 from dicp_tpu_torch.mapping import LocalMap, empty_map, map_merge, map_step
 from dicp_tpu_torch.odometry import PoseGraph, pose_graph_optimize
 from dicp_tpu_torch.ops.normals import _median, estimate_normals_weighted
+from dicp_tpu_torch.parallel.pose_graph import pose_graph_optimize_partitioned
 from dicp_tpu_torch.pipeline import _prefetched, _Uploader
 from dicp_tpu_torch.registration import register
-
-_MESH_ERROR = ("the mesh-partitioned pose-graph back end is not ported yet (it comes with "
-               "dicp_tpu_torch.parallel, ROADMAP.md Queue 1 item 6): pass mesh=None for "
-               "the dense back end")
 
 
 class Closure(NamedTuple):
@@ -191,9 +188,8 @@ def slam_odometry(
 
     Each scan crosses to ``device`` (default the card; ``"cpu"`` runs on the
     CPU) in one pinned copy, its host preparation in a prefetch thread.
-    ``mesh`` (the partitioned back end) is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ERROR)
+    ``mesh``: refine over its ranks (:func:`refine_robust`); every rank runs
+    the same stream."""
     if closure_cfg is None:
         closure_cfg = cfg.with_(trim_dist=cfg.trim_dist * 4.0)
     device = _resolve_device(device)
@@ -256,7 +252,7 @@ def slam_odometry(
     converged = torch.stack(convs)
     graph = build_pose_graph(poses_front, closures, closure_info, converged=converged)
     if closures:
-        refined = refine_robust(poses_front, graph, iterations=refine_iterations,
+        refined = refine_robust(poses_front, graph, mesh=mesh, iterations=refine_iterations,
                                 irls_passes=irls_passes)
     else:
         refined = poses_front     # a chain without closures is already GN-optimal
@@ -276,18 +272,19 @@ def refine_robust(poses: torch.Tensor, graph: PoseGraph, mesh=None, iterations: 
                   irls_passes: int = 2, delta_scale: float = 3.0) -> torch.Tensor:
     """Pose-graph refinement with Huber-IRLS edge reweighting.
 
-    Each pass runs the dense GN solve (:func:`odometry.pose_graph_optimize`),
-    then scales every edge's information by the Huber weight
+    Each pass runs the GN solve, dense (:func:`odometry.pose_graph_optimize`)
+    or, given ``mesh``, partitioned over its ``map`` axis
+    (:func:`parallel.pose_graph.pose_graph_optimize_partitioned`), then
+    scales every edge's information by the Huber weight
     min(1, delta / r) of its residual at the current solution, delta =
     ``delta_scale`` times the median residual norm (``jnp.median``'s: the
     mean of the two middle values).  Edges of a tracking loss that converged
     into a wrong basin are extreme outliers against the closure-consistent
-    solution, and one reweighting removes their influence.  ``mesh`` (the
-    partitioned back end) is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ERROR)
+    solution, and one reweighting removes their influence."""
 
     def solve(g):
+        if mesh is not None:
+            return pose_graph_optimize_partitioned(poses, g, mesh, iterations=iterations)
         return pose_graph_optimize(poses, g, iterations=iterations)[0]
 
     g = graph

@@ -5,6 +5,7 @@ and every name of ``dicp_tpu.__all__`` is either exported by the port or on
 the list of names still to be ported, which ROADMAP.md mirrors."""
 
 import dataclasses
+import inspect
 import os
 
 import numpy as np
@@ -97,3 +98,27 @@ def test_every_jax_public_name_is_exported_or_listed_as_to_come():
         roadmap = f.read()
     missing = [n for n in sorted(listed) if f"`{n}`" not in roadmap]
     assert not missing, f"ROADMAP.md does not name {missing}"
+
+
+def test_parallel_names_match_jax():
+    """``dicp_tpu_torch.parallel.__all__`` is ``dicp_tpu.parallel.__all__`` in
+    order, and each function and multihost helper takes JAX's parameters,
+    but for the mesh axis that ring_nn takes as a process group and the
+    device choice that the initializing helpers add last."""
+    import dicp_tpu.parallel as jpar
+    import dicp_tpu.parallel.multihost as jmh
+
+    import dicp_tpu_torch.parallel as tpar
+    import dicp_tpu_torch.parallel.multihost as tmh
+
+    assert tpar.__all__ == jpar.__all__
+    assert tpar.MapShardedResult._fields == jpar.MapShardedResult._fields
+    pairs = [(getattr(jpar, n), getattr(tpar, n)) for n in jpar.__all__ if n != "MapShardedResult"]
+    pairs += [(getattr(jmh, n), getattr(tmh, n)) for n in (
+        "initialize_distributed", "make_pod_mesh", "host_local_batch", "process_local_slice")]
+    for j, t in pairs:
+        pj = list(inspect.signature(j).parameters)
+        pt = list(inspect.signature(t).parameters)
+        if j.__name__ == "ring_nn":
+            pj[pj.index("axis")] = "group"
+        assert pt[:len(pj)] == pj and set(pt[len(pj):]) <= {"device", "devices"}, j.__name__

@@ -351,7 +351,9 @@ def test_port_never_imports_jax():
     (with the odometry, SVD-ICP, pipeline, io and voxel modules imported),
     then a small scan_to_map_odometry (with sgd_icp and mapping imported)
     and a small GICP and pyramid solve (with gicp, multiscale and slam
-    imported), and find neither jax nor the JAX package in sys.modules."""
+    imported), then a map-sharded solve in a world of one gloo rank (with
+    parallel imported), and find neither jax nor the JAX package in
+    sys.modules."""
     code = (
         "import sys, numpy as np\n"
         "import dicp_tpu_torch\n"
@@ -387,6 +389,13 @@ def test_port_never_imports_jax():
         "    dicp_tpu_torch.ICPConfig(max_iterations=5, dim=2, collect_histories=False),\n"
         "    (dicp_tpu_torch.ScaleLevel(0.5, 32, 32, 3, 1e-4), dicp_tpu_torch.ScaleLevel(0.0)))\n"
         "assert ms.level_T.shape == (2, 1, 4, 4)\n"
+        "import dicp_tpu_torch.parallel, torch.distributed as dist\n"
+        "from dicp_tpu_torch.parallel import make_mesh, register_map_sharded\n"
+        "mesh = make_mesh((1, 1), devices='cpu')\n"
+        "r = register_map_sharded(mesh, scan[:, :3], mp, cfg=dicp_tpu_torch.ICPConfig(\n"
+        "    max_iterations=20, tolerance=1e-8, dim=2, trim_dist=5.0))\n"
+        "assert r.T.shape == (4, 4) and bool(r.converged) and dist.get_backend() == 'gloo'\n"
+        "dist.destroy_process_group()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dicp_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")

@@ -8,9 +8,9 @@ other at 1e-10.  Instead:
 * each piece is held to JAX within 1e-10 on JAX's own inputs: the two-stage
   closure solve, the keyframe anchor, the pose graph, the robust refinement
   and the map rebuild (f64 points merged into an f32 map, which promotes);
-* the contracts of ``tests/test_slam.py`` (all but the mesh back end, which
-  comes with ``dicp_tpu_torch.parallel``) hold on the port's own run of the
-  suite's circuit generator, built once per module.  The circuit is two
+* the contracts of ``tests/test_slam.py`` hold on the port's own run of the
+  suite's circuit generator (the mesh back end over 8 gloo ranks,
+  ``tests/_torch_world.py``), built once per module.  The circuit is two
   laps, the deployment the card's smoke run drives at full scan size;
   the refined ATE is held below the front end's and below 0.2 m (JAX's
   refined ATE is ~0.11-0.13 m) rather than the >= 5x ratio, which holds
@@ -31,6 +31,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from dicp_tpu import slam as js  # noqa: E402
+from dicp_tpu.parallel import make_mesh as j_make_mesh  # noqa: E402
 from dicp_tpu.ops.normals import estimate_normals_weighted as j_weighted  # noqa: E402
 
 from dicp_tpu_torch import mapping as tm  # noqa: E402
@@ -42,7 +43,8 @@ from dicp_tpu_torch.slam import (Closure, build_pose_graph, rebuild_map,  # noqa
                                  refine_robust, slam_odometry)
 
 from tests.test_slam import CFG as JCFG  # noqa: E402
-from tests.test_slam import SLAM_KW, VOXEL, _make_scans  # noqa: E402
+from tests._torch_world import World  # noqa: E402
+from tests.test_slam import CAP, SLAM_KW, VOXEL, _make_scans  # noqa: E402
 from tests.test_torch_mapping import _assert_maps_match  # noqa: E402
 
 CFG = config_from_dict(dataclasses.asdict(JCFG))
@@ -158,13 +160,63 @@ def test_build_pose_graph_shapes(circuit):
     assert bool(torch.all(g.edges_j[S - 1:] - g.edges_i[S - 1:] >= SLAM_KW["closure_gap"]))
 
 
-def test_mesh_back_end_is_not_ported_yet(circuit):
-    _, _, _, res = circuit
-    graph = build_pose_graph(res.poses_front, res.closures)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        refine_robust(res.poses_front, graph, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        slam_odometry(iter(()), CFG, mesh=object(), device=CPU)
+@pytest.fixture(scope="module")
+def world():
+    """8 gloo ranks on the CPU (tests/_torch_world.py), for the partitioned
+    back end."""
+    w = World(8)
+    yield w
+    w.close()
+
+
+def _graph_arrays(graph):
+    return {name: getattr(graph, name).numpy() for name in graph._fields}
+
+
+def test_mesh_backend_matches_dense(circuit, world):
+    """The Schur-partitioned back end over a (1, 8) mesh of ranks reproduces
+    the dense robust refinement through the IRLS loop (the gates of
+    tests/test_slam.py), is the same on every rank, and equals JAX's mesh
+    refinement of the same graph on its 8 devices."""
+    scans, poses_true, T0, res = circuit
+    graph = build_pose_graph(res.poses_front, res.closures, SLAM_KW["closure_info"],
+                             converged=res.converged)
+    ranks = world.run("refine_robust", (1, 8), poses=res.poses_front.numpy(),
+                      iterations=SLAM_KW["refine_iterations"], **_graph_arrays(graph))
+    ref_mesh = ranks[0]["poses"]
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["poses"], ref_mesh)
+    pos_diff = float(np.max(np.linalg.norm(ref_mesh[:, :3, 3] - res.poses[:, :3, 3].numpy(),
+                                           axis=-1)))
+    assert pos_diff < 1e-2
+    truth = torch.as_tensor(poses_true)
+    a_dense = float(ate(res.poses, truth, align=False))
+    a_mesh = float(ate(torch.as_tensor(ref_mesh), truth, align=False))
+    assert abs(a_mesh - a_dense) < 0.05 * max(a_dense, 1e-9)
+
+    j_graph = type(graph)(*(jnp.asarray(a) for a in _graph_arrays(graph).values()))
+    theirs = js.refine_robust(jnp.asarray(res.poses_front.numpy()), j_graph,
+                              mesh=j_make_mesh((1, 8)), iterations=SLAM_KW["refine_iterations"])
+    np.testing.assert_allclose(ref_mesh, np.asarray(theirs), rtol=0, atol=1e-8)
+
+
+def test_slam_odometry_mesh_reaches_the_partitioned_back_end(circuit, world):
+    """slam_odometry(mesh=...) refines with the partitioned solve (both IRLS
+    passes) and gives the dense run's trajectory: a resting sensor (six views
+    of one scan) closes on every revisit."""
+    scan = circuit[0][0]
+    kw = dict(capacity=CAP, voxel=VOXEL, anchor_every=1, closure_gap=2, detect_every=1,
+              detect_radius=5.0, accept_ratio=0.5, max_closures=4, closure_info=30.0,
+              refine_iterations=5)
+    ranks = world.run("slam_static", (1, 8), scan=scan, copies=6, cfg=CFG, slam_kw=kw)
+    dense = slam_odometry(((scan, None) for _ in range(6)), CFG, device=CPU, **kw)
+    assert len(dense.closures) > 0
+    for r in ranks:
+        assert r["calls"] == [True, True] and r["closures"] == len(dense.closures)
+        np.testing.assert_array_equal(r["poses"], ranks[0]["poses"])
+        np.testing.assert_allclose(r["poses_front"], dense.poses_front.numpy(), rtol=0,
+                                   atol=1e-12)
+        np.testing.assert_allclose(r["poses"], dense.poses.numpy(), rtol=0, atol=1e-6)
 
 
 @pytest.mark.slow
