@@ -72,7 +72,9 @@ Phases, each raising on failure (the script then exits non-zero):
     sources; transform error < 1e-3, gradients finite and nonzero, cosine
     with the unrolled gradient > 0.99, K4 launched once per call.  Timed
     (registrations per second) alternated with the IFT on the loop forward
-    and with the unrolled gradient.
+    and with the unrolled gradient, on dicp_tpu_torch.bench's clock
+    (bench.time_alternated); phase 22 prints bench_suite's batch256 rows
+    from these times.
 
 13. the score-form 1-NN kernels K6 and K7 (csrc/score_nn.cu, built in phase 1):
     their -Xptxas=-v report, which must show no register spills, then each
@@ -119,7 +121,9 @@ Phases, each raising on failure (the script then exits non-zero):
     bench_suite.py:688-840, no cut): 12 scans of a +-20 m wavy 60,000-point
     surface along a constant step against a 65,536-row fused voxel map
     (voxel 0.25; pt2pl, trim 2, Huber 0.5, 30 iterations, tol 1e-6, the
-    cluster tier).  scan_to_map_odometry with gn, sgd (2,048 per
+    cluster tier), run by dicp_tpu_torch.benchmarks.bench_suite's host loop,
+    which prints its scan_to_map_60k, _sgd and _sgd_sub rows.
+    scan_to_map_odometry with gn, sgd (2,048 per
     mini-batch, 30 iterations, a fixed seed), sgd with merge_subsample
     20,000, and quantized gn: frames/s (median of 3 runs after one, poses
     fetched), final-pose error and ATE against the exact truth, iterations
@@ -131,7 +135,9 @@ Phases, each raising on failure (the script then exits non-zero):
     gate).  A mature map built by map_step: at most 65,536 occupied rows,
     its empty rows beyond the occupied box; map_step with insert=True and
     insert=False and map_merge of one scan alone (CUDA events, median of 5).
-19. GICP and the multiscale pyramid at the JAX suite's deployments.  GICP
+19. GICP and the multiscale pyramid at the JAX suite's deployments, run by
+    dicp_tpu_torch.benchmarks.exp_gicp and exp_multiscale, which print their
+    rows.  GICP
     (benchmarks/exp_gicp.py:27-100): B = 64 pairs of a 600-point saddle
     (seed 11), register_gicp (30 iterations, tol 1e-6; no kernel: a dense
     600 x 600 block per pair) timed and its error < 1e-3; the same-shape
@@ -180,7 +186,20 @@ Phases, each raising on failure (the script then exits non-zero):
     20's front-end graph (within 1e-4 of pose_graph_optimize) and
     refine_robust(mesh=...) against the dense refine (positions within
     1e-2, ATE within 5%), both timed.
-16. (run after 17-21) a torch.profiler pass over 3 calls each of phases
+22. the headline bench entry, the suite and the examples:
+    dicp_tpu_torch.bench.main() in this process (its gates, its JSON line);
+    every row of dicp_tpu_torch.benchmarks.bench_suite.ALL at the JAX
+    suite's sizes that no earlier phase measures (batch256 printed from
+    phase 12's times, scan_to_map's step rows only, solvers' exp_sgd and AA
+    rows), each printing its JSON line and raising on its gate; the four
+    examples' main() with their checks; the kernels' launches per row and
+    example; K1, K2 and K3 held to their plain versions bit for bit on the
+    first two calls of each recorded from the large_cloud row, K4 with phase
+    11's gates on the first two recorded from the capacity row; then
+    utils.profiling.benchmark and trace (the trace must name K4's kernel)
+    and visualization.plot_overlay of card tensors (where matplotlib is
+    installed).  Each row's and example's seconds are printed.
+16. (run after 17-22) a torch.profiler pass over 3 calls each of phases
     4, 8, 9 and 12's calls, one W = 1 warm stream of phase 17's first 9
     scans, one gn scan-to-map stream of phase 18's first 4 scans, one
     SLAM stream of phase 20's first 6 scans and 3 of phase 21's map-sharded
@@ -195,8 +214,8 @@ beside it the time back to back (20 launches between two CUDA events, median
 of 7 rounds: the kernel's time, free of the host's launch overhead).
 
 Each main path (phases 4, 8, 9, 12, 14, each run of 17 and 18, the pyramid of 19,
-the first SLAM run of 20 and phase 21's map-sharded and batch-sharded solves) is
-driven with
+the first SLAM run of 20, phase 21's map-sharded and batch-sharded solves and
+each row and example of 22) is driven with
 the kernels' launch counts set to 0 just before it and read just after.  The
 line before the last is a JSON object describing each kernel of the paths,
 with its bound: the larger of its operations at the H100's f32 rate and its
@@ -205,7 +224,8 @@ for this run's inputs; K1's entry also holds its launches per SLAM scan
 (phase 20), K2's its launches per streamed pair and per batched odometry
 call (phase 17), per scan of each scan-to-map stream (phase 18), per SLAM
 closure attempt (phase 20), per pyramid call (phase 19) and per map-sharded
-call (phase 21).  The last line is
+call (phase 21); K1-K4's entries hold their launches per suite row and
+example (phase 22).  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
     python3 chip_smoke.py --ab DIR
@@ -230,6 +250,7 @@ times K6 and K7 alone that way: neither lies on a path.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import statistics
@@ -244,16 +265,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dicp_tpu_torch import ICP, ICPConfig, io, knn, pt2pt_svd_icp, register, register_ift
+from dicp_tpu_torch import ICP, ICPConfig, bench, io, knn, pt2pt_svd_icp, register, register_ift
 from dicp_tpu_torch import se3, slam, svd_icp
-from dicp_tpu_torch.benchmarks import exp_knn
+from dicp_tpu_torch.benchmarks import bench_suite, exp_gicp, exp_knn, exp_multiscale
+from dicp_tpu_torch.examples import large_cloud_demo, odometry_demo, serving_demo, slam_demo
 from dicp_tpu_torch.convert import to_torch
-from dicp_tpu_torch.gicp import register_gicp, register_gicp_ift
+from dicp_tpu_torch.gicp import register_gicp
 from dicp_tpu_torch.losses import VALID_LOSSES
-from dicp_tpu_torch.mapping import empty_map, map_merge, map_step, scan_to_map_odometry
-from dicp_tpu_torch.multiscale import ScaleLevel, register_multiscale
-from dicp_tpu_torch.odometry import (OdometryResult, ate, odometry, odometry_pose_graph,
-                                     pose_graph_optimize,
+from dicp_tpu_torch.mapping import empty_map, map_merge, map_step
+from dicp_tpu_torch.odometry import (ate, odometry, odometry_pose_graph, pose_graph_optimize,
                                      resumable_odometry)
 from dicp_tpu_torch.ops import _build, cluster_search, fused_gn, tiled_knn
 from dicp_tpu_torch.ops import cluster_knn as ck
@@ -264,6 +284,8 @@ from dicp_tpu_torch.parallel import (_comm, make_mesh, pose_graph_optimize_parti
                                      register_map_sharded_ift, register_ring_sharded)
 from dicp_tpu_torch.pipeline import stream_odometry
 from dicp_tpu_torch.registration import _preprocess
+from dicp_tpu_torch import visualization
+from dicp_tpu_torch.utils import profiling
 from dicp_tpu_torch.utils.timing import cuda_median_ms
 
 ROOT = Path(__file__).resolve().parent
@@ -1152,13 +1174,9 @@ def phase10_fused_build(libs: dict) -> None:
 
 
 def reference_batch(device, batch: int = B_HEAD):
-    """bench.py's inputs: the 65-point reference pair replicated to ``batch``."""
-    scan = np.load(ROOT / "tests" / "data" / "points_scan.npy").astype(np.float32)
-    mp = np.load(ROOT / "tests" / "data" / "points_map.npy").astype(np.float32)
-    src = to_torch(np.stack([scan[:, :3]] * batch), device)
-    tgt = to_torch(np.stack([mp] * batch), device)
-    ti = torch.eye(4, dtype=torch.float32, device=device).expand(batch, 4, 4).contiguous()
-    return src, tgt, ti
+    """bench.py's inputs: the 65-point reference pair replicated to ``batch``
+    (dicp_tpu_torch.bench.reference_batch)."""
+    return bench.reference_batch(batch, device=device)
 
 
 def random_pairs(rng: np.random.Generator, batch: int, n: int, m: int, dim: int,
@@ -1329,11 +1347,6 @@ def phase11_fused_kernel(device) -> dict:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": None}
 
 
-def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
-    a, b = a.double().flatten(), b.double().flatten()
-    return float(torch.dot(a, b) / (torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)))
-
-
 def _profile(fn, label: str, calls: int = 3, focus: tuple = ()) -> float:
     """Device busy share of ``calls`` calls under torch.profiler: the kernels'
     summed device time over the host wall time of the window (the profiler's
@@ -1369,64 +1382,45 @@ def _profile(fn, label: str, calls: int = 3, focus: tuple = ()) -> float:
 
 
 def phase12_headline(device):
-    """bench.py's headline through register_ift with K4 as the forward;
-    returns K4's launches in one call and the call."""
+    """bench.py's headline through dicp_tpu_torch.bench (register_ift with K4
+    as the forward; BENCH_FULL's unrolled and forward-only rates beside it),
+    with this phase's own checks on what it returns; returns K4's launches
+    in one call and the call."""
+    out = bench.run(device, full=True, log=sys.stdout)
     src, tgt, ti = reference_batch(device)
-    cfg = ICPConfig(**HEAD, collect_histories=False, fused_small=True)
-    variants = {
-        "IFT, K4 forward": lambda s: register_ift(s, tgt, ti, None, cfg),
-        "IFT, loop forward": lambda s: register_ift(s, tgt, ti, None,
-                                                    cfg.with_(fused_small=False)),
-        "unrolled": lambda s: register(s, tgt, ti, None, ICPConfig(**HEAD)),
-    }
+    cfg = bench.head_config()
 
-    def value_and_grad(name):
-        s = src.clone().requires_grad_(True)
-        res = variants[name](s)
-        value = res.T.sum()
-        (grad,) = torch.autograd.grad(value, s)
-        return res, value.detach(), grad
+    def call():
+        return bench.fwdbwd(register_ift, cfg, src, tgt, ti)
 
     _reset_launches()
-    res, value, grad = value_and_grad("IFT, K4 forward")
+    call()
     torch.cuda.synchronize()
     launches = fused_gn.launches
     _check(launches == 1, f"K4 launched once per call ({launches})")
 
+    res, grad, grad_u = out["result"], out["grad_ift"], out["grad_unrolled"]
     xi = torch.tensor([1.0, 1.0, 0.0, 0.0, 0.0, 0.1], dtype=torch.float64)
     T_true = se3.tran_inv(se3.vec2tran(xi)).to(device)
     err = torch.linalg.vector_norm(
         se3.tran2vec(T_true @ torch.linalg.inv(res.T.detach().double())), dim=-1)
     _check(float(err.max()) < TOL_POSE, f"headline transform error {float(err.max())} < "
            f"{TOL_POSE}")
-    _check(bool(torch.isfinite(grad).all()) and bool((grad != 0).any()),
-           "IFT gradient finite and nonzero")
-    _, value_u, grad_u = value_and_grad("unrolled")
-    _check(bool(torch.isfinite(grad_u).all()) and bool((grad_u != 0).any()),
-           "unrolled gradient finite and nonzero")
-    cos = _cosine(grad, grad_u)
-    _check(cos > 0.99, f"cosine of the IFT and unrolled gradients {cos} > 0.99")
-    _, value_l, grad_l = value_and_grad("IFT, loop forward")
-    cos_l = _cosine(grad, grad_l)
+    _check(bool((grad != 0).any()), "IFT gradient nonzero")
+    _check(bool((grad_u != 0).any()), "unrolled gradient nonzero")
+    _, value_l, grad_l = bench.fwdbwd(register_ift, cfg.with_(fused_small=False), src, tgt, ti)
+    cos_l = bench.cosine(grad, grad_l)
     print(f"  B={B_HEAD}: transform error {float(err.max()):.3e}, iterations "
-          f"{float(res.iterations.max())}, sum(T) {float(value):.6f} (loop forward "
-          f"{float(value_l):.6f}, unrolled {float(value_u):.6f}); gradient cosine with the "
-          f"unrolled {cos:.8f}, with the loop-forward IFT {cos_l:.8f}")
-
-    times = {name: [] for name in variants}
-    order = list(variants) + list(variants)[::-1]
-    for name in order:
-        times[name].append(cuda_median_ms(lambda: value_and_grad(name), warmup=1, iters=5))
-    for name, ms in times.items():
-        print(f"  {name}: {ms} ms per forward+backward (median of 5, order {order})")
-    ms = statistics.median(times["IFT, K4 forward"])
-    rate = B_HEAD / ms * 1e3
+          f"{out['iterations']}, sum(T) {float(res.T.detach().sum()):.6f} (loop forward "
+          f"{float(value_l):.6f}); gradient cosine with the unrolled {out['cosine']:.8f}, "
+          f"with the loop-forward IFT {cos_l:.8f}")
+    ms, rate = out["ms"], out["rate"]
     print(f"pt2pl_diff_B256_fwdbwd_registrations_per_s = {rate} registrations/s "
-          f"({ms} ms per forward+backward, median of the K4-forward IFT medians)")
+          f"({ms} ms per forward+backward, median of the K4-forward IFT calls)")
     print(f"phase 12 ok: register_ift with K4 as the forward, {ms:.4f} ms per "
           f"forward+backward at B={B_HEAD} ({rate:.1f} registrations/s); K4 launches "
           f"{launches}")
-    return launches, lambda: value_and_grad("IFT, K4 forward")
+    return launches, call
 
 
 def _score_bound(n: int, m: int) -> dict:
@@ -1674,117 +1668,127 @@ def _rel_errors(rel: torch.Tensor, step: np.ndarray) -> torch.Tensor:
     return torch.linalg.vector_norm(se3.tran2vec(rel.detach().cpu().double() @ step_inv), dim=-1)
 
 
+# the launcher of each kernel that a main path reaches through a module
+# attribute (so that a recorder can stand in for it)
+RECORDERS = {"tiled_nn": (tiled_knn, "_nn_distances_cuda"),
+             "cluster_search": (cluster_search, "fused_search"),
+             "cluster_topk": (cluster_search, "fused_topk"),
+             "fused_gn": (fused_gn, "_fused_gn_cuda")}
+
+
 @contextlib.contextmanager
-def _recording_k2(calls: dict):
-    """While active, K2's wrapper also keeps copies of the arguments of its
-    first and its latest call under "first" and "last" (the cluster tier
-    reaches K2 through the module attribute, and the wrapper counts its
-    launches on that attribute: the count moves to the recorder and back)."""
-    kernel = cluster_search.fused_search
+def _recording(name: str, calls: dict):
+    """While active, kernel ``name``'s launcher (``RECORDERS[name]``) also
+    keeps copies of the arguments of its first and its latest call under
+    "first" and "last" (one device copy per tensor argument per call).  A
+    wrapper that counts its launches on its own attribute keeps its count:
+    the count moves to the recorder and back."""
+    owner, attr = RECORDERS[name]
+    kernel = getattr(owner, attr)
 
     def record(*args):
-        calls["last"] = tuple(a.clone() for a in args)
+        calls["last"] = tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
+                              for a in args)
         calls.setdefault("first", calls["last"])
         return kernel(*args)
 
-    record.launches = kernel.launches
-    cluster_search.fused_search = record
+    counted = hasattr(kernel, "launches")
+    if counted:
+        record.launches = kernel.launches
+    setattr(owner, attr, record)
     try:
         yield calls
     finally:
-        cluster_search.fused_search = kernel
-        kernel.launches = record.launches
+        setattr(owner, attr, kernel)
+        if counted:
+            kernel.launches = record.launches
 
 
-def _k2_on_recorded(recorded: dict, pad_point=None, pad_label: str = "at the origin",
-                    pads: bool = True) -> float:
-    """K2 against its plain version, bit for bit, on K2 calls recorded from a
-    main path; returns the largest |difference| (0 when equal).  With
-    ``pads``, gates that some recorded target holds a group whose points all
-    sit on the pad point (``pad_point(points)``, default the origin: phase
-    17's zero-row pads); phases 19 and 20's targets (keyframe anchors, the
-    100k scene) have no pad rows."""
+def _k1_duplicates(x, y, idx) -> str:
+    """The targets' duplicated rows (a map's empty rows all sit on its
+    sentinel): exact ties that K1 resolves to the first index, as the plain
+    version does."""
+    rows = y.reshape(-1, 3)
+    uniq, counts = torch.unique(rows, dim=0, return_counts=True)
+    dup = int(counts[counts > 1].sum())
+    on_dup = int(torch.isin(idx.reshape(-1), torch.nonzero(
+        (rows[:, None, :] == uniq[counts > 1][None]).all(-1).any(-1))[:, 0]).sum()) \
+        if dup else 0
+    return (f"{tuple(x.shape)} queries, {tuple(y.shape)} targets of which {dup} rows are "
+            f"duplicates ({int((counts > 1).sum())} distinct points), {on_dup} queries "
+            f"matched to a duplicated row")
+
+
+def _k2_pads(args, got, pad_point, pad_label: str):
+    """K2's groups whose points all sit on the pad point (``pad_point(points)``,
+    None for the origin: phase 17's zero-row pads): their count and a report."""
+    points, _, radius, xb, _ = args
+    pad = (torch.zeros(3, dtype=points.dtype, device=points.device)
+           if pad_point is None else pad_point(points))
+    on_pad = (points == pad).all(-1).all(-1)                  # (..., G)
+    radii = radius[on_pad]
+    at_pad = (xb == pad).all(-1)
+    return int(on_pad.sum()), (
+        f"{int(on_pad.sum())} groups of pad rows {pad_label} (radius "
+        f"{float(radii.max()) if radii.numel() else float('nan'):.3e} at most), "
+        f"{int(at_pad.sum())} queries {pad_label}, {int((got[0] == 0).sum())} queries at "
+        f"distance 0")
+
+
+def _held_to_plain(name: str, recorded: dict, pads=None) -> float:
+    """Kernel ``name`` against its plain version on the same card tensors, on
+    each call recorded by :func:`_recording` (``recorded``: label -> calls):
+    K1, K2 and K3 bit for bit, K4 with phase 11's gates (iterations,
+    convergence and ratio equal, T within 1e-5).  Returns the largest
+    |difference| (0 when equal).  ``pads`` = (pad_point, label), K2 only:
+    gates that some recorded target holds a group of pad rows and reports
+    them (``_k2_pads``)."""
+    launcher = getattr(*RECORDERS[name])
+    plain_of = {"tiled_nn": (tiled_knn.nn_distances_plain, ("index", "d2")),
+                "cluster_search": (cluster_search.fused_search_plain, ("best", "row", "bound")),
+                "cluster_topk": (cluster_search.fused_topk_plain, ("d2", "rows", "bound"))}
     err, pad_groups = 0.0, 0
     for label, calls in recorded.items():
+        _check("first" in calls, f"{name} launched and recorded in {label}")
         for which in ("first", "last"):
-            args = calls[which]
-            points, centers, radius, xb, bsel = args
-            k2 = cluster_search.fused_search(*args)
-            plain = cluster_search.fused_search_plain(*args)
-            torch.cuda.synchronize()
-            for what, a, b in zip(("best", "row", "bound"), k2, plain):
-                _check(torch.equal(a, b), f"K2 {what} bit-equal to the plain version's on the "
-                       f"{which} K2 call of {label}")
-            err = max(err, _max_abs_diff(k2[0], plain[0]), _max_abs_diff(k2[2], plain[2]))
-            if not pads:
-                print(f"  K2 == plain on the {which} K2 call of {label}: xb {tuple(xb.shape)}, "
-                      f"G {points.shape[-3]}, {int((k2[0] <= k2[2]).sum())}/{k2[0].numel()} "
-                      f"certified")
+            if which == "last" and calls["last"] is calls["first"]:
                 continue
-            pad = (torch.zeros(3, dtype=points.dtype, device=points.device)
-                   if pad_point is None else pad_point(points))
-            on_pad = (points == pad).all(-1).all(-1)                  # (..., G)
-            pad_groups += int(on_pad.sum())
-            radii = radius[on_pad]
-            at_pad = (xb == pad).all(-1)
-            print(f"  K2 == plain on the {which} K2 call of {label}: xb {tuple(xb.shape)}, G "
-                  f"{points.shape[-3]}, {int(on_pad.sum())} groups of pad rows {pad_label} "
-                  f"(radius {float(radii.max()) if radii.numel() else float('nan'):.3e} at "
-                  f"most), {int(at_pad.sum())} queries {pad_label}, "
-                  f"{int((k2[0] == 0).sum())} queries at distance 0, "
-                  f"{int((k2[0] <= k2[2]).sum())}/{k2[0].numel()} certified")
-    _check(not pads or pad_groups > 0,
-           f"the recorded K2 calls hold groups of pad rows {pad_label}")
-    return err
-
-
-@contextlib.contextmanager
-def _recording_k1(calls: dict):
-    """While active, K1's launcher also keeps copies of the arguments of its
-    first and its latest call under "first" and "last" (the tiled tier
-    reaches the launcher through the module attribute, which counts the
-    launch)."""
-    kernel = tiled_knn._nn_distances_cuda
-
-    def record(x, y):
-        calls["last"] = (x.detach().clone(), y.detach().clone())
-        calls.setdefault("first", calls["last"])
-        return kernel(x, y)
-
-    tiled_knn._nn_distances_cuda = record
-    try:
-        yield calls
-    finally:
-        tiled_knn._nn_distances_cuda = kernel
-
-
-def _k1_on_recorded(recorded: dict) -> float:
-    """K1 against its plain version, bit for bit (indices and squared
-    distances), on K1 calls recorded from a main path; returns the largest
-    |difference| of the distances (0 when equal).  Reports the targets'
-    duplicated rows (a map's empty rows all sit on its sentinel): exact
-    ties that K1 resolves to the first index, as the plain version does."""
-    err = 0.0
-    for label, calls in recorded.items():
-        for which in ("first", "last"):
-            x, y = calls[which]
-            k1 = tiled_knn._nn_distances_cuda(x, y)
-            plain = tiled_knn.nn_distances_plain(x, y)
+            args = calls[which]
+            got = launcher(*args)
+            where = f"the {which} {name} call of {label}"
+            if name == "fused_gn":
+                plain = fused_gn.fused_gn_solve_plain(*args[:6])
+                for what, a, b in zip(("converged", "iterations", "matched ratio"),
+                                      got[2:5], plain[2:5]):
+                    _check(torch.equal(a, b), f"K4 {what} equal to the plain version's on "
+                           f"{where}")
+                dT = max(_max_abs_diff(got[0], plain[0]), _max_abs_diff(got[1], plain[1]))
+                _check(dT < 1e-5, f"K4 T within 1e-5 of the plain version's on {where}: {dT}")
+                err = max(err, dT)
+                print(f"  {name} == plain on {where}: {tuple(args[0].shape)} -> "
+                      f"{tuple(args[1].shape)}, max |T diff| {dT:.3e}")
+                continue
+            plain_fn, names = plain_of[name]
+            plain = plain_fn(*args)
             torch.cuda.synchronize()
-            for what, a, b in zip(("index", "d2"), k1, plain):
-                _check(torch.equal(a, b), f"K1 {what} bit-equal to the plain version's on the "
-                       f"{which} K1 call of {label}")
-            err = max(err, _max_abs_diff(k1[1], plain[1]))
-            rows = y.reshape(-1, 3)
-            uniq, counts = torch.unique(rows, dim=0, return_counts=True)
-            dup = int(counts[counts > 1].sum())
-            on_dup = int(torch.isin(k1[0].reshape(-1), torch.nonzero(
-                (rows[:, None, :] == uniq[counts > 1][None]).all(-1).any(-1))[:, 0]).sum()) \
-                if dup else 0
-            print(f"  K1 == plain on the {which} K1 call of {label}: {tuple(x.shape)} queries, "
-                  f"{tuple(y.shape)} targets of which {dup} rows are duplicates "
-                  f"({int((counts > 1).sum())} distinct points), {on_dup} queries matched to a "
-                  f"duplicated row")
+            for what, a, b in zip(names, got, plain):
+                _check(torch.equal(a, b), f"{name} {what} bit-equal to the plain version's on "
+                       f"{where}")
+            if name == "tiled_nn":
+                err = max(err, _max_abs_diff(got[1], plain[1]))
+                print(f"  {name} == plain on {where}: {_k1_duplicates(*args, got[0])}")
+                continue
+            err = max(err, _max_abs_diff(got[0], plain[0]), _max_abs_diff(got[-1], plain[-1]))
+            detail = f"xb {tuple(args[3].shape)}, G {args[0].shape[-3]}"
+            if name == "cluster_search":
+                detail += f", {int((got[0] <= got[2]).sum())}/{got[0].numel()} certified"
+            if pads is not None:
+                n_pad, report = _k2_pads(args, got, *pads)
+                pad_groups += n_pad
+                detail += f", {report}"
+            print(f"  {name} == plain on {where}: {detail}")
+    _check(pads is None or pad_groups > 0,
+           f"the recorded {name} calls hold groups of pad rows {pads[1] if pads else ''}")
     return err
 
 
@@ -1828,7 +1832,8 @@ def phase17_lidar_odometry(device, workdir: Path):
         if quant:
             res = stream(window, warm, quant)
         else:
-            with _recording_k2(recorded.setdefault(f"the {label} stream", {})):
+            with _recording("cluster_search",
+                        recorded.setdefault(f"the {label} stream", {})):
                 res = stream(window, warm, quant)
         torch.cuda.synchronize()
         k2 = _launches()["cluster_search"]
@@ -1887,9 +1892,9 @@ def phase17_lidar_odometry(device, workdir: Path):
     _check(same_iters and same_conv, "batched odometry's iterations and convergence equal "
            "the cold W=8 stream's")
     _check(diff <= TOL_ODO, f"batched odometry within {TOL_ODO} of the cold W=8 stream")
-    with _recording_k2(recorded.setdefault("a batched odometry call", {})):
+    with _recording("cluster_search", recorded.setdefault("a batched odometry call", {})):
         odometry(scans, cfg)   # outside the counted runs: only to record K2's arguments
-    k2_err = _k2_on_recorded(recorded)
+    k2_err = _held_to_plain("cluster_search", recorded, pads=(None, "at the origin"))
     del recorded
 
     li = torch.arange(0, S_SEQ - CLOSURE_GAP, CLOSURE_GAP)
@@ -1962,35 +1967,11 @@ def phase17_lidar_odometry(device, workdir: Path):
 
 
 # phase 18: the JAX suite's scan_to_map deployment (benchmarks/bench_suite.py:688-840),
-# no cut: 12 scans of a 60,000-point wavy surface against a 65,536-row map
-S_S2M, N_S2M, CAP_S2M, VOXEL_S2M = 12, 60_000, 65_536, 0.25
-S2M_STEP_XI = (0.06, 0.03, 0.01, 0.004, 0.002, 0.015)
-S2M_CFG = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=30, tolerance=1e-6,
-                    dim=3, trim_dist=2.0, loss_name="huber", loss_metric=0.5,
-                    nn_method="cluster", collect_histories=False)
-SGD_KW = dict(solver="sgd", sgd_minibatch=2048, sgd_iterations=30, seed=SEED + 18)
-# (label, scan_to_map_odometry keywords, ATE gate)
-S2M_STREAMS = (("gn", {}, 1e-3), ("sgd", SGD_KW, 5e-3),
-               ("sgd, merge_subsample 20000", dict(SGD_KW, merge_subsample=20_000), 5e-3),
-               ("gn, quantized", dict(quantize=True), None))
+# no cut: bench_suite's deployment, 12 scans of a 60,000-point wavy surface
+# against a 65,536-row map (dicp_tpu_torch/benchmarks/bench_suite.py, S2M_*)
+S_S2M, N_S2M = bench_suite.S2M_S, bench_suite.S2M_N
+CAP_S2M, VOXEL_S2M, S2M_CFG = bench_suite.S2M_CAP, bench_suite.S2M_VOXEL, bench_suite.S2M_CFG
 PROFILE_S2M_SCANS = 4               # phase 16's profiled scan-to-map stream
-
-
-def wavy_sequence(S: int, n: int, step_xi, seed: int = 0):
-    """bench_suite.py's _wavy_sequence (:664-685): S f32 scans of a +-20 m wavy
-    surface seen along a constant step, built on the host in f64; returns the
-    scans, the exact poses (S, 4, 4) f64 and the step."""
-    rng = np.random.default_rng(seed)
-    base = rng.uniform(-20, 20, (n, 3))
-    base[:, 2] = np.sin(base[:, 0] * 0.35) * np.cos(base[:, 1] * 0.3) * 2.0
-    step = se3.vec2tran(torch.tensor(step_xi, dtype=torch.float32)).double().numpy()
-    scans, poses, T = [], [], np.eye(4)
-    for _ in range(S):
-        Ti = np.linalg.inv(T)
-        scans.append((base @ Ti[:3, :3].T + Ti[:3, 3]).astype(np.float32))
-        poses.append(T.copy())
-        T = T @ step
-    return scans, np.stack(poses), step
 
 
 def _sentinel(points: torch.Tensor) -> torch.Tensor:
@@ -2001,60 +1982,54 @@ def _sentinel(points: torch.Tensor) -> torch.Tensor:
 
 
 def phase18_scan_to_map(device):
-    """Scan-to-map odometry at the JAX suite's deployment; returns K2's
-    launches per stream, K2's largest |difference| on the path's own calls
-    and a short gn stream for phase 16's profile."""
+    """Scan-to-map odometry at the JAX suite's deployment, through
+    bench_suite's host loop (its scan_to_map_60k, _sgd and _sgd_sub rows);
+    returns K2's launches per stream, K2's largest |difference| on the
+    path's own calls and a short gn stream for phase 16's profile."""
     t_phase = time.perf_counter()
-    scans, poses_true, step = wavy_sequence(S_S2M, N_S2M, S2M_STEP_XI, seed=SEED)
-    truth = torch.as_tensor(poses_true)
+    seq = bench_suite.scan_to_map_sequence()
+    scans, poses_true, step = seq
+    launches, recorded = {}, {}
 
-    def stream(kw, count=S_S2M):
-        res = scan_to_map_odometry(((s, None) for s in scans[:count]), S2M_CFG,
-                                   capacity=CAP_S2M, voxel=VOXEL_S2M, device=device, **kw)
-        return OdometryResult(*(a.cpu() for a in res))   # the host fetch
-
-    launches, ates, recorded = {}, {}, {}
-    for label, kw, gate in S2M_STREAMS:
+    @contextlib.contextmanager
+    def first_run(label):
         _reset_launches()
-        if label == "gn":
-            with _recording_k2(recorded.setdefault("the gn scan-to-map stream", {})):
-                res = stream(kw)
-        else:
-            res = stream(kw)
+        with (_recording("cluster_search",
+                         recorded.setdefault("the gn scan-to-map stream", {}))
+              if label == "scan_to_map_60k" else contextlib.nullcontext()):
+            yield
         torch.cuda.synchronize()
-        k2 = _launches()["cluster_search"]
-        times, runs = [], []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            runs.append(stream(kw))
-            times.append(time.perf_counter() - t0)
-        final = torch.linalg.inv(truth[-1]) @ res.poses[-1].double()
-        err = float(torch.linalg.vector_norm(se3.tran2vec(final)))
-        ates[label] = float(ate(res.poses.double(), truth, align=False))
+        launches[label] = _launches()["cluster_search"]
+
+    out = bench_suite.scan_to_map_host_loop(device, seq=seq, first_run=first_run)
+    # the quantized stream's bar: tests/test_mapping.py:146's
+    quantized = (("gn, quantized", dict(quantize=True),
+                  max(5 * out["scan_to_map_60k"]["ate"], 2e-3)),)
+    out.update(bench_suite.scan_to_map_host_loop(device, variants=quantized, seq=seq,
+                                                 first_run=first_run, emit=False))
+    for label, o in out.items():
+        res, k2 = o["first"], launches[label]
         its = res.iterations[1:].double()
-        print(f"  stream {label}: {S_S2M / statistics.median(times):.3f} frames/s (median of "
-              f"3 after one run; runs {', '.join(f'{t:.4f}' for t in times)} s), final-pose "
-              f"error {err:.3e}, ATE (align=False) {ates[label]:.3e}, "
+        print(f"  stream {label}: {S_S2M / statistics.median(o['ms']) * 1e3:.3f} frames/s "
+              f"(median of {len(o['ms'])} after one run; runs "
+              f"{', '.join(f'{t:.2f}' for t in o['ms'])} ms), final-pose error "
+              f"{o['final_pose_err']:.3e}, ATE (align=False) {o['ate']:.3e}, "
               f"{int(res.converged.sum())}/{S_S2M} converged, iterations per scan "
               f"{float(its.mean()):.3f} (min {float(its.min()):.0f}, max "
               f"{float(its.max()):.0f}), K2 {k2 / (S_S2M - 1):.3f} launches per scan")
-        _check(bool(res.converged.all()), f"{label}: every scan converged")
-        if gate is None:   # tests/test_mapping.py:146's bar for the quantized stream
-            gate = max(5 * ates["gn"], 2e-3)
-        _check(ates[label] < gate, f"{label}: ATE {ates[label]} < {gate}")
-        if label.startswith("gn"):
-            _check(k2 >= S_S2M - 1, f"{label}: K2 launched on every solved scan ({k2})")
-        else:
+        if "sgd" in label:
             _check(k2 == 0, f"{label}: the SGD mini-batch search runs no kernel ({k2})")
-            same = all(torch.equal(r.poses, res.poses) for r in runs)
+            same = all(torch.equal(r.poses, res.poses) for r in o["runs"])
             print(f"  {label}: four runs with one seed give equal poses, bit for bit: {same}")
             _check(same, f"{label}: two runs with one seed give the same poses")
-        launches[label] = k2
-    k2_err = _k2_on_recorded(recorded, _sentinel, "on the map's sentinel")
+        else:
+            _check(k2 >= S_S2M - 1, f"{label}: K2 launched on every solved scan ({k2})")
+    k2_err = _held_to_plain("cluster_search", recorded,
+                            pads=(_sentinel, "on the map's sentinel"))
+    gn = out["scan_to_map_60k"]["first"]
 
     # a mature map built by map_step over scans 0-10 at the gn stream's poses
     # (bench_suite.py's chained step: insert=True against insert=False)
-    gn = stream({})
     dev_scans = [torch.as_tensor(s, device=device) for s in scans]
     m = map_merge(empty_map(CAP_S2M, torch.float32, device), dev_scans[0], VOXEL_S2M,
                   mode="mean")
@@ -2089,39 +2064,16 @@ def phase18_scan_to_map(device):
     _check(beyond, "the map's empty rows sit beyond its occupied bounding box")
     print(f"phase 18 ok: {S_S2M} scans of {N_S2M} points against a {CAP_S2M}-row map, K2 "
           f"launches {launches}, {time.perf_counter() - t_phase:.1f} s")
-    return launches, k2_err, lambda: stream({}, PROFILE_S2M_SCANS)
+    profile_seq = (scans[:PROFILE_S2M_SCANS], poses_true[:PROFILE_S2M_SCANS], step)
+    return launches, k2_err, lambda: bench_suite.scan_to_map_host_loop(
+        device, variants=(("gn", {}, bench_suite.TOL_ATE_GN),), seq=profile_seq, reps=0,
+        emit=False)
 
 
 # --- phase 19: GICP and the multiscale pyramid at the JAX suite's deployments -----
 
-# benchmarks/exp_gicp.py:27-100: B = 64 pairs of a 600-point saddle, seed 11
-B_GICP, N_GICP = 64, 600
-GICP_XI = (0.2, -0.15, 0.1, 0.06, -0.04, 0.08)
-GICP_PT2PT = ICPConfig(icp_type="pt2pt", differentiable=False, driver="while", max_iterations=30,
-                       tolerance=1e-6, dim=3, trim_dist=100.0, loss_name="huber",
-                       loss_metric=1e9, collect_histories=False)
-# benchmarks/exp_multiscale.py:27-120: 100k points of bench_suite's scene, FAR init
-N_MS = 100_000
-MS_XI = (0.8, -0.5, 0.2, 0.05, -0.08, 0.12)
-MS_CFG = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=40, tolerance=1e-5,
-                   dim=3, trim_dist=2.0, loss_name="huber", loss_metric=1.0,
-                   nn_method="cluster", collect_histories=False)
-MS_LEVELS = (ScaleLevel(1.0, 4096, 4096, 15, 1e-3, trim_dist=8.0, nn_method="dense"),
-             ScaleLevel(0.0, 0, 0, 40, 1e-5))
-
-
-def three_planes(n: int) -> np.ndarray:
-    """benchmarks/bench_suite.py:181's _make_scene: (n, 6) f32 points with
-    exact normals on three orthogonal 40 m planes, seed 0."""
-    rng = np.random.default_rng(0)
-    normals = np.array([[0, 0, 1.0], [1.0, 0, 0], [0, 1.0, 0]])
-    pts, nrm = [], []
-    for k in range(3):
-        uv = rng.uniform(-20, 20, size=(n // 3 + 1, 2)).astype(np.float32)
-        basis = np.eye(3)[[i for i in range(3) if i != np.argmax(normals[k])]]
-        pts.append(uv @ basis + normals[k] * (2.0 + k))
-        nrm.append(np.tile(normals[k], (n // 3 + 1, 1)))
-    return np.hstack([np.vstack(pts)[:n], np.vstack(nrm)[:n]]).astype(np.float32)
+# dicp_tpu_torch/benchmarks/exp_gicp.py (B = 64 pairs of a 600-point saddle,
+# seed 11) and exp_multiscale.py (100k points of bench_suite's scene, FAR init)
 
 
 def _log_err(T_true: np.ndarray, T_est: torch.Tensor) -> torch.Tensor:
@@ -2132,57 +2084,21 @@ def _log_err(T_true: np.ndarray, T_est: torch.Tensor) -> torch.Tensor:
 
 
 def phase19_gicp_multiscale(device) -> dict:
-    """GICP (exp_gicp.py's deployment) and the pyramid (exp_multiscale.py's);
+    """GICP (exp_gicp's rows) and the pyramid (exp_multiscale's rows);
     returns K2's launches per pyramid call and its largest |difference| on
     the pyramid's own calls."""
     t_phase = time.perf_counter()
-    rng = np.random.default_rng(11)
-    xy = rng.uniform(-3, 3, size=(N_GICP, 2))
-    scene = np.column_stack([xy, 0.09 * (xy[:, 0] ** 2 - xy[:, 1] ** 2)])
-    T_np = se3.vec2tran(torch.tensor(GICP_XI, dtype=torch.float32)).double().numpy()
-    src = (scene @ T_np[:3, :3].T + T_np[:3, 3]).astype(np.float32)
-    S = torch.as_tensor(np.stack([src] * B_GICP), device=device)
-    Tg = torch.as_tensor(np.stack([scene.astype(np.float32)] * B_GICP), device=device)
-    Ti = torch.eye(4, dtype=torch.float32, device=device).expand(B_GICP, 4, 4).contiguous()
-    T_true = np.linalg.inv(T_np)
-
-    def gicp():
-        return register_gicp(S, Tg, Ti, max_iterations=30, tolerance=1e-6)
-
-    def pt2pt():
-        return register(S, Tg, Ti, None, GICP_PT2PT)
-
-    def ift():
-        a = S.clone().requires_grad_(True)
-        res = register_gicp_ift(a, Tg, Ti, max_iterations=30, tolerance=1e-6)
-        return torch.autograd.grad(res.T.sum(), a)[0]
-
-    res_g, res_p = gicp(), pt2pt()
-    err_g, err_p = float(_log_err(T_true, res_g.T).max()), float(_log_err(T_true, res_p.T).max())
-    t0 = time.perf_counter()
-    g_ift = ift()
-    torch.cuda.synchronize()
-    first_ift_s = time.perf_counter() - t0
+    gicp = exp_gicp.main(device)
+    S, Tg, Ti = gicp["inputs"]
+    g_ift = gicp["grad_ift"]
     a = S.clone().requires_grad_(True)
     unrolled = register_gicp(a, Tg, Ti, max_iterations=30, tolerance=1e-6, differentiable=True)
     g_unr = torch.autograd.grad(unrolled.T.sum(), a)[0]
-    cos = _cosine(g_ift, g_unr)
-    ms_g = cuda_median_ms(gicp, warmup=1, iters=5)
-    ms_p = cuda_median_ms(pt2pt, warmup=1, iters=5)
-    ms_i = cuda_median_ms(ift, warmup=1, iters=5)
-    print(f"  GICP B={B_GICP}, n = m = {N_GICP} (saddle): {B_GICP / ms_g * 1e3:.1f} "
-          f"registrations/s ({ms_g:.3f} ms per batch; CUDA events, median of 5 after one), "
-          f"max transform error {err_g:.3e}, iterations {float(res_g.iterations.mean()):.2f} "
-          f"(all converged: {bool(res_g.converged.all())}); same-shape pt2pt register "
-          f"{ms_p:.3f} ms, error {err_p:.3e}, iterations {float(res_p.iterations.mean()):.2f}; "
-          f"cost ratio GICP / pt2pt {ms_g / ms_p:.3f}")
-    print(f"  register_gicp_ift fwd+bwd: {B_GICP / ms_i * 1e3:.1f} registrations/s "
-          f"({ms_i:.3f} ms; the first call {first_ift_s * 1e3:.1f} ms); gradient cosine with "
-          f"the unrolled differentiable=True gradient {cos:.6f}")
-    _check(err_g < TOL_POSE and err_p < TOL_POSE, f"GICP and pt2pt errors < {TOL_POSE}")
-    for name, g in (("IFT", g_ift), ("unrolled", g_unr)):
-        _check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
-               f"GICP {name} gradient finite and nonzero")
+    cos = bench.cosine(g_ift, g_unr)
+    print(f"  register_gicp_ift's gradient: cosine with the unrolled differentiable=True "
+          f"gradient {cos:.6f}")
+    _check(bool(torch.isfinite(g_unr).all()) and float(g_unr.abs().max()) > 0,
+           "GICP unrolled gradient finite and nonzero")
     _check(cos > 0.99, f"GICP IFT gradient cosine with the unrolled one {cos} > 0.99")
 
     # tests/test_gicp.py:190: ~50 m radius in f32, the equilibrated solve
@@ -2201,40 +2117,22 @@ def phase19_gicp_multiscale(device) -> dict:
     print(f"  GICP f32 at ~50 m radius: finite {finite}, error {err_w:.3e}")
     _check(finite and err_w < 5e-4, f"GICP f32 realistic radius: finite, error {err_w} < 5e-4")
 
-    target = torch.as_tensor(three_planes(N_MS), device=device)
-    T_ms = se3.vec2tran(torch.tensor(MS_XI, dtype=torch.float64)).numpy()
-    source = torch.as_tensor((target[:, :3].double().cpu().numpy() @ T_ms[:3, :3].T
-                              + T_ms[:3, 3]).astype(np.float32), device=device)
-    eye = torch.eye(4, dtype=torch.float32, device=device)[None]
-    T_true = np.linalg.inv(T_ms)
+    launches, recorded = {}, {}
 
-    def single():
-        return register(source[None], target[None], eye, None, MS_CFG)
+    @contextlib.contextmanager
+    def first_call(label):
+        _reset_launches()
+        with (_recording("cluster_search",
+                         recorded.setdefault("the pyramid's full-resolution level", {}))
+              if label == "pyramid" else contextlib.nullcontext()):
+            yield
+        torch.cuda.synchronize()
+        launches[label] = _launches()["cluster_search"]
 
-    def pyramid():
-        return register_multiscale(source[None], target[None], eye, None, MS_CFG, MS_LEVELS)
-
-    _reset_launches()
-    res_s = single()
-    torch.cuda.synchronize()
-    k2_single = _launches()["cluster_search"]
-    recorded = {}
-    _reset_launches()
-    with _recording_k2(recorded.setdefault("the pyramid's full-resolution level", {})):
-        res_m = pyramid()
-    torch.cuda.synchronize()
-    k2_pyr = _launches()["cluster_search"]
-    k2_err = _k2_on_recorded(recorded, pads=False)
-    err_s = float(_log_err(T_true, res_s.T)[0])
-    err_m = float(_log_err(T_true, res_m.result.T)[0])
-    ms_s = cuda_median_ms(single, warmup=1, iters=5)
-    ms_m = cuda_median_ms(pyramid, warmup=1, iters=5)
-    levels = [float(x) for x in res_m.level_iterations[:, 0]]
-    print(f"  multiscale, {N_MS} points, FAR init: single scale {ms_s:.3f} ms per registration "
-          f"(error {err_s:.3e}, {float(res_s.iterations[0]):.0f} iterations, K2 {k2_single} "
-          f"launches); pyramid {ms_m:.3f} ms (error {err_m:.3e}, level iterations {levels}, K2 "
-          f"{k2_pyr} launches); speed-up {ms_s / ms_m:.3f} (CUDA events, median of 5 after one)")
-    _check(err_s < TOL_POSE and err_m < TOL_POSE, f"multiscale errors < {TOL_POSE}")
+    exp_multiscale.main(device, first_call=first_call)
+    k2_single, k2_pyr = launches["single"], launches["pyramid"]
+    k2_err = _held_to_plain("cluster_search", recorded)
+    print(f"  multiscale: K2 launches per call: single scale {k2_single}, pyramid {k2_pyr}")
     _check(k2_single > 0 and k2_pyr > 0, "K2 launched on both full-resolution solves")
     print(f"phase 19 ok: GICP and the pyramid, {time.perf_counter() - t_phase:.1f} s")
     return {"launches_per_multiscale_call": k2_pyr, "launches_single": k2_single,
@@ -2356,8 +2254,9 @@ def phase20_slam(device):
     rec1, rec2, closure_log, step_log, refine_log = {}, {}, [], [], []
     _reset_launches()
     with contextlib.ExitStack() as stack:
-        stack.enter_context(_recording_k1(rec1.setdefault("the SLAM front end", {})))
-        stack.enter_context(_recording_k2(rec2.setdefault("the SLAM closure solves", {})))
+        stack.enter_context(_recording("tiled_nn", rec1.setdefault("the SLAM front end", {})))
+        stack.enter_context(_recording("cluster_search",
+                                       rec2.setdefault("the SLAM closure solves", {})))
         stack.enter_context(_timed_calls(slam, "_closure_solve", closure_log, True))
         stack.enter_context(_timed_calls(slam, "map_step", step_log))
         stack.enter_context(_timed_calls(slam, "refine_robust", refine_log))
@@ -2408,8 +2307,8 @@ def phase20_slam(device):
     _check(a_ref <= a_front + 1e-3, f"refined ATE {a_ref} <= front ATE {a_front} + 1e-3")
     _check(k1 >= S - 1, f"K1 launched on every front-end solve ({k1})")
     _check(k2 > 0 and k2 == sum(n for _, n in closure_log), "K2 launched only by the closures")
-    k1_err = _k1_on_recorded(rec1)
-    k2_err = _k2_on_recorded(rec2, pads=False)
+    k1_err = _held_to_plain("tiled_nn", rec1)
+    k2_err = _held_to_plain("cluster_search", rec2)
 
     half, _, _ = slam_circuit(0.5, partial=True)
     res_half = run(len(half), half)
@@ -2481,7 +2380,7 @@ def _phase21_body(device, mesh, pair, T_pair, sources, targets, T_true, raw_sour
     rec = {}
     _reset_launches()
     _comm.reset_counts()
-    with _recording_k2(rec.setdefault("the map-sharded solve", {})):
+    with _recording("cluster_search", rec.setdefault("the map-sharded solve", {})):
         res = sharded()
         torch.cuda.synchronize()
     k2_map = _launches()["cluster_search"]
@@ -2505,7 +2404,7 @@ def _phase21_body(device, mesh, pair, T_pair, sources, targets, T_true, raw_sour
            and all(kind == "all_reduce" and numel <= 2 * (36 + 6 + 1) + 1
                    for kind, _, numel in counts), "one all-reduce of <= 87 elements per "
            "iteration and one in the cost pass")
-    k2_err = _k2_on_recorded(rec, pads=False)
+    k2_err = _held_to_plain("cluster_search", rec)
 
     res_x = sharded(cfg.with_(sharded_fused=False))
     diff_x = float((res_x.T - res.T).abs().max())
@@ -2536,7 +2435,7 @@ def _phase21_body(device, mesh, pair, T_pair, sources, targets, T_true, raw_sour
     torch.cuda.synchronize()
     bwd = _collectives()
     _, g_u = grad_of(register_map_sharded)
-    cos = _cosine(g_i, g_u)
+    cos = bench.cosine(g_i, g_u)
     ms_ift = cuda_median_ms(lambda: grad_of(register_map_sharded_ift), warmup=1, iters=5)
     print(f"  sharded IFT: {int(r_i.iterations)} iterations, converged {bool(r_i.converged)}; "
           f"gradient cosine with the unrolled one {cos:.6f}, |g| {float(g_i.norm()):.3e}; "
@@ -2626,6 +2525,115 @@ def _phase21_body(device, mesh, pair, T_pair, sources, targets, T_true, raw_sour
             "call": lambda mesh_: register_map_sharded(mesh_, src, target, ti, cfg=cfg)}
 
 
+# --- phase 22: the bench entry, the suite's rows and the examples ---------------
+
+# rows of bench_suite.ALL measured by earlier phases: scan_to_map's host
+# loop by phase 18, the exp_gicp and exp_multiscale rows of solvers by phase 19
+SUITE_ROWS = ("svd_pair", "pt2pl_pair", "batch256", "large_cloud", "normals", "odometry",
+              "capacity", "pipeline", "scan_to_map", "solvers")
+# the rows and examples whose first and last call of each kernel they launch
+# are recorded and held to the plain versions
+RECORD_ROWS = {"large_cloud": ("tiled_nn", "cluster_search", "cluster_topk"),
+               "normals": ("cluster_search",), "capacity": ("fused_gn",),
+               "pipeline": ("tiled_nn", "cluster_search"),
+               "large_cloud_demo": ("cluster_search",), "odometry_demo": ("tiled_nn",),
+               "serving_demo": ("cluster_search",)}
+EXAMPLES = {"large_cloud_demo": large_cloud_demo, "odometry_demo": odometry_demo,
+            "serving_demo": serving_demo, "slam_demo": slam_demo}
+
+
+def _all_launches() -> dict:
+    return {**_launches(), "fused_gn": fused_gn.launches}
+
+
+def phase22_bench_suite_examples(device) -> dict:
+    """dicp_tpu_torch.bench in this process, every row of bench_suite.ALL
+    that no earlier phase measures, and the four examples; the kernels'
+    launches per row and example, and K1-K4 held to their plain versions on
+    the first and last calls recorded from the rows and examples of
+    ``RECORD_ROWS``."""
+    t_phase = time.perf_counter()
+    per_row, seconds, errs = {}, {}, {}
+
+    def counted(label, fn, record=()):
+        _reset_launches()
+        t0 = time.perf_counter()
+        calls = {name: {} for name in record}
+        with contextlib.ExitStack() as stack:
+            for name in record:
+                stack.enter_context(_recording(name, calls[name]))
+            out = fn()
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        per_row[label] = {k: v for k, v in _all_launches().items() if v}
+        print(f"  {label}: {seconds[label]:.1f} s, kernel launches {per_row[label]}", flush=True)
+        for name, recorded in calls.items():
+            errs[name] = max(errs.get(name, 0.0), _held_to_plain(name, {label: recorded}))
+        return out
+
+    line = counted("bench", lambda: bench.main(device))
+    _check(line["metric"] == bench.METRIC and line["value"] > 0,
+           f"dicp_tpu_torch.bench printed {bench.METRIC}: {line}")
+    _check(per_row["bench"].get("fused_gn", 0) > 0, "K4 launched by dicp_tpu_torch.bench")
+    rows = {}
+    for name in SUITE_ROWS:
+        if name == "scan_to_map":
+            fn = lambda: bench_suite.bench_scan_to_map(device, loop=False)   # noqa: E731
+        elif name == "solvers":
+            fn = lambda: bench_suite.bench_solvers(device, delegates=("exp_sgd",))  # noqa: E731
+        else:
+            fn = functools.partial(bench_suite.ALL[name], device)
+        rows[name] = counted(name, fn, RECORD_ROWS.get(name, ()))
+    n_rows = sum(len(r) for r in rows.values())
+    for name, kernels in (("large_cloud", ("tiled_nn", "cluster_search", "cluster_topk")),
+                          ("capacity", ("fused_gn",))):
+        for k in kernels:
+            _check(per_row[name].get(k, 0) > 0, f"{k} launched by the {name} row")
+    results = {}
+    for name, module in EXAMPLES.items():
+        results[name] = counted(name, lambda module=module: module.main(device),
+                                RECORD_ROWS.get(name, ()))
+    _check(per_row["large_cloud_demo"].get("cluster_search", 0) > 0,
+           "K2 launched by the large-cloud demo")
+    print(f"  examples: {json.dumps(results)}")
+
+    # utils.profiling and visualization on card tensors, after every timing
+    # of this phase (a profiler slows host-bound timings after it)
+    src, tgt, ti = reference_batch(device)
+
+    def head_call():
+        return bench.fwdbwd(register_ift, bench.head_config(), src, tgt, ti)[2]
+
+    stats = profiling.benchmark(head_call, n=5)
+    print(f"  utils.profiling.benchmark of one headline fwd+bwd: {stats}")
+    _check(stats["n"] == 5 and 0 < stats["min_s"] <= stats["mean_s"], "benchmark() statistics")
+    with tempfile.TemporaryDirectory(prefix="dicp_trace_") as log_dir:
+        with profiling.trace(log_dir):
+            head_call()
+            torch.cuda.synchronize()
+        traces = sorted(Path(log_dir).rglob("*.pt.trace.json*"))
+        text = "".join(f.read_text(errors="replace") for f in traces if f.suffix == ".json")
+        print(f"  utils.profiling.trace wrote {[f.name for f in traces]} "
+              f"({sum(f.stat().st_size for f in traces)} bytes)")
+        _check(bool(traces) and "fused_gn_kernel" in text,
+               "the trace holds K4 under its launcher's name (fused_gn_kernel)")
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            print("  visualization: matplotlib is not installed here; plot_overlay not driven")
+        else:
+            png = Path(log_dir) / "overlay.png"
+            visualization.plot_overlay(src[0], tgt[0, :, :3], file_name=str(png))
+            _check(png.stat().st_size > 0, "plot_overlay wrote a PNG from card tensors")
+            print(f"  visualization.plot_overlay of card tensors: {png.stat().st_size} bytes")
+    print(f"phase 22 ok: dicp_tpu_torch.bench, {n_rows} suite rows of {len(SUITE_ROWS)} names "
+          f"here (scan_to_map's host loop in phase 18, "
+          f"exp_gicp and exp_multiscale in phase 19), the four examples; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": per_row, "seconds": seconds, "max_abs_err": errs}
+
+
+
 def main() -> None:
     card = phase0_device()
     device = torch.device("cuda", 0)
@@ -2655,10 +2663,14 @@ def main() -> None:
         slam_k1, slam_k2, slam_stream, slam_case = phase20_slam(device)
         par = phase21_parallel(device, pair, T_pair, sources, targets, T_true, raw_sources,
                                raw_targets, T_raw, slam_case)
+        suite = phase22_bench_suite_examples(device)
         timed["cluster_search"]["max_abs_err"] = max(timed["cluster_search"]["max_abs_err"],
                                                      k2_err, k2_err_s2m, pyramid["k2_err"],
                                                      slam_k2["k2_err"], par["k2_err"])
         k1["max_abs_err"] = max(k1["max_abs_err"], slam_k1["k1_err"])
+        for name, got in (("tiled_nn", k1), ("cluster_search", timed["cluster_search"]),
+                          ("cluster_topk", timed["cluster_topk"]), ("fused_gn", k4)):
+            got["max_abs_err"] = max(got["max_abs_err"], suite["max_abs_err"].get(name, 0.0))
         # last, so that no timing above runs after the profiler has been on
         _profile(slice_solve, "phase 4", focus=("tiled_nn_kernel",))
         _profile(single_solve, "phase 8 (icp call)", focus=("cluster_search_kernel",))
@@ -2683,14 +2695,20 @@ def main() -> None:
         print(f"  phase 21 map-sharded: {ops / (par['iterations'] + 1):.1f} device ops per "
               f"iteration ({par['iterations']} iterations and the cost pass)")
     print("phase 16 ok: profiles of phases 4, 8, 9, 12, 17, 18, 20 and 21")
+
+    def suite_launches(name):
+        """Phase 22's launches of kernel ``name``: per row or example, and their sum."""
+        rows = {label: c[name] for label, c in suite["launches"].items() if c.get(name)}
+        return rows, sum(rows.values())
     kernels = [{
         "name": "tiled_nn",
         "route": "cuda",
         "source": "dicp_tpu_torch/csrc/tiled_nn.cu",
         "replaces": "dicp_tpu/ops/pallas_knn.py:50",
         **k1,
-        "launches": launches + slam_k1["launches"],
+        "launches": launches + slam_k1["launches"] + suite_launches("tiled_nn")[1],
         "launches_per_slam_scan": slam_k1["launches_per_slam_scan"],
+        "launches_per_suite_row": suite_launches("tiled_nn")[0],
     }]
     sources_of = {"cluster_search": ("dicp_tpu_torch/csrc/cluster_search.cu",
                                      "dicp_tpu/ops/pallas_cluster.py:126"),
@@ -2715,13 +2733,16 @@ def main() -> None:
                      "launches_per_slam_closure": slam_k2["launches_per_slam_closure"],
                      "launches_per_multiscale_call": pyramid["launches_per_multiscale_call"],
                      "launches_per_map_sharded_call": par["launches_per_map_sharded_call"]}
+        per_row, in_suite = suite_launches(name)
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": count, **timed[name], **extra})
+                        "launches": count + in_suite, **timed[name], **extra,
+                        "launches_per_suite_row": per_row})
     _check(k4_launches > 0, f"fused_gn launched on the headline path ({k4_launches})")
     kernels.append({"name": "fused_gn", "route": "cuda",
                     "source": "dicp_tpu_torch/csrc/fused_gn.cu",
-                    "replaces": "dicp_tpu/ops/fused_gn.py:167", "launches": k4_launches,
-                    **k4})
+                    "replaces": "dicp_tpu/ops/fused_gn.py:167",
+                    "launches": k4_launches + suite_launches("fused_gn")[1], **k4,
+                    "launches_per_suite_row": suite_launches("fused_gn")[0]})
     for name, replaces in (("score_nn_v1", "benchmarks/exp_knn.py:69"),
                            ("score_nn_v2", "benchmarks/exp_knn.py:137")):
         kernels.append({"name": name, "route": "cuda",

@@ -51,6 +51,13 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
   JAX package.
 * :mod:`dicp_tpu_torch.benchmarks.exp_knn`: the exact 1-NN kernels' A/B on
   the card (``python -m dicp_tpu_torch.benchmarks.exp_knn``).
+* :mod:`dicp_tpu_torch.bench`: bench.py's headline on the card
+  (``python -m dicp_tpu_torch.bench``); :mod:`dicp_tpu_torch.benchmarks.bench_suite`
+  with ``exp_gicp``, ``exp_sgd`` and ``exp_multiscale``: the JAX suite's rows.
+* :mod:`dicp_tpu_torch.examples`: the four demos
+  (``python -m dicp_tpu_torch.examples.<name>``).
+* :mod:`dicp_tpu_torch.utils` (``benchmark``, ``trace`` on ``torch.profiler``,
+  the odometry checkpoint) and :mod:`dicp_tpu_torch.visualization`.
 
 This package imports neither ``jax`` nor ``dicp_tpu``.
 """

@@ -161,18 +161,27 @@ def _prepare(source, target, T_init, weight, source_normals, k_normals: int, nam
         raise ValueError(f"{name} expects batched (N, n, 3), (N, m, 3|6), (N, 4, 4)")
     dt = source.dtype
     src = source[..., :3]
-    tgt = target[..., :3].to(dt)
+    tgt = target[..., :3]
     if target.shape[-1] >= 6:
-        tgt_n = target[..., 3:6].to(dt)
+        tgt_n = target[..., 3:6]
     else:
         tgt_n = estimate_normals(tgt, k=k_normals)
     if source_normals is None:
         src_n = estimate_normals(src, k=k_normals)
     else:
-        src_n = source_normals[..., :3].to(dt)
+        src_n = source_normals[..., :3]
     if weight is None:
         weight = torch.ones(src.shape[:-1], dtype=dt, device=src.device)
-    return src, tgt, tgt_n, src_n, weight.to(dt), T_init.to(dt)
+    # JAX carries the pose in the source's dtype through its solve loop and
+    # promotes every operand of a step: a wider target, normal or weight
+    # widens the pose, and the loop raises.  A narrower one is promoted.
+    wider = [f"{what} ({a.dtype})" for what, a in
+             (("target", tgt), ("source_normals", src_n), ("weight", weight))
+             if torch.promote_types(a.dtype, dt) != dt]
+    if wider:
+        raise TypeError(f"{name}: {', '.join(wider)} wider than the source ({dt}); "
+                        "the solve carries the pose in the source's dtype")
+    return src, tgt.to(dt), tgt_n.to(dt), src_n.to(dt), weight.to(dt), T_init.to(dt)
 
 
 def register_gicp(

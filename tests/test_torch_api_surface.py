@@ -100,6 +100,22 @@ def test_every_jax_public_name_is_exported_or_listed_as_to_come():
     assert not missing, f"ROADMAP.md does not name {missing}"
 
 
+def test_utils_names_match_jax_less_the_tpu_clock():
+    """``dicp_tpu_torch.utils.__all__`` is ``dicp_tpu.utils.__all__`` in order
+    without the TPU clock (``chained_rate``, ``device_timing_is_trustworthy``:
+    the port times with CUDA events), and each helper takes JAX's parameters."""
+    import dicp_tpu.utils as jutils
+
+    import dicp_tpu_torch.utils as tutils
+
+    clock = {"chained_rate", "device_timing_is_trustworthy"}
+    assert clock <= set(jutils.__all__)
+    assert tutils.__all__ == [n for n in jutils.__all__ if n not in clock]
+    for name in tutils.__all__:
+        assert (list(inspect.signature(getattr(tutils, name)).parameters)
+                == list(inspect.signature(getattr(jutils, name)).parameters)), name
+
+
 def test_parallel_names_match_jax():
     """``dicp_tpu_torch.parallel.__all__`` is ``dicp_tpu.parallel.__all__`` in
     order, and each function and multihost helper takes JAX's parameters,

@@ -8,6 +8,8 @@ drivers (a clean pair, and a noisy one with outliers, a trim gate and prior
 weights, where the cost is not 0) and the gradients of ``register_gicp_ift``
 into the clouds, the weights and the target's normals against ``jax.grad``."""
 
+import itertools
+
 import numpy as np
 import pytest
 
@@ -297,3 +299,40 @@ def test_register_gicp_ift_gradients_match_jax():
         g = np.asarray(g)
         assert np.all(np.isfinite(g)) and np.abs(g).max() > 0
         np.testing.assert_allclose(x.grad.numpy(), g, rtol=0, atol=1e-8)
+
+
+DTYPES = (np.float32, np.float64)
+
+
+@pytest.mark.parametrize("fn", ["register_gicp", "register_gicp_ift"])
+@pytest.mark.parametrize("dtypes", list(itertools.product(DTYPES, repeat=4)),
+                         ids=lambda d: "-".join(np.dtype(t).name[-2:] for t in d))
+def test_mixed_dtypes_follow_jax(fn, dtypes):
+    """Source, target, weight and T_init in f32 or f64: where JAX's solve
+    loop raises (a target or weight wider than the source widens the pose
+    it carries), the port raises a TypeError naming the wider inputs; where
+    JAX returns, the port returns T in the same dtype within 1e-10 (an f64
+    source) or 1e-5 (f32 solves on both sides)."""
+    ds, dtg, dw, di = dtypes
+    S, Tg, Ti, _ = _pair(XI, n=60)
+    S, Tg, Ti = np.asarray(S)[0].astype(ds)[None], np.asarray(Tg)[0].astype(dtg)[None], \
+        np.asarray(Ti)[0].astype(di)[None]
+    w = np.ones(S.shape[:-1], dw)
+    kw = dict(max_iterations=30, tolerance=1e-7)
+    try:
+        ref = getattr(jg, fn)(jnp.asarray(S), jnp.asarray(Tg), jnp.asarray(Ti), jnp.asarray(w),
+                              **kw)
+    except TypeError:
+        ref = None
+    port = globals()[fn]
+    if ref is None:
+        wider = [what for what, d in (("target", dtg), ("weight", dw))
+                 if np.promote_types(d, ds) != ds]
+        with pytest.raises(TypeError) as info:
+            port(_t(S), _t(Tg), _t(Ti), _t(w), **kw)
+        assert all(what in str(info.value) for what in wider)
+        return
+    got = port(_t(S), _t(Tg), _t(Ti), _t(w), **kw)
+    assert got.T.dtype == _t(S).dtype
+    np.testing.assert_allclose(got.T.detach().numpy(), np.asarray(ref.T), rtol=0,
+                               atol=1e-10 if ds == np.float64 else 1e-5)

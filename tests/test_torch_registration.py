@@ -352,8 +352,10 @@ def test_port_never_imports_jax():
     then a small scan_to_map_odometry (with sgd_icp and mapping imported)
     and a small GICP and pyramid solve (with gicp, multiscale and slam
     imported), then a map-sharded solve in a world of one gloo rank (with
-    parallel imported), and find neither jax nor the JAX package in
-    sys.modules."""
+    parallel imported), then the bench entry, the suite's pt2pl_pair row, the
+    large-cloud demo at 3,000 points and utils.benchmark (with every example,
+    exp_* module, utils and visualization imported), and find neither jax,
+    the JAX package nor the JAX suite's ``benchmarks`` in sys.modules."""
     code = (
         "import sys, numpy as np\n"
         "import dicp_tpu_torch\n"
@@ -396,7 +398,22 @@ def test_port_never_imports_jax():
         "    max_iterations=20, tolerance=1e-8, dim=2, trim_dist=5.0))\n"
         "assert r.T.shape == (4, 4) and bool(r.converged) and dist.get_backend() == 'gloo'\n"
         "dist.destroy_process_group()\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dicp_tpu'))\n"
+        "import dicp_tpu_torch.bench, dicp_tpu_torch.utils, dicp_tpu_torch.visualization\n"
+        "import dicp_tpu_torch.benchmarks.bench_suite as suite\n"
+        "import dicp_tpu_torch.benchmarks.exp_gicp, dicp_tpu_torch.benchmarks.exp_sgd\n"
+        "import dicp_tpu_torch.benchmarks.exp_multiscale\n"
+        "import dicp_tpu_torch.examples.large_cloud_demo as lcd\n"
+        "import dicp_tpu_torch.examples.odometry_demo, dicp_tpu_torch.examples.serving_demo\n"
+        "import dicp_tpu_torch.examples.slam_demo\n"
+        "import contextlib, io\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert suite.bench_pt2pl_pair('cpu')[0]['transform_err'] < 1e-3\n"
+        "    lcd.N = 3000\n"
+        "    assert lcd.main('cpu')['transform_err'] < 1e-3\n"
+        "assert dicp_tpu_torch.utils.benchmark(lambda: dicp_tpu_torch.bench.reference_batch(\n"
+        "    2, device='cpu'), n=1)['n'] == 1\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'dicp_tpu', 'benchmarks'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
