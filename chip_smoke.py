@@ -25,10 +25,10 @@ Phases, each raising on failure (the script then exits non-zero):
    LiDAR-like scene, 12,288 source points against 16,000 target points with
    normals, pt2pl, dim 3; every pair's rotation and translation error < 1e-3,
    and K1 launched at least once per Gauss-Newton iteration.
-5. the cluster kernels' -Xptxas=-v reports (K2 and K5: csrc/cluster_search.cu,
-   which must show no register spills; K3: csrc/cluster_topk.cu), and K3's
+5. the cluster kernels' -Xptxas=-v reports (K2 and K5: csrc/cluster_search.cu;
+   K3: csrc/cluster_topk.cu), which must show no register spills, and K3's
    launch geometry at the cluster tier's block for each list length
-   (threads, registers, spilled bytes).
+   (warps, queries per warp, bound slices, staging, registers).
 6. K2 and K5 against their plain PyTorch versions on the card, bit for bit
    (best, row, bound) at the two raw-scan shapes and at edge cases (among
    them a duplicated candidate split across K2's column-slice boundary, g = 7
@@ -40,11 +40,15 @@ Phases, each raising on failure (the script then exits non-zero):
 7. K3 against its plain version, bit for bit (d2, rows, bound), at 100k x
    100k (k = 16, 1, 2, 5, 32) and at edge cases: duplicated points across
    group boundaries, k beyond a query's finite candidates (the column-0
-   fill), g = 7, g = 2000 in four staging tiles per group, points that are
+   fill), g = 7, g = 2000 (slabs read from global memory), points that are
    not 16-byte aligned, a NaN target point and a NaN
-   query (held to the plain version as phase 6 holds K2); a subprocess
-   launches K3 with a group id outside [0, G) and must fail with a CUDA
-   error.  Timed call by call and back to back.
+   query (held to the plain version as phase 6 holds K2), and what only the
+   warp schedule can get wrong: a tie with the k-th entry that the
+   nearest-box-first order reaches later in a lower column, every lane's
+   queue full in the same step, fewer candidates than lanes, g = 37, k = 32
+   with exactly 32 finite candidates, P = 40 (two chunks of groups); a
+   subprocess launches K3 with a group id outside [0, G) and must fail with
+   a CUDA error.  Timed call by call and back to back.
 8. the single-pair raw-scan path: weighted PCA normals of a 100,000-point map
    (median angle to the exact normals < 2 deg), cluster k-NN normals (K3),
    and ICP.icp of the map's points, permuted and moved, through the cluster
@@ -235,7 +239,8 @@ built from ``DIR/dicp_tpu_torch/csrc`` (another checkout, e.g. an earlier
 commit unpacked with ``git archive``, whose launchers have this checkout's C
 signatures: checked in the sources) against this checkout's, in turns
 (DIR's, this, this, DIR's), at the main path's shapes (K3 at 100k -> 100k
-and 8 x 50k -> 60k with k = 16; K4 at the headline and at 256 x 256 -> 512;
+and 8 x 50k -> 60k with k = 1, 2, 5, 16 and 32; K4 at the headline and at
+256 x 256 -> 512;
 K6 and K7 at 100k x 100k for 256 x 2048 and 512 x 4096, beside this
 checkout's score_nn.cu built at the other slice count), after holding each
 to the plain versions, call by call and back to back; then phases 4, 8, 9
@@ -659,14 +664,17 @@ def phase5_cluster_build(libs: dict) -> None:
         print(f"  {libs[name].name}:\n{_report(libs[name])}")
     _no_spills(_report(libs["cluster_search"]), "cluster_search")
     regs = {}
-    for name, r, spill, _ in _ptxas(_report(libs["cluster_topk"])):
-        regs[int(re.search(r"cluster_topk_kernelILi(\d+)E", name).group(1))] = (r, spill)
+    for name, r, _, _ in _no_spills(_report(libs["cluster_topk"]), "cluster_topk"):
+        found = re.search(r"cluster_topk_kernelILi(\d+)ELb([01])E", name)
+        regs[int(found.group(1)), found.group(2) == "1"] = r
     for k in (1, 2, 4, 8, 16, 32):
-        plan = cluster_search.topk_plan(ck.FUSED_QBLOCK, k)
-        r, spill = regs[plan["K"]]
-        print(f"  K3 at Qs = {ck.FUSED_QBLOCK}, k = {k}: list K = {plan['K']}, one query per "
-              f"thread, {plan['threads']} threads, {r} registers, {spill} bytes spilled")
-    print("phase 5 ok: cluster kernels built and bound, no register spills in K2/K5")
+        plan = cluster_search.topk_plan(ck.FUSED_QBLOCK, k, GROUP, PROBES)
+        print(f"  K3 at Qs = {ck.FUSED_QBLOCK}, P = {PROBES}, g = {GROUP}, k = {k}: list K = "
+              f"{plan['K']} keys per warp, {plan['warps']} warps of {plan['queries_per_warp']} "
+              f"queries, bound over {plan['bound_slices']} slices, "
+              f"staged {plan['staged']}, {plan['boxes']} boxes; {regs[plan['K'], True]} "
+              f"registers staged, {regs[plan['K'], False]} from global memory, no spills")
+    print("phase 5 ok: cluster kernels built and bound, no register spills in K2/K5 or K3")
 
 
 def raw_scan_pair(rng: np.random.Generator, m: int):
@@ -928,6 +936,33 @@ def _search_work(ix, xb, bsel, k: int, with_bound: bool):
     return flops, nbytes
 
 
+def _topk_work(ix, xb, bsel, k: int):
+    """(flops, bytes, searched groups per query) K3 needs on these inputs:
+    K2's bytes and bound work (_search_work), but the 9 flops of a (query,
+    candidate) pair, its compare with the k-th key among them, only in the
+    groups a query must search: those whose bounding box (NaN coordinates
+    left out) lies within its k-th d2 from fused_topk_plain, in K3's f32
+    order.  A group past it holds no candidate of the result, and one within
+    it may hold a tie."""
+    flops, nbytes = _search_work(ix, xb, bsel, k, True)
+    G, g = ix.points.shape[-3], ix.points.shape[-2]
+    queries = xb.shape[:-1].numel()
+    P = bsel.shape[-1]
+    kth = cluster_search.fused_topk_plain(ix.points, ix.centers, ix.radius, xb, bsel, k)[0]
+    pts = ix.points.reshape(-1, G, g, 3)
+    lo = torch.where(torch.isnan(pts), torch.inf, pts).amin(-2)
+    hi = torch.where(torch.isnan(pts), -torch.inf, pts).amax(-2)
+    sel = bsel.reshape(pts.shape[0], -1, P).long()
+    batch = torch.arange(pts.shape[0], device=pts.device)[:, None, None]
+    lo, hi = lo[batch, sel][:, :, None], hi[batch, sel][:, :, None]  # (B, nb, 1, P, 3)
+    q = xb.reshape(pts.shape[0], -1, xb.shape[-2], 1, 3)
+    e = torch.where(q < lo, q - lo, torch.where(q > hi, q - hi, 0.0))
+    lb = (e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1]) + e[..., 2] * e[..., 2]
+    searched = int((lb <= kth.reshape(lb.shape[:-1] + (k,))[..., -1:]).sum())
+    flops -= 9.0 * g * (queries * P - searched)
+    return flops, nbytes, searched / queries
+
+
 def _topk_nan_expected(args, k: int):
     """What K3 must give on NAN_CASE, as _nan_expected for K2: the plain
     version with each NaN point at inf and each NaN group at radius inf; a
@@ -979,7 +1014,7 @@ def _topk_cases(device, rng: np.random.Generator, main) -> list:
     for name, (y, x, probes, group), k in (
             ("g = 7",
              (rng.uniform(-5, 5, (900, 3)), rng.uniform(-5, 5, (300, 3)), 5, 7), 16),
-            ("g = 2000: four staging tiles per group",
+            ("g = 2000: slabs read from global memory",
              (rng.uniform(-5, 5, (14000, 3)), rng.uniform(-5, 5, (200, 3)), 5, 2000), 32),
             ("m not a multiple of g",
              (rng.uniform(-5, 5, (777, 3)), rng.uniform(-5, 5, (300, 3)), 3, 128), 8)):
@@ -989,7 +1024,56 @@ def _topk_cases(device, rng: np.random.Generator, main) -> list:
     for name in ("points not 16-byte aligned (4-byte copies)", NAN_CASE):
         i, qb, sb = raw[name]
         cases.append((name, (i.points, i.centers, i.radius, qb, sb), 16))
+    # what only the warp schedule can get wrong
+    tie = index_of(_tie_points(rng)) + (f32(np.zeros((1, 4, 3))),
+                                        torch.tensor([[0, 1, 2]], dtype=torch.int32,
+                                                     device=device))
+    cases.append((TIE_CASE, tie, 8))
+
+    def groups(G, g, scale=5.0):
+        return rng.uniform(-scale, scale, (G, g, 3))
+
+    def given(pts, nq, sel, scale=5.0):
+        return index_of(pts) + (f32(rng.uniform(-scale, scale, (len(sel), nq, 3))),
+                                torch.as_tensor(np.asarray(sel, np.int32), device=device))
+
+    shell = rng.normal(size=(64, 3))  # the first group visited: a sphere of radius 5
+    shell = 5.0 * shell / np.linalg.norm(shell, axis=1, keepdims=True)
+    full = index_of(np.stack([rng.uniform(1.0, 1.5, (64, 3)), shell])) + (
+        f32(rng.normal(scale=1e-3, size=(1, 8, 3))),
+        torch.tensor([[0, 1]], dtype=torch.int32, device=device))
+    cases += [(f"every lane's queue full in the same step, k = {k}", full, k)
+              for k in (1, 16, 32)]
+    few = given(groups(5, 7), 64, [[4, 1]])
+    cases += [(f"fewer candidates than lanes (P g = 14), k = {k}", few, k) for k in (1, 14)]
+    cases.append(("g = 37, not a multiple of 4 or 32",
+                  given(groups(11, 37), 128, [rng.permutation(11)[:6] for _ in range(2)]), 16))
+    pts = groups(8, 16)
+    pts[:, 4:] = 1e20
+    cases.append((EXACT_CASE, given(pts, 128, [rng.permutation(8)]), 32))
+    cases.append(("P = 40 > 32: two chunks of groups",
+                  given(groups(70, 4, 20.0), 128, [rng.permutation(70)[:40]], 20.0), 16))
     return cases
+
+
+TIE_CASE = "a tie with the k-th entry reached later in a lower column"
+EXACT_CASE = "k = 32 with exactly 32 finite candidates"
+
+
+def _tie_points(rng: np.random.Generator) -> np.ndarray:
+    """Three groups of 64 (bsel = [0, 1, 2]) for queries at the origin:
+    group 1, visited first (its box holds the queries), holds their 8 nearest
+    points, the 8th at d2 = 1 exactly, and fills every lane's queue in two
+    steps, so the list's 8th key is (1, column 71) before group 0 is visited;
+    group 0 holds a copy of that point in column 0.  Only a lexicographic
+    filter against the k-th key lists the copy."""
+    near = rng.uniform(2, 3, (64, 3))
+    near[:7] = rng.uniform(-0.4, 0.4, (7, 3)) * [1, 1, 0]
+    near[7] = (1.0, 0.0, 0.0)
+    far = rng.uniform(3, 4, (64, 3))
+    far[:, 0] = rng.uniform(1.0, 4.0, 64)
+    far[0] = near[7]
+    return np.stack([far, near, rng.uniform(6, 8, (64, 3))])
 
 
 def phase7_topk_kernel(device, mp: np.ndarray, scan: np.ndarray) -> dict:
@@ -1018,6 +1102,11 @@ def phase7_topk_kernel(device, mp: np.ndarray, scan: np.ndarray) -> dict:
             _check(bool((kern[2][past] == 0).all())
                    and not bool((kern[0][..., -1] <= kern[2])[past].any()),
                    "no query is certified past the NaN group or for the NaN query")
+        if name == TIE_CASE:
+            _check(bool((kern[1][..., -1] == 0).all()) and bool((kern[0][..., -1] == 1).all()),
+                   "the tie with the 8th entry resolves to the lower column, reached later")
+        if name == EXACT_CASE:
+            _check(bool(torch.isfinite(kern[0]).all()), "all 32 finite candidates listed")
         e = max(_max_abs_diff(kern[0], plain[0]), _max_abs_diff(kern[2], plain[2]))
         err = max(err, e)
         print(f"  K3 == plain: {name}: xb {tuple(args[3].shape)}, P {args[4].shape[-1]}, "
@@ -1027,12 +1116,13 @@ def phase7_topk_kernel(device, mp: np.ndarray, scan: np.ndarray) -> dict:
     ms = cuda_median_ms(lambda: cluster_search.fused_topk(*args), warmup=3, iters=20)
     chain_ms = _chain_ms(lambda: cluster_search.fused_topk(*args))
     plain_ms = cuda_median_ms(lambda: cluster_search.fused_topk_plain(*args), warmup=1, iters=3)
-    work = _search_work(ix, xb, bsel, 16, True)
-    bound = _bound(*work)
+    flops, nbytes, searched = _topk_work(ix, xb, bsel, 16)
+    bound = _bound(flops, nbytes)
     print(f"phase 7 ok: K3 {ms:.4f} ms call by call ({chain_ms:.4f} ms back to back), plain "
-          f"{plain_ms:.4f} ms at {len(scan)} -> {len(mp)}, k = 16, P = {PROBES}; bound "
+          f"{plain_ms:.4f} ms at {len(scan)} -> {len(mp)}, k = 16, P = {PROBES}; "
+          f"{searched:.4f} of the {PROBES} groups per query must be searched; bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), issue ceiling "
-          f"{_issue_ms(work[0]):.4f} ms")
+          f"{_issue_ms(flops):.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
@@ -2783,6 +2873,7 @@ def _launch_signature(source: Path, name: str) -> str:
 
 
 AB_KERNELS = ("tiled_nn", "cluster_search", "cluster_topk", "fused_gn", "score_nn")
+AB_TOPK_K = (1, 2, 5, 16, 32)  # K3's k in --ab
 # each source's launchers, bound with this checkout's argtypes
 LAUNCHERS = {"tiled_nn": ("tiled_nn",), "cluster_search": ("cluster_search",),
              "cluster_topk": ("cluster_topk",), "fused_gn": ("fused_gn",),
@@ -2940,38 +3031,13 @@ def main_ab(parent: Path, only: str | None = None) -> None:
 
 
 def _ab_main_kernels(record, other: dict, device, stream) -> None:
-    """K1, K2, K5, K3 and K4 of the parent and this checkout, at the main
-    paths' shapes."""
-    sources, targets, _ = scene_pairs(np.random.default_rng(SEED), B, N_SRC, M_TGT)
-    x = to_torch(sources, device, torch.float32).contiguous()
-    y = to_torch(targets[..., :3], device, torch.float32).contiguous()
-    nb, n, m = x.shape[0], x.shape[1], y.shape[1]
-    out = {who: (torch.empty(nb, n, dtype=torch.int32, device=device),
-                 torch.empty(nb, n, device=device)) for who in ("parent", "this")}
-
-    def k1(fn, who):
-        return lambda: fn(x.data_ptr(), y.data_ptr(), nb, n, m, out[who][0].data_ptr(),
-                          out[who][1].data_ptr(), 0, stream)
-
-    def k1_check():
-        ref = tiled_knn.nn_distances_plain(x, y)
-        for who in ("parent", "this"):
-            _check(all(torch.equal(a, b) for a, b in zip(out[who], ref)),
-                   f"K1 ({who}) equals the plain version")
-
-    record(f"K1 ({nb}, {n}, {m})", {"parent": k1(other["tiled_nn"], "parent"),
-                                    "this": k1(tiled_knn._kernel(), "this")}, k1_check)
-
-    mp, scan, _ = raw_scan_pair(np.random.default_rng(SEED + 8), M_MAP)
-    raw_sources, raw_targets, _ = scene_pairs(np.random.default_rng(SEED + 9), B_RAW, N_RAW,
-                                              M_RAW)
-    shapes = {f"{len(scan)} -> {len(mp)}": (mp[:, :3], scan),
-              f"{B_RAW} x {N_RAW} -> {M_RAW}": (raw_targets[..., :3], raw_sources)}
-    for label, (y_np, x_np) in shapes.items():
-        ix, xb, bsel = _search_inputs(to_torch(y_np, device), to_torch(x_np, device))
-        args = [t.contiguous() for t in (ix.points, ix.centers, ix.radius, xb, bsel)]
-        Bq, nbq, Qs = xb.shape[:3]
-        G, g, P = ix.points.shape[1], ix.points.shape[2], bsel.shape[-1]
+    """K1, K2, K5, K3 (at each k of AB_TOPK_K) and K4 of the parent and this
+    checkout, at the main paths' shapes."""
+    _ab_k1(record, other, device, stream)
+    shapes = _cluster_shapes(device)
+    for label, args in shapes.items():
+        Bq, nbq, Qs = args[3].shape[:3]
+        G, g, P = args[0].shape[1], args[0].shape[2], args[4].shape[-1]
         for with_bound, kname in ((1, "K2"), (0, "K5")):
             res = {who: [torch.empty(Bq, nbq, Qs, device=device),
                          torch.empty(Bq, nbq, Qs, dtype=torch.int32, device=device),
@@ -2994,26 +3060,79 @@ def _ab_main_kernels(record, other: dict, device, stream) -> None:
             record(f"{kname} {label}", {"parent": k2(other["cluster_search"], "parent"),
                                         "this": k2(cluster_search._search_kernel(), "this")},
                    k2_check)
-        k = 16
-        res3 = {who: [torch.empty(Bq, nbq, Qs, k, device=device),
-                      torch.empty(Bq, nbq, Qs, k, dtype=torch.int32, device=device),
-                      torch.empty(Bq, nbq, Qs, device=device)] for who in ("parent", "this")}
+    _ab_topk(record, {"parent": other["cluster_topk"], "this": cluster_search._topk_kernel()},
+             shapes, device, stream)
+    _ab_k4(record, other, device, stream)
 
-        def k3(fn, who, res=res3, args=args):
-            ptrs = [t.data_ptr() for t in args]
-            outs = [t.data_ptr() for t in res[who]]
-            return lambda: fn(*ptrs, Bq, G, g, nbq, Qs, P, k, *outs, 0, stream)
 
-        def k3_check(res=res3, args=args):
-            ref = cluster_search.fused_topk_plain(*args, k)
-            for who in ("parent", "this"):
-                _check(all(torch.equal(a, b) for a, b in zip(res[who], ref)),
-                       f"K3 ({who}) equals the plain version ({label}, k = {k})")
+def _cluster_shapes(device) -> dict:
+    """Phase 7's single pair and phase 9's batch as the cluster tier hands
+    them to K2, K5 and K3: label -> contiguous (points, centers, radius, xb,
+    bsel)."""
+    mp, scan, _ = raw_scan_pair(np.random.default_rng(SEED + 8), M_MAP)
+    raw_sources, raw_targets, _ = scene_pairs(np.random.default_rng(SEED + 9), B_RAW, N_RAW,
+                                              M_RAW)
+    shapes = {f"{len(scan)} -> {len(mp)}": (mp[:, :3], scan),
+              f"{B_RAW} x {N_RAW} -> {M_RAW}": (raw_targets[..., :3], raw_sources)}
+    out = {}
+    for label, (y_np, x_np) in shapes.items():
+        ix, xb, bsel = _search_inputs(to_torch(y_np, device), to_torch(x_np, device))
+        out[label] = [t.contiguous() for t in (ix.points, ix.centers, ix.radius, xb, bsel)]
+    return out
 
-        record(f"K3 {label}, k = {k}", {"parent": k3(other["cluster_topk"], "parent"),
-                                        "this": k3(cluster_search._topk_kernel(), "this")},
-               k3_check)
 
+def _ab_topk(record, contenders: dict, shapes: dict, device, stream) -> None:
+    """K3 launchers ({who: cluster_topk_launch}) at each shape and each k of
+    AB_TOPK_K, every one held to the plain version bit for bit."""
+    for label, args in shapes.items():
+        Bq, nbq, Qs = args[3].shape[:3]
+        G, g, P = args[0].shape[1], args[0].shape[2], args[4].shape[-1]
+        for k in AB_TOPK_K:
+            res3 = {who: [torch.empty(Bq, nbq, Qs, k, device=device),
+                          torch.empty(Bq, nbq, Qs, k, dtype=torch.int32, device=device),
+                          torch.empty(Bq, nbq, Qs, device=device)]
+                    for who in contenders}
+
+            def k3(fn, who, res=res3, args=args, k=k):
+                ptrs = [t.data_ptr() for t in args]
+                outs = [t.data_ptr() for t in res[who]]
+                return lambda: fn(*ptrs, Bq, G, g, nbq, Qs, P, k, *outs, 0, stream)
+
+            def k3_check(res=res3, args=args, k=k):
+                ref = cluster_search.fused_topk_plain(*args, k)
+                for who in contenders:
+                    _check(all(torch.equal(a, b) for a, b in zip(res[who], ref)),
+                           f"K3 ({who}) equals the plain version ({label}, k = {k})")
+
+            record(f"K3 {label}, k = {k}", {who: k3(fn, who) for who, fn in contenders.items()},
+                   k3_check)
+
+
+def _ab_k1(record, other: dict, device, stream) -> None:
+    """K1 of the parent and this checkout at phase 4's shape."""
+    sources, targets, _ = scene_pairs(np.random.default_rng(SEED), B, N_SRC, M_TGT)
+    x = to_torch(sources, device, torch.float32).contiguous()
+    y = to_torch(targets[..., :3], device, torch.float32).contiguous()
+    nb, n, m = x.shape[0], x.shape[1], y.shape[1]
+    out = {who: (torch.empty(nb, n, dtype=torch.int32, device=device),
+                 torch.empty(nb, n, device=device)) for who in ("parent", "this")}
+
+    def k1(fn, who):
+        return lambda: fn(x.data_ptr(), y.data_ptr(), nb, n, m, out[who][0].data_ptr(),
+                          out[who][1].data_ptr(), 0, stream)
+
+    def k1_check():
+        ref = tiled_knn.nn_distances_plain(x, y)
+        for who in ("parent", "this"):
+            _check(all(torch.equal(a, b) for a, b in zip(out[who], ref)),
+                   f"K1 ({who}) equals the plain version")
+
+    record(f"K1 ({nb}, {n}, {m})", {"parent": k1(other["tiled_nn"], "parent"),
+                                    "this": k1(tiled_knn._kernel(), "this")}, k1_check)
+
+
+def _ab_k4(record, other: dict, device, stream) -> None:
+    """K4 of the parent and this checkout at its two main shapes."""
     for label, (cfg, inputs) in _k4_main_inputs(device).items():
         kargs = _k4_args(cfg, *inputs)
         source, target = kargs[0], kargs[1]

@@ -51,8 +51,8 @@ _EPS8 = 8.0 * float(torch.finfo(torch.float32).eps)
 # Elements of one (blocks, Qs, P*g) candidate tile in the plain versions.
 _PLAIN_BLOCK = 1 << 24
 # Kernel limits (csrc/cluster_search.cu, csrc/cluster_topk.cu): up to 1024
-# queries per block (K3: one thread per query with a 32-entry list in
-# registers, hence fewer), the selected-group bitmap in shared memory.
+# queries per block (K3: 256, its bound's query groups of GROUP_Q over
+# TOPK_WARPS warps), the selected-group bitmap in shared memory.
 MAX_QS = 1024
 MAX_QS_TOPK = 256
 MAX_GROUPS = 1 << 20
@@ -70,6 +70,20 @@ GROUP_Q = 32 * LANE_Q
 WARPS = 8
 MAX_SLAB_BYTES = 64 * 1024
 MAX_GROUP_SIZE = MAX_SLAB_BYTES // 12
+# K3's schedule (csrc/cluster_topk.cu): blocks of TOPK_WARPS warps, each warp
+# one query at a time with a warp-wide list of K = next power of two >= k
+# (d2, column) keys and a queue of one key per lane; the groups are visited
+# nearest bounding box first, in chunks of 32, the boxes of the first
+# TOPK_MAX_BOXES selected groups in shared memory; the first group's first
+# TOPK_FIRST steps seed the list from the lanes' minima; a flush of at most
+# TOPK_INSERT_MAX queued keys inserts them key by key, a fuller one merges
+# them by a bitonic network; the P selected slabs are staged when they fit in
+# MAX_SLAB_BYTES, else read from global memory; the bound is K2's, LANE_Q
+# queries per lane over slices of the groups.
+TOPK_WARPS = 16
+TOPK_FIRST = 4
+TOPK_INSERT_MAX = 8
+TOPK_MAX_BOXES = 1024
 
 
 def _prepare(points, centers, radius, xb, bsel):
@@ -251,17 +265,20 @@ def search_plan(Qs: int, g: int, P: int):
     return qg, WARPS // qg, min(P, MAX_SLAB_BYTES // (12 * g))
 
 
-def topk_plan(Qs: int, k: int) -> dict:
-    """K3's schedule, as ``cluster_topk_launch`` computes it: one thread per
-    query keeps a sorted list of K = next power of two >= k (d2, column)
-    entries over all the block's candidates, in a block of Qs threads.
-    Raises on what the kernel cannot take."""
+def topk_plan(Qs: int, k: int, g: int, P: int) -> dict:
+    """K3's schedule, as ``cluster_topk_launch`` computes it: the list length
+    K, the block's warps and threads, queries per warp, the bound's group
+    slices, whether the P selected slabs are staged in shared memory and how
+    many groups have a bounding box.  Raises on what the kernel cannot take."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"cluster_topk takes 1 <= k <= {MAX_K} on CUDA, got {k}")
     if not 1 <= Qs <= MAX_QS_TOPK:
         raise ValueError(f"cluster_topk takes 1 <= Qs <= {MAX_QS_TOPK} queries per block, "
                          f"got {Qs}")
-    return {"K": 1 << (k - 1).bit_length(), "threads": Qs}
+    return {"K": 1 << (k - 1).bit_length(), "warps": TOPK_WARPS, "threads": 32 * TOPK_WARPS,
+            "queries_per_warp": -(-Qs // TOPK_WARPS),
+            "bound_slices": TOPK_WARPS // -(-Qs // GROUP_Q),
+            "staged": 12 * P * g <= MAX_SLAB_BYTES, "boxes": min(P, TOPK_MAX_BOXES)}
 
 
 def _check_cuda(points, xb, name: str, max_qs: int = MAX_QS) -> None:
@@ -361,7 +378,7 @@ def fused_topk(points, centers, radius, xb, bsel, k: int):
     p, c, r, x, s, batched = _prepare(points, centers, radius, xb, bsel)
     _check_k(k, p.shape[2] * s.shape[2])
     _check_cuda(p, x, "cluster_topk", MAX_QS_TOPK)
-    topk_plan(x.shape[2], k)
+    topk_plan(x.shape[2], k, p.shape[2], s.shape[2])
     B, nb, Qs = x.shape[:3]
     d2k = torch.empty((B, nb, Qs, k), dtype=torch.float32, device=x.device)
     rows = torch.empty((B, nb, Qs, k), dtype=torch.int32, device=x.device)

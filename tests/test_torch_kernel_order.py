@@ -1,8 +1,8 @@
 """The schedules of the CUDA kernels K1 (``csrc/tiled_nn.cu``), K2/K5
 (``csrc/cluster_search.cu``), K3 (``csrc/cluster_topk.cu``) and K4's
 lane-split 1-NN (``csrc/fused_gn.cu``) and K6/K7's scoring core
-(``csrc/score_nn.cu``), emulated in PyTorch on the CPU and held bit for bit
-against the plain versions they must equal.
+(``csrc/score_nn.cu``), emulated on the CPU (in PyTorch; K3's 64-bit keys
+in numpy) and held bit for bit against the plain versions they must equal.
 
 The kernels cannot run here, but the orders they visit and merge candidates
 in can: both keep a running minimum per CHUNK candidates and the first
@@ -12,8 +12,11 @@ cuts each block's targets into SLICES contiguous slices and merges them in
 order; K2/K5 cut the staged candidate columns into S slices of a multiple of
 4 columns, pass by pass, merge the slices by the lexicographic minimum of
 (d2, chunk start) and take the bound's minimum over groups split across the
-slices.  K3 keeps, per query, a register list of the first K candidates in
-(d2, column) order by stable insertion, then fills with column 0.  K4 splits
+slices.  K3 gives each query a warp: the groups in order of their boxes'
+lower bounds, skipped past the list's k-th d2, lanes over the columns, a
+(d2, column) key below the k-th into the lane's queue, queues flushed into
+a warp-wide list of K keys by a shuffle network or key by key, the first
+group seeded from the lanes' minima, the fill (inf, column 0).  K4 splits
 each point's targets over L lanes in chunks of 4 and merges the lanes'
 (d2, index) pairs lexicographically.  K6 and K7 run K1's schedule over the
 score columns: K6 per target tile, its partials carried in tile order, K7
@@ -204,7 +207,7 @@ def emulate_k2(points, centers, radius, xb, bsel, with_bound):
 
 
 def emulate_bound(centers, radius, xb, sel, slices):
-    """csrc/cluster_common.cuh's bound: the groups s, s + S, ... per slice,
+    """csrc/cluster_search.cu's bound (K3's too): the groups s, s + S, ... per slice,
     min of max(sqrt(dc2) (1 - 8 eps) - r, 0) (fmaxf: a NaN term gives 0)
     merged by min over the slices, then squared."""
     B, G = centers.shape[:2]
@@ -384,38 +387,185 @@ def test_k2_plan_and_wrapper_checks():
 
 # ---------------------------------------------------------------- K3
 
-def emulate_k3(points, centers, radius, xb, bsel, k):
-    """csrc/cluster_topk.cu's schedule on (B, G, g, 3) points: one list per
-    query of K = next power of two >= k entries over the block's candidates
-    in column order, each candidate below the last entry inserted after the
-    entries of equal d2 (a NaN or inf d2 is never listed: the list starts as
-    (inf, column 0)), the first k entries written out, past the finite ones
-    (inf, column 0's row); the bound as K2's, over one walk of the groups."""
+LANES = np.arange(32)
+FILL = np.uint64(0x7f800000) << np.uint64(32)    # (inf, column 0)
+EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)             # an empty queue
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+
+
+def _exchange(v, m, lower):
+    """csrc/cluster_topk.cu's compare-exchange of each lane with lane ^ m, on
+    (n, 32) lanes: the smaller key where ``lower``, else the larger."""
+    o = v[:, LANES ^ m]
+    return np.where(lower == (o < v), o, v)
+
+
+def _merge_up(v, S):
+    """A bitonic sequence in each segment of S lanes, sorted ascending."""
+    m = S // 2
+    while m:
+        v = _exchange(v, m, (LANES & m) == 0)
+        m //= 2
+    return v
+
+
+def _sort_segments(v, S):
+    size = 2
+    while size <= S:
+        up = (size == S) | ((LANES & size) == 0)
+        m = size // 2
+        while m:
+            v = _exchange(v, m, ((LANES & m) == 0) == up)
+            m //= 2
+        size *= 2
+    return v
+
+
+def warp_lowest(v, K):
+    """lowest<K>: the K smallest of the warp's 32 keys, sorted, in every
+    segment of K lanes, by the kernel's shuffle network."""
+    v = _sort_segments(v, K)
+    h = K
+    while h < 32:
+        v = _merge_up(np.minimum(v, v[:, LANES ^ (h | (K - 1))]), K)
+        h *= 2
+    return v
+
+
+def warp_merge(lst, v, K):
+    """merge_into<K>: the K smallest of the list (sorted in every segment of
+    K lanes) and the warp's 32 keys v."""
+    return _merge_up(np.minimum(lst, warp_lowest(v, K)[:, LANES ^ (K - 1)]), K)
+
+
+def warp_insert(lst, key, K):
+    """insert<K>: one key (n,) into the list, by the kernel's ballot, popc
+    and shuffle up within segments of K lanes."""
+    below = (lst < key[:, None]) & (LANES < K)[None]
+    pos = below.sum(1)[:, None]
+    i = LANES & (K - 1)
+    up = lst[:, np.where(i > 0, LANES - 1, LANES)]
+    return np.where(i < pos, lst, np.where(i == pos, key[:, None], up))
+
+
+def emulate_k3(points, centers, radius, xb, bsel, k, events=None):
+    """csrc/cluster_topk.cu's schedule on (B, G, g, 3) points, every warp's
+    query at once: per chunk of 32 selected groups the boxes' lower bounds
+    sorted by the kernel's network, groups visited nearest first and skipped
+    (the rest of the chunk too) past the list's k-th d2; lane l takes offsets
+    l, l + 32, ...; a (d2, column) key below the k-th key goes to the lane's
+    queue of one key; a full queue in any lane, and the end, flush the
+    queues: through warp_merge, or key by key through warp_insert where at
+    most TOPK_INSERT_MAX keys are queued.  The bound is K2's.  ``events``
+    (a dict) counts flushes, flushes with every lane's queue full, passes
+    that tie the k-th d2 (a lower column), skipped groups, chunk breaks and
+    keys inserted one by one."""
     B, G, g = points.shape[:3]
     nb, Qs, P = xb.shape[1], xb.shape[2], bsel.shape[2]
-    K = cluster_search.topk_plan(Qs, k)["K"]
-    sel = bsel.long()
-    cand = torch.stack([points[b][sel[b]] for b in range(B)]).reshape(B, nb, P * g, 3)
-    d2 = _d2(xb, cand)
-    d2 = torch.where(torch.isnan(d2), INF, d2)
-    order = torch.argsort(d2, dim=-1, stable=True)[..., :K]  # (d2, column) order
-    d = torch.gather(d2, -1, order)[..., :k]
-    c = torch.where(d < INF, order[..., :k], torch.zeros_like(order[..., :k]))
-    grp = torch.gather(sel, 2, torch.div(c, g, rounding_mode="floor").reshape(B, nb, -1))
-    rows = (grp.reshape(c.shape) * g + c % g).to(torch.int32)
-    return d, rows, emulate_bound(centers, radius, xb, sel, 1)
+    plan = cluster_search.topk_plan(Qs, k, g, P)
+    K, nbox = plan["K"], plan["boxes"]
+    F = cluster_search.TOPK_FIRST
+    ev = {"flushes": 0, "all lanes full": 0, "tie passes": 0, "skipped": 0, "breaks": 0,
+          "inserted": 0}
+    sel = bsel.numpy().astype(np.int64).reshape(B * nb, P)
+    pts = points.numpy().astype(np.float32)
+    cand = np.stack([pts[b][sel[b * nb + i]] for b in range(B) for i in range(nb)])
+    x = xb.numpy().astype(np.float32).reshape(B * nb, Qs, 3)
+    with np.errstate(invalid="ignore", over="ignore"):
+        d2 = _d2(torch.as_tensor(x), torch.as_tensor(cand.reshape(B * nb, P * g, 3))).numpy()
+        d2 = d2.reshape(B * nb * Qs, P, g)
+        lo = np.fmin.reduce(cand, axis=2, initial=np.inf)          # (blocks, P, 3)
+        hi = np.fmax.reduce(cand, axis=2, initial=-np.inf)
+        q = x[:, :, None, :]
+        e = np.where(q < lo[:, None], q - lo[:, None],
+                     np.where(q > hi[:, None], q - hi[:, None], np.float32(0)))
+        e = e * e
+        lb = ((e[..., 0] + e[..., 1]) + e[..., 2]).reshape(B * nb * Qs, P)
+    lb[:, nbox:] = 0.0
+    Q, steps = B * nb * Qs, max(-(-g // 32), F)
+    d2 = np.concatenate([d2, np.full((Q, P, 32 * steps - g), np.nan, np.float32)], -1)
+    rows = np.arange(Q)
+    lst = np.full((Q, 32), FILL)
+    thr = np.full(Q, FILL)
+    queue = np.full((Q, 32), EMPTY)
+    queued = np.zeros((Q, 32), bool)
 
+    def flush(mask):
+        ev["flushes"] += int(mask.sum())
+        ev["all lanes full"] += int((mask & queued.all(1)).sum())
+        count = queued.sum(1)
+        m = mask & (count > cluster_search.TOPK_INSERT_MAX)
+        lst[m] = warp_merge(lst[m], np.where(queued, queue, EMPTY)[m], K)
+        for lane in range(32):  # a few keys one by one, in lane order
+            m = mask & (count <= cluster_search.TOPK_INSERT_MAX) & queued[:, lane]
+            lst[m] = warp_insert(lst[m], queue[m, lane], K)
+            ev["inserted"] += int(m.sum())
+        queued[mask] = False
+        thr[mask] = lst[mask, k - 1]
 
-def insert_stable(vals, cols, d, col):
-    """The kernel's register insertion, entry by entry: d goes to the last
-    slot and moves ahead only of strictly larger entries."""
-    if not d < vals[-1]:
-        return
-    vals[-1], cols[-1] = d, col
-    for i in range(len(vals) - 1, 0, -1):
-        if vals[i] < vals[i - 1]:
-            vals[i], vals[i - 1] = vals[i - 1], vals[i]
-            cols[i], cols[i - 1] = cols[i - 1], cols[i]
+    for c0 in range(0, P, 32):
+        j = c0 + LANES
+        lbc = np.full((Q, 32), np.inf, np.float32)
+        lbc[:, j < P] = lb[:, j[j < P]]
+        order = np.where(j < P, (_bits(lbc) & np.uint32(~31 & 0xFFFFFFFF)) | LANES,
+                         np.uint32(0xFFFFFFFF)).astype(np.uint32)
+        order = _sort_segments(order, 32)
+        active = np.ones(Q, bool)
+        for i in range(min(32, P - c0)):
+            gk = order[:, i]
+            dk = (thr >> np.uint64(32)).astype(np.uint32).view(np.float32)
+            stop = active & ((gk & np.uint32(~31 & 0xFFFFFFFF)).view(np.float32) > dk)
+            ev["breaks"] += int(stop.sum())
+            active &= ~stop
+            jl = (gk & 31).astype(np.int64)
+            skip = active & (lbc[rows, jl] > dk)
+            ev["skipped"] += int(skip.sum())
+            visit = active & ~skip
+            jj = c0 + jl
+            dg = d2[rows, jj]                                          # (Q, 32 * steps)
+
+            def keys(o0):
+                o = o0 + LANES
+                key = (_bits(dg[:, o]).astype(np.uint64) << np.uint64(32)) | (
+                    jj[:, None] * g + o).astype(np.uint64)
+                return np.where(o < g, key, EMPTY)
+
+            def push(key, passed):
+                ev["tie passes"] += int((passed & ((key >> np.uint64(32)) ==
+                                                   (thr[:, None] >> np.uint64(32)))).sum())
+                queue[...] = np.where(passed, key, queue)
+                queued[...] |= passed
+                full = queued.any(1)
+                if full.any():
+                    flush(full)
+
+            first = 0
+            if c0 == 0 and i == 0:  # every query's first group: never skipped
+                first = min(g, 32 * F)
+                chunk = [keys(o0) for o0 in range(0, 32 * F, 32)]
+                least = np.minimum.reduce(chunk)
+                lst[...] = np.minimum(warp_lowest(least, K), FILL)
+                thr[...] = lst[:, k - 1]
+                for key in chunk:
+                    push(key, (key != least) & (key < thr[:, None]))
+            for o0 in range(32 * F if first else 0, g, 32):
+                key = keys(o0)
+                push(key, visit[:, None] & (key < thr[:, None]))
+    last = queued.any(1)
+    if last.any():
+        flush(last)
+    if events is not None:
+        events.update(ev)
+    top = lst[:, :k]
+    d = (top >> np.uint64(32)).astype(np.uint32).view(np.float32).reshape(B, nb, Qs, k)
+    col = (top & np.uint64(0xFFFFFFFF)).astype(np.int64).reshape(B * nb, Qs * k)
+    grp = np.take_along_axis(sel, col // g, axis=1)
+    row = (grp * g + col % g).reshape(B, nb, Qs, k).astype(np.int32)
+    return (torch.as_tensor(d.copy()), torch.as_tensor(row),
+            emulate_bound(centers, radius, xb, bsel.long(), 1))
 
 
 def _k3_cases():
@@ -449,7 +599,7 @@ def _k3_cases():
     case("g = 7", p, c, r, rng.uniform(-5, 5, (3, 128, 3)),
          [rng.permutation(9)[:3] for _ in range(3)], (1, 5, 21))
     p, c, r = _groups(rng, 7, 2000)
-    case("g = 2000, P = 5: staging tiles within groups", p, c, r,
+    case("g = 2000, P = 5: slabs read from global memory", p, c, r,
          rng.uniform(-5, 5, (1, 128, 3)),
          [rng.permutation(7)[:5]], (32,))
     p, c, r = _groups(rng, 40, 32)
@@ -463,7 +613,64 @@ def _k3_cases():
     r = np.linalg.norm(p - c[:, None], axis=-1).max(axis=1)
     case("every point four times", p, c, r, base[None, :50] + 1e-3, [rng.permutation(8)[:6]],
          (5, 16))
+    for name, args, ks in _k3_schedule_cases(rng):
+        case(name, *args, ks)
     return cases
+
+
+def k3_tie_case(rng):
+    """(points, centers, radius, xb, bsel) with g = 64: the group at bsel
+    position 1, visited first (its box holds the queries), holds the queries'
+    k = 8 nearest points, the 8th at d2 = 1 exactly, and fills every queue in
+    two steps, so the list's k-th key is (1, column 71) before the group at
+    position 0 is visited (its box is farther): that group holds a copy of
+    the 8th point in column 0.  Only a lexicographic filter against the k-th
+    key keeps it."""
+    near = rng.uniform(2, 3, (64, 3))
+    near[:7] = rng.uniform(-0.4, 0.4, (7, 3)) * [1, 1, 0]
+    near[7] = (1.0, 0.0, 0.0)
+    far = rng.uniform(3, 4, (64, 3))
+    far[:, 0] = rng.uniform(1.0, 4.0, 64)
+    far[0] = near[7]
+    pts = np.stack([far, near, rng.uniform(6, 8, (64, 3))])
+    centers = pts.mean(axis=1)
+    radius = np.linalg.norm(pts - centers[:, None], axis=-1).max(axis=1)
+    return pts, centers, radius, np.zeros((1, 4, 3)), [[0, 1, 2]]
+
+
+def k3_full_case(rng):
+    """(points, centers, radius, xb, bsel): queries near the origin; the group
+    visited first (its box holds them) lies on a sphere of radius 5, so the
+    list's k-th d2 is ~25; the next, a cluster at d2 3 to 6.75, then passes
+    the filter in all 32 lanes of one step, filling every lane's queue."""
+    shell = rng.normal(size=(64, 3))
+    shell = 5.0 * shell / np.linalg.norm(shell, axis=1, keepdims=True)
+    pts = np.stack([rng.uniform(1.0, 1.5, (64, 3)), shell])
+    centers = pts.mean(axis=1)
+    radius = np.linalg.norm(pts - centers[:, None], axis=-1).max(axis=1)
+    return pts, centers, radius, rng.normal(scale=1e-3, size=(1, 8, 3)), [[0, 1]]
+
+
+def _k3_schedule_cases(rng):
+    """Cases that only the warp schedule can get wrong: (name, args, ks)."""
+    out = [("a tie with the k-th entry reached later in a lower column", k3_tie_case(rng),
+            (8,))]
+    out.append(("every lane's queue full in the same step", k3_full_case(rng), (1, 16, 32)))
+    p, c, r = _groups(rng, 5, 7)
+    out.append(("fewer candidates than lanes: P g = 14", (p, c, r,
+                rng.uniform(-5, 5, (1, 64, 3)), [[4, 1]]), (1, 5, 14)))
+    p, c, r = _groups(rng, 11, 37)
+    out.append(("g = 37, not a multiple of 4 or 32", (p, c, r,
+                rng.uniform(-5, 5, (2, 128, 3)), [rng.permutation(11)[:6] for _ in range(2)]),
+                (2, 16)))
+    p, c, r = _groups(rng, 8, 16)
+    p[:, 4:] = 1e20                                 # 4 finite points per group
+    out.append(("k = 32 with exactly 32 finite candidates", (p, c, r,
+                rng.uniform(-5, 5, (1, 128, 3)), [rng.permutation(8)]), (32,)))
+    p, c, r = _groups(rng, 70, 4, 20.0)
+    out.append(("P = 40 > 32: two chunks of groups", (p, c, r,
+                rng.uniform(-20, 20, (1, 128, 3)), [rng.permutation(70)[:40]]), (3, 16)))
+    return out
 
 
 K3_CASES = _k3_cases()
@@ -472,7 +679,8 @@ K3_CASES = _k3_cases()
 @pytest.mark.parametrize("name", list(K3_CASES))
 def test_k3_schedule_equals_plain(name):
     *args, k = K3_CASES[name]
-    out = emulate_k3(*_batched(tuple(args)), k)
+    events = {}
+    out = emulate_k3(*_batched(tuple(args)), k, events)
     plain = [o[None] for o in cluster_search.fused_topk_plain(*args, k)]
     for a, b in zip(out, plain):
         assert a.dtype == b.dtype and torch.equal(a, b)
@@ -483,25 +691,47 @@ def test_k3_schedule_equals_plain(name):
         fill = ~torch.isfinite(out[0])
         first = (args[4][:, :1] * args[0].shape[-2])[None, :, :, None].expand_as(out[1])
         assert bool(fill.any()) and torch.equal(out[1][fill], first[fill])
+    if name.startswith("a tie"):
+        assert events["tie passes"] > 0
+        assert bool((out[1][..., -1] == 0).all())   # the copy in group 0, column 0
+    if name.startswith("every lane's queue"):
+        assert events["all lanes full"] > 0
+    if name.startswith("k = 32 with exactly"):
+        assert bool(torch.isfinite(out[0]).all())
+    if name.startswith("P = 40"):
+        assert events["skipped"] + events["breaks"] > 0
 
 
-def test_k3_register_insertion_is_the_stable_order():
-    """The kernel's insertion, candidate by candidate, keeps a slice's first
-    K candidates in (d2, column) order, ties in column order, NaN and inf
-    never listed."""
-    rng = np.random.default_rng(81)
-    d = rng.integers(0, 6, 200).astype(np.float32)
-    d[rng.integers(0, 200, 10)] = np.nan
-    d[rng.integers(0, 200, 10)] = np.inf
-    for K in (1, 2, 4, 8, 16, 32):
-        vals, cols = [INF] * K, [0] * K
-        for col, x in enumerate(d):
-            insert_stable(vals, cols, float(x), col)
-        dd = torch.as_tensor(np.where(np.isnan(d), np.inf, d))
-        want = torch.argsort(dd, stable=True)[:K]
-        want_d = dd[want]
-        assert vals == [float(x) if x < INF else INF for x in want_d.tolist()]
-        assert cols == [int(c) if x < INF else 0 for c, x in zip(want.tolist(), want_d.tolist())]
+@pytest.mark.parametrize("K", [1, 2, 4, 8, 16, 32])
+def test_k3_warp_merge_keeps_the_stable_order(K):
+    """The kernel's merge network, fed a stream of keys 32 at a time (empty
+    slots, NaN and inf d2 among them), and its key-by-key insertion keep the
+    K smallest in (d2, column) order, ties in column order, NaN and inf never
+    listed past the fill."""
+    rng = np.random.default_rng(81 + K)
+    d = rng.integers(0, 6, (4, 320)).astype(np.float32)
+    d[:, rng.integers(0, 320, 30)] = np.nan
+    d[:, rng.integers(0, 320, 30)] = np.inf
+    keys = (_bits(d).astype(np.uint64) << np.uint64(32)) | np.arange(320, dtype=np.uint64)
+    keys[:, rng.integers(0, 320, 40)] = EMPTY
+    lst = np.full((4, 32), FILL)
+    one = np.full((4, 32), FILL)
+    for s in range(0, 320, 32):
+        lst = warp_merge(lst, keys[:, s:s + 32], K)
+        for c in range(s, s + 32):
+            if keys[0, c] != EMPTY:
+                one = warp_insert(one, keys[:, c], K)
+    want = np.sort(np.concatenate([keys, np.full((4, K), FILL)], 1), axis=1)[:, :K]
+    for seg in range(0, 32, K):
+        assert np.array_equal(lst[:, seg:seg + K], want)
+        assert np.array_equal(one[:, seg:seg + K], want)
+    dd = np.where(np.isnan(d) | (keys == EMPTY), np.inf, d)
+    for row in range(4):
+        order = np.argsort(dd[row], kind="stable")[:K]
+        finite = dd[row][order] < np.inf
+        got = lst[row, :K]
+        assert np.array_equal(got[finite] & np.uint64(0xFFFFFFFF), order[finite])
+        assert (got[~finite] == FILL).all()
 
 
 @pytest.mark.parametrize("where", ["target", "query"])
@@ -537,12 +767,17 @@ def test_k3_nan_point_stays_uncertified(where):
 
 
 def test_k3_plan_and_wrapper_checks():
-    assert [cluster_search.topk_plan(128, k)["K"] for k in (1, 2, 5, 16, 17, 32)] \
+    assert [cluster_search.topk_plan(128, k, 128, 32)["K"] for k in (1, 2, 5, 16, 17, 32)] \
         == [1, 2, 8, 16, 32, 32]
-    assert cluster_search.topk_plan(256, 32) == {"K": 32, "threads": 256}
+    assert cluster_search.topk_plan(128, 16, 128, 32) == {
+        "K": 16, "warps": 16, "threads": 512, "queries_per_warp": 8,
+        "bound_slices": 16, "staged": True, "boxes": 32}
+    plan = cluster_search.topk_plan(256, 32, 2000, 5)
+    assert (plan["bound_slices"], plan["staged"], plan["queries_per_warp"]) == (8, False, 16)
+    assert cluster_search.topk_plan(1, 1, 1, 5000)["boxes"] == cluster_search.TOPK_MAX_BOXES
     for bad in (dict(Qs=257, k=4), dict(Qs=128, k=33), dict(Qs=128, k=0)):
         with pytest.raises(ValueError):
-            cluster_search.topk_plan(bad["Qs"], bad["k"])
+            cluster_search.topk_plan(bad["Qs"], bad["k"], 128, 32)
     *args, k = K3_CASES["one query, k = 4"]
     before = cluster_search.fused_topk.launches
     cluster_search.fused_topk(*args, k)
@@ -770,7 +1005,13 @@ def test_k4_launch_plan():
     ("cluster_search.cu", {"kLaneQ": cluster_search.LANE_Q, "kWarps": cluster_search.WARPS,
                            "kMaxSlabBytes": cluster_search.MAX_SLAB_BYTES,
                            "kChunk": cluster_search.CHUNK}),
-    ("cluster_topk.cu", {"kMaxQs": cluster_search.MAX_QS_TOPK}),
+    ("cluster_topk.cu", {"kMaxQs": cluster_search.MAX_QS_TOPK,
+                         "kWarps": cluster_search.TOPK_WARPS,
+                         "kFirst": cluster_search.TOPK_FIRST,
+                         "kInsertMax": cluster_search.TOPK_INSERT_MAX,
+                         "kMaxBoxes": cluster_search.TOPK_MAX_BOXES,
+                         "kLaneQ": cluster_search.LANE_Q,
+                         "kMaxSlabBytes": cluster_search.MAX_SLAB_BYTES}),
     ("fused_gn.cu", {"kMaxLanes": fused_gn.MAX_LANES, "kMaxThreads": fused_gn.MAX_THREADS,
                      "kMaxN": fused_gn.MAX_N, "kMaxM": fused_gn.MAX_M}),
     ("score_nn.cu", {"kLaneQ": exp_knn.LANE_Q, "kSlices": exp_knn.SLICES,
