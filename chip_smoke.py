@@ -9,7 +9,8 @@ Phases, each raising on failure (the script then exits non-zero):
    name and power limit; checks that float32 matmuls run in full precision.
 1. build: compiles the CUDA kernels of the checkout, one nvcc per source, all
    started together (csrc/tiled_nn.cu, cluster_search.cu, cluster_topk.cu,
-   fused_gn.cu, score_nn.cu);
+   fused_gn.cu, score_nn.cu, and graph_while.cu, the WHILE node's
+   condition kernel and plumbing);
    prints K1's -Xptxas=-v report.
 2. K1 against its plain PyTorch version on the card, bit for bit: indices and
    squared distances identical, at the main path's shapes and at edge cases
@@ -203,14 +204,36 @@ Phases, each raising on failure (the script then exits non-zero):
     utils.profiling.benchmark and trace (the trace must name K4's kernel)
     and visualization.plot_overlay of card tensors (where matplotlib is
     installed).  Each row's and example's seconds are printed.
-16. (run after 17-22) a torch.profiler pass over 3 calls each of phases
-    4, 8, 9 and 12's calls, one W = 1 warm stream of phase 17's first 9
-    scans, one gn scan-to-map stream of phase 18's first 4 scans, one
+23. (run after 22) the captured programs of dicp_tpu_torch.jit: register_jit
+    at phases 3, 4, 8 and 9's solves, the headline unit captured forward and
+    backward (bench.fwdbwd_jit) and the pipeline's window solve, each held
+    to the eager port bit for bit in every field (T, pc, the histories,
+    iterations, convergence, matched ratio; value and gradient) over two
+    replays of one capture and the replay of a second, every replay under
+    torch's sync debug mode "error" (a host wait raises) and launching each
+    kernel as often as the eager call, with the first call's cost (the
+    eager warm-up and the capture) beside the eager call's; phase 3's pair
+    with batch_chunk=3 (86 device loops in one program); the W = 8 stream's
+    relative poses, iterations, convergence and composed poses against the
+    stream on register's eager loop; the same stream fed from host scans
+    under "error", counting the windows enqueued while the previous one
+    still ran (at least one); then eager against captured in turns: ms per
+    call at phases 3, 4, 8 and 9, the headline unit's registrations/s, and
+    frames/s of the W = 1 and W = 8 warm streams; each cached program's
+    private pool memory.
+16. (run after 17-23) a torch.profiler pass over 3 calls each of phases
+    4 (captured, through ICP.icp, and eager register), 8 and 9 (captured),
+    12 (eager and captured), one W = 1 warm stream of phase 17's first 9
+    scans (captured windows and eager windows), one gn scan-to-map stream
+    of phase 18's first 4 scans, one
     SLAM stream of phase 20's first 6 scans and 3 of phase 21's map-sharded
     calls (in a world of one of its own, NCCL's share of device time too):
     host wall time, device busy share, K1's or K2's share of device time,
     device ops per pair, scan or iteration. It comes last: host-bound
     timings taken after the profiler has been on in a process run slower.
+    CUPTI's record of a WHILE node's body is unreliable (all iterations in
+    one program's profile, only the first in another's): a captured loop's
+    device time is read from phase 23's CUDA events.
 
 Phases 2, 6, 7, 11 and 13 time K1, K2, K5, K3, K4, K6 and K7 call by call
 through their wrappers, as runs before them did (the kernels line's ``ms``), and print
@@ -218,9 +241,14 @@ beside it the time back to back (20 launches between two CUDA events, median
 of 7 rounds: the kernel's time, free of the host's launch overhead).
 
 Each main path (phases 4, 8, 9, 12, 14, each run of 17 and 18, the pyramid of 19,
-the first SLAM run of 20, phase 21's map-sharded and batch-sharded solves and
-each row and example of 22) is driven with
-the kernels' launch counts set to 0 just before it and read just after.  The
+the first SLAM run of 20, phase 21's map-sharded and batch-sharded solves,
+each row and example of 22, and phase 23's captured runs) is driven with
+the kernels' launch counts set to 0 just before it and read just after.
+ICP.icp and the pipeline run captured programs (dicp_tpu_torch.jit): a
+launch that runs at once counts on its wrapper's host count, a captured one
+on the kernel's device counter, by an add captured beside the launch
+(ops.launch_counts), so each replay, and each iteration a loop body runs,
+counts once; a count is the sum of the two.  The
 line before the last is a JSON object describing each kernel of the paths,
 with its bound: the larger of its operations at the H100's f32 rate and its
 bytes (each input read once, each output written once) at its memory rate,
@@ -270,7 +298,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dicp_tpu_torch import ICP, ICPConfig, bench, io, knn, pt2pt_svd_icp, register, register_ift
+from dicp_tpu_torch import ICP, ICPConfig, bench, io, jit, knn, pipeline, pt2pt_svd_icp
+from dicp_tpu_torch import register, register_ift, register_jit
 from dicp_tpu_torch import se3, slam, svd_icp
 from dicp_tpu_torch.benchmarks import bench_suite, exp_gicp, exp_knn, exp_multiscale
 from dicp_tpu_torch.examples import large_cloud_demo, odometry_demo, serving_demo, slam_demo
@@ -280,15 +309,15 @@ from dicp_tpu_torch.losses import VALID_LOSSES
 from dicp_tpu_torch.mapping import empty_map, map_merge, map_step
 from dicp_tpu_torch.odometry import (ate, odometry, odometry_pose_graph, pose_graph_optimize,
                                      resumable_odometry)
-from dicp_tpu_torch.ops import _build, cluster_search, fused_gn, tiled_knn
+from dicp_tpu_torch.ops import _build, cluster_search, fused_gn, launch_counts, tiled_knn
 from dicp_tpu_torch.ops import cluster_knn as ck
 from dicp_tpu_torch.ops.normals import estimate_normals
 from dicp_tpu_torch.ops.voxel import voxel_downsample
 from dicp_tpu_torch.parallel import (_comm, make_mesh, pose_graph_optimize_partitioned,
                                      register_batch_sharded, register_map_sharded,
                                      register_map_sharded_ift, register_ring_sharded)
-from dicp_tpu_torch.pipeline import stream_odometry
-from dicp_tpu_torch.registration import _preprocess
+from dicp_tpu_torch.pipeline import stream_odometry, stream_registrations
+from dicp_tpu_torch.registration import _preprocess, _register_captured
 from dicp_tpu_torch import visualization
 from dicp_tpu_torch.utils import profiling
 from dicp_tpu_torch.utils.timing import cuda_median_ms
@@ -297,7 +326,8 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 B, N_SRC, M_TGT = 8, 12288, 16000  # phase 4: the slice at real size
 TOL_POSE = 1e-3                    # rad and m, phases 3, 4, 8 and 9
-KERNELS = ("tiled_nn", "cluster_search", "cluster_topk", "fused_gn", "score_nn")
+KERNELS = ("tiled_nn", "cluster_search", "cluster_topk", "fused_gn", "score_nn",
+           "graph_while")
 M_MAP = 100_000                    # phases 6-8: one raw scan against its map
 B_RAW, N_RAW, M_RAW = 8, 50_000, 60_000  # phases 6 and 9: batched raw scans
 PROBES, GROUP = 32, 128            # the cluster tier's defaults
@@ -577,6 +607,7 @@ def phase3_reference(device) -> None:
 
 
 def _reset_launches() -> None:
+    launch_counts.reset()
     tiled_knn.launches = 0
     fused_gn.launches = 0
     cluster_search.fused_search.launches = 0
@@ -587,10 +618,13 @@ def _reset_launches() -> None:
 
 
 def _launches() -> dict:
-    return {"tiled_nn": tiled_knn.launches,
+    """Each main-path kernel's launches: its wrapper's host count plus its
+    captured launches that ran (a host wait)."""
+    host = {"tiled_nn": tiled_knn.launches, "fused_gn": fused_gn.launches,
             "cluster_search": cluster_search.fused_search.launches,
             "cluster_block_search": cluster_search.block_search.launches,
             "cluster_topk": cluster_search.fused_topk.launches}
+    return {name: n + launch_counts.read(name) for name, n in host.items()}
 
 
 def phase4_slice(device, sources: np.ndarray, targets: np.ndarray, T_true: np.ndarray):
@@ -1486,7 +1520,7 @@ def phase12_headline(device):
     _reset_launches()
     call()
     torch.cuda.synchronize()
-    launches = fused_gn.launches
+    launches = _launches()["fused_gn"]
     _check(launches == 1, f"K4 launched once per call ({launches})")
 
     res, grad, grad_u = out["result"], out["grad_ift"], out["grad_unrolled"]
@@ -1785,6 +1819,9 @@ def _recording(name: str, calls: dict):
     counted = hasattr(kernel, "launches")
     if counted:
         record.launches = kernel.launches
+    # a captured program replays without Python: the recorded path's first
+    # call is a miss, which runs it eagerly once and captures it anew
+    jit.clear_caches()
     setattr(owner, attr, record)
     try:
         yield calls
@@ -2053,7 +2090,7 @@ def phase17_lidar_odometry(device, workdir: Path):
     # own processing of the full stream's ~95,000 device ops took ~50 s
     head = io.ScanDataset(ds.paths[:PROFILE_SCANS], max_points=MAX_POINTS, voxel=None,
                           workers=4, prefetch=4)
-    return launches, lambda: stream(1, True, False, head), k2_err
+    return launches, lambda: stream(1, True, False, head), k2_err, host
 
 
 # phase 18: the JAX suite's scan_to_map deployment (benchmarks/bench_suite.py:688-840),
@@ -2632,10 +2669,6 @@ EXAMPLES = {"large_cloud_demo": large_cloud_demo, "odometry_demo": odometry_demo
             "serving_demo": serving_demo, "slam_demo": slam_demo}
 
 
-def _all_launches() -> dict:
-    return {**_launches(), "fused_gn": fused_gn.launches}
-
-
 def phase22_bench_suite_examples(device) -> dict:
     """dicp_tpu_torch.bench in this process, every row of bench_suite.ALL
     that no earlier phase measures, and the four examples; the kernels'
@@ -2655,7 +2688,7 @@ def phase22_bench_suite_examples(device) -> dict:
             out = fn()
         torch.cuda.synchronize()
         seconds[label] = time.perf_counter() - t0
-        per_row[label] = {k: v for k, v in _all_launches().items() if v}
+        per_row[label] = {k: v for k, v in _launches().items() if v}
         print(f"  {label}: {seconds[label]:.1f} s, kernel launches {per_row[label]}", flush=True)
         for name, recorded in calls.items():
             errs[name] = max(errs.get(name, 0.0), _held_to_plain(name, {label: recorded}))
@@ -2724,6 +2757,308 @@ def phase22_bench_suite_examples(device) -> dict:
 
 
 
+# phase 23: the captured programs (dicp_tpu_torch.jit) against the eager port
+STREAM_W = 8                        # phase 23's windows-in-flight stream
+
+
+@contextlib.contextmanager
+def _no_host_wait():
+    """torch's sync debug mode at "error": a synchronising call raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _leaves(out) -> list:
+    """(name, tensor) of an ICPResult, or of a (result, value, gradient) unit."""
+    if isinstance(out, tuple) and hasattr(out, "_fields"):
+        return list(zip(out._fields, out))
+    res, value, grad = out
+    return _leaves(res) + [("value", value), ("gradient", grad)]
+
+
+def _diff_fields(eager, got) -> dict:
+    """Fields of ``got`` that differ from ``eager``, with their max |difference|."""
+    return {name: _max_abs_diff(a.double(), b.double())
+            for (name, a), (_, b) in zip(_leaves(eager), _leaves(got))
+            if not torch.equal(a, b)}
+
+
+def _counted(call):
+    """(call's result, the kernels' launches it ran, host seconds to its end)."""
+    before = _launches()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, {k: v - before[k] for k, v in _launches().items() if v != before[k]}, seconds
+
+
+def _captured_equals_eager(label: str, eager_call, jitted_call, jitted) -> int:
+    """Two replays of a fresh capture and the replay of a second fresh
+    capture equal the eager result bit for bit in every field, each replay
+    run under the sync debug mode's "error" (a host wait raises), and each
+    replay launches each kernel as often as the eager call (its captured
+    launches count on the card, per replay and per loop iteration run).
+    Prints the cost of a first call (the eager warm-up and the capture)
+    beside the eager call's and the program's pools.  Returns the host
+    waits per replay (0)."""
+    eager, want, eager_s = _counted(eager_call)
+    outs, firsts, pools = [], [], []
+    for replays in (2, 1):
+        jitted.cache_clear()
+        _, first, first_s = _counted(jitted_call)   # a miss: the eager warm-up, the capture
+        firsts.append(first_s)
+        pools.append(jit.programs()[-1].pool_bytes)
+        _check(first == want, f"{label}: the first call launches what eager does "
+               f"({first} vs {want})")
+        for _ in range(replays):
+            before = _launches()
+            with _no_host_wait():
+                outs.append(jitted_call())
+            got = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+            _check(got == want, f"{label}: a replay launches what the eager call does "
+                   f"({got} vs {want})")
+    for k, got in enumerate(outs):
+        diff = _diff_fields(eager, got)
+        _check(not diff, f"{label}: replay {k} equals the eager call bit for bit "
+               f"(differing: {diff})")
+    print(f"  {label}: {len(outs)} replays (two of one capture, one of a second) equal the "
+          f"eager call bit for bit in {', '.join(n for n, _ in _leaves(eager))}; host waits "
+          f"per replay 0 (sync debug mode 'error'); launches per replay {want}, as eager; "
+          f"first call (eager run + capture) {', '.join(f'{t * 1e3:.3f}' for t in firsts)} ms "
+          f"against {eager_s * 1e3:.3f} ms eager (one call each, cold); program pools "
+          f"{', '.join(f'{b / 2**20:.1f}' for b in pools)} MiB")
+    return 0
+
+
+def _capture_repairs(device, head_inputs, cfg3) -> None:
+    """The capture-safety repairs on the card: solve_ex(check_errors=False)
+    gives torch.linalg.solve's bits; the dim-2 mask and the absolute damping
+    built on the card equal the host-built tensors they replace; and the
+    reference pair with solve_method='lu' and tikhonov captured equals
+    eager under the sync debug mode's "error"."""
+    from dicp_tpu_torch.registration import _damping, _zmask
+
+    rng = np.random.default_rng(SEED + 23)
+    for dtype in (torch.float32, torch.float64):
+        for k in (3, 6):
+            J = torch.as_tensor(rng.normal(size=(B_HEAD, 40, k)), dtype=dtype, device=device)
+            A = J.transpose(1, 2) @ J + 1e-3 * torch.eye(k, dtype=dtype, device=device)
+            b = torch.as_tensor(rng.normal(size=(B_HEAD, k, 1)), dtype=dtype, device=device)
+            _check(torch.equal(torch.linalg.solve(A, b),
+                               torch.linalg.solve_ex(A, b, check_errors=False)[0]),
+                   f"solve_ex has linalg.solve's bits ({dtype}, k = {k})")
+        for cols in (3, 6):
+            old = torch.tensor([1.0, 1.0, 0.0] * (cols // 3), dtype=dtype, device=device)
+            _check(torch.equal(_zmask(cols, dtype, device), old), "the dim-2 mask's bits")
+        A = torch.eye(6, dtype=dtype, device=device)[None]
+        _check(torch.equal(_damping(ICPConfig(tikhonov=1e-9), A),
+                           torch.tensor(1e-9, dtype=dtype, device=device)),
+               "the absolute damping's bits")
+    cfg = cfg3.with_(solve_method="lu", tikhonov=1e-9)
+    _captured_equals_eager("phase 3's pair, solve_method='lu', tikhonov 1e-9",
+                           functools.partial(register, *head_inputs, None, cfg),
+                           functools.partial(register_jit, *head_inputs, None, cfg),
+                           _register_captured)
+    print("  repairs: solve_ex(check_errors=False) equals linalg.solve bit for bit (f32, "
+          "f64; k = 3, 6); the dim-2 mask and the absolute damping built on the card "
+          "equal the host-built tensors")
+
+
+@contextlib.contextmanager
+def _eager_windows():
+    """pipeline's window solve uncaptured, on register's eager loop."""
+    solve, program = pipeline._window_solve, pipeline._register_program
+    pipeline._window_solve, pipeline._register_program = pipeline._window_program, register
+    try:
+        yield
+    finally:
+        pipeline._window_solve, pipeline._register_program = solve, program
+
+
+def _stream_rel(host, window: int):
+    res = stream_odometry(_stream_items(host, False), ODO_CFG, window=window, warm_start=True,
+                          device=torch.device("cuda", 0))
+    return res._replace(rel_transforms=res.rel_transforms.cpu(), poses=res.poses.cpu())
+
+
+def _windows_in_flight(host, window: int):
+    """A captured W-window stream fed from host scans under the sync debug
+    mode's "error" (the upload ring's event wait is no torch sync); after
+    each window is yielded (its replay enqueued), whether the previous
+    window's completion event had not yet fired.  Returns (windows in
+    flight, windows, rel transforms fetched after the loop)."""
+    events, rels = [], []
+    in_flight = 0
+    with _no_host_wait():
+        for T, _, _ in stream_registrations(_stream_items(host, False), ODO_CFG,
+                                            window=window, warm_start=True,
+                                            device=torch.device("cuda", 0)):
+            if events and not events[-1].query():
+                in_flight += 1
+            event = torch.cuda.Event()
+            event.record()
+            events.append(event)
+            rels.append(T)
+    return in_flight, len(events), torch.cat(rels).cpu()   # the final fetch
+
+
+def _alternated(label: str, eager_call, jitted_call, unit: float = 0.0, what: str = "") -> dict:
+    """ms per call, eager and captured in turns (E C C E E C C E, 5 calls a
+    visit after one warm-up), CUDA events around each call."""
+    times = bench.time_alternated({"eager": eager_call, "captured": jitted_call},
+                                  torch.device("cuda", 0), iters=5, rounds=4)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    rate = (f"; {unit / med['eager'] * 1e3:.1f} -> {unit / med['captured'] * 1e3:.1f} {what}"
+            if unit else "")
+    print(f"  {label}: eager {med['eager']:.4f} ms, captured {med['captured']:.4f} ms per call "
+          f"(medians of {len(times['eager'])}; ranges {min(times['eager']):.4f}-"
+          f"{max(times['eager']):.4f} and {min(times['captured']):.4f}-"
+          f"{max(times['captured']):.4f}){rate}")
+    return med
+
+
+def phase23_captured(device, head_inputs, slice_inputs, pair, raw_inputs, host) -> dict:
+    """register_jit, the headline unit captured (bench.fwdbwd_jit) and the
+    pipeline's window solve against the eager port on the card; returns the
+    launches of the captured programs and the programs' callables for
+    phase 16's profiles."""
+    t_phase = time.perf_counter()
+    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}: the solve's loop is a "
+          f"CUDA graph conditional WHILE node (csrc/graph_while.cu)")
+    cfg3 = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=100,
+                     tolerance=1e-6, dim=2, trim_dist=5.0, loss_name="huber", loss_metric=1.0)
+    cfg4 = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=50,
+                     tolerance=1e-6, dim=3, trim_dist=2.0, loss_name="huber", loss_metric=0.5)
+    cfg8 = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=30,
+                     tolerance=1e-5, dim=3, trim_dist=2.0, loss_name="huber", loss_metric=1.0,
+                     cluster_probes=PROBES, cluster_group=GROUP)
+    eye = lambda b: torch.eye(4, dtype=torch.float32, device=device).expand(b, 4, 4)  # noqa: E731
+    src8, tgt8 = pair
+    solves = {
+        "phase 3 (B=256 reference pair, dense tier)": (*head_inputs, cfg3),
+        f"phase 4 ({B} x {N_SRC} -> {M_TGT}, tiled tier)": (*slice_inputs, eye(B), cfg4),
+        f"phase 8 ({src8.shape[0]} -> {tgt8.shape[0]}, cluster tier)":
+            (src8[None], tgt8[None], eye(1), cfg8),
+        f"phase 9 ({B_RAW} x {N_RAW} -> {M_RAW}, cluster tier)": (*raw_inputs, eye(B_RAW), cfg8),
+    }
+    _reset_launches()
+    calls = {}
+    for label, (s, t, ti, cfg) in solves.items():
+        eager_call = functools.partial(register, s, t, ti, None, cfg)
+        jitted_call = functools.partial(register_jit, s, t, ti, None, cfg)
+        _captured_equals_eager(label, eager_call, jitted_call, _register_captured)
+        calls[label] = (eager_call, jitted_call)
+    # one device loop per batch chunk: a program of more than 64 loops
+    hs3, ht3, hti3 = head_inputs
+    cfg_chunks = cfg3.with_(batch_chunk=3)
+    chunks = -(-hs3.shape[0] // cfg_chunks.batch_chunk)
+    _check(chunks > 64, f"{chunks} chunks, more than 64 loops in one program")
+    _captured_equals_eager(f"phase 3's pair, batch_chunk=3 ({chunks} device loops in one "
+                           f"program)", functools.partial(register, hs3, ht3, hti3, None,
+                                                          cfg_chunks),
+                           functools.partial(register_jit, hs3, ht3, hti3, None, cfg_chunks),
+                           _register_captured)
+    # K2 sets its dynamic shared memory attribute at each launch, on the host:
+    # an eager launch at phase 9's smaller size between phase 8's capture and
+    # its replay must not break the replay
+    label8, label9 = list(solves)[2:4]
+    calls[label8][1]()                      # phase 8's program, captured anew
+    register(*solves[label9][:3], None, solves[label9][3])
+    with _no_host_wait():
+        got = calls[label8][1]()
+    _check(not _diff_fields(calls[label8][0](), got), "phase 8's replay after an eager "
+           "phase-9 launch of K2 equals the eager call")
+    print(f"  K2's cudaFuncSetAttribute: legal under capture, and phase 8's replay after an "
+          f"eager phase-9 K2 launch (a smaller shared-memory size) equals the eager call")
+    _capture_repairs(device, head_inputs, cfg3)
+    hcfg = bench.head_config()
+    hs, ht, hti = head_inputs[0], head_inputs[1], head_inputs[2]
+    head_eager = functools.partial(bench.fwdbwd, register_ift, hcfg, hs, ht, hti)
+    head_jitted = functools.partial(bench.fwdbwd_jit, hs, ht, hti, hcfg)
+    _captured_equals_eager("phase 12 headline unit (register_ift fwd+bwd, K4 forward)",
+                           head_eager, head_jitted, bench.fwdbwd_jit)
+
+    with _eager_windows():
+        eager_stream = _stream_rel(host, STREAM_W)
+    pipeline._window_solve.cache_clear()
+    captured = [_stream_rel(host, STREAM_W) for _ in range(2)]   # a miss, then replays
+    for k, got in enumerate(captured):
+        for field in ("rel_transforms", "iterations", "converged", "poses"):
+            a, b = getattr(eager_stream, field), getattr(got, field).to(getattr(
+                eager_stream, field).device)
+            _check(torch.equal(a, b), f"W={STREAM_W} stream run {k}: captured {field} equal "
+                   f"to the eager stream's ({_max_abs_diff(a.double(), b.double())})")
+    print(f"  W={STREAM_W} stream of {S_SEQ} scans: every relative pose, iteration count, "
+          f"convergence flag and composed pose of two captured runs (the first captures) "
+          f"equal the eager stream's bit for bit")
+    in_flight, windows, rel = _windows_in_flight(host, STREAM_W)
+    _check(torch.equal(rel, eager_stream.rel_transforms),
+           "the windows-in-flight stream's relative poses equal the eager stream's")
+    print(f"  windows in flight: in {in_flight} of {windows - 1} windows the host enqueued "
+          f"window w + 1 before window w's completion event had fired; the feed loop ran "
+          f"under the sync debug mode's 'error' (no synchronising call but the upload ring's "
+          f"event wait and the final fetch)")
+    _check(in_flight >= 1, "at least one window enqueued while the previous one ran")
+
+    # phase 17's 63-pair batched solve through register_jit: the eager solve's
+    # peak memory beside the captured program's private pools
+    scans = torch.as_tensor(np.stack([p[:, :3] for p, _ in host]), device=device)
+    args = (scans[1:], scans[:-1], eye(S_SEQ - 1), None,
+            ODO_CFG.with_(source_zeroes_are_pad=True))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    eager = register(*args)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated(device) - base
+    _register_captured.cache_clear()
+    register_jit(*args)
+    program = jit.programs()[-1]
+    with _no_host_wait():
+        got = register_jit(*args)
+    diff = _diff_fields(eager, got)
+    _check(not diff, f"the 63-pair batched solve: captured equals eager ({diff})")
+    print(f"  {S_SEQ - 1}-pair batched solve (phase 17's odometry): captured equals eager bit "
+          f"for bit; eager peak {eager_peak / 2**30:.3f} GiB above the tensors held before, "
+          f"the captured program's private pools {program.pool_bytes / 2**30:.3f} GiB")
+    del scans, args, eager, got
+    _register_captured.cache_clear()
+    launches = _launches()
+
+    # (d) times, eager against captured, alternated in one process
+    for label, (eager_call, jitted_call) in calls.items():
+        _alternated(label, eager_call, jitted_call)
+    _alternated("phase 12 headline unit", head_eager, head_jitted, unit=B_HEAD,
+                what="registrations/s")
+    for window in (1, STREAM_W):
+        rates = {"eager": [], "captured": []}
+        for turn in ("eager", "captured", "captured", "eager") * 2:
+            ctx = _eager_windows() if turn == "eager" else contextlib.nullcontext()
+            with ctx:
+                _stream_rel(host, window)    # warm: the first run of a turn untimed
+                t0 = time.perf_counter()
+                _stream_rel(host, window)
+                rates[turn].append(S_SEQ / (time.perf_counter() - t0))
+        print(f"  W={window} warm stream of {S_SEQ} host scans: eager "
+              f"{statistics.median(rates['eager']):.3f}, captured "
+              f"{statistics.median(rates['captured']):.3f} frames/s (medians of 4 runs in turns; "
+              f"eager {', '.join(f'{r:.2f}' for r in rates['eager'])}; captured "
+              f"{', '.join(f'{r:.2f}' for r in rates['captured'])})")
+    for info in jit.programs():
+        print(f"  cached program {info.name}: {info.pool_bytes / 2**20:.1f} MiB of private "
+              f"pools, {info.replays} replays, key {str(info.key)[:140]}")
+    print(f"phase 23 ok: captured programs equal the eager port bit for bit, no host wait in "
+          f"a replay, {in_flight} windows in flight; launches in the captured runs {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    first = next(iter(calls.values()))
+    return {"launches": launches, "slice": calls[list(calls)[1]], "head": (head_eager, head_jitted),
+            "first": first}
+
+
 def main() -> None:
     card = phase0_device()
     device = torch.device("cuda", 0)
@@ -2747,13 +3082,18 @@ def main() -> None:
     ab_launches = phase14_exp_knn()
     phase15_gumbel(device, sources, targets)
     with tempfile.TemporaryDirectory(prefix="dicp_smoke_scans_") as workdir:
-        odo_launches, stream_w1, k2_err = phase17_lidar_odometry(device, Path(workdir))
+        odo_launches, stream_w1, k2_err, host = phase17_lidar_odometry(device, Path(workdir))
         s2m_launches, k2_err_s2m, s2m_stream = phase18_scan_to_map(device)
         pyramid = phase19_gicp_multiscale(device)
         slam_k1, slam_k2, slam_stream, slam_case = phase20_slam(device)
         par = phase21_parallel(device, pair, T_pair, sources, targets, T_true, raw_sources,
                                raw_targets, T_raw, slam_case)
         suite = phase22_bench_suite_examples(device)
+        captured = phase23_captured(device, reference_batch(device),
+                                    (to_torch(sources, device), to_torch(targets, device)),
+                                    pair, (to_torch(raw_sources, device),
+                                           to_torch(raw_targets, device)), host)
+        del host
         timed["cluster_search"]["max_abs_err"] = max(timed["cluster_search"]["max_abs_err"],
                                                      k2_err, k2_err_s2m, pyramid["k2_err"],
                                                      slam_k2["k2_err"], par["k2_err"])
@@ -2762,13 +3102,23 @@ def main() -> None:
                           ("cluster_topk", timed["cluster_topk"]), ("fused_gn", k4)):
             got["max_abs_err"] = max(got["max_abs_err"], suite["max_abs_err"].get(name, 0.0))
         # last, so that no timing above runs after the profiler has been on
-        _profile(slice_solve, "phase 4", focus=("tiled_nn_kernel",))
-        _profile(single_solve, "phase 8 (icp call)", focus=("cluster_search_kernel",))
-        _profile(batched_solve, "phase 9", focus=("cluster_search_kernel",))
+        # ICP.icp runs register_jit: phases 4, 8 and 9 profile captured programs;
+        # phase 4's eager register, phase 12's captured unit and phase 17's
+        # eager stream stand beside their other forms
+        _profile(slice_solve, "phase 4, captured (ICP.icp)", focus=("tiled_nn_kernel",))
+        _profile(captured["slice"][0], "phase 4, eager register", focus=("tiled_nn_kernel",))
+        _profile(single_solve, "phase 8 (icp call), captured", focus=("cluster_search_kernel",))
+        _profile(batched_solve, "phase 9, captured", focus=("cluster_search_kernel",))
         _profile(headline_call, "phase 12, IFT, K4 forward", focus=("fused_gn_kernel",))
-        ops = _profile(stream_w1, f"phase 17, W=1 warm stream of {PROFILE_SCANS} scans",
-                       calls=1, focus=("cluster_search_kernel",))
+        _profile(captured["head"][1], "phase 12, IFT unit captured (bench.fwdbwd_jit)",
+                 focus=("fused_gn_kernel",))
+        ops = _profile(stream_w1, f"phase 17, W=1 warm stream of {PROFILE_SCANS} scans, "
+                       "captured windows", calls=1, focus=("cluster_search_kernel",))
         print(f"  phase 17 stream: {ops / (PROFILE_SCANS - 1):.1f} device ops per pair")
+        with _eager_windows():
+            ops = _profile(stream_w1, f"phase 17, W=1 warm stream of {PROFILE_SCANS} scans, "
+                           "eager windows", calls=1, focus=("cluster_search_kernel",))
+        print(f"  phase 17 eager stream: {ops / (PROFILE_SCANS - 1):.1f} device ops per pair")
         ops = _profile(s2m_stream, f"phase 18, gn scan-to-map stream of {PROFILE_S2M_SCANS} "
                        "scans", calls=1, focus=("cluster_search_kernel",))
         print(f"  phase 18 stream: {ops / PROFILE_S2M_SCANS:.1f} device ops per scan")
@@ -2796,7 +3146,9 @@ def main() -> None:
         "source": "dicp_tpu_torch/csrc/tiled_nn.cu",
         "replaces": "dicp_tpu/ops/pallas_knn.py:50",
         **k1,
-        "launches": launches + slam_k1["launches"] + suite_launches("tiled_nn")[1],
+        "launches": (launches + slam_k1["launches"] + suite_launches("tiled_nn")[1]
+                     + captured["launches"]["tiled_nn"]),
+        "launches_in_phase23": captured["launches"]["tiled_nn"],
         "launches_per_slam_scan": slam_k1["launches_per_slam_scan"],
         "launches_per_suite_row": suite_launches("tiled_nn")[0],
     }]
@@ -2824,14 +3176,17 @@ def main() -> None:
                      "launches_per_multiscale_call": pyramid["launches_per_multiscale_call"],
                      "launches_per_map_sharded_call": par["launches_per_map_sharded_call"]}
         per_row, in_suite = suite_launches(name)
+        in23 = captured["launches"][name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": count + in_suite, **timed[name], **extra,
-                        "launches_per_suite_row": per_row})
+                        "launches": count + in_suite + in23, **timed[name], **extra,
+                        "launches_per_suite_row": per_row, "launches_in_phase23": in23})
     _check(k4_launches > 0, f"fused_gn launched on the headline path ({k4_launches})")
     kernels.append({"name": "fused_gn", "route": "cuda",
                     "source": "dicp_tpu_torch/csrc/fused_gn.cu",
                     "replaces": "dicp_tpu/ops/fused_gn.py:167",
-                    "launches": k4_launches + suite_launches("fused_gn")[1], **k4,
+                    "launches": (k4_launches + suite_launches("fused_gn")[1]
+                                 + captured["launches"]["fused_gn"]), **k4,
+                    "launches_in_phase23": captured["launches"]["fused_gn"],
                     "launches_per_suite_row": suite_launches("fused_gn")[0]})
     for name, replaces in (("score_nn_v1", "benchmarks/exp_knn.py:69"),
                            ("score_nn_v2", "benchmarks/exp_knn.py:137")):

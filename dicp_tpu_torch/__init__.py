@@ -10,11 +10,15 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
 
 * :mod:`dicp_tpu_torch.api` / :mod:`dicp_tpu_torch.ICP`: the drop-in ``ICP``
   class and ragged-input batch handling.
-* :mod:`dicp_tpu_torch.registration`: the functional core, :func:`register`
-  (``register_jit``, like the other ``*_jit`` names, is an alias of its
-  eager function: PyTorch runs eagerly).
+* :mod:`dicp_tpu_torch.registration`: the functional core, :func:`register`,
+  and ``register_jit``, the solve as a captured CUDA graph on the card whose
+  early exit is a WHILE node (:mod:`dicp_tpu_torch.jit`, the counterpart of
+  ``jax.jit``; ``csrc/graph_while.cu``), run eagerly on the CPU and where an
+  input requires grad.
 * :mod:`dicp_tpu_torch.ift`: :func:`register_ift`, implicit-function-theorem
-  gradients through the fixed point.
+  gradients through the fixed point, and ``register_ift_jit``, captured like
+  ``register_jit``.  ``register_anderson_jit``, ``register_gicp_jit`` and
+  ``register_sgd_jit`` are still aliases of their eager functions.
 * :mod:`dicp_tpu_torch.anderson`: :func:`register_anderson`, the
   Anderson-accelerated driver.
 * :mod:`dicp_tpu_torch.ops.fused_gn`: the whole-solve kernel K4
@@ -62,6 +66,10 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
 This package imports neither ``jax`` nor ``dicp_tpu``.
 """
 
+# the reference's ``from dICP.ICP import ICP`` path, loaded before the class is
+# bound below: a first import of the submodule later would rebind the
+# package's ``ICP`` from the class to the module
+import dicp_tpu_torch.ICP  # noqa: F401  (isort: skip)
 from dicp_tpu_torch.anderson import register_anderson, register_anderson_jit
 from dicp_tpu_torch.api import ICP, batch_size_handling
 from dicp_tpu_torch.config import ICPConfig, config_from_yaml

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from dicp_tpu_torch.config import ICPConfig, config_from_yaml, load_yaml_config
-from dicp_tpu_torch.registration import ICPResult, register, slice_histories
+from dicp_tpu_torch.registration import ICPResult, register_jit, slice_histories
 
 
 def _is_empty(x) -> bool:
@@ -340,7 +340,7 @@ class ICP:
             ti = torch.eye(4, dtype=src.dtype, device=src.device).expand(N, 4, 4)
         elif ti.shape[0] == 1 and N > 1:
             ti = ti.expand(N, 4, 4)  # one T_init shared by the batch
-        result = slice_histories(register(src, tgt, ti.to(src.dtype), w, cfg=cfg, key=key))
+        result = slice_histories(register_jit(src, tgt, ti.to(src.dtype), w, cfg=cfg, key=key))
         if self.verbose:
             print(f"ICP converged in {int(torch.max(result.iterations))} iterations")
             print(f"Final del_T_ts: {float(torch.linalg.norm(result.deltas[:, -1]))}")

@@ -10,9 +10,13 @@ whole-solve kernel K4, ``fused_small=True``) and the gradient of sum(T)
 with respect to the sources.  The units are timed with CUDA events, one
 event pair per call, after a warm-up that pays the kernels' build and
 functorch's first forward-mode call; the rate is B over the median, and
-the spread of the calls goes to stderr.  ``BENCH_FULL=1`` adds the unrolled
-gradient's rate and the forward-only rate (the early-exit driver), timed
-in turns with the headline.
+the spread of the calls goes to stderr.  The same unit captured as one
+CUDA graph, forward and backward (:data:`fwdbwd_jit`, the counterpart of
+bench.py's ``jax.jit(jax.value_and_grad(...))``), is timed in turns with
+it; its rate goes to stderr beside the eager one, and the JSON line keeps
+the eager unit's.  ``BENCH_FULL=1`` adds the unrolled gradient's rate and
+the forward-only rate (the early-exit driver), timed in turns with the
+headline.
 
 Gates, as bench.py's: T finite; the IFT and the unrolled gradients finite;
 their cosine > 0.99.  Detail goes to stderr with the card's name and power
@@ -40,6 +44,7 @@ import torch
 
 from dicp_tpu_torch.config import ICPConfig
 from dicp_tpu_torch.ift import register_ift
+from dicp_tpu_torch.jit import jit
 from dicp_tpu_torch.registration import register
 from dicp_tpu_torch.utils.timing import times_ms
 
@@ -78,6 +83,19 @@ def fwdbwd(entry: Callable, cfg: ICPConfig, src, tgt, ti):
     value = res.T.sum()
     (grad,) = torch.autograd.grad(value, s)
     return res, value.detach(), grad
+
+
+def _unit(src, tgt, ti, cfg: ICPConfig):
+    """The IFT unit over plain tensors, what :data:`fwdbwd_jit` captures:
+    (result, sum(T), gradient with respect to the sources)."""
+    with torch.enable_grad():
+        return fwdbwd(register_ift, cfg, src, tgt, ti)
+
+
+# The headline unit, forward and backward, as one captured program on the
+# card (the forward's K4 launch, the index closure at the fixed point, the
+# vmapped JVPs, the VJP and the k x k solve).
+fwdbwd_jit = jit(_unit, static_argnames=("cfg",), name="fwdbwd")
 
 
 def forward_only(cfg: ICPConfig, src, tgt, ti):
@@ -142,6 +160,8 @@ def run(device=None, full: bool = False, log=sys.stderr) -> dict:
     cfg = head_config()
     gate = gates(src, tgt, ti, log)
     calls = {"IFT fwd+bwd": lambda: fwdbwd(register_ift, cfg, src, tgt, ti)}
+    if device.type == "cuda":
+        calls["IFT fwd+bwd captured"] = lambda: fwdbwd_jit(src, tgt, ti, cfg)
     if full:
         calls["unrolled fwd+bwd"] = lambda: fwdbwd(register, ICPConfig(**HEAD), src, tgt, ti)
         calls["forward only (while)"] = lambda: forward_only(cfg, src, tgt, ti)

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dicp_tpu_torch import ICPConfig, register_jit, se3
+from dicp_tpu_torch import ICPConfig, register, se3
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn
 from dicp_tpu_torch.ops.normals import estimate_normals
 
@@ -63,7 +63,7 @@ def main(device=None) -> dict:
                     tolerance=1e-5, dim=3, trim_dist=2.0,
                     loss_name="huber", loss_metric=1.0, nn_method="cluster")
     eye = torch.eye(4, dtype=torch.float32, device=device)[None]
-    res = register_jit(source[None], target6[None], eye, None, cfg=cfg)
+    res = register(source[None], target6[None], eye, None, cfg=cfg)
     T_pred = res.T[0].cpu().double().numpy()
     err = float(np.linalg.norm(se3.tran2vec(torch.as_tensor(
         np.linalg.inv(T_st) @ np.linalg.inv(T_pred))).numpy()))

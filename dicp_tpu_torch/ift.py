@@ -32,8 +32,10 @@ from torch.func import jvp, vjp, vmap
 
 from dicp_tpu_torch import knn, losses, se3
 from dicp_tpu_torch.config import ICPConfig
+from dicp_tpu_torch.jit import jit
 from dicp_tpu_torch.registration import (ICPResult, _chunked_over_batch, _damping,
-                                         _make_index_fn, _preprocess, register)
+                                         _make_index_fn, _preprocess, _zmask, host_driven,
+                                         register)
 
 
 def _solver_weight(w):
@@ -174,7 +176,9 @@ def _adjoint(cfg: ICPConfig, source, target, weight, T_init, T, T_bar):
     # cotangent on xi through the retraction, then A^T lambda = xi_bar
     _, pose_vjp = vjp(lambda xi: _pose_from_xi(cfg, xi, C_star, r_star), zero_xi)
     xi_bar = pose_vjp(T_bar.to(dtype))[0]
-    lam = torch.linalg.solve(A.transpose(-1, -2), xi_bar[..., None])[..., 0]
+    # solve_ex: solve's LU without its host check of ``info`` (capturable)
+    lam = torch.linalg.solve_ex(A.transpose(-1, -2), xi_bar[..., None],
+                                check_errors=False)[0][..., 0]
 
     _, g_vjp = vjp(lambda s, t, wp: G(zero_xi, s, t, wp), src, tgt, w_prior)
     src_bar, tgt_bar, wp_bar = g_vjp(-lam)
@@ -182,10 +186,8 @@ def _adjoint(cfg: ICPConfig, source, target, weight, T_init, T, T_bar):
     # transposes of the preprocessing's linear maps: the dim-2 z mask, the
     # column slices and the zero-pad rule on the weight
     if cfg.dim == 2:
-        zmask = torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device=src.device)
-        zmask6 = torch.cat([zmask, zmask])
-        src_bar = src_bar * (zmask6 if src.shape[-1] == 6 else zmask)
-        tgt_bar = tgt_bar * (zmask6 if tgt.shape[-1] == 6 else zmask)
+        src_bar = src_bar * _zmask(src.shape[-1], dtype, src.device)
+        tgt_bar = tgt_bar * _zmask(tgt.shape[-1], dtype, tgt.device)
     source_bar = torch.zeros_like(source)
     source_bar[..., :src.shape[-1]] = src_bar.to(source.dtype)
     target_bar = torch.zeros_like(target)
@@ -218,13 +220,17 @@ def register_ift(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tenso
     # pc recomputed differentiably from T and the (z-masked) source
     src = source[..., :3]
     if cfg.dim == 2:
-        src = src * torch.tensor([1.0, 1.0, 0.0], dtype=source.dtype, device=source.device)
+        src = src * _zmask(3, source.dtype, source.device)
     pc = torch.einsum("nij,npj->npi", res.T[:, :3, :3], src.to(res.T.dtype)) \
         + res.T[:, None, :3, 3]
     return res._replace(pc=pc)
 
 
-# The JAX package's ``register_ift_jit`` is ``jax.jit(register_ift)``.  PyTorch
-# runs eagerly, so the port's is :func:`register_ift` itself: the same
-# signature and results, no compilation.
-register_ift_jit = register_ift
+# The JAX package's ``register_ift_jit`` is ``jax.jit(register_ift)``.  The
+# port's captures the forward as a CUDA graph on the card (its loop a WHILE
+# node; see dicp_tpu_torch.jit) for inference-only calls; with inputs that
+# require grad, and on the CPU, it is register_ift itself.  A forward and
+# backward captured together: jit over a function that calls
+# torch.autograd.grad (dicp_tpu_torch.bench.fwdbwd_jit).
+register_ift_jit = jit(register_ift, static_argnames=("cfg",),
+                       eager_if=lambda a: host_driven(a["cfg"]), name="register_ift_jit")

@@ -26,7 +26,7 @@ import torch
 from dicp_tpu_torch import se3
 from dicp_tpu_torch.api import _as_tensor, _resolve_device
 from dicp_tpu_torch.config import ICPConfig
-from dicp_tpu_torch.registration import register, register_jit
+from dicp_tpu_torch.registration import register
 from dicp_tpu_torch.svd_icp import _kabsch
 from dicp_tpu_torch.utils.checkpoint import load_odometry_state, save_odometry_state
 
@@ -217,8 +217,10 @@ def odometry_pose_graph(scans, cfg: ICPConfig = ICPConfig(),
     if loop_closures is not None:
         li, lj = (_as_tensor(x, scans.device).to(device=scans.device, dtype=torch.int64)
                   for x in loop_closures)
-        res = register_jit(scans[lj][:, :, :_src_cols(cfg)], scans[li],
-                           _eyes(li.shape[0], scans), None, cfg=cfg)
+        # a one-shot solve (L changes per call): eager, as a capture would
+        # cost a second solve and hold its pools without a replay
+        res = register(scans[lj][:, :, :_src_cols(cfg)], scans[li],
+                       _eyes(li.shape[0], scans), None, cfg=cfg)
         edges_i = torch.cat([edges_i, li])
         edges_j = torch.cat([edges_j, lj])
         t_meas = torch.cat([t_meas, res.T])
@@ -261,8 +263,10 @@ def resumable_odometry(scans, cfg: ICPConfig = ICPConfig(),
     while done < n_pairs:
         hi = min(done + chunk, n_pairs)
         # sources are scans[done+1 : hi+1], targets scans[done : hi]
-        res = register_jit(scans[done + 1:hi + 1, :, :_src_cols(cfg)], scans[done:hi],
-                           _eyes(hi - done, scans), None, cfg=cfg)
+        # eager: the tail chunk's shape is one-shot, and a chunk's solve is
+        # fetched to the host at once
+        res = register(scans[done + 1:hi + 1, :, :_src_cols(cfg)], scans[done:hi],
+                       _eyes(hi - done, scans), None, cfg=cfg)
         rels[done:hi] = res.T.detach().cpu().numpy()
         conv[done:hi] = res.converged.cpu().numpy()
         iters[done:hi] = res.iterations.cpu().numpy()

@@ -34,8 +34,9 @@ Routing is by device only: CPU tensors go to the ``*_plain`` versions, CUDA
 tensors launch the hand-written kernels ``csrc/cluster_search.cu`` (K2, K5)
 and ``csrc/cluster_topk.cu`` (K3) or raise.  A group id outside [0, G)
 stops either kernel (``__trap``), so the CUDA routes never synchronise with
-the host.  Each wrapper counts its kernel launches in a plain integer
-attribute, ``fused_search.launches`` etc.
+the host.  Each wrapper counts its kernel launches that run at once in a
+plain integer attribute, ``fused_search.launches`` etc., and its captured
+ones on the card (:mod:`dicp_tpu_torch.ops.launch_counts`).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import functools
 
 import torch
 
-from dicp_tpu_torch.ops import _build
+from dicp_tpu_torch.ops import _build, launch_counts
 
 _EPS8 = 8.0 * float(torch.finfo(torch.float32).eps)
 # Elements of one (blocks, Qs, P*g) candidate tile in the plain versions.
@@ -302,22 +303,24 @@ def _check_range(bsel, G: int, name: str) -> None:
         raise ValueError(f"{name}: bsel holds group ids outside [0, {G})")
 
 
-def _launch(kernel, name, tensors, width: int, out) -> bool:
+def _launch(kernel, name, tensors, width: int, out) -> int:
     """Launch on the tensors' device and current stream (``tensors`` are
     contiguous: points, centers, radius, xb, bsel, None where unused); raise
-    on an error.  Returns whether a kernel was launched."""
+    on an error.  Returns the wrapper's host count increment: 0 where
+    nothing was launched or the launch was captured (it counts on the
+    card), else 1."""
     points, xb, bsel = tensors[0], tensors[3], tensors[4]
     B, G, g = points.shape[0], points.shape[1], points.shape[2]
     nb, Qs, P = xb.shape[1], xb.shape[2], bsel.shape[2]
     if B == 0 or nb == 0:
-        return False
+        return 0
     err = kernel(*(None if t is None else t.data_ptr() for t in tensors),
                  B, G, g, nb, Qs, P, width,
                  *(None if o is None else o.data_ptr() for o in out),
                  xb.device.index, torch.cuda.current_stream(xb.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    return True
+    return launch_counts.count(name, xb.device)
 
 
 def _cuda_search(points, centers, radius, xb, bsel, with_bound: bool):
@@ -351,7 +354,7 @@ def fused_search(points, centers, radius, xb, bsel):
         return fused_search_plain(points, centers, radius, xb, bsel)
     *t, batched = _prepare(points, centers, radius, xb, bsel)
     best, row, bound, launched = _cuda_search(*t, with_bound=True)
-    fused_search.launches += int(launched)
+    fused_search.launches += launched
     out = (best, row, bound)
     return out if batched else tuple(o[0] for o in out)
 
@@ -364,7 +367,7 @@ def block_search(points, xb, bsel):
         return block_search_plain(points, xb, bsel)
     p, _, _, x, s, batched = _prepare(points, None, None, xb, bsel)
     best, row, _, launched = _cuda_search(p, None, None, x, s, with_bound=False)
-    block_search.launches += int(launched)
+    block_search.launches += launched
     return (best, row) if batched else (best[0], row[0])
 
 
@@ -384,8 +387,8 @@ def fused_topk(points, centers, radius, xb, bsel, k: int):
     rows = torch.empty((B, nb, Qs, k), dtype=torch.int32, device=x.device)
     bound = torch.empty((B, nb, Qs), dtype=torch.float32, device=x.device)
     tensors = [t.contiguous() for t in (p, c, r, x, s)]
-    fused_topk.launches += int(_launch(_topk_kernel(), "cluster_topk", tensors, k,
-                                       (d2k, rows, bound)))
+    fused_topk.launches += _launch(_topk_kernel(), "cluster_topk", tensors, k,
+                                   (d2k, rows, bound))
     out = (d2k, rows, bound)
     return out if batched else tuple(o[0] for o in out)
 

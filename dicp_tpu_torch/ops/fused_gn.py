@@ -35,9 +35,10 @@ import functools
 
 import torch
 
-from dicp_tpu_torch.ops import _build
+from dicp_tpu_torch.ops import _build, launch_counts
 
-# Kernel launches by this wrapper (CUDA tensors only).
+# Kernel launches by this wrapper that ran at once (CUDA tensors only); a
+# captured launch counts on the card (ops.launch_counts).
 launches = 0
 
 # The kernel's limits: one block per pair, the target staged in shared
@@ -414,7 +415,7 @@ def _fused_gn_cuda(source, target, weight, C0, r0, cfg, tcols):
             cfg.max_iterations, dev.index, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"fused_gn kernel launch failed: CUDA error {err}")
-        launches += 1
+        launches += launch_counts.count("fused_gn", dev)
     outs = [C.view(B, 3, 3), r.view(B, 3), iters, ratio, wsave.view(B, n), cost]
     if source.dtype != torch.float32:
         outs = [o.to(source.dtype) for o in outs]

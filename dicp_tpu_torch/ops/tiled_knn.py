@@ -25,9 +25,10 @@ import math
 
 import torch
 
-from dicp_tpu_torch.ops import _build
+from dicp_tpu_torch.ops import _build, launch_counts
 
-# Kernel launches by this wrapper (CUDA tensors only).
+# Kernel launches by this wrapper that ran at once (CUDA tensors only); a
+# captured launch counts on the card (ops.launch_counts).
 launches = 0
 
 # Elements of one (batch, n, chunk) distance block in the plain version.
@@ -131,7 +132,7 @@ def _nn_distances_cuda(x: torch.Tensor, y: torch.Tensor):
                         torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"tiled_nn kernel launch failed: CUDA error {err}")
-        launches += 1
+        launches += launch_counts.count("tiled_nn", x.device)
     return idx.reshape(batch + (n,)), d2.reshape(batch + (n,))
 
 

@@ -14,15 +14,21 @@ are composed into a trajectory.
   buffer is refilled only after its previous copy's event has completed:
   refilling it earlier would corrupt a scan still in flight.
 * **Windowed solves.**  K consecutive pairs are solved in one batched
-  :func:`registration.register` call; a ragged tail is padded by repeating
-  the last scan and sliced off.
+  solve, :func:`_window_solve`: the stack (and the dequantisation), the
+  solve and its early exit are one captured program on the card
+  (:func:`dicp_tpu_torch.jit.jit`, whose loop is a CUDA graph WHILE node),
+  as JAX jits all three.  A ragged tail is padded by repeating the last
+  scan and sliced off.
 * **Warm start.**  The seed of the next window is the last solved relative
-  transform, kept as a device tensor.
+  transform, kept as a device tensor; the next replay's static input takes
+  it by an on-stream copy.
 
-JAX keeps several windows in flight as device futures.  The port's solver
-syncs with the host once per iteration, so the windows run one after the
-other; the feed loop adds no host fetch of its own.  Per-pair results equal
-those of one batched solve (the solver's batch == serial invariant).
+As in JAX, windows stay in flight: a replay is enqueued without a host
+wait, so the host reads and uploads the next window's scans while the card
+solves this one.  The feed loop's only waits are the upload ring's, before
+a pinned buffer is refilled, and the caller's own fetches.  Per-pair
+results equal those of one batched solve (the solver's batch == serial
+invariant).
 """
 
 from __future__ import annotations
@@ -34,8 +40,9 @@ import torch
 
 from dicp_tpu_torch.api import _resolve_device
 from dicp_tpu_torch.config import ICPConfig
+from dicp_tpu_torch.jit import jit
 from dicp_tpu_torch.odometry import OdometryResult, compose_chain
-from dicp_tpu_torch.registration import register
+from dicp_tpu_torch.registration import _register_program
 
 _ALIGN = 16  # bytes: every array of a packed scan starts on this boundary
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))
@@ -104,10 +111,10 @@ class _Uploader:
         return dev
 
 
-def _window_solve(scans: Tuple[torch.Tensor, ...],
-                  weights: Optional[Tuple[torch.Tensor, ...]],
-                  t_init: torch.Tensor, cfg: ICPConfig, n_pairs: int,
-                  deq: Optional[Tuple[torch.Tensor, ...]] = None):
+def _window_program(scans: Tuple[torch.Tensor, ...],
+                    weights: Optional[Tuple[torch.Tensor, ...]],
+                    t_init: torch.Tensor, cfg: ICPConfig, n_pairs: int,
+                    deq: Optional[Tuple[torch.Tensor, ...]] = None):
     """Solve the n_pairs consecutive pairs of a (n_pairs+1)-scan window in
     one batched solve.  ``t_init`` (4, 4) seeds every pair of the window.
     With ``deq``, each scan is a tuple of packed quantized arrays and
@@ -120,8 +127,14 @@ def _window_solve(scans: Tuple[torch.Tensor, ...],
     src = pts[1:, :, :3]
     tgt = pts[:-1]
     ti = t_init.to(pts.dtype).expand(n_pairs, 4, 4)
-    res = register(src, tgt, ti, w, cfg)
+    res = _register_program(src, tgt, ti, w, cfg)
     return res.T, res.converged, res.iterations
+
+
+# one captured program per (window, scan shape, quantize, cfg), as JAX jits
+# the window solve
+_window_solve = jit(_window_program, static_argnames=("cfg", "n_pairs"),
+                    name="window_solve")
 
 
 def stream_registrations(

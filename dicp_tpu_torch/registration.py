@@ -8,8 +8,15 @@ PyTorch has no such limit, so one Python loop with early exit serves both
 ``driver`` values.  It produces the same results as either JAX driver: once
 every batch element has converged, the scan's skip branch only re-emits the
 carry-forward history values, which the loop writes after it exits, and the
-two drivers' iteration counts agree.  The loop checks convergence on the host
-once per iteration (one device sync).
+two drivers' iteration counts agree.  The eager loop (:func:`register`)
+checks convergence on the host once per iteration (one device sync).
+
+``register_jit`` is the counterpart of JAX's jitted program: the same solve
+with the loop of :func:`_run_device_loop`, whose state lives in tensors and
+whose exit the device decides, captured on the card as one CUDA graph with
+a WHILE node (:mod:`dicp_tpu_torch.jit`).  Its results equal
+:func:`register`'s bit for bit.  Under any CUDA graph capture
+:func:`register` takes that loop too.
 
 Per-element convergence freezing (zeroing the weights of converged batch
 elements so that batch results equal serial results), the all-zero-weight
@@ -43,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dicp_tpu_torch import knn, losses, se3
 from dicp_tpu_torch.config import ICPConfig
+from dicp_tpu_torch.jit import capturing, device_while, jit
 from dicp_tpu_torch.ops import tiled_knn
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn, query_order
 from dicp_tpu_torch.ops.fused_gn import fused_eligible, fused_gn_solve
@@ -77,11 +85,17 @@ def _damping(cfg: ICPConfig, A: torch.Tensor, use_abs: bool = False) -> torch.Te
     Damping never moves the fixed point.  ``use_abs``: take the largest
     |diagonal| (the IFT adjoint's dG/dxi need not have a positive one)."""
     if cfg.tikhonov is not None:
-        return torch.tensor(cfg.tikhonov, dtype=A.dtype, device=A.device)
+        return A.new_full((), cfg.tikhonov)   # a fill, no host copy: capturable
     rel = 1e-12 if A.dtype == torch.float64 else 1e-6
     diag = torch.diagonal(A, dim1=-2, dim2=-1)
     dmax = torch.amax(torch.abs(diag) if use_abs else diag, dim=-1)
     return (rel * torch.clamp(dmax, min=1.0))[..., None, None]
+
+
+def _zmask(cols: int, dtype, device) -> torch.Tensor:
+    """The dim-2 mask (1, 1, 0) of each 3-column block of ``cols`` columns,
+    built on the device (a host tensor would be a copy a capture refuses)."""
+    return (torch.arange(cols, device=device) % 3 != 2).to(dtype)
 
 
 def _preprocess(cfg: ICPConfig, source, target, T_init, weight):
@@ -105,10 +119,8 @@ def _preprocess(cfg: ICPConfig, source, target, T_init, weight):
     if cfg.dim == 2:
         # zero z so it cannot influence NN or residuals; pt2pl keeps the
         # in-plane normal components
-        zmask = torch.tensor([1.0, 1.0, 0.0], dtype=source.dtype, device=source.device)
-        zmask6 = torch.cat([zmask, zmask])
-        source = source * (zmask6 if source.shape[-1] == 6 else zmask)
-        target = target * (zmask6 if target.shape[-1] == 6 else zmask)
+        source = source * _zmask(source.shape[-1], source.dtype, source.device)
+        target = target * _zmask(target.shape[-1], target.dtype, target.device)
 
     if weight is None:
         weight = torch.ones(source.shape[:-1], dtype=source.dtype, device=source.device)
@@ -327,7 +339,8 @@ def _gn_step(cfg: ICPConfig, source, target, w_init, C, r, corr_fn, noise=None,
     if cfg.solve_method == "closed":
         delta_k = -solve_spd(A, b)
     else:
-        delta_k = -torch.linalg.solve(A, b[..., None])[..., 0]
+        # solve_ex: solve's LU without its host check of ``info``
+        delta_k = -torch.linalg.solve_ex(A, b[..., None], check_errors=False)[0][..., 0]
 
     if cfg.dim == 2:
         zeros = torch.zeros((N, 1), dtype=dtype, device=device)
@@ -354,9 +367,10 @@ class _Carry(NamedTuple):
     w_raw: torch.Tensor        # raw w of the last executed iteration
 
 
-def _apply_step(cfg: ICPConfig, source, target, carry: _Carry, it: int, corr_fn,
+def _apply_step(cfg: ICPConfig, source, target, carry: _Carry, it, corr_fn,
                 noise=None, pair_ids=None):
-    """One iteration plus bookkeeping; returns (carry', (delta, w_save, cost))."""
+    """One iteration plus bookkeeping; returns (carry', (delta, w_save, cost)).
+    ``it``: the iteration, an int or (device loop) a 0-dim int32 tensor."""
     dtype = source.dtype
     C, r, delta6, w, cost = _gn_step(cfg, source, target, carry.w_init,
                                      carry.C, carry.r, corr_fn, noise, pair_ids, it)
@@ -376,8 +390,8 @@ def _apply_step(cfg: ICPConfig, source, target, carry: _Carry, it: int, corr_fn,
     w_init, num_iters, match_ratio = carry.w_init, carry.num_iters, carry.match_ratio
     if not cfg.const_iter:
         # first-crossing stats, then freeze converged elements (batch == serial)
-        num_iters = torch.where(below, num_iters + float(it + 1) * (num_iters == 0),
-                                num_iters)
+        itf = (it + 1).to(dtype) if torch.is_tensor(it) else float(it + 1)
+        num_iters = torch.where(below, num_iters + itf * (num_iters == 0), num_iters)
         num_curr = torch.sum(w > cfg.match_ratio_thresh, dim=-1).to(dtype)
         num_start = torch.sum(w_init > cfg.match_ratio_thresh, dim=-1).to(dtype)
         num_start = torch.where(num_start == 0, torch.ones_like(num_start), num_start)
@@ -436,12 +450,66 @@ def _run_loop(cfg: ICPConfig, source, target, weight, C, r, corr_fn, noise=None,
     return carry, torch.stack(deltas), torch.stack(weights), torch.stack(costs), it
 
 
+def _run_device_loop(cfg: ICPConfig, source, target, weight, C, r, corr_fn):
+    """The loop of :func:`_run_loop` with its exit decided on the device, the
+    counterpart of JAX's ``_run_while``: a body over a state held in
+    tensors, run by :func:`jit.device_while` (a CUDA graph WHILE node under
+    capture, a host loop otherwise).
+
+    The state is the carry, the iteration counter ``it`` (int32), the
+    (T, N, 6), (T, N, P) and (T, N) histories written at ``it`` as
+    ``hd.at[it].set`` does, and the flag ``it < T and not all(converged)``.
+    The body is exact under masking: it applies ``where(flag, new, old)``
+    to every field, so a body run after the flag fell leaves every output
+    bit for bit as it was.  Returns what :func:`_run_loop` returns, with the
+    executed count as a 0-dim int32 tensor; unexecuted history slots are
+    padded as ``_run_while`` pads them."""
+    T = cfg.max_iterations
+    N, dtype, dev = source.shape[0], source.dtype, source.device
+    P = weight.shape[-1]
+    # every field gets storage of its own: the body overwrites them in place
+    carry = _Carry(*(f.clone() for f in _init_carry(source, weight, C, r)))
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    flag = torch.full((), T > 0, dtype=torch.bool, device=dev)
+    hist = ((torch.zeros((T, N, 6), dtype=dtype, device=dev),
+             torch.zeros((T, N, P), dtype=dtype, device=dev),
+             torch.zeros((T, N), dtype=dtype, device=dev))
+            if cfg.collect_histories else ())
+
+    def body():
+        new, out = _apply_step(cfg, source, target, carry, it, corr_fn)
+        for old, val in zip(carry, new):
+            old.copy_(torch.where(flag, val, old))
+        j = torch.clamp(it, max=max(T - 1, 0)).reshape(1).long()
+        for h, val in zip(hist, out):
+            h.index_copy_(0, j, torch.where(flag, val[None], h.index_select(0, j)))
+        it.copy_(torch.where(flag, it + 1, it))
+        go = it < T
+        if not cfg.const_iter:
+            go = go & ~torch.all(carry.converged)
+        flag.copy_(go)
+
+    device_while(flag, body)
+
+    if not cfg.collect_histories:
+        deltas = source.new_zeros((1, N, 6))
+        return carry, deltas, carry.prev_w_save[None], carry.prev_cost[None], it
+    hd, hw, hc = hist
+    executed = torch.arange(T, device=dev) < it
+    last = torch.clamp(it - 1, min=0).reshape(1).long()
+    deltas = torch.where(executed[:, None, None], hd, 0.0)
+    weights = torch.where(executed[:, None, None], hw, hw.index_select(0, last))
+    costs = torch.where(executed[:, None], hc, hc.index_select(0, last))
+    return carry, deltas, weights, costs, it
+
+
 def _finalize(cfg: ICPConfig, source, carry: _Carry, deltas, weights, costs, it_final):
-    """Post-loop stats fill and result assembly."""
+    """Post-loop stats fill and result assembly; ``it_final`` is the executed
+    count, an int or (device loop) a 0-dim tensor."""
     dtype = source.dtype
-    num_iters = torch.where(carry.num_iters == 0,
-                            torch.full_like(carry.num_iters, float(it_final)),
-                            carry.num_iters)
+    itf = (it_final.to(dtype) if torch.is_tensor(it_final)
+           else torch.full_like(carry.num_iters, float(it_final)))
+    num_iters = torch.where(carry.num_iters == 0, itf, carry.num_iters)
     num_curr = torch.sum(carry.w_raw > cfg.match_ratio_thresh, dim=-1).to(dtype)
     num_start = torch.sum(carry.w_init > cfg.match_ratio_thresh, dim=-1).to(dtype)
     num_start = torch.where(num_start == 0, torch.ones_like(num_start), num_start)
@@ -473,7 +541,12 @@ def register(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tensor,
     """Batched ICP registration on pre-batched inputs (N, n, 3|6),
     (N, m, 3|6), (N, 4, 4); all on one device.  ``key``: the Gumbel noise
     source (:func:`knn.gumbel_noise`), required with Gumbel NN and ignored
-    otherwise."""
+    otherwise.  Under a CUDA graph capture the loop is the device-decided
+    one (:func:`_run_device_loop`)."""
+    return _register(source, target, T_init, weight, cfg, key, device_loop=False)
+
+
+def _register(source, target, T_init, weight, cfg, key, device_loop: bool) -> ICPResult:
     if source.dim() != 3 or target.dim() != 3 or T_init.dim() != 3:
         raise ValueError("register() expects batched (N, n, 3), (N, m, 3|6), (N, 4, 4); "
                          "use dicp_tpu_torch.api.ICP for ragged/unbatched inputs")
@@ -485,15 +558,45 @@ def register(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tensor,
         noise = knn.gumbel_noise(key)
     if cfg.batch_chunk is not None and source.shape[0] > cfg.batch_chunk:
         return _chunked_over_batch(
-            lambda s, t, ti, w, ids: _register_impl(s, t, ti, w, cfg, noise, ids),
+            lambda s, t, ti, w, ids: _register_impl(s, t, ti, w, cfg, noise, ids, device_loop),
             cfg.batch_chunk, source, target, T_init, weight)
-    return _register_impl(source, target, T_init, weight, cfg, noise)
+    return _register_impl(source, target, T_init, weight, cfg, noise, device_loop=device_loop)
 
 
-# The JAX package's ``register_jit`` is ``jax.jit(register)``.  PyTorch runs
-# eagerly, so the port's is :func:`register` itself: the same signature and
-# results, no compilation.
-register_jit = register
+def host_driven(cfg: ICPConfig) -> bool:
+    """Whether a solve needs the host inside its loop: Gumbel noise draws
+    (seeded on the host per iteration) or the Anderson driver."""
+    return cfg.anderson_m > 0 or (cfg.differentiable and cfg.use_gumbel)
+
+
+def _register_program(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tensor,
+                      weight: Optional[torch.Tensor] = None, cfg: ICPConfig = ICPConfig(),
+                      key=None) -> ICPResult:
+    """:func:`register` with the device-decided loop, what ``register_jit``
+    captures; it keeps the eager loop where gradients flow or the host
+    drives the loop (:func:`host_driven`)."""
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (source, target, T_init, weight))
+    return _register(source, target, T_init, weight, cfg, key,
+                     device_loop=not (grad or host_driven(cfg)))
+
+
+# The JAX package's ``register_jit`` is ``jax.jit(register)``: one compiled
+# program whose early exit is a device-side while loop.  The port's is a
+# captured CUDA graph with a WHILE node on the card (see dicp_tpu_torch.jit),
+# and runs the same device-loop body in a host loop on the CPU.
+_register_captured = jit(_register_program, static_argnames=("cfg", "key"),
+                         eager_if=lambda a: host_driven(a["cfg"]), name="register_jit")
+
+
+def register_jit(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tensor,
+                 weight: Optional[torch.Tensor] = None, cfg: ICPConfig = ICPConfig(),
+                 key=None) -> ICPResult:
+    """:func:`register` as a captured program on the card (its results
+    bit for bit).  ``key`` is part of the program's cache key only where the
+    solve draws Gumbel noise from it, and such solves run eagerly."""
+    return _register_captured(source, target, T_init, weight, cfg,
+                              key if host_driven(cfg) else None)
 
 
 def _chunked_over_batch(call, chunk: int, source, target, T_init, weight):
@@ -525,7 +628,8 @@ def _chunked_over_batch(call, chunk: int, source, target, T_init, weight):
     return ICPResult(*(torch.cat(field)[:N] for field in zip(*parts)))
 
 
-def _register_impl(source, target, T_init, weight, cfg, noise=None, pair_ids=None):
+def _register_impl(source, target, T_init, weight, cfg, noise=None, pair_ids=None,
+                   device_loop: bool = False):
     if cfg.anderson_m > 0:
         # the Anderson-accelerated driver (does its own preprocessing);
         # differentiable=True still selects the smooth weight forms whose
@@ -560,8 +664,15 @@ def _register_impl(source, target, T_init, weight, cfg, noise=None, pair_ids=Non
         pair_ids = list(range(source.shape[0])) if pair_ids is None else pair_ids
     else:
         corr_fn = _make_corr_fn(cfg, source, target, C, r)
-    carry, deltas, weights, costs, it_final = _run_loop(
-        cfg, source, target, weight, C, r, corr_fn, noise, pair_ids)
+    if device_loop or capturing(source):
+        if noise is not None:
+            raise ValueError("Gumbel noise is drawn from host seeds per iteration: "
+                             "its solve cannot be captured")
+        carry, deltas, weights, costs, it_final = _run_device_loop(
+            cfg, source, target, weight, C, r, corr_fn)
+    else:
+        carry, deltas, weights, costs, it_final = _run_loop(
+            cfg, source, target, weight, C, r, corr_fn, noise, pair_ids)
     return _finalize(cfg, source, carry, deltas, weights, costs, it_final)
 
 
