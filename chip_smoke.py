@@ -140,6 +140,8 @@ Phases, each raising on failure (the script then exits non-zero):
     gate).  A mature map built by map_step: at most 65,536 occupied rows,
     its empty rows beyond the occupied box; map_step with insert=True and
     insert=False and map_merge of one scan alone (CUDA events, median of 5).
+    map_step and map_merge are captured programs, so these are the
+    captured times (phase 24 times the eager forms beside them).
 19. GICP and the multiscale pyramid at the JAX suite's deployments, run by
     dicp_tpu_torch.benchmarks.exp_gicp and exp_multiscale, which print their
     rows.  GICP
@@ -174,7 +176,11 @@ Phases, each raising on failure (the script then exits non-zero):
     last call of each recorded by the stream (K1's first target holds the
     map's empty rows, all on its sentinel: exact ties); a half lap accepts
     no closure.  Then refine_robust's first call in a fresh process
-    (functorch's first use) against its second.
+    (functorch's first use) against its second.  The front end's
+    map_step, the closures, the anchors and the residual norms are
+    captured programs: these are the captured stream's numbers, and K1 and
+    K2 are held to their plain versions on the captured path's calls
+    (phase 24 holds the run to an eager one).
 21. dicp_tpu_torch.parallel in a world of one rank on NCCL (make_mesh((1, 1))
     on the card; the backend must be nccl; the group is destroyed at the
     end): register_map_sharded at phase 8's pair (converged, errors < 1e-3,
@@ -220,20 +226,45 @@ Phases, each raising on failure (the script then exits non-zero):
     still ran (at least one); then eager against captured in turns: ms per
     call at phases 3, 4, 8 and 9, the headline unit's registrations/s, and
     frames/s of the W = 1 and W = 8 warm streams; each cached program's
-    private pool memory.
-16. (run after 17-23) a torch.profiler pass over 3 calls each of phases
+    private pool memory.  Each of phases 3, 4, 8 and 9's solves and the
+    headline unit also replays on fresh inputs of the same shapes
+    (the source moved by seeded noise), held to a fresh eager call.
+24. (run after 23) Anderson, map_step/map_merge, SLAM's closure programs
+    and SVD-ICP captured (dicp_tpu_torch.jit), each against its eager form
+    (jit.disable_jit, the solves on register's eager loop) as phase 23
+    holds its cases, a replay on fresh inputs included: the bits of the
+    capture repairs (Anderson's solve_ex at (256, m, m), its energy
+    sentinel, _kabsch's seeds, se3._homogeneous's last row); Anderson m=3
+    on the suite's pt2pt pair (register_anderson_jit), phase 4's slice
+    (K1) and phase 9's batch (K2) through register_jit, and
+    batch256_ift_aa_m3's forward (register_ift_jit) and unit
+    (bench.fwdbwd_jit); each of the 11 steps of phase 18's gn stream, f32
+    and quantized, through the captured map_step against the eager step,
+    two captured streams against the eager one, map_merge alone at that
+    size (its eager form run under sync debug mode "error"), and a stream
+    whose scan length changes every scan (first-call costs, pools);
+    _closure_solve (K2), _make_anchor, _edge_residual_norms and a SLAM
+    front-end map_step (K1), and one SLAM lap of phase 20's circuit with
+    captured programs against one with eager programs (trajectories,
+    closures); pt2pt_svd_icp on the svd_pair inputs, early exit
+    and fixed trip; K1 and K2 held to their plain versions on the captured
+    Anderson solves' and map_step's own calls; then eager against captured
+    in turns: ms per call, frames/s of the scan-to-map streams and of one
+    SLAM lap.
+16. (run after 17-24) a torch.profiler pass over 3 calls each of phases
     4 (captured, through ICP.icp, and eager register), 8 and 9 (captured),
     12 (eager and captured), one W = 1 warm stream of phase 17's first 9
     scans (captured windows and eager windows), one gn scan-to-map stream
-    of phase 18's first 4 scans, one
-    SLAM stream of phase 20's first 6 scans and 3 of phase 21's map-sharded
+    of phase 18's first 4 scans and one
+    SLAM stream of phase 20's first 6 scans (each with captured programs
+    and with eager ones) and 3 of phase 21's map-sharded
     calls (in a world of one of its own, NCCL's share of device time too):
     host wall time, device busy share, K1's or K2's share of device time,
     device ops per pair, scan or iteration. It comes last: host-bound
     timings taken after the profiler has been on in a process run slower.
     CUPTI's record of a WHILE node's body is unreliable (all iterations in
     one program's profile, only the first in another's): a captured loop's
-    device time is read from phase 23's CUDA events.
+    device time is read from phase 23's and 24's CUDA events.
 
 Phases 2, 6, 7, 11 and 13 time K1, K2, K5, K3, K4, K6 and K7 call by call
 through their wrappers, as runs before them did (the kernels line's ``ms``), and print
@@ -242,9 +273,10 @@ of 7 rounds: the kernel's time, free of the host's launch overhead).
 
 Each main path (phases 4, 8, 9, 12, 14, each run of 17 and 18, the pyramid of 19,
 the first SLAM run of 20, phase 21's map-sharded and batch-sharded solves,
-each row and example of 22, and phase 23's captured runs) is driven with
+each row and example of 22, and phases 23's and 24's captured runs) is driven with
 the kernels' launch counts set to 0 just before it and read just after.
-ICP.icp and the pipeline run captured programs (dicp_tpu_torch.jit): a
+ICP.icp, the pipeline, map_step (phases 18 and 20) and SLAM's closures
+run captured programs (dicp_tpu_torch.jit): a
 launch that runs at once counts on its wrapper's host count, a captured one
 on the kernel's device counter, by an add captured beside the launch
 (ops.launch_counts), so each replay, and each iteration a loop body runs,
@@ -297,10 +329,11 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils import _pytree as pytree
 
-from dicp_tpu_torch import ICP, ICPConfig, bench, io, jit, knn, pipeline, pt2pt_svd_icp
-from dicp_tpu_torch import register, register_ift, register_jit
-from dicp_tpu_torch import se3, slam, svd_icp
+from dicp_tpu_torch import ICP, ICPConfig, anderson, bench, io, jit, knn, mapping, pipeline
+from dicp_tpu_torch import pt2pt_svd_icp, register, register_anderson, register_ift
+from dicp_tpu_torch import register_ift_jit, register_jit, se3, slam, svd_icp
 from dicp_tpu_torch.benchmarks import bench_suite, exp_gicp, exp_knn, exp_multiscale
 from dicp_tpu_torch.examples import large_cloud_demo, odometry_demo, serving_demo, slam_demo
 from dicp_tpu_torch.convert import to_torch
@@ -1829,6 +1862,9 @@ def _recording(name: str, calls: dict):
         setattr(owner, attr, kernel)
         if counted:
             kernel.launches = record.launches
+        # the programs captured meanwhile hold the recorder's copies: drop them
+        # (what a replay recorded stays, in tensors that outlive the programs)
+        jit.clear_caches()
 
 
 def _k1_duplicates(x, y, idx) -> str:
@@ -2341,17 +2377,17 @@ def slam_circuit(laps: float, partial: bool = False):
 def _timed_calls(module, name: str, log: list, kernel_counts: bool = False):
     """While active, each call of ``module.name`` is timed with CUDA events
     (ms appended to ``log``; with ``kernel_counts``, K2's launches in the
-    call too)."""
+    call too, captured ones included: a host wait)."""
     fn = getattr(module, name)
 
     def timed(*args, **kw):
-        k2 = cluster_search.fused_search.launches
+        k2 = _launches()["cluster_search"] if kernel_counts else 0
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         out = fn(*args, **kw)
         end.record()
         end.synchronize()
-        log.append((start.elapsed_time(end), cluster_search.fused_search.launches - k2)
+        log.append((start.elapsed_time(end), _launches()["cluster_search"] - k2)
                    if kernel_counts else start.elapsed_time(end))
         return out
 
@@ -2363,10 +2399,12 @@ def _timed_calls(module, name: str, log: list, kernel_counts: bool = False):
 
 
 def phase20_slam(device):
-    """slam_odometry over two laps of 60,000-point scans; returns K1's
-    launches per scan, K2's per closure attempt, the largest |difference| of
-    each kernel on the path's own calls, a short stream for phase 16 and the
-    first run's result with the truth (phase 21's pose graph)."""
+    """slam_odometry over two laps of 60,000-point scans (its front end's
+    map_step, closures, anchors and residual norms captured programs);
+    returns K1's launches per scan, K2's per closure attempt, the largest
+    |difference| of each kernel on the path's own calls, a short stream for
+    phase 16, the first run's result with the truth (phase 21's pose graph)
+    and the scans (phase 24)."""
     t_phase = time.perf_counter()
     scans, poses_true, T0 = slam_circuit(LAPS_SLAM)
     S = len(scans)
@@ -2454,7 +2492,7 @@ def phase20_slam(device):
           f"{time.perf_counter() - t_phase:.1f} s")
     return ({"launches": k1, "launches_per_slam_scan": k1 / (S - 1), "k1_err": k1_err},
             {"launches": k2, "launches_per_slam_closure": k2 / max(attempts, 1),
-             "k2_err": k2_err}, lambda: run(PROFILE_SLAM_SCANS), (res, truth))
+             "k2_err": k2_err}, lambda: run(PROFILE_SLAM_SCANS), (res, truth), scans)
 
 
 def _collectives() -> dict:
@@ -2759,6 +2797,14 @@ def phase22_bench_suite_examples(device) -> dict:
 
 # phase 23: the captured programs (dicp_tpu_torch.jit) against the eager port
 STREAM_W = 8                        # phase 23's windows-in-flight stream
+# phases 3, 4 and 8-9's solves in phases 23 and 24
+CFG_REF = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=100, tolerance=1e-6,
+                    dim=2, trim_dist=5.0, loss_name="huber", loss_metric=1.0)
+CFG_SLICE = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=50,
+                      tolerance=1e-6, dim=3, trim_dist=2.0, loss_name="huber", loss_metric=0.5)
+CFG_RAW = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=30, tolerance=1e-5,
+                    dim=3, trim_dist=2.0, loss_name="huber", loss_metric=1.0,
+                    cluster_probes=PROBES, cluster_group=GROUP)
 
 
 @contextlib.contextmanager
@@ -2771,12 +2817,23 @@ def _no_host_wait():
         torch.cuda.set_sync_debug_mode(0)
 
 
-def _leaves(out) -> list:
-    """(name, tensor) of an ICPResult, or of a (result, value, gradient) unit."""
-    if isinstance(out, tuple) and hasattr(out, "_fields"):
-        return list(zip(out._fields, out))
-    res, value, grad = out
-    return _leaves(res) + [("value", value), ("gradient", grad)]
+def _leaves(out, name: str = "") -> list:
+    """(name, tensor) of every tensor in ``out``: a tensor, or a tuple of
+    them, nested (NamedTuples by field, others by position)."""
+    if isinstance(out, torch.Tensor):
+        return [(name or "result", out)]
+    if not isinstance(out, tuple):
+        return []
+    keys = out._fields if hasattr(out, "_fields") else [f"[{i}]" for i in range(len(out))]
+    return [leaf for key, x in zip(keys, out)
+            for leaf in _leaves(x, f"{name}.{key}" if name else key)]
+
+
+def _fresh(x: torch.Tensor, seed: int, scale: float = 1e-3) -> torch.Tensor:
+    """``x`` moved by seeded normal noise of ``scale``: a fresh input of the
+    same shape, dtype and device."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    return x + scale * torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
 
 
 def _diff_fields(eager, got) -> dict:
@@ -2796,16 +2853,23 @@ def _counted(call):
     return out, {k: v - before[k] for k, v in _launches().items() if v != before[k]}, seconds
 
 
-def _captured_equals_eager(label: str, eager_call, jitted_call, jitted) -> int:
+def _captured_equals_eager(label: str, eager_call, jitted_call, jitted, fresh=None) -> int:
     """Two replays of a fresh capture and the replay of a second fresh
     capture equal the eager result bit for bit in every field, each replay
     run under the sync debug mode's "error" (a host wait raises), and each
     replay launches each kernel as often as the eager call (its captured
     launches count on the card, per replay and per loop iteration run).
-    Prints the cost of a first call (the eager warm-up and the capture)
-    beside the eager call's and the program's pools.  Returns the host
-    waits per replay (0)."""
+    ``fresh`` = (eager call, jitted call) on other inputs of the same shapes:
+    the jitted call must replay the second capture (no new program) and
+    equal the eager call on those inputs, under the same gates.  Prints the
+    cost of a first call (the eager warm-up and the capture) beside the
+    eager call's and the program's pools.  Returns the host waits per
+    replay (0)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     eager, want, eager_s = _counted(eager_call)
+    eager_peak = torch.cuda.max_memory_allocated() - base
     outs, firsts, pools = [], [], []
     for replays in (2, 1):
         jitted.cache_clear()
@@ -2825,12 +2889,33 @@ def _captured_equals_eager(label: str, eager_call, jitted_call, jitted) -> int:
         diff = _diff_fields(eager, got)
         _check(not diff, f"{label}: replay {k} equals the eager call bit for bit "
                f"(differing: {diff})")
+    fresh_note = ""
+    if fresh is not None:
+        eager_fresh, want_fresh, _ = _counted(fresh[0])
+        _check(bool(_diff_fields(eager, eager_fresh)), f"{label}: the fresh inputs give "
+               f"other results")
+        prog = next(reversed(jitted.cache.values()))
+        programs, replays, before = len(jitted.cache), prog.replays, _launches()
+        with _no_host_wait():
+            got = fresh[1]()
+        launched = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+        _check(len(jitted.cache) == programs and prog.replays == replays + 1,
+               f"{label}: the fresh inputs replay the program")
+        _check(launched == want_fresh, f"{label}: the fresh replay launches what the eager "
+               f"call does ({launched} vs {want_fresh})")
+        diff = _diff_fields(eager_fresh, got)
+        _check(not diff, f"{label}: the fresh replay equals the eager call on the fresh "
+               f"inputs bit for bit (differing: {diff})")
+        fresh_note = (f"; a replay on fresh inputs of the same shapes equals a fresh eager "
+                      f"call bit for bit (launches {want_fresh}, as eager)")
     print(f"  {label}: {len(outs)} replays (two of one capture, one of a second) equal the "
-          f"eager call bit for bit in {', '.join(n for n, _ in _leaves(eager))}; host waits "
-          f"per replay 0 (sync debug mode 'error'); launches per replay {want}, as eager; "
+          f"eager call bit for bit in {', '.join(n for n, _ in _leaves(eager))}{fresh_note}; "
+          f"host waits per replay 0 (sync debug mode 'error'); launches per replay {want}, "
+          f"as eager; "
           f"first call (eager run + capture) {', '.join(f'{t * 1e3:.3f}' for t in firsts)} ms "
           f"against {eager_s * 1e3:.3f} ms eager (one call each, cold); program pools "
-          f"{', '.join(f'{b / 2**20:.1f}' for b in pools)} MiB")
+          f"{', '.join(f'{b / 2**20:.1f}' for b in pools)} MiB against the eager call's "
+          f"peak of {eager_peak / 2**20:.1f} MiB above what it was given")
     return 0
 
 
@@ -2906,11 +2991,13 @@ def _windows_in_flight(host, window: int):
     return in_flight, len(events), torch.cat(rels).cpu()   # the final fetch
 
 
-def _alternated(label: str, eager_call, jitted_call, unit: float = 0.0, what: str = "") -> dict:
-    """ms per call, eager and captured in turns (E C C E E C C E, 5 calls a
-    visit after one warm-up), CUDA events around each call."""
+def _alternated(label: str, eager_call, jitted_call, unit: float = 0.0, what: str = "",
+                rounds: int = 4) -> dict:
+    """ms per call, eager and captured in turns (E C C E E C C E for
+    ``rounds`` = 4, 5 calls a visit after one warm-up), CUDA events around
+    each call."""
     times = bench.time_alternated({"eager": eager_call, "captured": jitted_call},
-                                  torch.device("cuda", 0), iters=5, rounds=4)
+                                  torch.device("cuda", 0), iters=5, rounds=rounds)
     med = {k: statistics.median(v) for k, v in times.items()}
     rate = (f"; {unit / med['eager'] * 1e3:.1f} -> {unit / med['captured'] * 1e3:.1f} {what}"
             if unit else "")
@@ -2929,13 +3016,7 @@ def phase23_captured(device, head_inputs, slice_inputs, pair, raw_inputs, host) 
     t_phase = time.perf_counter()
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}: the solve's loop is a "
           f"CUDA graph conditional WHILE node (csrc/graph_while.cu)")
-    cfg3 = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=100,
-                     tolerance=1e-6, dim=2, trim_dist=5.0, loss_name="huber", loss_metric=1.0)
-    cfg4 = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=50,
-                     tolerance=1e-6, dim=3, trim_dist=2.0, loss_name="huber", loss_metric=0.5)
-    cfg8 = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=30,
-                     tolerance=1e-5, dim=3, trim_dist=2.0, loss_name="huber", loss_metric=1.0,
-                     cluster_probes=PROBES, cluster_group=GROUP)
+    cfg3, cfg4, cfg8 = CFG_REF, CFG_SLICE, CFG_RAW
     eye = lambda b: torch.eye(4, dtype=torch.float32, device=device).expand(b, 4, 4)  # noqa: E731
     src8, tgt8 = pair
     solves = {
@@ -2947,10 +3028,13 @@ def phase23_captured(device, head_inputs, slice_inputs, pair, raw_inputs, host) 
     }
     _reset_launches()
     calls = {}
-    for label, (s, t, ti, cfg) in solves.items():
+    for k, (label, (s, t, ti, cfg)) in enumerate(solves.items()):
         eager_call = functools.partial(register, s, t, ti, None, cfg)
         jitted_call = functools.partial(register_jit, s, t, ti, None, cfg)
-        _captured_equals_eager(label, eager_call, jitted_call, _register_captured)
+        s2 = _fresh(s, 230 + k)
+        fresh = (functools.partial(register, s2, t, ti, None, cfg),
+                 functools.partial(register_jit, s2, t, ti, None, cfg))
+        _captured_equals_eager(label, eager_call, jitted_call, _register_captured, fresh)
         calls[label] = (eager_call, jitted_call)
     # one device loop per batch chunk: a program of more than 64 loops
     hs3, ht3, hti3 = head_inputs
@@ -2979,8 +3063,11 @@ def phase23_captured(device, head_inputs, slice_inputs, pair, raw_inputs, host) 
     hs, ht, hti = head_inputs[0], head_inputs[1], head_inputs[2]
     head_eager = functools.partial(bench.fwdbwd, register_ift, hcfg, hs, ht, hti)
     head_jitted = functools.partial(bench.fwdbwd_jit, hs, ht, hti, hcfg)
+    hs2 = _fresh(hs, 234)
     _captured_equals_eager("phase 12 headline unit (register_ift fwd+bwd, K4 forward)",
-                           head_eager, head_jitted, bench.fwdbwd_jit)
+                           head_eager, head_jitted, bench.fwdbwd_jit,
+                           (functools.partial(bench.fwdbwd, register_ift, hcfg, hs2, ht, hti),
+                            functools.partial(bench.fwdbwd_jit, hs2, ht, hti, hcfg)))
 
     with _eager_windows():
         eager_stream = _stream_rel(host, STREAM_W)
@@ -3035,19 +3122,12 @@ def phase23_captured(device, head_inputs, slice_inputs, pair, raw_inputs, host) 
     _alternated("phase 12 headline unit", head_eager, head_jitted, unit=B_HEAD,
                 what="registrations/s")
     for window in (1, STREAM_W):
-        rates = {"eager": [], "captured": []}
-        for turn in ("eager", "captured", "captured", "eager") * 2:
-            ctx = _eager_windows() if turn == "eager" else contextlib.nullcontext()
-            with ctx:
-                _stream_rel(host, window)    # warm: the first run of a turn untimed
-                t0 = time.perf_counter()
-                _stream_rel(host, window)
-                rates[turn].append(S_SEQ / (time.perf_counter() - t0))
-        print(f"  W={window} warm stream of {S_SEQ} host scans: eager "
-              f"{statistics.median(rates['eager']):.3f}, captured "
-              f"{statistics.median(rates['captured']):.3f} frames/s (medians of 4 runs in turns; "
-              f"eager {', '.join(f'{r:.2f}' for r in rates['eager'])}; captured "
-              f"{', '.join(f'{r:.2f}' for r in rates['captured'])})")
+        def eager_run(w=window):
+            with _eager_windows():
+                return _stream_rel(host, w)
+        _stream_turns(f"W={window} warm stream of {S_SEQ} host scans",
+                      {"eager": eager_run, "captured": functools.partial(_stream_rel, host, window)},
+                      S_SEQ)
     for info in jit.programs():
         print(f"  cached program {info.name}: {info.pool_bytes / 2**20:.1f} MiB of private "
               f"pools, {info.replays} replays, key {str(info.key)[:140]}")
@@ -3057,6 +3137,422 @@ def phase23_captured(device, head_inputs, slice_inputs, pair, raw_inputs, host) 
     first = next(iter(calls.values()))
     return {"launches": launches, "slice": calls[list(calls)[1]], "head": (head_eager, head_jitted),
             "first": first}
+
+
+# phase 24: Anderson, scan-to-map's map_step/map_merge, SLAM's closure programs
+# and SVD-ICP as captured programs against their eager forms
+
+# the suite's pt2pt_pair_aa_m3 row and batch256_ift_aa_m3 unit
+# (dicp_tpu_torch/benchmarks/bench_suite.py::bench_solvers)
+AA_PAIR_CFG = ICPConfig(icp_type="pt2pt", differentiable=False, max_iterations=100,
+                        tolerance=1e-6, dim=2, trim_dist=5.0, loss_name="huber",
+                        loss_metric=1.0, collect_histories=False, anderson_m=3)
+AA_IFT_CFG = ICPConfig(icp_type="pt2pl", differentiable=True, driver="while", max_iterations=100,
+                       tolerance=1e-6, dim=2, trim_dist=5.0, loss_name="huber",
+                       loss_metric=1.0, collect_histories=False, anderson_m=3)
+VAR_STEP = 500                      # the variable-length stream: scan k has N_S2M - 500 k points
+SLAM_TURN_SCANS = PER_LAP + 1       # SLAM's eager/captured turns: one lap
+
+
+@contextlib.contextmanager
+def _eager_programs():
+    """The eager forms of the captured programs: every jitted function
+    uncaptured (jit.disable_jit), and the solves of mapping's and slam's
+    programs on register's eager loop (as _eager_windows does for the
+    pipeline)."""
+    saved = mapping._register_program, slam._register_program
+    mapping._register_program = slam._register_program = register
+    try:
+        with jit.disable_jit():
+            yield
+    finally:
+        mapping._register_program, slam._register_program = saved
+
+
+def _eager(call):
+    """``call`` run under :func:`_eager_programs`."""
+    def run():
+        with _eager_programs():
+            return call()
+    return run
+
+
+def _literal_repairs(device) -> None:
+    """The host-literal repairs hold their bits on the card: Anderson's
+    history solve through solve_ex(check_errors=False) against
+    torch.linalg.solve at (N, m, m), m = 3, 4; its energy sentinel by
+    torch.full against the copied literal; _kabsch's seeds built on the
+    card against the copied literal rows; se3._homogeneous against its
+    assignment of a host 1.0, unbatched and batched."""
+    rng = np.random.default_rng(SEED + 24)
+    for dtype in (torch.float32, torch.float64):
+        for m in (3, 4):
+            dF = torch.as_tensor(rng.normal(size=(B_HEAD, m, 6)), dtype=dtype, device=device)
+            f = torch.as_tensor(rng.normal(size=(B_HEAD, 6)), dtype=dtype, device=device)
+            A = torch.einsum("nme,nke->nmk", dF, dF)
+            lam = 1e-8 * torch.amax(torch.diagonal(A, dim1=-2, dim2=-1), dim=-1, keepdim=True)
+            A = A + lam[..., None] * torch.eye(m, dtype=dtype, device=device)
+            b = torch.einsum("nme,ne->nm", dF, f)[..., None]
+            _check(torch.equal(torch.linalg.solve(A, b),
+                               torch.linalg.solve_ex(A, b, check_errors=False)[0]),
+                   f"solve_ex has linalg.solve's bits at Anderson's (N, {m}, {m}) ({dtype})")
+        big = torch.finfo(dtype).max
+        old = torch.tensor(big, dtype=dtype, device=device).expand(B_HEAD).clone()
+        _check(torch.equal(torch.full((B_HEAD,), big, dtype=dtype, device=device), old),
+               "Anderson's energy sentinel's bits")
+        rows = torch.tensor([[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 1.0, 1.0], [0.0, 1.0, -1.0, 0.0],
+                             [0.0, 1.0, 0.0, -1.0]], dtype=dtype, device=device)
+        _check(torch.equal(svd_icp._seeds(dtype, device), rows / svd_icp._norm(rows)),
+               "_kabsch's seeds' bits")
+        for lead in ((), (B_HEAD,)):
+            rot = torch.as_tensor(rng.normal(size=lead + (3, 3)), dtype=dtype, device=device)
+            t = torch.as_tensor(rng.normal(size=lead + (3,)), dtype=dtype, device=device)
+            top = torch.cat([rot, t[..., None]], dim=-1)
+            bottom = torch.zeros_like(top[..., :1, :])
+            bottom[..., 0, 3] = 1.0
+            _check(torch.equal(se3._homogeneous(rot, t), torch.cat([top, bottom], dim=-2)),
+                   f"se3._homogeneous's bits (batch {lead})")
+    print("  repairs: solve_ex(check_errors=False) equals linalg.solve bit for bit at "
+          "Anderson's (256, m, m), m = 3, 4 (f32, f64); the energy sentinel by torch.full, "
+          "_kabsch's seeds and se3._homogeneous's [0, 0, 0, 1] row built on the card equal "
+          "the host literals and host-scalar assignment they replace")
+
+
+def _record_captured(name: str, label: str, call, recorded: dict) -> None:
+    """Kernel ``name``'s first and last call recorded (:func:`_recording`)
+    over a miss of ``call`` (the eager run, the capture) and one replay, so
+    that the last holds what a replay launched."""
+    with _recording(name, recorded.setdefault(label, {})):
+        call()
+        call()
+
+
+def _stream_turns(label: str, runs: dict, scans: int, warm: bool = True) -> dict:
+    """frames/s of each run in ``runs`` (eager, captured), in turns E C C E
+    E C C E, each visit one untimed run then one timed (``warm``); or E C C
+    E, each visit one timed run (the programs already captured, or never
+    reused)."""
+    rates = {k: [] for k in runs}
+    for turn in ("eager", "captured", "captured", "eager") * (2 if warm else 1):
+        if warm:
+            runs[turn]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[turn]()
+        torch.cuda.synchronize()
+        rates[turn].append(scans / (time.perf_counter() - t0))
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    print(f"  {label}: eager {med['eager']:.3f}, captured {med['captured']:.3f} frames/s "
+          f"(medians of {len(rates['eager'])} runs in turns; eager "
+          f"{', '.join(f'{r:.2f}' for r in rates['eager'])}; captured "
+          f"{', '.join(f'{r:.2f}' for r in rates['captured'])})")
+    return med
+
+
+def _steps_of(run) -> list:
+    """(arguments, eager output, launches) of each map_step call of ``run()``
+    under :func:`_eager_programs`, the tensors copied (the upload ring
+    reuses its buffers)."""
+    steps, fn = [], mapping.map_step
+
+    def spy(*args, **kw):
+        before = _launches()
+        out = fn(*args, **kw)
+        launched = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+        steps.append((pytree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                                      else x, (args, kw)), out, launched))
+        return out
+
+    mapping.map_step = spy
+    try:
+        with _eager_programs():
+            result = run()
+    finally:
+        mapping.map_step = fn
+    return steps, result
+
+
+def _steps_replayed(label: str, steps: list) -> None:
+    """Each recorded step through the captured map_step: the first a miss,
+    each later one a replay on that step's inputs, under the sync debug
+    mode's "error", equal to the eager step bit for bit and launching what
+    it launched."""
+    map_step.cache_clear()
+    for k, ((args, kw), want, launched) in enumerate(steps):
+        before = _launches()
+        with _no_host_wait() if k else contextlib.nullcontext():
+            got = map_step(*args, **kw)
+        diff = _diff_fields(want, got)
+        _check(not diff, f"{label}: step {k + 1} captured equals eager ({diff})")
+        got_l = {n: v - before[n] for n, v in _launches().items() if v != before[n]}
+        _check(got_l == launched, f"{label}: step {k + 1} launches ({got_l} vs {launched})")
+    _check(len(map_step.cache) == 1, f"{label}: one program for the stream")
+    print(f"  {label}: each of the {len(steps)} steps through the captured map_step (one "
+          f"capture, {len(steps) - 1} replays on the next steps' inputs under sync debug mode "
+          f"'error') equals the eager step bit for bit in pose, convergence, iterations and "
+          f"every map field, with the eager step's launches")
+
+
+def _scan_to_map_cases(device, record: dict):
+    """The phase-18 gn stream, f32 and quantized: each step held, the
+    streams held, map_merge alone and the variable-length stream; returns
+    the (eager, captured) calls and streams for the turns."""
+    scans, _, _ = bench_suite.scan_to_map_sequence()
+
+    def stream(quantize=False, src=scans):
+        res = mapping.scan_to_map_odometry(((s, None) for s in src), S2M_CFG,
+                                           capacity=CAP_S2M, voxel=VOXEL_S2M,
+                                           quantize=quantize, device=device)
+        return tuple(a.cpu() for a in res)
+
+    calls, streams = {}, {}
+    for quantize in (False, True):
+        label = f"scan-to-map gn stream{', quantized' if quantize else ''}"
+        steps, eager = _steps_of(functools.partial(stream, quantize))
+        _steps_replayed(label, steps)
+        if not quantize:
+            f32_steps = steps
+            _record_captured("cluster_search", "the captured map_step",
+                             functools.partial(map_step, *steps[5][0][0], **steps[5][0][1]),
+                             record)
+        for k in range(2):
+            diff = _diff_fields(eager, stream(quantize))
+            _check(not diff, f"{label}: captured run {k} equals the eager run ({diff})")
+        print(f"  {label}: two captured runs of {S_S2M} scans equal the eager run bit for bit "
+              f"in poses, relative poses, convergence and iterations")
+        (args, kw), _, _ = steps[5]
+        (args2, kw2), _, _ = steps[6]
+        _captured_equals_eager(f"map_step, {label}, step 6", _eager(
+            lambda: map_step(*args, **kw)), lambda: map_step(*args, **kw), map_step,
+            (_eager(lambda: map_step(*args2, **kw2)), lambda: map_step(*args2, **kw2)))
+        calls[f"{label}: map_step, step 6"] = (_eager(lambda a=args, k=kw: map_step(*a, **k)),
+                                               lambda a=args, k=kw: map_step(*a, **k))
+        streams[label] = {"eager": _eager(functools.partial(stream, quantize)),
+                          "captured": functools.partial(stream, quantize)}
+
+    # map_merge alone at the stream's size: a mature map and the posed scan
+    (args, _), (pose, _, _, _), _ = f32_steps[-1]
+    m = args[0]
+    world = args[1][:, :3] @ pose[:3, :3].T + pose[:3, 3]
+    (args2, _), (pose2, _, _, _), _ = f32_steps[-2]
+    world2 = args2[1][:, :3] @ pose2[:3, :3].T + pose2[:3, 3]
+    with _no_host_wait():
+        map_merge.fn(m, world, VOXEL_S2M, mode="mean")
+    print("  the eager map_merge (normals, three stable argsorts, searchsorted, "
+          "segment_reduce(unsafe=True), scatter_reduce amax) ran under sync debug mode 'error': "
+          "no host wait")
+    merge = (_eager(lambda: map_merge(m, world, VOXEL_S2M, mode="mean")),
+             lambda: map_merge(m, world, VOXEL_S2M, mode="mean"))
+    _captured_equals_eager(f"map_merge of {N_S2M} points into a {CAP_S2M}-row map", *merge,
+                           map_merge, (_eager(lambda: map_merge(args2[0], world2, VOXEL_S2M,
+                                                                mode="mean")),
+                                       lambda: map_merge(args2[0], world2, VOXEL_S2M,
+                                                         mode="mean")))
+    calls[f"map_merge of {N_S2M} points into a {CAP_S2M}-row map"] = merge
+
+    # a stream whose scan length changes every scan: a program per length
+    var = [s[:N_S2M - VAR_STEP * k] for k, s in enumerate(scans)]
+    map_step.cache_clear()
+    firsts = []
+    with _timed_calls(mapping, "map_step", firsts):
+        stream(src=var)
+    pools = [p.pool_bytes for p in jit.programs() if p.name == "map_step"]
+    eager_steps = []
+    with _eager_programs(), _timed_calls(mapping, "map_step", eager_steps):
+        stream(src=var)
+    print(f"  variable-length stream ({S_S2M} scans of {N_S2M} - {VAR_STEP} k points): every "
+          f"captured step a first call (eager run + capture), median "
+          f"{statistics.median(firsts):.3f} ms (range {min(firsts):.3f}-{max(firsts):.3f}) "
+          f"against eager steps' {statistics.median(eager_steps):.3f} ms; the {len(pools)} "
+          f"programs the LRU keeps hold {', '.join(f'{b / 2**20:.1f}' for b in pools)} MiB")
+    streams[f"variable-length scan-to-map stream ({S_S2M} scans)"] = {
+        "eager": _eager(lambda: stream(src=var)), "captured": lambda: stream(src=var)}
+    map_step.cache_clear()
+    return calls, streams
+
+
+def _slam_cases(device, slam_case, scans):
+    """SLAM's programs on phase 20's circuit: _closure_solve (on two of
+    phase 20's closures), _make_anchor, _edge_residual_norms and a
+    front-end map_step (tiled tier) held one by one; then one lap with
+    eager programs against one with captured programs (front-end and
+    refined trajectories, convergence, iterations, closures).  Returns the
+    (eager, captured) calls and the lap's runs for the turns."""
+    res_c, _ = slam_case
+    lap = scans[:SLAM_TURN_SCANS]
+
+    def run(eager=False):
+        call = lambda: slam.slam_odometry(((p, None) for p in lap), SLAM_CFG,  # noqa: E731
+                                          device=device, **SLAM_KW)
+        return (_eager(call) if eager else call)()
+
+    poses = res_c.poses_front.to(device)
+    dev_scans = [torch.as_tensor(p, device=device) for p in scans]
+    closure_cfg = SLAM_CFG.with_(trim_dist=SLAM_CFG.trim_dist * 4.0)
+    c1 = res_c.closures[0]
+    c2 = res_c.closures[-1] if len(res_c.closures) > 1 else c1._replace(
+        scan_idx=c1.scan_idx - SLAM_KW["detect_every"])
+    calls = {}
+
+    def closure_call(c):
+        anchor = slam._make_anchor.fn(dev_scans[c.anchor_idx], poses[c.anchor_idx], True)
+        args = (anchor, poses[c.anchor_idx], dev_scans[c.scan_idx], poses[c.scan_idx],
+                closure_cfg, SLAM_CFG)
+        return _eager(lambda: slam._closure_solve(*args)), lambda: slam._closure_solve(*args)
+
+    calls["_closure_solve"] = closure_call(c1)
+    _captured_equals_eager(f"_closure_solve ({N_SLAM} points against a {N_SLAM}-row anchor, "
+                           f"two cluster-tier solves)", *calls["_closure_solve"],
+                           slam._closure_solve, closure_call(c2))
+
+    def anchor_call(j):
+        args = (dev_scans[j], poses[j], True)
+        return _eager(lambda: slam._make_anchor(*args)), lambda: slam._make_anchor(*args)
+
+    calls["_make_anchor"] = anchor_call(0)
+    _captured_equals_eager(f"_make_anchor ({N_SLAM} points, weighted normals)",
+                           *calls["_make_anchor"], slam._make_anchor, anchor_call(4))
+    graph = slam.build_pose_graph(poses, res_c.closures, SLAM_KW["closure_info"],
+                                  converged=res_c.converged)
+
+    def norms_call(p):
+        args = (p, graph.edges_i, graph.edges_j, graph.t_meas)
+        return (_eager(lambda: slam._edge_residual_norms(*args)),
+                lambda: slam._edge_residual_norms(*args))
+
+    calls["_edge_residual_norms"] = norms_call(poses)
+    _captured_equals_eager(f"_edge_residual_norms ({graph.edges_i.shape[0]} edges)",
+                           *calls["_edge_residual_norms"], slam._edge_residual_norms,
+                           norms_call(res_c.poses.to(device)))
+
+    # one lap, eager (its front-end step at scan k_step kept) and captured
+    k_step, steps, fn = 20, [], slam.map_step
+
+    def spy(*args, **kw):
+        steps.append(pytree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                                     else x, (args, kw)) if len(steps) == k_step - 1 else None)
+        return fn(*args, **kw)
+
+    slam.map_step = spy
+    try:
+        res_e = run(eager=True)
+    finally:
+        slam.map_step = fn
+    res_l = run()
+    for field in ("poses_front", "poses", "converged", "iterations"):
+        a, b = getattr(res_e, field).cpu(), getattr(res_l, field).cpu()
+        _check(torch.equal(a, b), f"SLAM: the captured lap's {field} equals the eager lap's "
+               f"({_max_abs_diff(a.double(), b.double())})")
+    _check(len(res_e.closures) == len(res_l.closures) >= 1, "SLAM: as many closures, one or more")
+    for ce, cc in zip(res_e.closures, res_l.closures):
+        _check((ce.anchor_idx, ce.scan_idx, ce.matched_ratio)
+               == (cc.anchor_idx, cc.scan_idx, cc.matched_ratio)
+               and torch.equal(ce.T_rel.cpu(), cc.T_rel.cpu()),
+               f"SLAM: closure {cc.anchor_idx} -> {cc.scan_idx} equal in both laps")
+    print(f"  SLAM over one lap ({SLAM_TURN_SCANS} scans of phase 20's circuit): the captured "
+          f"programs' front-end and refined trajectories, convergence, iterations and "
+          f"{len(res_l.closures)} closures (pairs, T_rel, ratios) equal the eager programs' bit "
+          f"for bit")
+    args, kw = steps[k_step - 1]
+    args2 = (args[0], dev_scans[k_step + 1]) + tuple(args[2:])
+    calls["front-end map_step"] = (_eager(lambda: map_step(*args, **kw)),
+                                   lambda: map_step(*args, **kw))
+    _captured_equals_eager(f"SLAM front-end map_step, scan {k_step} ({N_SLAM} points against "
+                           f"{SLAM_KW['capacity']} rows, tiled tier)",
+                           *calls["front-end map_step"], map_step,
+                           (_eager(lambda: map_step(*args2, **kw)),
+                            lambda: map_step(*args2, **kw)))
+    return calls, {"eager": lambda: run(eager=True), "captured": run}
+
+
+def phase24_captured_solvers(device, slice_inputs, raw_inputs, slam_case, slam_scans) -> dict:
+    """Anderson, map_merge/map_step, SLAM's closure programs and SVD-ICP
+    captured, each against its eager form (:func:`_eager_programs`), then
+    eager against captured in turns; returns the launches of the phase and
+    K1's and K2's largest |difference| to their plain versions on the
+    captured Anderson and map_step calls."""
+    t_phase = time.perf_counter()
+    _reset_launches()
+    _literal_repairs(device)
+    eye = lambda b: torch.eye(4, dtype=torch.float32, device=device).expand(b, 4, 4)  # noqa: E731
+    scan, mp = bench_suite._pair()
+    src1 = torch.as_tensor(scan[None, :, :3], device=device)
+    tgt1 = torch.as_tensor(mp[None], device=device)
+    srcB, tgtB, tiB = bench_suite._batch_inputs(B_HEAD, device)
+    solves = {
+        "Anderson m=3, the suite's pt2pt pair (register_anderson_jit)":
+            (register_anderson, anderson.register_anderson_jit, anderson.register_anderson_jit,
+             (src1, tgt1, eye(1)), (None, AA_PAIR_CFG, 3)),
+        f"Anderson m=3, phase 4's {B} x {N_SRC} -> {M_TGT} (register_jit, tiled tier)":
+            (register, register_jit, _register_captured, (*slice_inputs, eye(B)),
+             (None, CFG_SLICE.with_(anderson_m=3, collect_histories=False))),
+        f"Anderson m=3, phase 9's {B_RAW} x {N_RAW} -> {M_RAW} (register_jit, cluster tier)":
+            (register, register_jit, _register_captured, (*raw_inputs, eye(B_RAW)),
+             (None, CFG_RAW.with_(anderson_m=3, collect_histories=False))),
+        f"Anderson m=3, batch256_ift_aa_m3's forward (register_ift_jit, B = {B_HEAD})":
+            (register_ift, register_ift_jit, register_ift_jit, (srcB, tgtB, tiB),
+             (None, AA_IFT_CFG)),
+    }
+    calls = {}
+    for k, (label, (eager_fn, jit_fn, program, (s, t, ti), rest)) in enumerate(solves.items()):
+        s2 = _fresh(s, 240 + k)
+        calls[label] = (functools.partial(eager_fn, s, t, ti, *rest),
+                        functools.partial(jit_fn, s, t, ti, *rest))
+        _captured_equals_eager(label, *calls[label], program,
+                               (functools.partial(eager_fn, s2, t, ti, *rest),
+                                functools.partial(jit_fn, s2, t, ti, *rest)))
+    unit = (functools.partial(bench.fwdbwd, register_ift, AA_IFT_CFG, srcB, tgtB, tiB),
+            functools.partial(bench.fwdbwd_jit, srcB, tgtB, tiB, AA_IFT_CFG))
+    srcB2 = _fresh(srcB, 244)
+    _captured_equals_eager("batch256_ift_aa_m3's unit, forward and backward (bench.fwdbwd_jit)",
+                           *unit, bench.fwdbwd_jit,
+                           (functools.partial(bench.fwdbwd, register_ift, AA_IFT_CFG, srcB2,
+                                              tgtB, tiB),
+                            functools.partial(bench.fwdbwd_jit, srcB2, tgtB, tiB, AA_IFT_CFG)))
+    calls["batch256_ift_aa_m3 unit"] = unit
+    rec1, rec2 = {}, {}
+    labels = list(solves)
+    _record_captured("tiled_nn", "the captured Anderson solve on phase 4's slice",
+                     calls[labels[1]][1], rec1)
+    _record_captured("cluster_search", "the captured Anderson solve on phase 9's batch",
+                     calls[labels[2]][1], rec2)
+
+    s2m_calls, s2m_streams = _scan_to_map_cases(device, rec2)
+    slam_calls, slam_runs = _slam_cases(device, slam_case, slam_scans)
+
+    svd_in = (torch.as_tensor(scan[:, :3], device=device), torch.as_tensor(mp[:, :3],
+                                                                           device=device))
+    for differentiable in (False, True):
+        def svd(src, d=differentiable):
+            return pt2pt_svd_icp(src, svd_in[1], max_iterations=60, tolerance=1e-9,
+                                 differentiable=d, device=device)
+        label = f"pt2pt_svd_icp, the svd_pair inputs, differentiable={differentiable}"
+        calls[label] = (_eager(lambda f=svd: f(svd_in[0])), lambda f=svd: f(svd_in[0]))
+        src2 = _fresh(svd_in[0], 246 + differentiable, 1e-2)
+        _captured_equals_eager(label, *calls[label], svd_icp._svd_icp_impl,
+                               (_eager(lambda f=svd: f(src2)), lambda f=svd: f(src2)))
+    launches = _launches()
+    k1_err = _held_to_plain("tiled_nn", rec1)
+    k2_err = _held_to_plain("cluster_search", rec2)
+
+    # eager against captured, in turns
+    for label, (eager_call, jitted_call) in {**calls, **s2m_calls}.items():
+        _alternated(label, eager_call, jitted_call, rounds=2)
+    for label, runs in s2m_streams.items():
+        _stream_turns(label, runs, S_S2M, warm="variable" not in label)
+    for label, (eager_call, jitted_call) in slam_calls.items():
+        _alternated(f"SLAM {label}", eager_call, jitted_call, rounds=2)
+    _stream_turns(f"SLAM over {SLAM_TURN_SCANS} scans (one lap)", slam_runs, SLAM_TURN_SCANS,
+                  warm=False)
+    for info in jit.programs():
+        print(f"  cached program {info.name}: {info.pool_bytes / 2**20:.1f} MiB of private "
+              f"pools, {info.replays} replays, key {str(info.key)[:140]}")
+    jit.clear_caches()
+    print(f"phase 24 ok: Anderson, map_step/map_merge, SLAM's programs and SVD-ICP captured "
+          f"equal their eager forms bit for bit, no host wait in a replay; launches {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "k1_err": k1_err, "k2_err": k2_err,
+            "s2m": s2m_streams["scan-to-map gn stream"], "slam": slam_runs}
 
 
 def main() -> None:
@@ -3085,7 +3581,7 @@ def main() -> None:
         odo_launches, stream_w1, k2_err, host = phase17_lidar_odometry(device, Path(workdir))
         s2m_launches, k2_err_s2m, s2m_stream = phase18_scan_to_map(device)
         pyramid = phase19_gicp_multiscale(device)
-        slam_k1, slam_k2, slam_stream, slam_case = phase20_slam(device)
+        slam_k1, slam_k2, slam_stream, slam_case, slam_scans = phase20_slam(device)
         par = phase21_parallel(device, pair, T_pair, sources, targets, T_true, raw_sources,
                                raw_targets, T_raw, slam_case)
         suite = phase22_bench_suite_examples(device)
@@ -3094,10 +3590,16 @@ def main() -> None:
                                     pair, (to_torch(raw_sources, device),
                                            to_torch(raw_targets, device)), host)
         del host
+        solvers = phase24_captured_solvers(
+            device, (to_torch(sources, device), to_torch(targets, device)),
+            (to_torch(raw_sources, device), to_torch(raw_targets, device)), slam_case,
+            slam_scans)
+        del slam_scans
         timed["cluster_search"]["max_abs_err"] = max(timed["cluster_search"]["max_abs_err"],
                                                      k2_err, k2_err_s2m, pyramid["k2_err"],
-                                                     slam_k2["k2_err"], par["k2_err"])
-        k1["max_abs_err"] = max(k1["max_abs_err"], slam_k1["k1_err"])
+                                                     slam_k2["k2_err"], par["k2_err"],
+                                                     solvers["k2_err"])
+        k1["max_abs_err"] = max(k1["max_abs_err"], slam_k1["k1_err"], solvers["k1_err"])
         for name, got in (("tiled_nn", k1), ("cluster_search", timed["cluster_search"]),
                           ("cluster_topk", timed["cluster_topk"]), ("fused_gn", k4)):
             got["max_abs_err"] = max(got["max_abs_err"], suite["max_abs_err"].get(name, 0.0))
@@ -3119,12 +3621,20 @@ def main() -> None:
             ops = _profile(stream_w1, f"phase 17, W=1 warm stream of {PROFILE_SCANS} scans, "
                            "eager windows", calls=1, focus=("cluster_search_kernel",))
         print(f"  phase 17 eager stream: {ops / (PROFILE_SCANS - 1):.1f} device ops per pair")
-        ops = _profile(s2m_stream, f"phase 18, gn scan-to-map stream of {PROFILE_S2M_SCANS} "
-                       "scans", calls=1, focus=("cluster_search_kernel",))
-        print(f"  phase 18 stream: {ops / PROFILE_S2M_SCANS:.1f} device ops per scan")
-        ops = _profile(slam_stream, f"phase 20, SLAM stream of {PROFILE_SLAM_SCANS} scans",
-                       calls=1, focus=("tiled_nn_kernel", "cluster_search_kernel"))
-        print(f"  phase 20 stream: {ops / PROFILE_SLAM_SCANS:.1f} device ops per scan")
+        # phases 18 and 20 run captured programs (phase 24): each stream beside
+        # its eager form
+        for form, ctx in (("captured", contextlib.nullcontext), ("eager", _eager_programs)):
+            with ctx():
+                ops = _profile(s2m_stream, f"phase 18, gn scan-to-map stream of "
+                               f"{PROFILE_S2M_SCANS} scans, {form} map_step", calls=1,
+                               focus=("cluster_search_kernel",))
+                print(f"  phase 18 stream, {form}: {ops / PROFILE_S2M_SCANS:.1f} device ops "
+                      f"per scan")
+                ops = _profile(slam_stream, f"phase 20, SLAM stream of {PROFILE_SLAM_SCANS} "
+                               f"scans, {form} programs", calls=1,
+                               focus=("tiled_nn_kernel", "cluster_search_kernel"))
+                print(f"  phase 20 stream, {form}: {ops / PROFILE_SLAM_SCANS:.1f} device ops "
+                      f"per scan")
         # phase 21's map-sharded call in a world of one of its own
         mesh = make_mesh((1, 1))
         try:
@@ -3134,7 +3644,8 @@ def main() -> None:
             dist.destroy_process_group()
         print(f"  phase 21 map-sharded: {ops / (par['iterations'] + 1):.1f} device ops per "
               f"iteration ({par['iterations']} iterations and the cost pass)")
-    print("phase 16 ok: profiles of phases 4, 8, 9, 12, 17, 18, 20 and 21")
+    print("phase 16 ok: profiles of phases 4, 8, 9, 12, 17, 18, 20 and 21 (18 and 20 "
+          "captured and eager)")
 
     def suite_launches(name):
         """Phase 22's launches of kernel ``name``: per row or example, and their sum."""
@@ -3147,8 +3658,9 @@ def main() -> None:
         "replaces": "dicp_tpu/ops/pallas_knn.py:50",
         **k1,
         "launches": (launches + slam_k1["launches"] + suite_launches("tiled_nn")[1]
-                     + captured["launches"]["tiled_nn"]),
+                     + captured["launches"]["tiled_nn"] + solvers["launches"]["tiled_nn"]),
         "launches_in_phase23": captured["launches"]["tiled_nn"],
+        "launches_in_phase24": solvers["launches"]["tiled_nn"],
         "launches_per_slam_scan": slam_k1["launches_per_slam_scan"],
         "launches_per_suite_row": suite_launches("tiled_nn")[0],
     }]
@@ -3176,17 +3688,20 @@ def main() -> None:
                      "launches_per_multiscale_call": pyramid["launches_per_multiscale_call"],
                      "launches_per_map_sharded_call": par["launches_per_map_sharded_call"]}
         per_row, in_suite = suite_launches(name)
-        in23 = captured["launches"][name]
+        in23, in24 = captured["launches"][name], solvers["launches"][name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": count + in_suite + in23, **timed[name], **extra,
-                        "launches_per_suite_row": per_row, "launches_in_phase23": in23})
+                        "launches": count + in_suite + in23 + in24, **timed[name], **extra,
+                        "launches_per_suite_row": per_row, "launches_in_phase23": in23,
+                        "launches_in_phase24": in24})
     _check(k4_launches > 0, f"fused_gn launched on the headline path ({k4_launches})")
     kernels.append({"name": "fused_gn", "route": "cuda",
                     "source": "dicp_tpu_torch/csrc/fused_gn.cu",
                     "replaces": "dicp_tpu/ops/fused_gn.py:167",
                     "launches": (k4_launches + suite_launches("fused_gn")[1]
-                                 + captured["launches"]["fused_gn"]), **k4,
+                                 + captured["launches"]["fused_gn"]
+                                 + solvers["launches"]["fused_gn"]), **k4,
                     "launches_in_phase23": captured["launches"]["fused_gn"],
+                    "launches_in_phase24": solvers["launches"]["fused_gn"],
                     "launches_per_suite_row": suite_launches("fused_gn")[0]})
     for name, replaces in (("score_nn_v1", "benchmarks/exp_knn.py:69"),
                            ("score_nn_v2", "benchmarks/exp_knn.py:137")):

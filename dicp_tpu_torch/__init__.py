@@ -17,10 +17,11 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
   input requires grad.
 * :mod:`dicp_tpu_torch.ift`: :func:`register_ift`, implicit-function-theorem
   gradients through the fixed point, and ``register_ift_jit``, captured like
-  ``register_jit``.  ``register_anderson_jit``, ``register_gicp_jit`` and
-  ``register_sgd_jit`` are still aliases of their eager functions.
+  ``register_jit``.  ``register_gicp_jit`` and ``register_sgd_jit`` are
+  still aliases of their eager functions.
 * :mod:`dicp_tpu_torch.anderson`: :func:`register_anderson`, the
-  Anderson-accelerated driver.
+  Anderson-accelerated driver, and ``register_anderson_jit``, captured like
+  ``register_jit`` (its loop a WHILE node too).
 * :mod:`dicp_tpu_torch.ops.fused_gn`: the whole-solve kernel K4
   (``fused_small=True``).
 * :mod:`dicp_tpu_torch.knn`, :mod:`dicp_tpu_torch.ops.tiled_knn`: hard 1-NN,
@@ -29,7 +30,7 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
   the Hilbert cluster index and its certified 1-NN and k-NN searches.
 * :mod:`dicp_tpu_torch.ops.normals`: PCA surface normals.
 * :mod:`dicp_tpu_torch.svd_icp`: :func:`pt2pt_svd_icp`, closed-form (Kabsch)
-  pt2pt ICP.
+  pt2pt ICP, its solve a captured program on the card.
 * :mod:`dicp_tpu_torch.odometry`: chained scan-to-scan odometry, ATE, the
   pose graph and checkpoint/resume (:mod:`dicp_tpu_torch.utils.checkpoint`).
 * :mod:`dicp_tpu_torch.pipeline`: the streaming serving loop over raw scans
@@ -40,9 +41,12 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
 * :mod:`dicp_tpu_torch.sgd_icp`: :func:`register_sgd`, stochastic
   mini-batch ICP with an explicit mini-batch source.
 * :mod:`dicp_tpu_torch.mapping`: scan-to-map odometry against a fused voxel
-  map (:func:`scan_to_map_odometry`, :func:`map_step`, :func:`map_merge`).
+  map (:func:`scan_to_map_odometry`; :func:`map_step` and :func:`map_merge`,
+  captured programs on the card, as JAX jits them).
 * :mod:`dicp_tpu_torch.slam`: closed-loop SLAM, the scan-to-map front end
-  with keyframe loop closures and a robust pose graph (:func:`slam_odometry`).
+  with keyframe loop closures and a robust pose graph (:func:`slam_odometry`;
+  its closure solves, anchors and residual norms captured programs on the
+  card).
 * :mod:`dicp_tpu_torch.gicp`: plane-to-plane Generalized-ICP
   (:func:`register_gicp`, :func:`register_gicp_ift`).
 * :mod:`dicp_tpu_torch.multiscale`: coarse-to-fine registration over a voxel

@@ -26,9 +26,10 @@ CPU, where the tests run); when an input requires grad while grad mode is on
 (a captured forward cannot feed a later eager backward, so
 ``torch.autograd.grad`` of a jitted call is that of ``fn`` itself; capture a
 forward and backward together by calling ``torch.autograd.grad`` inside
-``fn``); and where ``eager_if(arguments)`` says so (the solver's
-host-driven paths: Gumbel noise sources and the Anderson driver).  A
-capture that fails raises: there is no eager fallback on the card.
+``fn``); where ``eager_if(arguments)`` says so (the host-driven paths:
+Gumbel noise sources, SGD's host-seeded mini-batches); and inside
+:func:`disable_jit`, as inside ``jax.disable_jit()``.  A capture that fails
+raises: there is no eager fallback on the card.
 
 Loops whose exit the device decides are written with :func:`device_while`.
 Under capture it becomes a CUDA graph conditional WHILE node
@@ -46,6 +47,7 @@ runs.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import inspect
@@ -204,6 +206,18 @@ def programs() -> List[ProgramInfo]:
     return [ProgramInfo(p.name, p.key, p.pool_bytes, p.replays) for p in _live.values()]
 
 
+@contextlib.contextmanager
+def disable_jit():
+    """Within the block, on this thread, every jitted function runs its
+    function eagerly (``jax.disable_jit``'s counterpart)."""
+    outer = getattr(_local, "disabled", False)
+    _local.disabled = True
+    try:
+        yield
+    finally:
+        _local.disabled = outer
+
+
 def _is_tensor(x) -> bool:
     return isinstance(x, torch.Tensor)
 
@@ -228,6 +242,8 @@ class _Jitted:
         return bound, leaves, spec
 
     def _eager_reason(self, bound, leaves) -> Optional[str]:
+        if getattr(_local, "disabled", False):
+            return "disable_jit"
         tensors = [x for x in leaves if _is_tensor(x)]
         if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
             return "an input requires grad"

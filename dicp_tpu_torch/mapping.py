@@ -38,10 +38,18 @@ No step syncs with the host: the divergence guard keeps the old map through
 a ``torch.where`` per field.  On the card the GN solve runs the cluster tier
 (kernel K2) against the map; the SGD solve's mini-batch search is the plain
 group scan (:mod:`dicp_tpu_torch.sgd_icp`).
+
+As in JAX, the public :func:`map_merge` and :func:`map_step` are the
+compiled programs themselves (:mod:`dicp_tpu_torch.jit`): on the card each
+is a captured CUDA graph per static arguments and input shapes (the GN
+solve's loop a WHILE node, the merge inside the step's program); on the CPU
+they run eagerly.  ``map_merge.fn`` and ``map_step.fn`` are the functions
+uncaptured.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -50,11 +58,12 @@ import torch
 from dicp_tpu_torch import se3
 from dicp_tpu_torch.api import _resolve_device
 from dicp_tpu_torch.config import ICPConfig
+from dicp_tpu_torch.jit import jit
 from dicp_tpu_torch.odometry import OdometryResult
 from dicp_tpu_torch.ops.normals import estimate_normals_weighted, smallest_eigvec_sym3
 from dicp_tpu_torch.ops.voxel import _lexsort, segment_sum
 from dicp_tpu_torch.pipeline import _prefetched, _quantize_host, _Uploader, dequantize_scan
-from dicp_tpu_torch.registration import register
+from dicp_tpu_torch.registration import _register_program
 from dicp_tpu_torch.sgd_icp import SeededSampler, register_sgd
 
 # Initial placeholder for empty rows (the dynamic bounded sentinel replaces
@@ -113,6 +122,7 @@ def map_target(m: LocalMap, with_normals: bool = True) -> torch.Tensor:
     return torch.cat([m.pos, nrm], dim=1)
 
 
+@functools.partial(jit, static_argnames=("voxel", "with_normals", "mode"), name="map_merge")
 def map_merge(m: LocalMap, scan_world: torch.Tensor, voxel: float,
               with_normals: bool = True, mode: str = "freeze") -> LocalMap:
     """Fuse a world-frame scan (n, >=3) into the map; voxels beyond capacity
@@ -213,6 +223,10 @@ def map_merge(m: LocalMap, scan_world: torch.Tensor, voxel: float,
                     step=m.step + 1)
 
 
+@functools.partial(jit, static_argnames=("cfg", "voxel", "insert", "merge_mode", "solver",
+                                         "sgd_minibatch", "sgd_iterations",
+                                         "sgd_max_correction", "merge_subsample"),
+                   eager_if=lambda a: a["solver"] == "sgd", name="map_step")
 def map_step(m: LocalMap, scan, t_pred: torch.Tensor, weight: Optional[torch.Tensor],
              cfg: ICPConfig, voxel: float, insert: bool = True, merge_mode: str = "freeze",
              solver: str = "gn", key=None, sgd_minibatch: int = 2048,
@@ -233,7 +247,11 @@ def map_step(m: LocalMap, scan, t_pred: torch.Tensor, weight: Optional[torch.Ten
     gate is not merged; the map's ``step`` still advances.
     ``merge_subsample``: merge a strided subset of about that many posed
     points (the solve uses every point).  ``deq``: ``scan`` is the pipeline's
-    packed quantized tuple, decoded by :func:`pipeline.dequantize_scan`."""
+    packed quantized tuple, decoded by :func:`pipeline.dequantize_scan`.
+
+    On the card a ``"gn"`` step is one captured program whose solve loop
+    exits on the device.  ``"sgd"`` runs eagerly: its mini-batch sources are
+    seeded on the host per iteration."""
     if solver not in ("gn", "sgd"):
         raise ValueError(f"solver must be gn|sgd, got {solver}")
     if solver == "sgd" and key is None:
@@ -255,7 +273,7 @@ def map_step(m: LocalMap, scan, t_pred: torch.Tensor, weight: Optional[torch.Ten
         ok = (torch.all(torch.isfinite(pose))
               & (torch.linalg.vector_norm(corr) <= sgd_max_correction))
     else:
-        res = register(scan[None, :, :3], target[None], t_pred[None], w, cfg)
+        res = _register_program(scan[None, :, :3], target[None], t_pred[None], w, cfg)
         pose = res.T[0]
         ok = res.converged[0]
     if insert:
@@ -263,7 +281,7 @@ def map_step(m: LocalMap, scan, t_pred: torch.Tensor, weight: Optional[torch.Ten
         if merge_subsample is not None and merge_subsample < scan.shape[0]:
             stride = -(-scan.shape[0] // merge_subsample)
             scan_world = scan_world[::stride]
-        merged = map_merge(m, scan_world, voxel, with_normals=with_normals, mode=merge_mode)
+        merged = map_merge.fn(m, scan_world, voxel, with_normals=with_normals, mode=merge_mode)
         kept = m._replace(step=m.step + 1)
         new_map = LocalMap(*(torch.where(ok.reshape((1,) * a.dim()), a, b)
                              for a, b in zip(merged, kept)))
@@ -354,8 +372,9 @@ def scan_to_map_odometry(
         if m is None:
             seed_scan = views[0][:, :3]
             dtype = seed_scan.dtype
-            m = map_merge(empty_map(capacity, dtype, device), seed_scan, voxel,
-                          with_normals=with_normals, mode=merge_mode)
+            # a one-shot shape: the seed merge runs uncaptured
+            m = map_merge.fn(empty_map(capacity, dtype, device), seed_scan, voxel,
+                             with_normals=with_normals, mode=merge_mode)
             pose = torch.eye(4, dtype=dtype, device=device)
             conv = torch.ones((), dtype=torch.bool, device=device)
             it = torch.zeros((), dtype=dtype, device=device)

@@ -25,7 +25,8 @@ carry-forward of histories and the reference's stop-gradient boundaries
 reproduced as in the JAX core.
 
 ``_register_impl`` routes as JAX does: ``anderson_m > 0`` to the Anderson
-driver (:mod:`dicp_tpu_torch.anderson`); else, where
+driver (:mod:`dicp_tpu_torch.anderson`, whose loop is a device-loop body
+too, captured or not); else, where
 :func:`ops.fused_gn.fused_eligible` allows, to the whole-solve kernel K4;
 else to the loop.
 
@@ -565,8 +566,8 @@ def _register(source, target, T_init, weight, cfg, key, device_loop: bool) -> IC
 
 def host_driven(cfg: ICPConfig) -> bool:
     """Whether a solve needs the host inside its loop: Gumbel noise draws
-    (seeded on the host per iteration) or the Anderson driver."""
-    return cfg.anderson_m > 0 or (cfg.differentiable and cfg.use_gumbel)
+    (seeded on the host per iteration)."""
+    return cfg.differentiable and cfg.use_gumbel
 
 
 def _register_program(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tensor,

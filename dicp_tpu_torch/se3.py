@@ -139,9 +139,11 @@ def left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
 def _homogeneous(rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """[[rot, t], [0, 1]] from rot (..., 3, 3) and t (..., 3)."""
     top = torch.cat([rot, t[..., None]], dim=-1)
-    bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 0, 3] = 1.0
-    return torch.cat([top, bottom], dim=-2)
+    # [0, 0, 0, 1] made on the tensors' device: assigning a Python 1.0 to an
+    # unbatched element would copy a pageable host scalar, which a CUDA graph
+    # capture cannot hold
+    bottom = torch.eye(4, dtype=top.dtype, device=top.device)[3:]
+    return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
 
 
 def vec2tran(xi: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,11 @@ module's docstring has the measured history).
 
 On the card a 60,000-point scan against the default 8,192-row map runs the
 front end on the tiled tier (kernel K1), and a closure against a 60,000-row
-anchor on the cluster tier (K2).  The host reads inside the stream are
+anchor on the cluster tier (K2).  As JAX jits them, the front end's
+:func:`mapping.map_step`, :func:`_closure_solve`, :func:`_make_anchor`,
+:func:`_edge_residual_norms` and :func:`rebuild_map`'s merges run as
+captured programs on the card (:mod:`dicp_tpu_torch.jit`; each solve's loop
+a WHILE node), eagerly on the CPU.  The host reads inside the stream are
 JAX's: one predicted position (3 floats) per detection check, one anchor
 position per stored keyframe, and the convergence flag and matched ratio of
 each closure attempt.
@@ -31,6 +35,7 @@ each closure attempt.
 
 from __future__ import annotations
 
+import functools
 from typing import Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -39,12 +44,13 @@ import torch
 from dicp_tpu_torch import se3
 from dicp_tpu_torch.api import _resolve_device
 from dicp_tpu_torch.config import ICPConfig
+from dicp_tpu_torch.jit import jit
 from dicp_tpu_torch.mapping import LocalMap, empty_map, map_merge, map_step
 from dicp_tpu_torch.odometry import PoseGraph, pose_graph_optimize
 from dicp_tpu_torch.ops.normals import _median, estimate_normals_weighted
 from dicp_tpu_torch.parallel.pose_graph import pose_graph_optimize_partitioned
 from dicp_tpu_torch.pipeline import _prefetched, _Uploader
-from dicp_tpu_torch.registration import register
+from dicp_tpu_torch.registration import _register_program
 
 
 class Closure(NamedTuple):
@@ -63,6 +69,7 @@ class SlamResult(NamedTuple):
     iterations: torch.Tensor     # (S,)
 
 
+@functools.partial(jit, static_argnames=("cfg_coarse", "cfg_tight"), name="closure_solve")
 def _closure_solve(anchor_tgt: torch.Tensor, t_anchor: torch.Tensor, scan: torch.Tensor,
                    t_pred: torch.Tensor, cfg_coarse: ICPConfig, cfg_tight: ICPConfig):
     """Register ``scan`` against one keyframe snapshot; returns (T_rel (4, 4)
@@ -72,12 +79,14 @@ def _closure_solve(anchor_tgt: torch.Tensor, t_anchor: torch.Tensor, scan: torch
     front end's gate), then tight with the front end's own trim from the
     coarse pose.  The ratio is the tight solve's: under a wide trim it reads
     ~1 even when only a sliver of the anchor overlaps the scan."""
-    res_c = register(scan[None, :, :3], anchor_tgt[None], t_pred[None], None, cfg_coarse)
-    res_t = register(scan[None, :, :3], anchor_tgt[None], res_c.T, None, cfg_tight)
+    res_c = _register_program(scan[None, :, :3], anchor_tgt[None], t_pred[None], None,
+                              cfg_coarse)
+    res_t = _register_program(scan[None, :, :3], anchor_tgt[None], res_c.T, None, cfg_tight)
     t_rel = se3.compose(se3.tran_inv(t_anchor), res_t.T[0])
     return t_rel, res_c.converged[0] & res_t.converged[0], res_t.matched_ratio[0]
 
 
+@functools.partial(jit, static_argnames=("with_normals",), name="make_anchor")
 def _make_anchor(scan: torch.Tensor, pose: torch.Tensor, with_normals: bool) -> torch.Tensor:
     """World-frame keyframe snapshot (n, 6): posed points and posed normals
     (estimated in the sensor frame, then rotated; the pt2pl residual does
@@ -211,8 +220,9 @@ def slam_odometry(
         w = views[1] if len(views) > 1 else None
         if m is None:
             dtype = scan.dtype
-            m = map_merge(empty_map(capacity, dtype, device), scan[:, :3], voxel,
-                          with_normals=with_normals, mode=merge_mode)
+            # a one-shot shape: the seed merge runs uncaptured
+            m = map_merge.fn(empty_map(capacity, dtype, device), scan[:, :3], voxel,
+                             with_normals=with_normals, mode=merge_mode)
             pose = torch.eye(4, dtype=dtype, device=device)
             conv = torch.ones((), dtype=torch.bool, device=device)
             it = torch.zeros((), dtype=dtype, device=device)
@@ -260,6 +270,7 @@ def slam_odometry(
                       converged=converged, iterations=torch.stack(iters))
 
 
+@functools.partial(jit, name="edge_residual_norms")
 def _edge_residual_norms(poses: torch.Tensor, edges_i: torch.Tensor, edges_j: torch.Tensor,
                          t_meas: torch.Tensor) -> torch.Tensor:
     """(E,) se(3) residual norms of every edge at the given poses."""

@@ -9,21 +9,26 @@ recover 180-degree alignments, including those about axes with
 ux + uy + uz = 0.
 
 ``differentiable=True`` runs ``max_iterations`` steps with autograd through
-them (JAX's ``lax.scan``); ``False`` is an early-exit loop that tests
-convergence on the host once per iteration (JAX's ``lax.while_loop``).
-Converged elements stay frozen, so a batch equals its elements solved one
-by one.  The convergence test is the reference's: the sum of squared
-residuals to the current correspondences below ``tolerance``.
+them (JAX's ``lax.scan``); ``False`` is an early-exit loop (JAX's
+``lax.while_loop``): a body over a state held in tensors, masked by its flag,
+run by :func:`jit.device_while`.  :func:`_svd_icp_impl` is, as in JAX, the
+compiled program: on the card a captured CUDA graph (the early exit a WHILE
+node), eagerly on the CPU or where an input requires grad.  Converged
+elements stay frozen, so a batch equals its elements solved one by one.  The
+convergence test is the reference's: the sum of squared residuals to the
+current correspondences below ``tolerance``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from dicp_tpu_torch import knn, se3
 from dicp_tpu_torch.api import _as_tensor, _resolve_device
+from dicp_tpu_torch.jit import device_while, jit
 
 
 class SVDICPResult(NamedTuple):
@@ -50,6 +55,21 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     for i in range(1, v.shape[-1]):
         total = total + sq[..., i]
     return torch.sqrt(total)[..., None]
+
+
+def _seeds(dtype, device) -> torch.Tensor:
+    """The power iteration's four unit seeds (4, 4).
+
+    The identity quaternion is orthogonal to the eigenvector of every
+    180-degree alignment (w = cos(theta/2) = 0), and a power iteration never
+    recovers a component its seed lacks; the three vector-part seeds span
+    {w = 0} x R^3, so every unit quaternion overlaps one of them (two seeds
+    leave axes with ux + uy + uz = 0 blind).  The rows [1,0,0,0], [0,1,1,1],
+    [0,1,-1,0] and [0,1,0,-1] are built on the device: a host literal would
+    be a pageable copy, which a capture cannot hold."""
+    e = torch.eye(4, dtype=dtype, device=device)
+    seeds = torch.stack([e[0], e[1] + e[2] + e[3], e[1] - e[2], e[1] - e[3]])
+    return seeds / _norm(seeds)
 
 
 def _kabsch(ps: torch.Tensor, qs: torch.Tensor, w: torch.Tensor,
@@ -93,16 +113,7 @@ def _kabsch(ps: torch.Tensor, qs: torch.Tensor, w: torch.Tensor,
     shift = 2.0 * torch.sqrt(torch.where(degenerate, torch.ones_like(s_norm2), s_norm2))
     Ks = K + shift[:, None, None] * torch.eye(4, dtype=dtype, device=ps.device)
 
-    # Four seeds: the identity quaternion is orthogonal to the eigenvector of
-    # every 180-degree alignment (w = cos(theta/2) = 0), and a power
-    # iteration never recovers a component its seed lacks; the three
-    # vector-part seeds span {w = 0} x R^3, so every unit quaternion overlaps
-    # one of them (two seeds leave axes with ux + uy + uz = 0 blind).
-    seeds = torch.tensor([[1.0, 0.0, 0.0, 0.0],
-                          [0.0, 1.0, 1.0, 1.0],
-                          [0.0, 1.0, -1.0, 0.0],
-                          [0.0, 1.0, 0.0, -1.0]], dtype=dtype, device=ps.device)
-    seeds = seeds / _norm(seeds)
+    seeds = _seeds(dtype, ps.device)
     q = seeds.expand(ps.shape[0], 4, 4)
     # normalise every step with a zero guard: repeated tiny-eigenvalue
     # matvecs underflow f32 otherwise
@@ -147,7 +158,14 @@ def pt2pt_svd_icp(
     target = _as_tensor(target, device, dtype)
     T_init = None if T_init is None else _as_tensor(T_init, device, dtype)
     weight = None if weight is None else _as_tensor(weight, device, dtype)
+    return _svd_icp_impl(source, target, T_init, weight, max_iterations, tolerance,
+                         trim_dist, differentiable)
 
+
+@functools.partial(jit, static_argnames=("max_iterations", "tolerance", "trim_dist",
+                                         "differentiable"), name="svd_icp")
+def _svd_icp_impl(source, target, T_init, weight, max_iterations, tolerance, trim_dist,
+                  differentiable):
     squeeze = source.dim() == 2
     if squeeze:
         source = source[None]
@@ -157,6 +175,7 @@ def pt2pt_svd_icp(
         if weight is not None and weight.dim() == 1:
             weight = weight[None]
     N, n = source.shape[0], source.shape[1]
+    dtype, device = source.dtype, source.device
     source = source[..., :3]
     target = target[..., :3]
     if T_init is None:
@@ -164,14 +183,7 @@ def pt2pt_svd_icp(
     if weight is None:
         weight = torch.ones((N, n), dtype=dtype, device=device)
 
-    C = T_init[:, :3, :3]
-    r = T_init[:, :3, 3]
-    converged = torch.zeros((N,), dtype=torch.bool, device=device)
-    iters = torch.zeros((N,), dtype=torch.int32, device=device)
-
-    for it in range(max_iterations):
-        if not differentiable and bool(torch.all(converged)):
-            break
+    def step(C, r, converged, iters, it):
         ps_t = torch.einsum("nij,npj->npi", C, source) + r[:, None, :]
         nn_t = knn.hard_nn(ps_t, target)
         w = weight
@@ -187,11 +199,35 @@ def pt2pt_svd_icp(
         ps_new = torch.einsum("nij,npj->npi", C_new, source) + r_new[:, None, :]
         sq = torch.sum(w * torch.sum((ps_new - nn_t) ** 2, dim=-1), dim=-1)
         below = sq < tolerance
-        iters = torch.where(below & ~converged, torch.full_like(iters, it + 1), iters)
+        iters = torch.where(below & ~converged, it + 1, iters)
         # freeze converged elements (batch == serial)
         C = torch.where(converged[:, None, None], C, C_new)
         r = torch.where(converged[:, None], r, r_new)
-        converged = converged | below
+        return C, r, converged | below, iters
+
+    C = T_init[:, :3, :3]
+    r = T_init[:, :3, 3]
+    converged = torch.zeros((N,), dtype=torch.bool, device=device)
+    iters = torch.zeros((N,), dtype=torch.int32, device=device)
+    if differentiable:
+        for it in range(max_iterations):
+            C, r, converged, iters = step(C, r, converged, iters, it)
+    else:
+        # the state owns its storage: the body overwrites it in place
+        state = (C.clone(), r.clone(), converged, iters)
+        it = torch.zeros((), dtype=torch.int32, device=device)
+        flag = (it < max_iterations) & ~torch.all(converged)
+
+        def body():
+            new = step(*state, it)
+            # masked: a body run after the flag fell changes no bit
+            for old, val in zip(state, new):
+                old.copy_(torch.where(flag, val, old))
+            it.copy_(torch.where(flag, it + 1, it))
+            flag.copy_((it < max_iterations) & ~torch.all(state[2]))
+
+        device_while(flag, body)
+        C, r, converged, iters = state
 
     iters = torch.where(converged, iters, torch.full_like(iters, max_iterations))
     pc = torch.einsum("nij,npj->npi", C, source) + r[:, None, :]

@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 from dicp_tpu_torch import ICP, ICPConfig, bench, pipeline, register, register_ift  # noqa: E402
 from dicp_tpu_torch import register_ift_jit, register_jit, se3  # noqa: E402
 from dicp_tpu_torch import jit as jit_mod  # noqa: E402
-from dicp_tpu_torch import registration  # noqa: E402
+from dicp_tpu_torch import mapping, registration  # noqa: E402
 from dicp_tpu_torch.registration import slice_histories  # noqa: E402
 
 CFG = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=30, tolerance=1e-10,
@@ -78,9 +78,17 @@ def test_eager_reasons(source_np, target_np):
     assert PROGRAM.eager_reason(grad_src, tgt, ti, None, CFG) == "an input requires grad"
     with torch.no_grad():
         assert PROGRAM.eager_reason(grad_src, tgt, ti, None, CFG) == "no CUDA tensor"
-    for host_driven in (CFG.with_(differentiable=True, use_gumbel=True),
-                        CFG.with_(anderson_m=4, collect_histories=False)):
-        assert PROGRAM.eager_reason(src, tgt, ti, None, host_driven, 7) == "eager_if"
+    gumbel = CFG.with_(differentiable=True, use_gumbel=True)
+    assert PROGRAM.eager_reason(src, tgt, ti, None, gumbel, 7) == "eager_if"
+    # the Anderson driver's loop is a device loop: only the CPU keeps it eager
+    anderson = CFG.with_(anderson_m=4, collect_histories=False)
+    assert PROGRAM.eager_reason(src, tgt, ti, None, anderson) == "no CUDA tensor"
+    # SGD's mini-batch sources are seeded on the host: map_step(solver="sgd")
+    m = mapping.empty_map(8, torch.float64)
+    pose = torch.eye(4, dtype=torch.float64)
+    for solver, reason in (("sgd", "eager_if"), ("gn", "no CUDA tensor")):
+        assert mapping.map_step.eager_reason(m, src[0], pose, None, CFG, 0.5,
+                                             solver=solver, key=7) == reason
 
 
 def test_cache_hits_misses_and_evicts_least_recent(monkeypatch):
