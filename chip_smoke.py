@@ -251,7 +251,25 @@ Phases, each raising on failure (the script then exits non-zero):
     Anderson solves' and map_step's own calls; then eager against captured
     in turns: ms per call, frames/s of the scan-to-map streams and of one
     SLAM lap.
-16. (run after 17-24) a torch.profiler pass over 3 calls each of phases
+25. (run after 24) batched odometry, the dense pose graph, GICP and SGD-ICP
+    captured, each against its eager form as phase 24 holds its cases:
+    odometry (one program: the batched solve's WHILE node and the prefix
+    product) on phase 17's 64 raw scans (63 pairs, K2; the fresh input
+    keeps the zero-row pads) and on bench_suite's odometry_64scans (dense
+    tier; its ATE gate); pose_graph_optimize on phase 20's graph (25
+    iterations unrolled) and refine_robust's two IRLS passes (a call from
+    an empty cache captures once and replays for the second pass);
+    register_gicp_jit at exp_gicp's batch with a 3-column target (normals
+    inside the program) and with normals given; register_sgd_jit at
+    exp_sgd's two rows (the mini-batch plan drawn on the host before each
+    call, its time printed); each step of phase 18's SGD stream through the
+    captured map_step(solver="sgd"), four captured streams bit-equal to the
+    eager one with phase 18's gates (ATE < 5e-3, no K2); K2 held to its
+    plain version on the captured odometry call; then eager against
+    captured in turns (refine_robust also as a one-shot captured call from
+    an empty cache), the host draw's share of each captured SGD call, and
+    the SGD stream's frames/s.
+16. (run after 17-25) a torch.profiler pass over 3 calls each of phases
     4 (captured, through ICP.icp, and eager register), 8 and 9 (captured),
     12 (eager and captured), one W = 1 warm stream of phase 17's first 9
     scans (captured windows and eager windows), one gn scan-to-map stream
@@ -273,7 +291,7 @@ of 7 rounds: the kernel's time, free of the host's launch overhead).
 
 Each main path (phases 4, 8, 9, 12, 14, each run of 17 and 18, the pyramid of 19,
 the first SLAM run of 20, phase 21's map-sharded and batch-sharded solves,
-each row and example of 22, and phases 23's and 24's captured runs) is driven with
+each row and example of 22, and phases 23's, 24's and 25's captured runs) is driven with
 the kernels' launch counts set to 0 just before it and read just after.
 ICP.icp, the pipeline, map_step (phases 18 and 20) and SLAM's closures
 run captured programs (dicp_tpu_torch.jit): a
@@ -316,6 +334,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import json
 import re
 import statistics
@@ -334,10 +353,10 @@ from torch.utils import _pytree as pytree
 from dicp_tpu_torch import ICP, ICPConfig, anderson, bench, io, jit, knn, mapping, pipeline
 from dicp_tpu_torch import pt2pt_svd_icp, register, register_anderson, register_ift
 from dicp_tpu_torch import register_ift_jit, register_jit, se3, slam, svd_icp
-from dicp_tpu_torch.benchmarks import bench_suite, exp_gicp, exp_knn, exp_multiscale
+from dicp_tpu_torch.benchmarks import bench_suite, exp_gicp, exp_knn, exp_multiscale, exp_sgd
 from dicp_tpu_torch.examples import large_cloud_demo, odometry_demo, serving_demo, slam_demo
 from dicp_tpu_torch.convert import to_torch
-from dicp_tpu_torch.gicp import register_gicp
+from dicp_tpu_torch.gicp import register_gicp, register_gicp_jit
 from dicp_tpu_torch.losses import VALID_LOSSES
 from dicp_tpu_torch.mapping import empty_map, map_merge, map_step
 from dicp_tpu_torch.odometry import (ate, odometry, odometry_pose_graph, pose_graph_optimize,
@@ -351,9 +370,13 @@ from dicp_tpu_torch.parallel import (_comm, make_mesh, pose_graph_optimize_parti
                                      register_map_sharded_ift, register_ring_sharded)
 from dicp_tpu_torch.pipeline import stream_odometry, stream_registrations
 from dicp_tpu_torch.registration import _preprocess, _register_captured
+from dicp_tpu_torch.sgd_icp import SeededSampler, plan_solve, register_sgd, register_sgd_jit
 from dicp_tpu_torch import visualization
 from dicp_tpu_torch.utils import profiling
 from dicp_tpu_torch.utils.timing import cuda_median_ms
+
+# the module (dicp_tpu_torch.odometry is also a name of the odometry function's)
+odo_mod = importlib.import_module("dicp_tpu_torch.odometry")
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -2122,6 +2145,8 @@ def phase17_lidar_odometry(device, workdir: Path):
     _check(err_180 < 1e-6, "Kabsch recovers the 180-degree rotation")
     print(f"phase 17 ok: {S_SEQ} raw scans, K2 launches {launches}, "
           f"{time.perf_counter() - t_phase:.1f} s")
+    # the captured 63-pair odometry program holds ~10 GiB of pools (phase 25)
+    jit.clear_caches()
     # the profile's W = 1 stream is cut to PROFILE_SCANS scans: the profiler's
     # own processing of the full stream's ~95,000 device ops took ~50 s
     head = io.ScanDataset(ds.paths[:PROFILE_SCANS], max_points=MAX_POINTS, voxel=None,
@@ -2875,7 +2900,7 @@ def _captured_equals_eager(label: str, eager_call, jitted_call, jitted, fresh=No
         jitted.cache_clear()
         _, first, first_s = _counted(jitted_call)   # a miss: the eager warm-up, the capture
         firsts.append(first_s)
-        pools.append(jit.programs()[-1].pool_bytes)
+        pools.append(next(reversed(jitted.cache.values())).pool_bytes)
         _check(first == want, f"{label}: the first call launches what eager does "
                f"({first} vs {want})")
         for _ in range(replays):
@@ -2992,12 +3017,12 @@ def _windows_in_flight(host, window: int):
 
 
 def _alternated(label: str, eager_call, jitted_call, unit: float = 0.0, what: str = "",
-                rounds: int = 4) -> dict:
+                rounds: int = 4, iters: int = 5) -> dict:
     """ms per call, eager and captured in turns (E C C E E C C E for
-    ``rounds`` = 4, 5 calls a visit after one warm-up), CUDA events around
-    each call."""
+    ``rounds`` = 4, ``iters`` calls a visit after one warm-up), CUDA events
+    around each call."""
     times = bench.time_alternated({"eager": eager_call, "captured": jitted_call},
-                                  torch.device("cuda", 0), iters=5, rounds=rounds)
+                                  torch.device("cuda", 0), iters=iters, rounds=rounds)
     med = {k: statistics.median(v) for k, v in times.items()}
     rate = (f"; {unit / med['eager'] * 1e3:.1f} -> {unit / med['captured'] * 1e3:.1f} {what}"
             if unit else "")
@@ -3157,16 +3182,16 @@ SLAM_TURN_SCANS = PER_LAP + 1       # SLAM's eager/captured turns: one lap
 @contextlib.contextmanager
 def _eager_programs():
     """The eager forms of the captured programs: every jitted function
-    uncaptured (jit.disable_jit), and the solves of mapping's and slam's
-    programs on register's eager loop (as _eager_windows does for the
-    pipeline)."""
-    saved = mapping._register_program, slam._register_program
-    mapping._register_program = slam._register_program = register
+    uncaptured (jit.disable_jit), and the solves of mapping's, slam's and
+    odometry's programs on register's eager loop (as _eager_windows does for
+    the pipeline)."""
+    saved = mapping._register_program, slam._register_program, odo_mod._register_program
+    mapping._register_program = slam._register_program = odo_mod._register_program = register
     try:
         with jit.disable_jit():
             yield
     finally:
-        mapping._register_program, slam._register_program = saved
+        mapping._register_program, slam._register_program, odo_mod._register_program = saved
 
 
 def _eager(call):
@@ -3555,6 +3580,258 @@ def phase24_captured_solvers(device, slice_inputs, raw_inputs, slam_case, slam_s
             "s2m": s2m_streams["scan-to-map gn stream"], "slam": slam_runs}
 
 
+# --- phase 25: the odometry back end, GICP and SGD as captured programs -------
+
+TURN_ITERS_HEAVY = 2                # calls per visit in the turns of the slowest cases
+SGD_RUNS = 4                        # captured SGD streams, bit-equal to each other
+
+
+def _fresh_rows(x: torch.Tensor, seed: int, scale: float = 1e-3) -> torch.Tensor:
+    """:func:`_fresh` that keeps all-zero rows (pads) at zero."""
+    real = (x != 0).any(-1, keepdim=True)
+    return torch.where(real, _fresh(x, seed, scale), x)
+
+
+def _host_ms(call, reps: int = 5) -> float:
+    """Median host ms of ``call()`` to the card's end."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _one_shot_turns(label: str, eager_call, one_shot_call, turns: int = 2) -> dict:
+    """ms of an eager call and of a captured call whose program is new each
+    time (the cache cleared before it), in turns E C C E; host clock to the
+    card's end."""
+    times = {"eager": [], "one-shot captured": []}
+    for turn in ("eager", "one-shot captured", "one-shot captured", "eager") * (turns // 2):
+        times[turn].append(_host_ms(eager_call if turn == "eager" else one_shot_call, reps=1))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"  {label}: eager {med['eager']:.3f} ms, one-shot captured (eager warm-up, capture, "
+          f"replays) {med['one-shot captured']:.3f} ms (medians of {len(times['eager'])} in "
+          f"turns; eager {', '.join(f'{t:.1f}' for t in times['eager'])}; one-shot "
+          f"{', '.join(f'{t:.1f}' for t in times['one-shot captured'])})")
+    return med
+
+
+def _odometry_cases(device, host) -> tuple:
+    """Batched odometry on phase 17's raw scans (K2, held to its plain
+    version on the captured call) and on bench_suite's odometry_64scans;
+    returns the (eager, captured) calls and K2's largest |difference|."""
+    calls = {}
+    cfg = ODO_CFG.with_(source_zeroes_are_pad=True)
+    scans = torch.as_tensor(np.stack([p[:, :3] for p, _ in host]), device=device)
+    scans2 = _fresh_rows(scans, 250)
+    label = (f"odometry, phase 17's {S_SEQ} raw scans of {MAX_POINTS} points ({S_SEQ - 1} "
+             f"pairs, cluster tier, K2)")
+    calls[label] = (_eager(lambda: odometry(scans, cfg)), lambda: odometry(scans, cfg))
+    _captured_equals_eager(label, *calls[label], odo_mod._odometry_program,
+                           (_eager(lambda: odometry(scans2, cfg)),
+                            lambda: odometry(scans2, cfg)))
+    rec = {}
+    _record_captured("cluster_search", "the captured batched odometry call", calls[label][1],
+                     rec)
+    scans64, truth64, cfg64 = bench_suite.odometry_sequence(device)
+    scans64b = _fresh(scans64, 251)
+    label64 = f"odometry, bench_suite's odometry_64scans ({scans64.shape[0] - 1} pairs of " \
+              f"{scans64.shape[1]} points, dense tier)"
+    calls[label64] = (_eager(lambda: odometry(scans64, cfg64)), lambda: odometry(scans64, cfg64))
+    _captured_equals_eager(label64, *calls[label64], odo_mod._odometry_program,
+                           (_eager(lambda: odometry(scans64b, cfg64)),
+                            lambda: odometry(scans64b, cfg64)))
+    res = odometry(scans64, cfg64)
+    err = float(ate(res.poses, truth64, align=False))
+    print(f"  odometry_64scans captured: ATE (align=False) {err:.3e}, every pair converged "
+          f"{bool(res.converged.all())}")
+    _check(bool(res.converged.all()) and err < TOL_POSE, "odometry_64scans captured: "
+           f"converged, ATE {err} < {TOL_POSE}")
+    odo_mod._odometry_program.cache_clear()   # ~10 GiB of pools for the raw scans
+    return calls, rec
+
+
+def _pose_graph_cases(device, slam_case) -> dict:
+    """The dense pose graph on phase 20's graph, and refine_robust's two
+    passes (the second replays the first's program); returns the calls."""
+    res_c, _ = slam_case
+    poses = res_c.poses_front.to(device)
+    poses2 = res_c.poses.to(device)
+    graph = slam.build_pose_graph(poses, res_c.closures, SLAM_KW["closure_info"],
+                                  converged=res_c.converged)
+    its = SLAM_KW["refine_iterations"]
+    V, E = poses.shape[0], graph.edges_i.shape[0]
+    calls = {}
+
+    def pg(p):
+        return pose_graph_optimize(p, graph, iterations=its)
+
+    label = f"pose_graph_optimize, phase 20's graph ({V} poses, {E} edges, {its} iterations)"
+    calls[label] = (_eager(lambda: pg(poses)), lambda: pg(poses))
+    _captured_equals_eager(label, *calls[label], odo_mod._pose_graph_program,
+                           (_eager(lambda: pg(poses2)), lambda: pg(poses2)))
+
+    def rr():
+        return slam.refine_robust(poses, graph, iterations=its)
+
+    label_rr = f"refine_robust, phase 20's graph (2 IRLS passes of {its} iterations)"
+    calls[label_rr] = (_eager(rr), rr)
+    _captured_equals_eager(label_rr, *calls[label_rr], odo_mod._pose_graph_program)
+    odo_mod._pose_graph_program.cache_clear()
+    rr()
+    progs = list(odo_mod._pose_graph_program.cache.values())
+    _check(len(progs) == 1 and progs[0].replays == 1,
+           "refine_robust: the second pass replays the first pass's program")
+    print(f"  refine_robust, one call from an empty cache: one program, the second pass a "
+          f"replay of it ({progs[0].pool_bytes / 2**20:.1f} MiB of pools)")
+
+    def one_shot():
+        odo_mod._pose_graph_program.cache_clear()
+        return rr()
+
+    calls["one-shot " + label_rr] = (_eager(rr), one_shot)
+    return calls
+
+
+def _gicp_cases(device) -> dict:
+    """register_gicp_jit at exp_gicp's batch, with the 3-column target
+    (normals estimated inside the program) and with normals given."""
+    S, Tg, Ti, T_true = exp_gicp.saddle_batch(device)
+    S2 = _fresh(S, 252)
+    Tg6 = torch.cat([Tg, estimate_normals(Tg)], dim=-1)
+    kw = dict(max_iterations=30, tolerance=1e-6)
+    calls = {}
+    for what, tgt in (("3-column target, normals inside the program", Tg),
+                      ("6-column target", Tg6)):
+        label = f"register_gicp_jit, exp_gicp's B = {exp_gicp.B} x {exp_gicp.N}, {what}"
+        calls[label] = (functools.partial(register_gicp, S, tgt, Ti, **kw),
+                        functools.partial(register_gicp_jit, S, tgt, Ti, **kw))
+        _captured_equals_eager(label, *calls[label], register_gicp_jit,
+                               (functools.partial(register_gicp, S2, tgt, Ti, **kw),
+                                functools.partial(register_gicp_jit, S2, tgt, Ti, **kw)))
+        err = float(_log_err(T_true, register_gicp_jit(S, tgt, Ti, **kw).T).max())
+        _check(err < TOL_POSE, f"{label}: transform error {err} < {TOL_POSE}")
+    return calls
+
+
+def _sgd_cases(device) -> tuple:
+    """register_sgd_jit at exp_sgd's rows; returns the calls and the host
+    draw ms per call."""
+    calls, draws = {}, {}
+    for size, n, k, iters in exp_sgd.SIZES:
+        S, Tg, Ti, T_np = exp_sgd.inputs(n, device)
+        S2 = _fresh(S, 253)
+        kw = dict(minibatch=k, iterations=iters, tolerance=1e-6)
+        label = (f"register_sgd_jit, exp_sgd's {size} row (k = {k}, {iters} iterations, "
+                 f"nn_method auto: {'cluster' if n >= 16384 else 'dense'})")
+        calls[label] = (functools.partial(register_sgd, S, Tg, Ti, 0, **kw),
+                        functools.partial(register_sgd_jit, S, Tg, Ti, 0, **kw))
+        _captured_equals_eager(label, *calls[label], register_sgd_jit,
+                               (functools.partial(register_sgd, S2, Tg, Ti, 0, **kw),
+                                functools.partial(register_sgd_jit, S2, Tg, Ti, 0, **kw)))
+        res = register_sgd_jit(S, Tg, Ti, 0, **kw)
+        err = float(_log_err(np.linalg.inv(T_np), res.T).max())
+        _check(err < exp_sgd.TOL_SGD, f"{label}: transform error {err} < {exp_sgd.TOL_SGD}")
+        draws[label] = _host_ms(lambda: plan_solve(0, 1, n, device, torch.float32,
+                                                   iterations=iters, minibatch=k))
+        print(f"  {label}: transform error {err:.3e}, iterations "
+              f"{float(res.iterations[0]):.0f}; the host draw of its plan ({iters} x 1 "
+              f"streams of {k}) {draws[label]:.3f} ms per call")
+    return calls, draws
+
+
+def _sgd_stream_cases(device) -> tuple:
+    """Each step of phase 18's SGD stream through the captured map_step; the
+    captured stream's gates; returns the calls, the stream's runs and the
+    host draw ms per step."""
+    scans, poses_true, _ = bench_suite.scan_to_map_sequence()
+    truth = torch.as_tensor(poses_true, dtype=torch.float64)
+    skw = bench_suite.S2M_SGD
+
+    def stream():
+        res = mapping.scan_to_map_odometry(((s, None) for s in scans), S2M_CFG,
+                                           capacity=CAP_S2M, voxel=VOXEL_S2M, seed=0,
+                                           device=device, **skw)
+        return tuple(a.cpu() for a in res)
+
+    label = "scan-to-map sgd stream"
+    steps, eager = _steps_of(stream)
+    _steps_replayed(label, steps)
+    before = _launches()["cluster_search"]
+    runs = [stream() for _ in range(SGD_RUNS)]
+    k2 = _launches()["cluster_search"] - before
+    diff = [_diff_fields(eager, r) for r in runs]
+    same = all(not d for d in diff)
+    err = float(ate(runs[0][0].double(), truth, align=False))
+    print(f"  {label}: {SGD_RUNS} captured runs of {S_S2M} scans (seed 0) equal the eager run "
+          f"and each other bit for bit: {same}; ATE (align=False) {err:.3e}; every scan "
+          f"converged {bool(runs[0][2].all())}; K2 launches {k2}")
+    _check(same, f"{label}: the captured runs equal the eager run ({diff})")
+    _check(err < bench_suite.TOL_ATE_SGD, f"{label}: ATE {err} < {bench_suite.TOL_ATE_SGD}")
+    _check(k2 == 0, f"{label}: the SGD mini-batch search runs no kernel ({k2})")
+    (args, kw), _, _ = steps[5]
+    (args2, kw2), _, _ = steps[6]
+    call = (_eager(lambda: map_step(*args, **kw)), lambda: map_step(*args, **kw))
+    _captured_equals_eager(f"map_step sgd, {label}, step 6", *call, map_step,
+                           (_eager(lambda: map_step(*args2, **kw2)),
+                            lambda: map_step(*args2, **kw2)))
+    draw = _host_ms(lambda: plan_solve(SeededSampler(0).fold_in(6), 1, N_S2M, device,
+                                       torch.float32, iterations=skw["sgd_iterations"],
+                                       minibatch=skw["sgd_minibatch"]))
+    print(f"  {label}: the host draw of a step's plan ({skw['sgd_iterations']} streams of "
+          f"{skw['sgd_minibatch']}) {draw:.3f} ms per step")
+    map_step.cache_clear()
+    return ({f"{label}: map_step, step 6": call},
+            {"eager": _eager(stream), "captured": stream}, draw)
+
+
+def phase25_captured_backend(device, host, slam_case) -> dict:
+    """Batched odometry, the dense pose graph (and refine_robust), GICP and
+    SGD-ICP (register_sgd_jit, map_step(solver="sgd")) captured, each
+    against its eager form as phase 24 holds its cases; then eager against
+    captured in turns.  Returns the launches of the phase and K2's largest
+    |difference| to its plain version on the captured odometry call."""
+    t_phase = time.perf_counter()
+    _reset_launches()
+    odo_calls, rec = _odometry_cases(device, host)
+    pg_calls = _pose_graph_cases(device, slam_case)
+    gicp_calls = _gicp_cases(device)
+    sgd_calls, draws = _sgd_cases(device)
+    s2m_calls, s2m_runs, step_draw = _sgd_stream_cases(device)
+    launches = _launches()
+    k2_err = _held_to_plain("cluster_search", rec, pads=(None, "at the origin"))
+
+    # eager against captured, in turns (fewer calls a visit where eager takes
+    # 0.7-3 s a call: the 63-pair odometry, the pose graph, SGD)
+    light = list(odo_calls)[1:] + list(gicp_calls)
+    for label, (eager_call, jitted_call) in {**odo_calls, **pg_calls}.items():
+        if "one-shot" in label:
+            _one_shot_turns(label, eager_call, jitted_call)
+        else:
+            _alternated(label, eager_call, jitted_call, rounds=2,
+                        iters=5 if label in light else TURN_ITERS_HEAVY)
+        jit.clear_caches()
+    for label, (eager_call, jitted_call) in {**gicp_calls, **sgd_calls, **s2m_calls}.items():
+        med = _alternated(label, eager_call, jitted_call, rounds=2,
+                          iters=5 if label in light else TURN_ITERS_HEAVY)
+        draw = draws.get(label, step_draw if "map_step" in label else None)
+        if draw is not None:
+            print(f"    host draw {draw:.3f} ms = {draw / med['captured']:.3f} of the captured "
+                  f"call")
+    _stream_turns(f"scan-to-map sgd stream, {S_S2M} scans", s2m_runs, S_S2M, warm=False)
+    for info in jit.programs():
+        print(f"  cached program {info.name}: {info.pool_bytes / 2**20:.1f} MiB of private "
+              f"pools, {info.replays} replays, key {str(info.key)[:140]}")
+    jit.clear_caches()
+    print(f"phase 25 ok: batched odometry, the pose graph, GICP and SGD captured equal their "
+          f"eager forms bit for bit, no host wait in a replay; launches {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "k2_err": k2_err}
+
+
 def main() -> None:
     card = phase0_device()
     device = torch.device("cuda", 0)
@@ -3589,16 +3866,17 @@ def main() -> None:
                                     (to_torch(sources, device), to_torch(targets, device)),
                                     pair, (to_torch(raw_sources, device),
                                            to_torch(raw_targets, device)), host)
-        del host
         solvers = phase24_captured_solvers(
             device, (to_torch(sources, device), to_torch(targets, device)),
             (to_torch(raw_sources, device), to_torch(raw_targets, device)), slam_case,
             slam_scans)
         del slam_scans
+        backend = phase25_captured_backend(device, host, slam_case)
+        del host
         timed["cluster_search"]["max_abs_err"] = max(timed["cluster_search"]["max_abs_err"],
                                                      k2_err, k2_err_s2m, pyramid["k2_err"],
                                                      slam_k2["k2_err"], par["k2_err"],
-                                                     solvers["k2_err"])
+                                                     solvers["k2_err"], backend["k2_err"])
         k1["max_abs_err"] = max(k1["max_abs_err"], slam_k1["k1_err"], solvers["k1_err"])
         for name, got in (("tiled_nn", k1), ("cluster_search", timed["cluster_search"]),
                           ("cluster_topk", timed["cluster_topk"]), ("fused_gn", k4)):
@@ -3658,9 +3936,11 @@ def main() -> None:
         "replaces": "dicp_tpu/ops/pallas_knn.py:50",
         **k1,
         "launches": (launches + slam_k1["launches"] + suite_launches("tiled_nn")[1]
-                     + captured["launches"]["tiled_nn"] + solvers["launches"]["tiled_nn"]),
+                     + captured["launches"]["tiled_nn"] + solvers["launches"]["tiled_nn"]
+                     + backend["launches"]["tiled_nn"]),
         "launches_in_phase23": captured["launches"]["tiled_nn"],
         "launches_in_phase24": solvers["launches"]["tiled_nn"],
+        "launches_in_phase25": backend["launches"]["tiled_nn"],
         "launches_per_slam_scan": slam_k1["launches_per_slam_scan"],
         "launches_per_suite_row": suite_launches("tiled_nn")[0],
     }]
@@ -3689,19 +3969,22 @@ def main() -> None:
                      "launches_per_map_sharded_call": par["launches_per_map_sharded_call"]}
         per_row, in_suite = suite_launches(name)
         in23, in24 = captured["launches"][name], solvers["launches"][name]
+        in25 = backend["launches"][name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": count + in_suite + in23 + in24, **timed[name], **extra,
-                        "launches_per_suite_row": per_row, "launches_in_phase23": in23,
-                        "launches_in_phase24": in24})
+                        "launches": count + in_suite + in23 + in24 + in25, **timed[name],
+                        **extra, "launches_per_suite_row": per_row, "launches_in_phase23": in23,
+                        "launches_in_phase24": in24, "launches_in_phase25": in25})
     _check(k4_launches > 0, f"fused_gn launched on the headline path ({k4_launches})")
     kernels.append({"name": "fused_gn", "route": "cuda",
                     "source": "dicp_tpu_torch/csrc/fused_gn.cu",
                     "replaces": "dicp_tpu/ops/fused_gn.py:167",
                     "launches": (k4_launches + suite_launches("fused_gn")[1]
                                  + captured["launches"]["fused_gn"]
-                                 + solvers["launches"]["fused_gn"]), **k4,
+                                 + solvers["launches"]["fused_gn"]
+                                 + backend["launches"]["fused_gn"]), **k4,
                     "launches_in_phase23": captured["launches"]["fused_gn"],
                     "launches_in_phase24": solvers["launches"]["fused_gn"],
+                    "launches_in_phase25": backend["launches"]["fused_gn"],
                     "launches_per_suite_row": suite_launches("fused_gn")[0]})
     for name, replaces in (("score_nn_v1", "benchmarks/exp_knn.py:69"),
                            ("score_nn_v2", "benchmarks/exp_knn.py:137")):

@@ -17,8 +17,9 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
   input requires grad.
 * :mod:`dicp_tpu_torch.ift`: :func:`register_ift`, implicit-function-theorem
   gradients through the fixed point, and ``register_ift_jit``, captured like
-  ``register_jit``.  ``register_gicp_jit`` and ``register_sgd_jit`` are
-  still aliases of their eager functions.
+  ``register_jit``.  ``register_gicp_jit`` and ``register_sgd_jit`` (whose
+  mini-batch indices are drawn on the host before each call) are captured
+  the same way, as are batched ``odometry`` and ``pose_graph_optimize``.
 * :mod:`dicp_tpu_torch.anderson`: :func:`register_anderson`, the
   Anderson-accelerated driver, and ``register_anderson_jit``, captured like
   ``register_jit`` (its loop a WHILE node too).

@@ -144,6 +144,19 @@ def _med(ms: List[float]) -> float:
     return statistics.median(ms)
 
 
+def _jit_detail(fn: Callable, device, per: Optional[int] = None) -> dict:
+    """A row's detail for the jitted form of its call (a captured program
+    on the card, the same eager call on the CPU): median and spread of
+    ``reps`` calls after one (the capture), and registrations/s for ``per``
+    registrations a call.  The row's own value stays the eager call's."""
+    ms = _times(fn, device)
+    out = {"jit_median_ms": round(_med(ms), 4),
+           "jit_spread_ms": [round(min(ms), 4), round(max(ms), 4)]}
+    if per is not None:
+        out["jit_registrations_per_s"] = round(per / _med(ms) * 1e3, 3)
+    return out
+
+
 def _err(T_true: np.ndarray, T_est) -> float:
     """|log(T_true T_est^-1)| in f64 on the host (the largest over a batch)."""
     T_est = torch.as_tensor(_fetch(T_est)).double().reshape(-1, 4, 4)
@@ -383,11 +396,9 @@ def bench_normals(device=None):
     return rows
 
 
-def bench_odometry(device=None):
-    """Config #5: 63 scan pairs of the tests/data map along a constant step
-    in one batched odometry call, and the trajectory's ATE."""
-    from dicp_tpu_torch.odometry import ate, odometry
-
+def odometry_sequence(device=None):
+    """Config #5's inputs: 64 scans (6 columns) of the tests/data map along a
+    constant step, their true poses and the solve's configuration."""
     device = _device(device)
     _, mp = _pair(np.float32)
     S = 64
@@ -404,6 +415,17 @@ def bench_odometry(device=None):
     truth = torch.as_tensor(np.stack(poses), device=device)
     cfg = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=30,
                     tolerance=1e-6, dim=2, trim_dist=5.0, loss_name="huber", loss_metric=1.0)
+    return scans_t, truth, cfg
+
+
+def bench_odometry(device=None):
+    """Config #5: 63 scan pairs of the tests/data map along a constant step
+    in one batched odometry call, and the trajectory's ATE."""
+    from dicp_tpu_torch.odometry import ate, odometry
+
+    device = _device(device)
+    scans_t, truth, cfg = odometry_sequence(device)
+    S = scans_t.shape[0]
     ms = _times(lambda: odometry(scans_t, cfg).poses, device)
     res = odometry(scans_t, cfg)
     err = float(ate(res.poses, truth, align=False))

@@ -5,7 +5,11 @@ Batched plane-to-plane solves on a curved scene: registrations/s of
 :func:`register_gicp` at B = 64, n = m = 600 (a dense 600 x 600 block per
 pair, no kernel), the same batch through :func:`register_gicp_ift` forward
 and backward, and an identically shaped pt2pt :func:`register` for the cost
-ratio.  CUDA events, median of 5 after one call, results fetched.
+ratio.  CUDA events, median of 5 after one call, results fetched.  The GICP
+and pt2pt rows also carry their jitted calls' times (``jit_*``:
+:data:`register_gicp_jit` and ``register_jit``, captured programs on the
+card, as JAX's rows time ``jax.jit`` programs); a row's value stays the
+eager call's.
 
     python -m dicp_tpu_torch.benchmarks.exp_gicp
 """
@@ -17,10 +21,10 @@ import torch
 
 from dicp_tpu_torch import se3
 from dicp_tpu_torch.benchmarks.bench_suite import (TOL_POSE, _clock, _device, _emit, _err,
-                                                   _gate, _med, _times)
+                                                   _gate, _jit_detail, _med, _times)
 from dicp_tpu_torch.config import ICPConfig
-from dicp_tpu_torch.gicp import register_gicp, register_gicp_ift
-from dicp_tpu_torch.registration import register
+from dicp_tpu_torch.gicp import register_gicp, register_gicp_ift, register_gicp_jit
+from dicp_tpu_torch.registration import register, register_jit
 
 B, N = 64, 600
 XI = (0.2, -0.15, 0.1, 0.06, -0.04, 0.08)
@@ -66,9 +70,11 @@ def main(device=None) -> dict:
     err_g = _err(T_true, res_g.T)
     _gate(err_g < TOL_POSE, "gicp_b64", f"transform error {err_g} < {TOL_POSE}")
     ms_g = _times(lambda: gicp().T, device)
+    jit_g = _jit_detail(lambda: register_gicp_jit(S, Tg, Ti, max_iterations=30,
+                                                  tolerance=1e-6).T, device, per=B)
     rows = [_emit("gicp_b64", _med(ms_g), "ms/batch", ms_g,
                   registrations_per_s=B / _med(ms_g) * 1e3, transform_err=err_g,
-                  iterations=float(res_g.iterations[0]), clock=clock)]
+                  iterations=float(res_g.iterations[0]), clock=clock, **jit_g)]
 
     g_ift = ift()
     _gate(bool(torch.isfinite(g_ift).all()) and float(g_ift.abs().max()) > 0,
@@ -84,7 +90,8 @@ def main(device=None) -> dict:
     rows.append(_emit("pt2pt_b64_same_shape", _med(ms_p), "ms/batch", ms_p,
                       registrations_per_s=B / _med(ms_p) * 1e3,
                       gicp_cost_ratio=round(_med(ms_g) / _med(ms_p), 3), transform_err=err_p,
-                      clock=clock))
+                      clock=clock, **_jit_detail(lambda: register_jit(S, Tg, Ti, None, PT2PT).T,
+                                                 device, per=B)))
     return {"rows": rows, "gicp": res_g, "pt2pt": res_p, "grad_ift": g_ift,
             "inputs": (S, Tg, Ti), "T_true": T_true}
 

@@ -19,10 +19,15 @@ f32 on the card (TF32 stays off).
 One loop serves both JAX drivers, as in :mod:`dicp_tpu_torch.registration`:
 the ``lax.while_loop`` (early exit) and the fixed-trip ``lax.scan`` with
 convergence freezing (``differentiable=True``) give the same results, since
-a frozen element is carried forward unchanged; the loop stops once every
-element has converged (one host sync per iteration).
+a frozen element is carried forward unchanged.  The loop is a masked body
+over a state held in tensors (``where(flag, new, old)`` on every field),
+run by :func:`jit.device_while`: it stops once every element has converged
+or the iterations are spent, a CUDA graph WHILE node in
+:data:`register_gicp_jit`'s captured program and a host loop that reads the
+flag once per iteration in :func:`register_gicp` (where autograd records
+it, the state is rebound instead of overwritten).
 :func:`register_gicp_ift` differentiates through the fixed point with one
-6x6 adjoint solve (a ``torch.autograd.Function``).
+6x6 adjoint solve (a ``torch.autograd.Function``); JAX does not jit it.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 from torch.func import jvp, vjp, vmap
 
 from dicp_tpu_torch import se3
+from dicp_tpu_torch.jit import device_while, jit
 from dicp_tpu_torch.knn import gather_rows
 from dicp_tpu_torch.ops.normals import estimate_normals
 from dicp_tpu_torch.ops.smallsolve import inv3, solve_spd
@@ -138,22 +144,39 @@ def _gicp_step(T, src, src_n, tgt, tgt_n, weight, epsilon: float, trim2):
 def _solve(src, tgt, tgt_n, src_n, T0, weight, *, epsilon: float, trim2,
            max_iterations: int, tolerance: float):
     """Both JAX drivers: an element's pose, iteration count and cost freeze
-    at the step whose norm falls below ``tolerance``."""
-    N = src.shape[0]
-    T = T0
-    it = src.new_zeros((N,))
-    done = torch.zeros((N,), dtype=torch.bool, device=src.device)
-    cost = torch.full((N,), torch.inf, dtype=src.dtype, device=src.device)
-    for _ in range(max_iterations):
-        active = ~done
-        if not bool(torch.any(active)):
-            break
-        T_new, dn, cost_new = _gicp_step(T, src, src_n, tgt, tgt_n, weight, epsilon, trim2)
-        T = torch.where(active[:, None, None], T_new, T)
-        cost = torch.where(active, cost_new, cost)
-        it = torch.where(active, it + 1.0, it)
-        done = done | (active & (dn < tolerance))
-    return T, it, done, cost
+    at the step whose norm falls below ``tolerance``.  The loop runs while
+    ``count < max_iterations`` and an element is active."""
+    N, device = src.shape[0], src.device
+    # every field owns its storage: the body overwrites it in place, unless
+    # autograd records the loop
+    s = dict(T=T0.clone(), it=src.new_zeros((N,)),
+             done=torch.zeros((N,), dtype=torch.bool, device=device),
+             cost=torch.full((N,), torch.inf, dtype=src.dtype, device=device))
+    count = torch.zeros((), dtype=torch.int32, device=device)
+    flag = (count < max_iterations) & torch.any(~s["done"])
+    recorded = torch.is_grad_enabled() and any(
+        a.requires_grad for a in (src, tgt, tgt_n, src_n, T0, weight))
+
+    def body():
+        active = ~s["done"]
+        T_new, dn, cost_new = _gicp_step(s["T"], src, src_n, tgt, tgt_n, weight, epsilon,
+                                         trim2)
+        new = dict(T=torch.where(active[:, None, None], T_new, s["T"]),
+                   it=torch.where(active, s["it"] + 1.0, s["it"]),
+                   done=s["done"] | (active & (dn < tolerance)),
+                   cost=torch.where(active, cost_new, s["cost"]))
+        # masked: a body run after the flag fell changes no bit (the host
+        # loop that autograd records runs the body only while the flag holds)
+        for name, val in new.items():
+            if recorded:
+                s[name] = val
+            else:
+                s[name].copy_(torch.where(flag, val, s[name]))
+        count.copy_(torch.where(flag, count + 1, count))
+        flag.copy_((count < max_iterations) & torch.any(~s["done"]))
+
+    device_while(flag, body)
+    return s["T"], s["it"], s["done"], s["cost"]
 
 
 def _prepare(source, target, T_init, weight, source_normals, k_normals: int, name: str):
@@ -217,9 +240,12 @@ def register_gicp(
     return GICPResult(T=T, iterations=it, converged=done, cost=cost)
 
 
-# The JAX package's ``register_gicp_jit`` is ``jax.jit(register_gicp)``.
-# PyTorch runs eagerly, so the port's is :func:`register_gicp` itself.
-register_gicp_jit = register_gicp
+# The JAX package's ``register_gicp_jit`` is ``jax.jit(register_gicp)``: on
+# the card the port's is a captured CUDA graph whose loop is a WHILE node (see
+# dicp_tpu_torch.jit); on the CPU it is register_gicp itself.
+register_gicp_jit = jit(register_gicp, static_argnames=(
+    "epsilon", "trim_dist", "max_iterations", "tolerance", "differentiable", "k_normals"),
+    name="register_gicp_jit")
 
 
 # ---------------------------------------------------------------------------

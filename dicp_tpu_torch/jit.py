@@ -27,9 +27,15 @@ CPU, where the tests run); when an input requires grad while grad mode is on
 ``torch.autograd.grad`` of a jitted call is that of ``fn`` itself; capture a
 forward and backward together by calling ``torch.autograd.grad`` inside
 ``fn``); where ``eager_if(arguments)`` says so (the host-driven paths:
-Gumbel noise sources, SGD's host-seeded mini-batches); and inside
-:func:`disable_jit`, as inside ``jax.disable_jit()``.  A capture that fails
-raises: there is no eager fallback on the card.
+Gumbel noise sources); and inside :func:`disable_jit`, as inside
+``jax.disable_jit()``.  A capture that fails raises: there is no eager
+fallback on the card.
+
+``prepare(arguments)`` runs on the host before every call, eager or not,
+and may replace arguments in the bound ``arguments`` dict: SGD-ICP draws
+its mini-batch indices there from a host-seeded source, so that the
+program receives them as a tensor and the source never enters the cache
+key.
 
 Loops whose exit the device decides are written with :func:`device_while`.
 Under capture it becomes a CUDA graph conditional WHILE node
@@ -223,10 +229,11 @@ def _is_tensor(x) -> bool:
 
 
 class _Jitted:
-    def __init__(self, fn, static_argnames, eager_if, name):
+    def __init__(self, fn, static_argnames, eager_if, name, prepare):
         self.fn = fn
         self.static = tuple(static_argnames)
         self.eager_if = eager_if
+        self.prepare = prepare
         self.name = name or getattr(fn, "__name__", "fn")
         self.signature = inspect.signature(fn)
         self.cache: "collections.OrderedDict[tuple, _Program]" = collections.OrderedDict()
@@ -237,6 +244,8 @@ class _Jitted:
     def _bind(self, args, kwargs):
         bound = self.signature.bind(*args, **kwargs)
         bound.apply_defaults()
+        if self.prepare is not None:
+            self.prepare(bound.arguments)
         dynamic = {k: v for k, v in bound.arguments.items() if k not in self.static}
         leaves, spec = pytree.tree_flatten(dynamic)
         return bound, leaves, spec
@@ -338,8 +347,10 @@ class _Jitted:
 
 
 def jit(fn, *, static_argnames: Sequence[str] = (),
-        eager_if: Optional[Callable[[dict], bool]] = None, name: Optional[str] = None):
+        eager_if: Optional[Callable[[dict], bool]] = None, name: Optional[str] = None,
+        prepare: Optional[Callable[[dict], None]] = None):
     """``fn`` as a captured device program on the card (see the module
     docstring).  ``eager_if(arguments)``: calls to run eagerly; ``name``:
-    the programs' name in :func:`programs`."""
-    return _Jitted(fn, static_argnames, eager_if, name)
+    the programs' name in :func:`programs`; ``prepare(arguments)``: host
+    work that rewrites the bound arguments before each call."""
+    return _Jitted(fn, static_argnames, eager_if, name, prepare)

@@ -41,10 +41,12 @@ group scan (:mod:`dicp_tpu_torch.sgd_icp`).
 
 As in JAX, the public :func:`map_merge` and :func:`map_step` are the
 compiled programs themselves (:mod:`dicp_tpu_torch.jit`): on the card each
-is a captured CUDA graph per static arguments and input shapes (the GN
-solve's loop a WHILE node, the merge inside the step's program); on the CPU
-they run eagerly.  ``map_merge.fn`` and ``map_step.fn`` are the functions
-uncaptured.
+is a captured CUDA graph per static arguments and input shapes (the GN or
+SGD solve's loop a WHILE node, the merge inside the step's program); on
+the CPU they run eagerly.  An SGD step's mini-batch indices are drawn on
+the host before each call (:func:`sgd_icp.plan_solve`) and enter the
+program as a tensor.  ``map_merge.fn`` and ``map_step.fn`` are the
+functions uncaptured.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ from dicp_tpu_torch.ops.normals import estimate_normals_weighted, smallest_eigve
 from dicp_tpu_torch.ops.voxel import _lexsort, segment_sum
 from dicp_tpu_torch.pipeline import _prefetched, _quantize_host, _Uploader, dequantize_scan
 from dicp_tpu_torch.registration import _register_program
-from dicp_tpu_torch.sgd_icp import SeededSampler, register_sgd
+from dicp_tpu_torch.sgd_icp import SeededSampler, plan_solve, register_sgd
 
 # Initial placeholder for empty rows (the dynamic bounded sentinel replaces
 # it at the first merge).  Observation counts are deliberately uncapped: a
@@ -223,10 +225,21 @@ def map_merge(m: LocalMap, scan_world: torch.Tensor, voxel: float,
                     step=m.step + 1)
 
 
+def _plan_sgd_step(a: dict) -> None:
+    """``map_step``'s host work: an SGD step's ``key`` becomes its plan (one
+    element; the scan's points, or the rows of its packed form)."""
+    if a["solver"] != "sgd" or a["key"] is None:
+        return
+    scan = a["scan"][0] if isinstance(a["scan"], (tuple, list)) else a["scan"]
+    a["key"] = plan_solve(a["key"], 1, scan.shape[0], scan.device, a["t_pred"].dtype,
+                          iterations=int(a["sgd_iterations"]),
+                          minibatch=int(a["sgd_minibatch"]))
+
+
 @functools.partial(jit, static_argnames=("cfg", "voxel", "insert", "merge_mode", "solver",
                                          "sgd_minibatch", "sgd_iterations",
                                          "sgd_max_correction", "merge_subsample"),
-                   eager_if=lambda a: a["solver"] == "sgd", name="map_step")
+                   prepare=_plan_sgd_step, name="map_step")
 def map_step(m: LocalMap, scan, t_pred: torch.Tensor, weight: Optional[torch.Tensor],
              cfg: ICPConfig, voxel: float, insert: bool = True, merge_mode: str = "freeze",
              solver: str = "gn", key=None, sgd_minibatch: int = 2048,
@@ -249,9 +262,9 @@ def map_step(m: LocalMap, scan, t_pred: torch.Tensor, weight: Optional[torch.Ten
     points (the solve uses every point).  ``deq``: ``scan`` is the pipeline's
     packed quantized tuple, decoded by :func:`pipeline.dequantize_scan`.
 
-    On the card a ``"gn"`` step is one captured program whose solve loop
-    exits on the device.  ``"sgd"`` runs eagerly: its mini-batch sources are
-    seeded on the host per iteration."""
+    On the card a step is one captured program whose solve loop exits on
+    the device; an ``"sgd"`` step's draws are made on the host before the
+    call (:func:`sgd_icp.plan_solve`) and enter it as a tensor."""
     if solver not in ("gn", "sgd"):
         raise ValueError(f"solver must be gn|sgd, got {solver}")
     if solver == "sgd" and key is None:

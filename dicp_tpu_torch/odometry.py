@@ -9,7 +9,18 @@
   ``lax.associative_scan``);
 * the pose-graph back end is Gauss-Newton on se(3) residuals
   log(T_meas^-1 T_i^-1 T_j) with ``torch.func.jacfwd`` Jacobians, a dense
-  normal-equation build and ``torch.linalg.solve``.
+  normal-equation build and an LU solve, a fixed number of iterations (JAX's
+  ``lax.scan``).
+
+As JAX jits them, :func:`odometry` and :func:`pose_graph_optimize` are thin
+wrappers (the inputs to tensors on one device) around compiled programs
+(:mod:`dicp_tpu_torch.jit`): ``_odometry_program`` (the batched solve, its
+loop exiting on the device, then the prefix product) and
+``_pose_graph_program`` (the unrolled GN iterations and the final cost).
+On the card each is a captured CUDA graph per static arguments and input
+shapes; on the CPU it runs eagerly.  :func:`odometry_pose_graph`'s loop
+closures and :func:`resumable_odometry`'s chunks stay eager: their shapes are
+one-shot.
 
 Matmuls run in full f32 on the card (TF32 off, PyTorch's default): a deep
 prefix chain would amplify TF32's truncation into visible pose drift.
@@ -17,6 +28,7 @@ prefix chain would amplify TF32's truncation into visible pose drift.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple, Optional, Tuple
 
@@ -26,7 +38,8 @@ import torch
 from dicp_tpu_torch import se3
 from dicp_tpu_torch.api import _as_tensor, _resolve_device
 from dicp_tpu_torch.config import ICPConfig
-from dicp_tpu_torch.registration import register
+from dicp_tpu_torch.jit import jit
+from dicp_tpu_torch.registration import _register_program, register
 from dicp_tpu_torch.svd_icp import _kabsch
 from dicp_tpu_torch.utils.checkpoint import load_odometry_state, save_odometry_state
 
@@ -78,15 +91,22 @@ def odometry(scans, cfg: ICPConfig = ICPConfig(), rel_init=None,
 
     scans (S, n, 3|6): consecutive clouds in their own frames (pt2pl needs
     normal columns).  Registers scan i+1 (source) against scan i (target)
-    for all i in one batched solve, then prefix-composes.
+    for all i in one batched solve, then prefix-composes.  On the card one
+    captured program (``_odometry_program``).
     """
     scans, rel_init = _tensors(device, scans, rel_init)
+    return _odometry_program(scans, rel_init, cfg)
+
+
+@functools.partial(jit, static_argnames=("cfg",), name="odometry")
+def _odometry_program(scans: torch.Tensor, rel_init: Optional[torch.Tensor],
+                      cfg: ICPConfig) -> OdometryResult:
     S = scans.shape[0]
     source = scans[1:, :, :_src_cols(cfg)]
     target = scans[:-1]
     if rel_init is None:
         rel_init = _eyes(S - 1, scans)
-    res = register(source, target, rel_init, None, cfg)
+    res = _register_program(source, target, rel_init, None, cfg)
     poses = compose_chain(res.T)
     return OdometryResult(poses=poses, rel_transforms=res.T,
                           converged=res.converged, iterations=res.iterations)
@@ -149,24 +169,35 @@ def pose_graph_optimize(poses, graph: PoseGraph, iterations: int = 10,
     relative measurements.  The Jacobians of each edge come from
     :func:`edge_residual_and_jac`, vmapped over edges, and are assembled
     into dense (6V x 6V) normal equations.  Returns (optimised poses, final
-    cost at the returned poses).
+    cost at the returned poses).  On the card one captured program
+    (``_pose_graph_program``) per (V, E, iterations).
     """
     (poses,) = _tensors(None, poses)
-    V = poses.shape[0]
     dtype, device = poses.dtype, poses.device
     edges_i = _as_tensor(graph.edges_i, device).to(device=device, dtype=torch.int64)
     edges_j = _as_tensor(graph.edges_j, device).to(device=device, dtype=torch.int64)
     t_meas = _as_tensor(graph.t_meas, device, dtype).to(device)
     info = _as_tensor(graph.info, device, dtype).to(device)
+    return _pose_graph_program(poses, edges_i, edges_j, t_meas, info, iterations,
+                               float(damping))
 
+
+@functools.partial(jit, static_argnames=("iterations",), name="pose_graph_optimize")
+def _pose_graph_program(poses: torch.Tensor, edges_i: torch.Tensor, edges_j: torch.Tensor,
+                        t_meas: torch.Tensor, info: torch.Tensor, iterations: int,
+                        damping: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fixed-trip GN loop (JAX's ``lax.scan``) and the final cost, on
+    (V, 4, 4) poses and the graph's int64 edges, (E, 4, 4) measurements and
+    (E,) information in the poses' dtype."""
+    V = poses.shape[0]
+    dtype, device = poses.dtype, poses.device
     batched_rj = torch.func.vmap(
         lambda ti, tj, tm: edge_residual_and_jac(ti, tj, tm, dtype))
 
     # gauge fix of pose 0: its rows and columns are replaced by the
     # identity so that delta_0 = 0 (a large prior would square the
-    # condition number and break float32)
-    m = torch.zeros((V * 6,), dtype=dtype, device=device)
-    m[:6] = 1.0
+    # condition number and break float32); the mask is built on the device
+    m = (torch.arange(V * 6, device=device) < 6).to(dtype)
     keep = 1.0 - m
     eye = torch.eye(V * 6, dtype=dtype, device=device)
     w = info[:, None, None]
@@ -189,7 +220,8 @@ def pose_graph_optimize(poses, graph: PoseGraph, iterations: int = 10,
         Hd = H.permute(0, 2, 1, 3).reshape(V * 6, V * 6) + damping * eye
         Hd = Hd * keep[:, None] * keep[None, :] + torch.diag(m)
         bd = b.reshape(V * 6) * keep
-        delta = -torch.linalg.solve(Hd, bd).reshape(V, 6)
+        # solve_ex: linalg.solve's LU without its host check of ``info``
+        delta = -torch.linalg.solve_ex(Hd, bd, check_errors=False)[0].reshape(V, 6)
         poses = poses @ se3.vec2tran(delta)
 
     # the final cost evaluated at the returned poses

@@ -15,8 +15,11 @@ Structure, as in JAX:
   norm stays below ``tolerance`` for ``patience`` consecutive iterations
   carries its pose, moments, streak and cost forward unchanged, so a batch
   equals its elements solved one by one.  The port stops the loop once
-  every element is frozen (one host sync per iteration): frozen elements
-  would only carry forward, so the results are those of the full trip;
+  every element is frozen: frozen elements would only carry forward, so the
+  results are those of the full trip.  The loop is a masked body over a
+  state held in tensors, run by :func:`jit.device_while` (a CUDA graph
+  WHILE node in :data:`register_sgd_jit`'s captured program, a host loop
+  that reads the flag once per iteration in :func:`register_sgd`);
 * the mini-batch search is a dense (k, m) score-form pass
   |p|^2 + |t|^2 - 2 p·t^T, or the Hilbert cluster index built once per solve
   and queried with the plain group scan (``fused=False``, as JAX pins it:
@@ -37,6 +40,16 @@ object with
 
 drawing uniformly from [0, n) with replacement (a test serves JAX's own
 ``randint(fold_in(key, it), (k,), 0, n)`` draws through it).
+
+The draws are made ahead, on the host's request, before the loop: one
+``indices`` call per iteration for the whole trip (:func:`plan_solve`), with
+the step-size schedule of the ``'sgd'`` and ``'adam'`` rules, computed on
+the host in the solve's dtype (as JAX computes it on its iteration
+counter).  The loop indexes both by its device counter.  Iterations after
+the loop stops are drawn and never read, so the results are those of
+per-iteration draws.  An :class:`SGDPlan` given as ``key`` is used as it
+is; :data:`register_sgd_jit` and :func:`mapping.map_step` make it outside
+their programs, so that the source never enters a program's cache key.
 """
 
 from __future__ import annotations
@@ -47,6 +60,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from dicp_tpu_torch import losses, se3
+from dicp_tpu_torch.jit import device_while, jit
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn
 from dicp_tpu_torch.ops.normals import estimate_normals
 from dicp_tpu_torch.ops.smallsolve import solve_spd
@@ -57,6 +71,12 @@ class SGDICPResult(NamedTuple):
     iterations: torch.Tensor   # (N,) float: the iteration the streak crossed
     converged: torch.Tensor    # (N,) bool
     cost: torch.Tensor         # (N,) EMA of the mini-batch robust cost
+
+
+class SGDPlan(NamedTuple):
+    """What the host prepares for a solve (:func:`plan_solve`)."""
+    indices: torch.Tensor             # (iterations, N, minibatch) int64
+    schedule: Optional[torch.Tensor]  # (iterations, 3) [lr_t, c1, c2]; None for 'gn'
 
 
 class SeededSampler:
@@ -180,23 +200,43 @@ def _minibatch_system(T, idx, src, tgt, tgt_n, weight, nn_fn, *, icp_type,
     return He / wsum[:, None, None], g / wsum[:, None], cost / wsum
 
 
-def _step_delta(H, g, m1, m2, it: float, *, optimizer, lr, lr_decay, b1, b2, dt):
+def _schedule_row(it: float, *, lr, lr_decay, b1, b2, dt) -> list:
+    """[lr_t, c1, c2] of iteration ``it``: computed in ``dt`` on the host, as
+    JAX computes them on its iteration counter (the card's ``pow`` would
+    give other bits)."""
+    it = torch.tensor(it, dtype=dt)
+    lr_t = (lr / (1.0 + lr_decay * it)).item()
+    c1 = (1.0 - torch.pow(torch.tensor(b1, dtype=dt), it + 1.0)).item()
+    c2 = (1.0 - torch.pow(torch.tensor(b2, dtype=dt), it + 1.0)).item()
+    return [lr_t, c1, c2]
+
+
+def _schedule(iterations: int, *, optimizer, lr, lr_decay, b1, b2, dt) -> Optional[torch.Tensor]:
+    """(iterations, 3) rows of :func:`_schedule_row`; None for ``'gn'``."""
+    if optimizer == "gn":
+        return None
+    rows = [_schedule_row(float(k), lr=lr, lr_decay=lr_decay, b1=b1, b2=b2, dt=dt)
+            for k in range(iterations)]
+    return torch.tensor(rows, dtype=dt).reshape(iterations, 3)
+
+
+def _step_delta(H, g, m1, m2, it, *, optimizer, lr, lr_decay, b1, b2, dt, sched=None):
     """One update delta (N, 6) and the new Adam moments, for the chosen rule.
-    The schedule's scalars are computed in ``dt`` on the host, as JAX does on
-    its iteration counter: no device copy."""
+    ``sched``: this iteration's [lr_t, c1, c2] as a tensor (the loop's,
+    indexed on the device); by default computed from ``it`` on the host."""
     if optimizer == "gn":
         tr = H[..., 0, 0] + H[..., 1, 1] + H[..., 2, 2] + H[..., 3, 3] + H[..., 4, 4] + H[..., 5, 5]
         lam = 1e-8 * tr / 6.0 + 1e-12
         eye = torch.eye(6, dtype=dt, device=H.device)
         return -solve_spd(H + lam[..., None, None] * eye, g), m1, m2
-    it = torch.tensor(it, dtype=dt)
-    lr_t = (lr / (1.0 + lr_decay * it)).item()
+    if sched is None:
+        lr_t, c1, c2 = _schedule_row(it, lr=lr, lr_decay=lr_decay, b1=b1, b2=b2, dt=dt)
+    else:
+        lr_t, c1, c2 = sched[0], sched[1], sched[2]
     if optimizer == "sgd":
         return -lr_t * g, m1, m2
     m1 = b1 * m1 + (1.0 - b1) * g
     m2 = b2 * m2 + (1.0 - b2) * g * g
-    c1 = (1.0 - torch.pow(torch.tensor(b1, dtype=dt), it + 1.0)).item()
-    c2 = (1.0 - torch.pow(torch.tensor(b2, dtype=dt), it + 1.0)).item()
     return -lr_t * (m1 / c1) / (torch.sqrt(m2 / c2) + 1e-8), m1, m2
 
 
@@ -227,54 +267,101 @@ def _cluster_nn_fn(tgt, group, probes, fixup):
     return nn_fn
 
 
-def _solve(src, tgt, tgt_n, weight, T0, sampler, *, icp_type, loss_name, loss_metric,
-           trim_dist, differentiable, minibatch, iterations, optimizer, lr, lr_decay,
-           tolerance, ema_beta, patience, nn_method, cluster_group, cluster_probes,
-           cluster_fixup):
+def _solve(src, tgt, tgt_n, weight, T0, plan: SGDPlan, *, icp_type, loss_name, loss_metric,
+           trim_dist, differentiable, iterations, optimizer, tolerance, ema_beta, patience,
+           nn_method, cluster_group, cluster_probes, cluster_fixup):
+    """The trip: a masked body per iteration while ``count < iterations``
+    and an element is active (every field ``where(flag, new, old)``; where
+    autograd records the loop, the state is rebound instead of
+    overwritten)."""
     dt, device = src.dtype, src.device
-    N, n = src.shape[0], src.shape[1]
+    N = src.shape[0]
     if nn_method == "cluster":
         nn_fn = _cluster_nn_fn(tgt, cluster_group, cluster_probes, cluster_fixup)
     else:
         nn_fn = _dense_nn_fn(tgt)
-    pair_ids = list(range(N))
 
-    T = T0
-    m1 = torch.zeros((N, 6), dtype=dt, device=device)
-    m2 = torch.zeros((N, 6), dtype=dt, device=device)
-    streak = torch.zeros((N,), dtype=torch.int32, device=device)
-    cost_ema = torch.full((N,), torch.inf, dtype=dt, device=device)
-    done = torch.zeros((N,), dtype=torch.bool, device=device)
-    num_it = torch.zeros((N,), dtype=dt, device=device)
-    for it in range(iterations):
-        if bool(torch.all(done)):
-            break   # frozen elements would only carry forward
+    # every field owns its storage: the body overwrites it in place
+    s = dict(T=T0.clone(),
+             m1=torch.zeros((N, 6), dtype=dt, device=device),
+             m2=torch.zeros((N, 6), dtype=dt, device=device),
+             streak=torch.zeros((N,), dtype=torch.int32, device=device),
+             cost_ema=torch.full((N,), torch.inf, dtype=dt, device=device),
+             done=torch.zeros((N,), dtype=torch.bool, device=device),
+             num_it=torch.zeros((N,), dtype=dt, device=device))
+    count = torch.zeros((), dtype=torch.int32, device=device)
+    flag = (count < iterations) & ~torch.all(s["done"])
+    recorded = torch.is_grad_enabled() and any(
+        a.requires_grad for a in (src, tgt, tgt_n, weight, T0))
+
+    def body():
+        at = torch.clamp(count, max=max(iterations - 1, 0)).reshape(1).long()
         # uniform with replacement, one stream per element and iteration
-        idx = sampler.indices(pair_ids, it, minibatch, n, device).to(device=device,
-                                                                     dtype=torch.int64)
+        idx = plan.indices.index_select(0, at)[0]
+        sched = None if plan.schedule is None else plan.schedule.index_select(0, at)[0]
+        done = s["done"]
         H, g, cost = _minibatch_system(
-            T, idx, src, tgt, tgt_n, weight, nn_fn, icp_type=icp_type,
+            s["T"], idx, src, tgt, tgt_n, weight, nn_fn, icp_type=icp_type,
             loss_name=loss_name, loss_metric=loss_metric, trim_dist=trim_dist,
             differentiable=differentiable)
-        delta, m1n, m2n = _step_delta(H, g, m1, m2, float(it), optimizer=optimizer, lr=lr,
-                                      lr_decay=lr_decay, b1=0.9, b2=0.999, dt=dt)
-        T_new = se3.vec2tran(delta) @ T
+        delta, m1n, m2n = _step_delta(H, g, s["m1"], s["m2"], None, optimizer=optimizer,
+                                      lr=None, lr_decay=None, b1=0.9, b2=0.999, dt=dt,
+                                      sched=sched)
+        T_new = se3.vec2tran(delta) @ s["T"]
         # `patience` CONSECUTIVE sub-tolerance steps: one step can dip below
         # by mini-batch luck
         streak_new = torch.where(torch.linalg.vector_norm(delta.detach(), dim=-1) < tolerance,
-                                 streak + 1, torch.zeros_like(streak))
-        cost_new = cost if it == 0 else ema_beta * cost_ema + (1.0 - ema_beta) * cost
+                                 s["streak"] + 1, torch.zeros_like(s["streak"]))
+        cost_new = torch.where(count == 0, cost,
+                               ema_beta * s["cost_ema"] + (1.0 - ema_beta) * cost)
         below = streak_new >= patience
         # convergence freezing (batch == serial)
-        T = torch.where(done[:, None, None], T, T_new)
-        streak = torch.where(done, streak, streak_new)
-        cost_ema = torch.where(done, cost_ema, cost_new)
-        m1 = torch.where(done[:, None], m1, m1n)
-        m2 = torch.where(done[:, None], m2, m2n)
-        num_it = torch.where(below & (num_it == 0), torch.full_like(num_it, it + 1.0), num_it)
-        done = done | below
-    num_it = torch.where(num_it == 0, torch.full_like(num_it, float(iterations)), num_it)
-    return T, num_it, done, cost_ema
+        new = dict(T=torch.where(done[:, None, None], s["T"], T_new),
+                   m1=torch.where(done[:, None], s["m1"], m1n),
+                   m2=torch.where(done[:, None], s["m2"], m2n),
+                   streak=torch.where(done, s["streak"], streak_new),
+                   cost_ema=torch.where(done, s["cost_ema"], cost_new),
+                   done=done | below,
+                   num_it=torch.where(below & (s["num_it"] == 0), (count + 1).to(dt),
+                                      s["num_it"]))
+        # masked: a body run after the flag fell changes no bit (the host
+        # loop that autograd records runs the body only while the flag holds)
+        for name, val in new.items():
+            if recorded:
+                s[name] = val
+            else:
+                s[name].copy_(torch.where(flag, val, s[name]))
+        count.copy_(torch.where(flag, count + 1, count))
+        flag.copy_((count < iterations) & ~torch.all(s["done"]))
+
+    if iterations > 0:
+        device_while(flag, body)
+    num_it = torch.where(s["num_it"] == 0, float(iterations), s["num_it"])
+    return s["T"], num_it, s["done"], s["cost_ema"]
+
+
+def plan_solve(key, N: int, n: int, device, dtype, *, iterations: int, minibatch: int,
+               optimizer: str = "gn", lr: float = 0.1, lr_decay: float = 0.05) -> SGDPlan:
+    """The draws and schedule of an N-element solve over n source points:
+    ``key``'s source (:func:`minibatch_sampler`) asked once per iteration,
+    on ``device``, for the whole trip."""
+    if isinstance(key, SGDPlan):
+        return key
+    sampler = minibatch_sampler(key, N)
+    pair_ids = list(range(N))
+    draws = [sampler.indices(pair_ids, it, minibatch, n, device).to(device=device,
+                                                                    dtype=torch.int64)
+             for it in range(iterations)]
+    indices = (torch.stack(draws) if draws
+               else torch.zeros((0, N, minibatch), dtype=torch.int64, device=device))
+    schedule = _schedule(iterations, optimizer=optimizer, lr=float(lr),
+                         lr_decay=float(lr_decay), b1=0.9, b2=0.999, dt=dtype)
+    if schedule is not None and torch.device(device).type == "cuda":
+        # from pinned memory: the copy is enqueued, no host wait
+        schedule = schedule.pin_memory().to(device, non_blocking=True)
+    elif schedule is not None:
+        schedule = schedule.to(device)
+    return SGDPlan(indices, schedule)
 
 
 def register_sgd(
@@ -306,7 +393,8 @@ def register_sgd(
     tensors on one device.
 
     ``key`` is the mini-batch source (module docstring): reproducible under
-    a fixed key, one independent stream per batch element.  ``target``
+    a fixed key, one independent stream per batch element; or an
+    :class:`SGDPlan` made for this solve by :func:`plan_solve`.  ``target``
     columns 3:6 are the normals for pt2pl when present, otherwise they are
     estimated (:func:`estimate_normals` with ``k_normals``).  ``optimizer``:
     ``'gn'``, ``'sgd'`` (lr/(1 + decay·t)) or ``'adam'``.  The stopping
@@ -328,8 +416,13 @@ def register_sgd(
     dt = source.dtype
     src = source[..., :3]
     tgt = target[..., :3].to(dt)
-    N = src.shape[0]
-    sampler = minibatch_sampler(key, N)
+    N, n = src.shape[0], src.shape[1]
+    plan = plan_solve(key, N, n, src.device, dt, iterations=int(iterations),
+                      minibatch=int(minibatch), optimizer=optimizer, lr=lr, lr_decay=lr_decay)
+    if (tuple(plan.indices.shape) != (int(iterations), N, int(minibatch))
+            or (plan.schedule is None) != (optimizer == "gn")):
+        raise ValueError(f"an SGDPlan for this solve holds ({iterations}, {N}, {minibatch}) "
+                         f"indices and {'no' if optimizer == 'gn' else 'a'} schedule")
     if icp_type == "pt2pl":
         if target.shape[-1] >= 6:
             tgt_n = target[..., 3:6].to(dt)
@@ -340,11 +433,10 @@ def register_sgd(
     if weight is None:
         weight = torch.ones(src.shape[:-1], dtype=dt, device=src.device)
     T, it, done, cost = _solve(
-        src, tgt, tgt_n, weight.to(dt), T_init.to(dt), sampler, icp_type=icp_type,
+        src, tgt, tgt_n, weight.to(dt), T_init.to(dt), plan, icp_type=icp_type,
         loss_name=loss_name, loss_metric=float(loss_metric),
         trim_dist=None if trim_dist is None else float(trim_dist),
-        differentiable=differentiable, minibatch=int(minibatch), iterations=int(iterations),
-        optimizer=optimizer, lr=float(lr), lr_decay=float(lr_decay),
+        differentiable=differentiable, iterations=int(iterations), optimizer=optimizer,
         tolerance=float(tolerance), ema_beta=float(ema_beta), patience=int(patience),
         nn_method=nn_method, cluster_group=int(cluster_group),
         cluster_probes=int(cluster_probes),
@@ -352,6 +444,20 @@ def register_sgd(
     return SGDICPResult(T=T, iterations=it, converged=done, cost=cost)
 
 
-# The JAX package's ``register_sgd_jit`` is ``jax.jit(register_sgd)``; PyTorch
-# runs eagerly, so the port's is :func:`register_sgd` itself.
-register_sgd_jit = register_sgd
+def _plan_arguments(a: dict) -> None:
+    """``register_sgd_jit``'s host work: ``key`` becomes the solve's plan."""
+    src = a["source"]
+    a["key"] = plan_solve(a["key"], src.shape[0], src.shape[1], src.device, src.dtype,
+                          iterations=int(a["iterations"]), minibatch=int(a["minibatch"]),
+                          optimizer=a["optimizer"], lr=a["lr"], lr_decay=a["lr_decay"])
+
+
+# The JAX package's ``register_sgd_jit`` is ``jax.jit(register_sgd)`` with every
+# option static: on the card the port's is a captured CUDA graph whose loop is
+# a WHILE node (see dicp_tpu_torch.jit), fed the plan drawn before each call;
+# on the CPU it is register_sgd itself.
+register_sgd_jit = jit(register_sgd, static_argnames=(
+    "icp_type", "minibatch", "iterations", "optimizer", "lr", "lr_decay", "loss_name",
+    "loss_metric", "trim_dist", "tolerance", "ema_beta", "patience", "differentiable",
+    "k_normals", "nn_method", "cluster_group", "cluster_probes"),
+    prepare=_plan_arguments, name="register_sgd_jit")

@@ -25,9 +25,11 @@ On the card a 60,000-point scan against the default 8,192-row map runs the
 front end on the tiled tier (kernel K1), and a closure against a 60,000-row
 anchor on the cluster tier (K2).  As JAX jits them, the front end's
 :func:`mapping.map_step`, :func:`_closure_solve`, :func:`_make_anchor`,
-:func:`_edge_residual_norms` and :func:`rebuild_map`'s merges run as
-captured programs on the card (:mod:`dicp_tpu_torch.jit`; each solve's loop
-a WHILE node), eagerly on the CPU.  The host reads inside the stream are
+:func:`_edge_residual_norms`, :func:`rebuild_map`'s merges and the dense
+back end's :func:`odometry.pose_graph_optimize` (its GN iterations unrolled;
+the second IRLS pass replays the first pass's program) run as captured
+programs on the card (:mod:`dicp_tpu_torch.jit`; each solve's loop a WHILE
+node), eagerly on the CPU.  The host reads inside the stream are
 JAX's: one predicted position (3 floats) per detection check, one anchor
 position per stored keyframe, and the convergence flag and matched ratio of
 each closure attempt.

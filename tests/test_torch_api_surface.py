@@ -1,9 +1,7 @@
 """The port's call surface against the JAX package's: ``batch_size_handling``
 takes JAX's positional order, the port exports ``config_from_yaml`` and the
-``*_jit`` names (``register_jit``, ``register_ift_jit`` and
-``register_anderson_jit`` run captured CUDA graphs on the card and their
-eager functions' bits on the CPU, the others are still aliases of their
-eager functions), and every name of
+``*_jit`` names (each runs captured CUDA graphs on the card and its eager
+function's bits on the CPU), and every name of
 ``dicp_tpu.__all__`` is either exported by the port or on the list of names
 still to be ported, which ROADMAP.md mirrors."""
 

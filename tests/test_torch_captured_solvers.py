@@ -367,12 +367,18 @@ def test_edge_residual_norms_matches_jax():
 
 def test_these_entry_points_are_jit_programs():
     """register_anderson_jit, map_merge, map_step, SLAM's three programs and
-    _svd_icp_impl are jit programs (captured on a CUDA tensor); a solve is
-    host-driven only for Gumbel noise."""
+    _svd_icp_impl are jit programs (captured on a CUDA tensor), and so are
+    odometry's and the dense pose graph's programs, register_gicp_jit and
+    register_sgd_jit; a solve is host-driven only for Gumbel noise."""
+    from dicp_tpu_torch import gicp, odometry, sgd_icp
+
     for fn in (register_anderson_jit, map_merge, map_step, ts._closure_solve, ts._make_anchor,
-               ts._edge_residual_norms, svd_icp._svd_icp_impl):
+               ts._edge_residual_norms, svd_icp._svd_icp_impl, odometry._odometry_program,
+               odometry._pose_graph_program, gicp.register_gicp_jit, sgd_icp.register_sgd_jit):
         assert isinstance(fn, jit_mod._Jitted), fn
     assert register_anderson_jit is not register_anderson
+    assert gicp.register_gicp_jit is not gicp.register_gicp
+    assert sgd_icp.register_sgd_jit is not sgd_icp.register_sgd
     host_driven = tm.map_step.fn.__globals__["_register_program"].__globals__["host_driven"]
     assert not host_driven(ICPConfig(differentiable=False, anderson_m=3,
                                      collect_histories=False))

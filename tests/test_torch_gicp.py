@@ -108,7 +108,9 @@ def test_scan_matches_while():
     r_s = register_gicp(S, Tg, Ti, max_iterations=40, tolerance=1e-12, differentiable=True)
     np.testing.assert_allclose(r_s.T.numpy(), r_w.T.numpy(), atol=1e-12)
     assert float(r_s.iterations[0]) == float(r_w.iterations[0])
-    assert register_gicp_jit is register_gicp
+    assert register_gicp_jit is not register_gicp
+    r_j = register_gicp_jit(S, Tg, Ti, max_iterations=40, tolerance=1e-12)
+    assert all(torch.equal(a, b) for a, b in zip(r_j, r_w))
 
 
 def test_batched_independent():

@@ -83,12 +83,16 @@ def test_eager_reasons(source_np, target_np):
     # the Anderson driver's loop is a device loop: only the CPU keeps it eager
     anderson = CFG.with_(anderson_m=4, collect_histories=False)
     assert PROGRAM.eager_reason(src, tgt, ti, None, anderson) == "no CUDA tensor"
-    # SGD's mini-batch sources are seeded on the host: map_step(solver="sgd")
+    # SGD's mini-batch indices are drawn before the call: map_step(solver="sgd")
+    # is a device program too, and its source is not part of the cache key
     m = mapping.empty_map(8, torch.float64)
     pose = torch.eye(4, dtype=torch.float64)
-    for solver, reason in (("sgd", "eager_if"), ("gn", "no CUDA tensor")):
+    for solver in ("sgd", "gn"):
         assert mapping.map_step.eager_reason(m, src[0], pose, None, CFG, 0.5,
-                                             solver=solver, key=7) == reason
+                                             solver=solver, key=7) == "no CUDA tensor"
+    keys = {mapping.map_step.cache_key(m, src[0], pose, None, CFG, 0.5, solver="sgd", key=k,
+                                       sgd_iterations=3) for k in (7, 8)}
+    assert len(keys) == 1
 
 
 def test_cache_hits_misses_and_evicts_least_recent(monkeypatch):

@@ -282,11 +282,8 @@ def test_register_sgd_matches_jax(par_pair, jax_solves, name):
     np.testing.assert_array_equal(res.iterations.numpy(), ref.iterations)
     np.testing.assert_array_equal(res.converged.numpy(), ref.converged)
     np.testing.assert_allclose(res.cost.numpy(), ref.cost, rtol=0, atol=1e-12)
-    if bool(ref.converged[0]):
-        # stopped at the crossing: no iteration after it was drawn
-        assert sampler.calls == int(ref.iterations[0]) < 40
-    else:
-        assert sampler.calls == 40
+    # every iteration is drawn ahead, once (the loop reads those it runs)
+    assert sampler.calls == 40
 
 
 def test_batch_equals_serial_with_jax_streams(par_pair):
