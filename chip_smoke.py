@@ -269,7 +269,25 @@ Phases, each raising on failure (the script then exits non-zero):
     captured in turns (refine_robust also as a one-shot captured call from
     an empty cache), the host draw's share of each captured SGD call, and
     the SGD stream's frames/s.
-16. (run after 17-25) a torch.profiler pass over 3 calls each of phases
+26. (run after 25) the Gumbel solve on JAX's threefry streams and
+    parallel/'s programs captured, each against its eager form as phase 24
+    holds its cases (collectives counted beside the kernels'
+    launches): register_jit(use_gumbel=True) at phase 15's headline (a new
+    key, as a fresh input and as a key tensor, replays the one program;
+    transform error < 0.5) and the draw of one iteration captured alone
+    (its share of the captured solve); the streamed gumbel_nn at phase 4's
+    shape; the same threefry draws on the card and on the CPU, bit for bit;
+    then in an NCCL world of one (destroyed at the end) map_sharded_fn's
+    programs: register_map_sharded at phase 8's pair (K2 in the WHILE body
+    with the all-reduce; collectives per replay = iterations + 1; K2 held
+    to its plain version on the captured call), register_ring_sharded at
+    phase 4's first pair, register_map_sharded_ift's forward (its gradient,
+    the forward a replay, cosine > 0.99 with the unrolled one); the
+    batch-sharded solve at phase 9's batch (register_jit); the partitioned
+    pose graph's program on phase 20's graph (within 1e-4 of the dense one)
+    and refine_robust(mesh=...) (its second pass and the next call replay
+    the program); then eager against captured in turns.
+16. (run after 17-26) a torch.profiler pass over 3 calls each of phases
     4 (captured, through ICP.icp, and eager register), 8 and 9 (captured),
     12 (eager and captured), one W = 1 warm stream of phase 17's first 9
     scans (captured windows and eager windows), one gn scan-to-map stream
@@ -291,7 +309,7 @@ of 7 rounds: the kernel's time, free of the host's launch overhead).
 
 Each main path (phases 4, 8, 9, 12, 14, each run of 17 and 18, the pyramid of 19,
 the first SLAM run of 20, phase 21's map-sharded and batch-sharded solves,
-each row and example of 22, and phases 23's, 24's and 25's captured runs) is driven with
+each row and example of 22, and phases 23's to 26's captured runs) is driven with
 the kernels' launch counts set to 0 just before it and read just after.
 ICP.icp, the pipeline, map_step (phases 18 and 20) and SLAM's closures
 run captured programs (dicp_tpu_torch.jit): a
@@ -328,6 +346,16 @@ process each, in the same turns.  The last line holds every time as JSON.
     python3 chip_smoke.py --ab DIR --only score
 
 times K6 and K7 alone that way: neither lies on a path.
+
+    python3 chip_smoke.py --ranks K
+
+runs parallel/'s programs on K processes, one card each (NCCL; K cards
+needed): map_sharded_fn's (map-sharded at phase 8's pair through K2, the
+ring at phase 4's first pair, the sharded IFT's forward and gradient), the
+batch-sharded solve and the partitioned pose graph, each against its
+eager form bit for bit and the same on every rank, with their collectives
+and times; then tries a WHILE node whose body holds an all-reduce and
+prints CUDA's answer.  The last line is the ranks' exit codes as JSON.
 """
 
 from __future__ import annotations
@@ -336,6 +364,7 @@ import contextlib
 import functools
 import importlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -365,6 +394,8 @@ from dicp_tpu_torch.ops import _build, cluster_search, fused_gn, launch_counts, 
 from dicp_tpu_torch.ops import cluster_knn as ck
 from dicp_tpu_torch.ops.normals import estimate_normals
 from dicp_tpu_torch.ops.voxel import voxel_downsample
+from dicp_tpu_torch.parallel import pose_graph as pg_mod
+from dicp_tpu_torch.parallel import sharding
 from dicp_tpu_torch.parallel import (_comm, make_mesh, pose_graph_optimize_partitioned,
                                      register_batch_sharded, register_map_sharded,
                                      register_map_sharded_ift, register_ring_sharded)
@@ -2521,8 +2552,9 @@ def phase20_slam(device):
 
 
 def _collectives() -> dict:
-    """The collectives ``parallel._comm`` counted: (kind, ranks, elements) -> count."""
-    return dict(_comm.counts)
+    """The collectives ``parallel._comm`` counted, at once and in captured
+    programs' replays: (kind, ranks, elements) -> count."""
+    return dict(_comm.collectives())
 
 
 def phase21_parallel(device, pair, T_pair: np.ndarray, sources: np.ndarray,
@@ -2868,17 +2900,25 @@ def _diff_fields(eager, got) -> dict:
             if not torch.equal(a, b)}
 
 
-def _counted(call):
-    """(call's result, the kernels' launches it ran, host seconds to its end)."""
-    before = _launches()
+def _delta(before: dict, after: dict) -> dict:
+    """The counts that moved from ``before`` to ``after``, by how much."""
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
+def _counted(call, counter=None):
+    """(call's result, the kernels' launches it ran (``counter``'s counts:
+    default :func:`_launches`), host seconds to its end)."""
+    counter = counter or _launches
+    before = counter()
     t0 = time.perf_counter()
     out = call()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return out, {k: v - before[k] for k, v in _launches().items() if v != before[k]}, seconds
+    return out, _delta(before, counter()), seconds
 
 
-def _captured_equals_eager(label: str, eager_call, jitted_call, jitted, fresh=None) -> int:
+def _captured_equals_eager(label: str, eager_call, jitted_call, jitted, fresh=None,
+                           counter=None) -> int:
     """Two replays of a fresh capture and the replay of a second fresh
     capture equal the eager result bit for bit in every field, each replay
     run under the sync debug mode's "error" (a host wait raises), and each
@@ -2889,25 +2929,28 @@ def _captured_equals_eager(label: str, eager_call, jitted_call, jitted, fresh=No
     equal the eager call on those inputs, under the same gates.  Prints the
     cost of a first call (the eager warm-up and the capture) beside the
     eager call's and the program's pools.  Returns the host waits per
-    replay (0)."""
+    replay (0).  ``counter``: what "launches" counts (default
+    :func:`_launches`; :func:`_launches_and_collectives` adds the
+    collectives)."""
+    counter = counter or _launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    eager, want, eager_s = _counted(eager_call)
+    eager, want, eager_s = _counted(eager_call, counter)
     eager_peak = torch.cuda.max_memory_allocated() - base
     outs, firsts, pools = [], [], []
     for replays in (2, 1):
         jitted.cache_clear()
-        _, first, first_s = _counted(jitted_call)   # a miss: the eager warm-up, the capture
+        _, first, first_s = _counted(jitted_call, counter)   # a miss: the eager warm-up, the capture
         firsts.append(first_s)
         pools.append(next(reversed(jitted.cache.values())).pool_bytes)
         _check(first == want, f"{label}: the first call launches what eager does "
                f"({first} vs {want})")
         for _ in range(replays):
-            before = _launches()
+            before = counter()
             with _no_host_wait():
                 outs.append(jitted_call())
-            got = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+            got = _delta(before, counter())
             _check(got == want, f"{label}: a replay launches what the eager call does "
                    f"({got} vs {want})")
     for k, got in enumerate(outs):
@@ -2916,14 +2959,14 @@ def _captured_equals_eager(label: str, eager_call, jitted_call, jitted, fresh=No
                f"(differing: {diff})")
     fresh_note = ""
     if fresh is not None:
-        eager_fresh, want_fresh, _ = _counted(fresh[0])
+        eager_fresh, want_fresh, _ = _counted(fresh[0], counter)
         _check(bool(_diff_fields(eager, eager_fresh)), f"{label}: the fresh inputs give "
                f"other results")
         prog = next(reversed(jitted.cache.values()))
-        programs, replays, before = len(jitted.cache), prog.replays, _launches()
+        programs, replays, before = len(jitted.cache), prog.replays, counter()
         with _no_host_wait():
             got = fresh[1]()
-        launched = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+        launched = _delta(before, counter())
         _check(len(jitted.cache) == programs and prog.replays == replays + 1,
                f"{label}: the fresh inputs replay the program")
         _check(launched == want_fresh, f"{label}: the fresh replay launches what the eager "
@@ -3832,6 +3875,308 @@ def phase25_captured_backend(device, host, slam_case) -> dict:
     return {"launches": launches, "k2_err": k2_err}
 
 
+# --- phase 26: Gumbel on threefry draws and parallel/'s programs, captured -----
+
+GUMBEL_CFG = ICPConfig(use_gumbel=True, **HEAD)   # phase 15's headline solve
+KEY_GUMBEL = SEED + 26
+CFG_MAP = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=30, tolerance=1e-5,
+                    dim=3, trim_dist=2.0, loss_name="huber", loss_metric=1.0,
+                    cluster_probes=PROBES, cluster_group=GROUP, collect_histories=False)
+CFG_RING = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=50, tolerance=1e-6,
+                     dim=3, trim_dist=2.0, loss_name="huber", loss_metric=0.5,
+                     collect_histories=False)
+
+
+def _launches_and_collectives() -> dict:
+    """:func:`_launches` and the collectives ``parallel._comm`` counted (at
+    once and in replays), keyed "collective <kind> <ranks> <elements>"."""
+    return {**_launches(), **{f"collective {kind} {ranks} {numel}": n
+                              for (kind, ranks, numel), n in _comm.collectives().items()}}
+
+
+def _draws_card_equal_cpu(device) -> None:
+    """The same threefry draws on the card and on the CPU, bit for bit (the
+    CPU's are those tier-1 holds to jax.random.uniform): f32 and f64, the
+    headline's (256, 65, 65) blocks at a device counter, streamed
+    (n, chunk) blocks with a chunk folded in, one stream over a whole
+    shape."""
+    cases = ((list(range(B_HEAD)), 7, None, (B_HEAD, 65, 65)),
+             (list(range(B)), 3, 11, (B, 512, 1365)),
+             (None, None, 2, (3, 1000, 17)))
+    for dtype in (torch.float32, torch.float64):
+        for ids, it, chunk, shape in cases:
+            it_card = None if it is None else torch.tensor(it, dtype=torch.int32, device=device)
+            card = knn.ThreefryNoise(KEY_GUMBEL).uniform(ids, it_card, chunk, shape, dtype,
+                                                         device)
+            host = knn.ThreefryNoise(KEY_GUMBEL).uniform(ids, it, chunk, shape, dtype, "cpu")
+            _check(torch.equal(card.cpu(), host), f"threefry draws on the card equal the CPU's "
+                   f"({dtype}, {shape}, chunk {chunk})")
+    print("  threefry draws on the card equal the CPU's bit for bit (f32, f64; (256, 65, 65) "
+          "at a device counter, (8, 512, 1365) with a chunk folded in, one stream over "
+          "(3, 1000, 17))")
+
+
+def _gumbel_cases(device, head_inputs, sources, targets) -> tuple:
+    """register_jit(use_gumbel=True) at the headline and the streamed
+    gumbel_nn at phase 4's shape, captured against eager (a new key replays
+    the program); the draw alone, captured.  Returns the (eager, captured)
+    calls and the draw's ms per iteration, captured and eager."""
+    src, tgt, ti = head_inputs
+    calls = {}
+
+    def solve(key, captured=True):
+        return (register_jit if captured else register)(src, tgt, ti, None, GUMBEL_CFG, key=key)
+
+    label = (f"register_jit(use_gumbel=True), the headline pair at B={B_HEAD} (dense "
+             f"(65, 65) draws per pair and iteration; key an int)")
+    calls[label] = (lambda: solve(KEY_GUMBEL, False), lambda: solve(KEY_GUMBEL))
+    _captured_equals_eager(label, *calls[label], _register_captured,
+                           (lambda: solve(KEY_GUMBEL + 1, False), lambda: solve(KEY_GUMBEL + 1)))
+    before = [(p.key, p.replays) for p in jit.programs() if p.name == "register_jit"]
+    with _no_host_wait():
+        res = solve(knn.key_data(KEY_GUMBEL + 2, device))
+    after = [(p.key, p.replays) for p in jit.programs() if p.name == "register_jit"]
+    _check([k for k, _ in after] == [k for k, _ in before]
+           and sum(r for _, r in after) == sum(r for _, r in before) + 1,
+           "a fresh key tensor replays the program: no new capture (jit.programs())")
+    xi = torch.tensor([1.0, 1.0, 0.0, 0.0, 0.0, 0.1], dtype=torch.float64)
+    T_true = se3.tran_inv(se3.vec2tran(xi)).to(device)
+    err = torch.linalg.vector_norm(se3.tran2vec(T_true @ torch.linalg.inv(res.T.double())),
+                                   dim=-1)
+    _check(bool(torch.isfinite(res.T).all()) and float(err.max()) < TOL_GUMBEL,
+           f"captured Gumbel transform error {float(err.max())} < {TOL_GUMBEL}")
+    print(f"  a fresh key tensor replayed the program (programs {len(after)}, no new "
+          f"capture); transform error max {float(err.max()):.4e}; iterations "
+          f"{float(res.iterations.max())}")
+
+    # the draw of one iteration alone, captured, beside its eager dispatch
+    shape = tuple(src.shape[:2]) + (tgt.shape[1],)
+    noise = knn.ThreefryNoise(knn.key_data(KEY_GUMBEL, device))
+    ids = list(range(shape[0]))
+    noise.pair_keys(ids, device)
+    it = torch.tensor(7, dtype=torch.int32, device=device)
+    draw = jit.jit(lambda it: noise.uniform(ids, it, None, shape, torch.float32, device),
+                   name="gumbel_draw")
+    _check(torch.equal(draw(it), draw(it)), "the captured draw repeats")
+    draw_ms = cuda_median_ms(lambda: draw(it), warmup=3, iters=20)
+    eager_draw_ms = cuda_median_ms(
+        lambda: noise.uniform(ids, it, None, shape, torch.float32, device), warmup=3, iters=20)
+    draw.cache_clear()
+
+    x, y = to_torch(sources, device), to_torch(targets, device)
+    gnn = jit.jit(lambda x, y, key: knn.gumbel_nn(x, y, key), name="gumbel_nn")
+
+    def stream(key, captured=True):
+        return gnn(x, y, knn.key_data(key, device)) if captured else knn.gumbel_nn(x, y, key)
+
+    label_s = (f"gumbel_nn streamed, phase 4's {tuple(x.shape)} -> {tuple(y.shape)} (12 "
+               f"chunks of 1365 targets, a draw each)")
+    calls[label_s] = (lambda: stream(KEY_GUMBEL, False), lambda: stream(KEY_GUMBEL))
+    _captured_equals_eager(label_s, *calls[label_s], gnn,
+                           (lambda: stream(KEY_GUMBEL + 1, False),
+                            lambda: stream(KEY_GUMBEL + 1)))
+    _draws_card_equal_cpu(device)
+    return calls, draw_ms, eager_draw_ms, float(res.iterations.max())
+
+
+def _fixed_trip_collectives(label: str, calls, cfg: ICPConfig) -> int:
+    """The collectives of an eager call (the iterations it needs, plus the
+    cost pass) and of a replay (max_iterations masked steps, each with its
+    all-reduce, plus the cost pass: the fixed trip); returns the eager
+    call's iterations."""
+    eager_call, jitted_call = calls
+    jitted_call()                    # captured already: this replays
+    counts = {}
+    for form, call in (("eager", eager_call), ("replay", jitted_call)):
+        _comm.reset_counts()
+        res = call()
+        torch.cuda.synchronize()
+        counts[form] = _collectives()
+    it = int(res.iterations)
+    want = {"eager": it + 1, "replay": cfg.max_iterations + 1}
+    for form, n in want.items():
+        _check(sum(v for (kind, _, _), v in counts[form].items() if kind == "all_reduce") == n,
+               f"{label}: all-reduces of the {form} call ({counts[form]}, {n} expected)")
+    print(f"  {label}: collectives of the eager call {counts['eager']} ({it} iterations + the "
+          f"cost pass), of a replay {counts['replay']} (the fixed trip: max_iterations "
+          f"{cfg.max_iterations} + the cost pass)")
+    return it
+
+
+def _map_sharded_cases(device, mesh, pair, sources, targets, raw_inputs) -> tuple:
+    """map_sharded_fn's programs (map-sharded at phase 8's pair through K2,
+    the ring at phase 4's shape, the sharded IFT's forward) and the
+    batch-sharded solve (register_jit) at phase 9's batch, each against its
+    eager form; a map_sharded_fn replay runs max_iterations masked steps,
+    each with its all-reduce (the fixed trip: CUDA refuses NCCL's kernels in
+    a conditional node's body), the eager form the iterations it needs:
+    their collectives are printed and checked apart.  K2 recorded on the
+    captured map-sharded call; the IFT gradient against the unrolled one.
+    Returns the calls, K2's recordings and the map-sharded call's
+    iterations."""
+    calls, rec = {}, {}
+    src, target = pair
+    ti = torch.eye(4, dtype=torch.float32, device=device)
+    src2 = _fresh(src, 260)
+
+    def ms(s=src):
+        return register_map_sharded(mesh, s, target, ti, cfg=CFG_MAP)
+
+    label = (f"register_map_sharded, phase 8's {src.shape[0]} -> {target.shape[0]} pair "
+             f"(cluster tier, K2; NCCL world of one)")
+    calls[label] = (_eager(ms), ms)
+    _captured_equals_eager(label, *calls[label], sharding.map_sharded_fn(mesh, CFG_MAP),
+                           (_eager(lambda: ms(src2)), lambda: ms(src2)))
+    _record_captured("cluster_search", "the captured map-sharded call", ms, rec)
+    it = _fixed_trip_collectives(label, calls[label], CFG_MAP)
+
+    s4, t4 = to_torch(sources[0], device), to_torch(targets[0], device)
+    s4b = _fresh(s4, 261)
+
+    def ring(s=s4):
+        return register_ring_sharded(mesh, s, t4, cfg=CFG_RING)
+
+    label_r = f"register_ring_sharded, phase 4's {tuple(s4.shape)} -> {tuple(t4.shape)}"
+    calls[label_r] = (_eager(ring), ring)
+    _captured_equals_eager(label_r, *calls[label_r],
+                           sharding.map_sharded_fn(mesh, CFG_RING, target_sharded=True),
+                           (_eager(lambda: ring(s4b)), lambda: ring(s4b)))
+    _fixed_trip_collectives(label_r, calls[label_r], CFG_RING)
+
+    s9, t9 = raw_inputs
+    ti9 = torch.eye(4, dtype=torch.float32, device=device).expand(s9.shape[0], 4, 4)
+    s9b = _fresh(s9, 262)
+    cfg9 = CFG_MAP.with_(collect_histories=True)
+
+    def batch(s=s9):
+        return register_batch_sharded(mesh, s, t9, ti9, cfg=cfg9)
+
+    label_b = f"register_batch_sharded, phase 9's {tuple(s9.shape)} -> {tuple(t9.shape)} (K2)"
+    calls[label_b] = (_eager(batch), batch)
+    _captured_equals_eager(label_b, *calls[label_b], _register_captured,
+                           (_eager(lambda: batch(s9b)), lambda: batch(s9b)),
+                           counter=_launches_and_collectives)
+
+    cfg_d = CFG_MAP.with_(differentiable=True)
+
+    def ift(s=src):
+        return register_map_sharded_ift(mesh, s, target, ti, cfg=cfg_d)
+
+    label_i = "register_map_sharded_ift's forward, phase 8's pair"
+    fn_d = sharding.map_sharded_fn(mesh, cfg_d.with_(driver="while"))
+    calls[label_i] = (_eager(ift), ift)
+    _captured_equals_eager(label_i, *calls[label_i], fn_d,
+                           (_eager(lambda: ift(src2)), lambda: ift(src2)))
+    _fixed_trip_collectives(label_i, calls[label_i], cfg_d)
+    probe = torch.linspace(0.5, 1.5, 16, device=device).reshape(4, 4)
+
+    def grad_of(fn):
+        s = src.clone().requires_grad_(True)
+        r = fn(mesh, s, target, ti, cfg=cfg_d)
+        return torch.autograd.grad(torch.sum(r.T * probe), s)[0]
+
+    prog = next(reversed(fn_d.cache.values()))
+    replays = prog.replays
+    g_i = grad_of(register_map_sharded_ift)
+    _check(prog.replays == replays + 1, "the IFT gradient's forward replays the program")
+    g_u = grad_of(register_map_sharded)
+    cos = bench.cosine(g_i, g_u)
+    _check(bool(torch.isfinite(g_i).all()) and bool((g_i != 0).any()) and cos > 0.99,
+           f"captured-forward IFT gradient finite, nonzero, cosine {cos} > 0.99")
+    print(f"  sharded IFT, the forward a replay and the backward eager: gradient cosine with "
+          f"the unrolled one {cos:.6f}")
+    label_g = "register_map_sharded_ift forward + gradient (captured forward)"
+    calls[label_g] = (_eager(lambda: grad_of(register_map_sharded_ift)),
+                      lambda: grad_of(register_map_sharded_ift))
+    return calls, rec, it
+
+
+def _partitioned_cases(device, mesh, slam_case) -> dict:
+    """The partitioned pose graph's program on phase 20's graph (its host
+    partition done before), refine_robust(mesh=...) (the second IRLS pass
+    replays the first's program); returns the calls."""
+    res_c, _ = slam_case
+    poses, poses2 = res_c.poses_front.to(device), res_c.poses.to(device)
+    graph = slam.build_pose_graph(poses, res_c.closures, SLAM_KW["closure_info"],
+                                  converged=res_c.converged)
+    its = SLAM_KW["refine_iterations"]
+    prog = pg_mod._partitioned_program(mesh.get_group("map"))
+    inputs = pg_mod._partition_inputs(poses, graph, mesh)
+    inputs2 = pg_mod._partition_inputs(poses2, graph, mesh)
+
+    def pgp(inp):
+        return prog(**inp, iterations=its, damping=1e-6)
+
+    label = (f"the partitioned pose graph's program, phase 20's graph ({poses.shape[0]} poses, "
+             f"{graph.edges_i.shape[0]} edges, {its} iterations)")
+    calls = {label: (_eager(lambda: pgp(inputs)), lambda: pgp(inputs))}
+    _captured_equals_eager(label, *calls[label], prog,
+                           (_eager(lambda: pgp(inputs2)), lambda: pgp(inputs2)),
+                           counter=_launches_and_collectives)
+    dense, _ = pose_graph_optimize(poses, graph, iterations=its)
+    diff = float((pgp(inputs) - dense).abs().max())
+    _check(diff < 1e-4, f"partitioned program within 1e-4 of the dense pose graph ({diff})")
+
+    def rr():
+        return slam.refine_robust(poses, graph, mesh=mesh, iterations=its)
+
+    eager = _eager(rr)()
+    prog.cache_clear()
+    _comm.reset_counts()
+    got = [rr(), rr()]
+    progs = list(prog.cache.values())
+    _check(all(torch.equal(g, eager) for g in got), "refine_robust(mesh=...) captured equals "
+           "eager bit for bit (a first call and a replaying call)")
+    _check(len(progs) == 1 and progs[0].replays == 3, "refine_robust(mesh=...): one program; "
+           "the first call's second pass and both passes of the next replay it")
+    print(f"  partitioned program within {diff:.3e} of the dense pose graph; "
+          f"refine_robust(mesh=...) captured equals eager bit for bit over two calls (one "
+          f"program, 3 replays; the wrapper reads the graph's edges on the host, as JAX's "
+          f"does); collectives of the two calls {_collectives()}")
+    calls[f"refine_robust(mesh=...), phase 20's graph (2 IRLS passes)"] = (_eager(rr), rr)
+    return calls
+
+
+def phase26_captured_gumbel_parallel(device, head_inputs, sources, targets, pair,
+                                     raw_inputs, slam_case) -> dict:
+    """The Gumbel solve on threefry draws and parallel/'s programs captured,
+    each against its eager form (_captured_equals_eager, collectives
+    counted), in an NCCL world of one destroyed at the end; then eager
+    against captured in turns and the draw's share of the captured solve.
+    Returns the phase's launches and K2's largest |difference| to its plain
+    version on the captured map-sharded call."""
+    t_phase = time.perf_counter()
+    _reset_launches()
+    g_calls, draw_ms, eager_draw_ms, iters = _gumbel_cases(device, head_inputs, sources,
+                                                           targets)
+    mesh = make_mesh((1, 1))
+    _check(dist.get_backend() == "nccl", f"the world of one runs on NCCL ({dist.get_backend()})")
+    try:
+        m_calls, rec, _ = _map_sharded_cases(device, mesh, pair, sources, targets, raw_inputs)
+        p_calls = _partitioned_cases(device, mesh, slam_case)
+        launches = _launches()
+        k2_err = _held_to_plain("cluster_search", rec)
+        for label, (eager_call, jitted_call) in {**g_calls, **m_calls, **p_calls}.items():
+            heavy = "gumbel" in label or "refine_robust" in label or "pose graph" in label
+            med = _alternated(label, eager_call, jitted_call, rounds=2,
+                              iters=TURN_ITERS_HEAVY if heavy else 5)
+            if label.startswith("register_jit(use_gumbel"):
+                share = draw_ms * iters / med["captured"]
+                print(f"    the draw: {draw_ms:.4f} ms per iteration captured ({eager_draw_ms:.4f} "
+                      f"eager), x {iters:.0f} iterations = {share:.3f} of the captured solve")
+        for info in jit.programs():
+            print(f"  cached program {info.name}: {info.pool_bytes / 2**20:.1f} MiB of private "
+                  f"pools, {info.replays} replays, key {str(info.key)[:140]}")
+    finally:
+        jit.clear_caches()
+        dist.destroy_process_group()
+    print(f"phase 26 ok: the Gumbel solve and parallel/'s programs captured equal their eager "
+          f"forms bit for bit, no host wait in a replay, kernel launches as eager (collectives: "
+          f"map_sharded_fn's fixed trip max_iterations + 1 per replay, the pose graph's as "
+          f"eager); launches {launches}; {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "k2_err": k2_err}
+
+
 def main() -> None:
     card = phase0_device()
     device = torch.device("cuda", 0)
@@ -3873,10 +4218,14 @@ def main() -> None:
         del slam_scans
         backend = phase25_captured_backend(device, host, slam_case)
         del host
+        last = phase26_captured_gumbel_parallel(
+            device, reference_batch(device), sources, targets, pair,
+            (to_torch(raw_sources, device), to_torch(raw_targets, device)), slam_case)
         timed["cluster_search"]["max_abs_err"] = max(timed["cluster_search"]["max_abs_err"],
                                                      k2_err, k2_err_s2m, pyramid["k2_err"],
                                                      slam_k2["k2_err"], par["k2_err"],
-                                                     solvers["k2_err"], backend["k2_err"])
+                                                     solvers["k2_err"], backend["k2_err"],
+                                                     last["k2_err"])
         k1["max_abs_err"] = max(k1["max_abs_err"], slam_k1["k1_err"], solvers["k1_err"])
         for name, got in (("tiled_nn", k1), ("cluster_search", timed["cluster_search"]),
                           ("cluster_topk", timed["cluster_topk"]), ("fused_gn", k4)):
@@ -3937,10 +4286,11 @@ def main() -> None:
         **k1,
         "launches": (launches + slam_k1["launches"] + suite_launches("tiled_nn")[1]
                      + captured["launches"]["tiled_nn"] + solvers["launches"]["tiled_nn"]
-                     + backend["launches"]["tiled_nn"]),
+                     + backend["launches"]["tiled_nn"] + last["launches"]["tiled_nn"]),
         "launches_in_phase23": captured["launches"]["tiled_nn"],
         "launches_in_phase24": solvers["launches"]["tiled_nn"],
         "launches_in_phase25": backend["launches"]["tiled_nn"],
+        "launches_in_phase26": last["launches"]["tiled_nn"],
         "launches_per_slam_scan": slam_k1["launches_per_slam_scan"],
         "launches_per_suite_row": suite_launches("tiled_nn")[0],
     }]
@@ -3969,11 +4319,12 @@ def main() -> None:
                      "launches_per_map_sharded_call": par["launches_per_map_sharded_call"]}
         per_row, in_suite = suite_launches(name)
         in23, in24 = captured["launches"][name], solvers["launches"][name]
-        in25 = backend["launches"][name]
+        in25, in26 = backend["launches"][name], last["launches"][name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": count + in_suite + in23 + in24 + in25, **timed[name],
+                        "launches": count + in_suite + in23 + in24 + in25 + in26, **timed[name],
                         **extra, "launches_per_suite_row": per_row, "launches_in_phase23": in23,
-                        "launches_in_phase24": in24, "launches_in_phase25": in25})
+                        "launches_in_phase24": in24, "launches_in_phase25": in25,
+                        "launches_in_phase26": in26})
     _check(k4_launches > 0, f"fused_gn launched on the headline path ({k4_launches})")
     kernels.append({"name": "fused_gn", "route": "cuda",
                     "source": "dicp_tpu_torch/csrc/fused_gn.cu",
@@ -3981,10 +4332,12 @@ def main() -> None:
                     "launches": (k4_launches + suite_launches("fused_gn")[1]
                                  + captured["launches"]["fused_gn"]
                                  + solvers["launches"]["fused_gn"]
-                                 + backend["launches"]["fused_gn"]), **k4,
+                                 + backend["launches"]["fused_gn"]
+                                 + last["launches"]["fused_gn"]), **k4,
                     "launches_in_phase23": captured["launches"]["fused_gn"],
                     "launches_in_phase24": solvers["launches"]["fused_gn"],
                     "launches_in_phase25": backend["launches"]["fused_gn"],
+                    "launches_in_phase26": last["launches"]["fused_gn"],
                     "launches_per_suite_row": suite_launches("fused_gn")[0]})
     for name, replaces in (("score_nn_v1", "benchmarks/exp_knn.py:69"),
                            ("score_nn_v2", "benchmarks/exp_knn.py:137")):
@@ -4362,12 +4715,226 @@ def _ab_score(record, contenders: dict, device, stream) -> None:
                    check)
 
 
+# --- --ranks K: parallel/'s programs on K cards ------------------------------
+
+RANKS_DEADLINE_S = 600.0
+
+
+def main_ranks(ranks: int) -> None:
+    """parallel/'s programs on ``ranks`` processes, one card each (NCCL), each
+    against its eager form: builds the kernels once, starts the ranks
+    (``--rank-worker``), waits for them (killing them past the deadline)
+    and exits non-zero unless every rank passed."""
+    phase0_device()
+    _check(torch.cuda.device_count() >= ranks, f"{ranks} cards ({torch.cuda.device_count()})")
+    phase1_build()
+    port = _free_port()
+    procs = []
+    for rank in range(ranks):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(ranks), RANK=str(rank), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(ranks))
+        procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                       "--rank-worker"], cwd=ROOT, env=env))
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < RANKS_DEADLINE_S and any(p.poll() is None for p in procs):
+        time.sleep(1)
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    codes = [proc.returncode for proc in procs]
+    print(json.dumps({"ranks": ranks, "exit_codes": codes,
+                      "seconds": time.perf_counter() - t0}))
+    if any(codes):
+        raise SystemExit(1)
+
+
+def _free_port() -> int:
+    """A free TCP port on localhost (the ranks' rendezvous)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_worker() -> None:
+    """One rank of --ranks: map_sharded_fn's programs (map-sharded at phase
+    8's 100,000-point pair through K2, the ring at phase 4's first pair, the
+    sharded IFT's forward and gradient), the batch-sharded solve at 2 of
+    phase 9's pairs per rank and the partitioned pose graph (65 poses, 25
+    iterations), each: eager (jit.disable_jit) against a capture and two
+    replays bit for bit, the same on every rank, collectives per call and
+    per replay, ms eager and captured (CUDA events, rank 0's); the IFT
+    gradient with a captured forward against the eager forward's, and its
+    cosine with the unrolled gradient printed.  Then a WHILE node whose
+    body holds an all-reduce, and CUDA's answer."""
+    from dicp_tpu_torch.odometry import PoseGraph
+    from dicp_tpu_torch.parallel.multihost import initialize_distributed
+    from dicp_tpu_torch.registration import _register_captured as register_program
+
+    initialize_distributed()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh_map, mesh_batch = make_mesh((1, world)), make_mesh((world, 1))
+    group = mesh_map.get_group("map")
+
+    def say(msg):
+        if rank == 0:
+            print(msg, flush=True)
+
+    def same_on_ranks(t: torch.Tensor) -> bool:
+        t = t.to(torch.float64).contiguous()
+        out = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(out, t, group=group)
+        return all(torch.equal(o, out[0]) for o in out)
+
+    def check(label, call, jitted, trip=None, replicated=True):
+        _comm.reset_counts()
+        with jit.disable_jit():
+            eager = call()
+        torch.cuda.synchronize()
+        eager_counts = _collectives()
+        jitted.cache_clear()
+        outs = [call()]
+        for _ in range(2):
+            _comm.reset_counts()
+            outs.append(call())
+            torch.cuda.synchronize()
+            replay_counts = _collectives()
+        want = (eager_counts if trip is None else
+                {key: trip + 1 for key in eager_counts if key[0] == "all_reduce"})
+        _check({k: v for k, v in replay_counts.items()
+                if trip is None or k[0] == "all_reduce"} == want,
+               f"{label}: collectives per replay {replay_counts} ({want} expected)")
+        for got in outs:
+            _check(not _diff_fields(eager, got), f"{label}: captured equals eager bit for bit")
+        if replicated:
+            _check(all(same_on_ranks(t) for _, t in _leaves(outs[-1])),
+                   f"{label}: the same on every rank")
+        with jit.disable_jit():
+            eager_ms = cuda_median_ms(call, warmup=1, iters=3)
+        captured_ms = cuda_median_ms(call, warmup=1, iters=5)
+        say(f"  {label}: a capture and two replays equal eager bit for bit"
+            f"{', the same on every rank' if replicated else ''}; collectives of an eager call "
+            f"{eager_counts}, of a replay {replay_counts}; eager {eager_ms:.3f} ms, captured "
+            f"{captured_ms:.3f} ms (rank 0, CUDA events, medians of 3 and 5)")
+        return outs[-1]
+
+    say(f"--ranks: {world} ranks, one {torch.cuda.get_device_name(dev)} each, NCCL")
+    mp, scan, T_pair = raw_scan_pair(np.random.default_rng(SEED + 8), M_MAP)
+    pts = to_torch(mp[:, :3], dev)
+    target = torch.cat([pts, estimate_normals(pts, method="weighted")], dim=-1)
+    _check(same_on_ranks(target), "the weighted normals are the same on every rank")
+    src, ti = to_torch(scan, dev), torch.eye(4, dtype=torch.float32, device=dev)
+    res = check(f"register_map_sharded {tuple(src.shape)} -> {tuple(target.shape)} (K2)",
+                lambda: register_map_sharded(mesh_map, src, target, ti, cfg=CFG_MAP),
+                sharding.map_sharded_fn(mesh_map, CFG_MAP), trip=CFG_MAP.max_iterations)
+    rot, trans = pose_errors(torch.as_tensor(T_pair[None], device=dev),
+                             res.T[None].to(torch.float64))
+    _check(bool(res.converged) and float(rot[0]) < TOL_POSE and float(trans[0]) < TOL_POSE,
+           "map-sharded: converged, errors < 1e-3")
+    sources, targets, _ = scene_pairs(np.random.default_rng(SEED), 1, N_SRC, M_TGT)
+    s4, t4 = to_torch(sources[0], dev), to_torch(targets[0], dev)
+    ring = check(f"register_ring_sharded {tuple(s4.shape)} -> {tuple(t4.shape)}",
+                 lambda: register_ring_sharded(mesh_map, s4, t4, cfg=CFG_RING),
+                 sharding.map_sharded_fn(mesh_map, CFG_RING, target_sharded=True),
+                 trip=CFG_RING.max_iterations)
+    dense = register_map_sharded(mesh_map, s4, t4, cfg=CFG_RING.with_(nn_method="dense"))
+    _check(float((ring.T - dense.T).abs().max()) < 1e-5, "ring within 1e-5 of the dense T")
+    cfg_d = CFG_MAP.with_(differentiable=True)
+    check("register_map_sharded_ift forward",
+          lambda: register_map_sharded_ift(mesh_map, src, target, ti, cfg=cfg_d),
+          sharding.map_sharded_fn(mesh_map, cfg_d.with_(driver="while")),
+          trip=cfg_d.max_iterations)
+    probe = torch.linspace(0.5, 1.5, 16, device=dev).reshape(4, 4)
+
+    def grad_of(fn):
+        s = src.clone().requires_grad_(True)
+        return torch.autograd.grad(torch.sum(fn(mesh_map, s, target, ti, cfg=cfg_d).T * probe),
+                                   s)[0]
+
+    g_i = grad_of(register_map_sharded_ift)
+    with jit.disable_jit():
+        g_eager = grad_of(register_map_sharded_ift)
+    _check(torch.equal(g_i, g_eager) and same_on_ranks(g_i)
+           and bool(torch.isfinite(g_i).all()) and bool((g_i != 0).any()),
+           "the IFT gradient with a captured forward equals the eager forward's, finite, "
+           "nonzero, the same on every rank")
+    cos = bench.cosine(g_i, grad_of(register_map_sharded))
+    say(f"  sharded IFT gradient, the forward a replay: equal to the eager forward's bit for "
+        f"bit, the same on every rank; cosine with the unrolled gradient {cos:.6f} (phase 21 "
+        f"gates it > 0.99 in a world of one; the unrolled solve stops after the iterations "
+        f"the tolerance allows, and each rank's query order is its own)")
+    s9, t9, _ = scene_pairs(np.random.default_rng(SEED + 9), 2 * world, N_RAW, M_RAW)
+    s9, t9 = to_torch(s9, dev), to_torch(t9, dev)
+    ti9 = torch.eye(4, dtype=torch.float32, device=dev).expand(s9.shape[0], 4, 4)
+    check(f"register_batch_sharded {tuple(s9.shape)} -> {tuple(t9.shape)} (K2)",
+          lambda: register_batch_sharded(mesh_batch, s9, t9, ti9, cfg=CFG_MAP),
+          register_program, replicated=False)
+    V = 65
+    rng = np.random.default_rng(SEED + 26)
+    steps = se3.vec2tran(torch.as_tensor(rng.normal(scale=0.05, size=(V - 1, 6))))
+    truth = [torch.eye(4, dtype=torch.float64)]
+    for k in range(V - 1):
+        truth.append(truth[-1] @ steps[k])
+    truth = torch.stack(truth)
+    noise = rng.normal(scale=0.01, size=(V, 6))
+    noise[0] = 0.0
+    front = (truth @ se3.vec2tran(torch.as_tensor(noise))).float().to(dev)
+    ei = list(range(V - 1)) + list(range(0, 33, 3))
+    ej = list(range(1, V)) + [j + 32 for j in range(0, 33, 3)]
+    tm = torch.stack([se3.tran_inv(truth[i]) @ truth[j] for i, j in zip(ei, ej)]).float()
+    graph = PoseGraph(torch.as_tensor(ei, device=dev), torch.as_tensor(ej, device=dev),
+                      tm.to(dev), torch.ones(len(ei), device=dev))
+    prog = pg_mod._partitioned_program(group)
+    inputs = pg_mod._partition_inputs(front, graph, mesh_map)
+    out = check(f"partitioned pose graph ({V} poses, {len(ei)} edges, 25 iterations)",
+                lambda: prog(**inputs, iterations=25, damping=1e-6), prog)
+    dense_pg, _ = pose_graph_optimize(front, graph, iterations=25)
+    _check(float((out - dense_pg).abs().max()) < 1e-4, "within 1e-4 of the dense pose graph")
+
+    # the first design: the loop's all-reduce inside a WHILE node's body
+    acc = torch.ones(87, device=dev)
+
+    def reduce_in_while(x):
+        y, it = x.clone(), torch.zeros((), dtype=torch.int32, device=dev)
+        flag = torch.ones((), dtype=torch.bool, device=dev)
+
+        def body():
+            y.copy_(_comm.psum(y, group) * 0.5)
+            it.add_(1)
+            flag.copy_(it < 3)
+
+        jit.device_while(flag, body)
+        return y
+
+    probe_prog = jit.jit(reduce_in_while, name="reduce_in_while",
+                         capture_error_mode="thread_local")
+    try:
+        probe_prog(acc)
+        answer = "captured"
+    except RuntimeError as exc:   # CUDA's refusal is the finding printed here
+        answer = f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+    torch.cuda.synchronize()
+    say(f"  a WHILE node whose body holds an all-reduce, on {world} ranks: {answer}")
+    jit.clear_caches()
+    dist.barrier(group=group)
+    dist.destroy_process_group()
+    say("--ranks ok")
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         main_ab(Path(sys.argv[2]).resolve())
     elif sys.argv[1:2] == ["--ab"] and sys.argv[3:] == ["--only", "score"]:
         main_ab(Path(sys.argv[2]).resolve(), only="score")
+    elif sys.argv[1:2] == ["--ranks"] and len(sys.argv) == 3:
+        main_ranks(int(sys.argv[2]))
+    elif sys.argv[1:] == ["--rank-worker"]:
+        _rank_worker()
     elif len(sys.argv) > 1:
-        raise SystemExit("usage: python3 chip_smoke.py [--ab DIR [--only score]]")
+        raise SystemExit("usage: python3 chip_smoke.py [--ab DIR [--only score] | --ranks K]")
     else:
         main()

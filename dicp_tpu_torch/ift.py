@@ -34,8 +34,7 @@ from dicp_tpu_torch import knn, losses, se3
 from dicp_tpu_torch.config import ICPConfig
 from dicp_tpu_torch.jit import jit
 from dicp_tpu_torch.registration import (ICPResult, _chunked_over_batch, _damping,
-                                         _make_index_fn, _preprocess, _zmask, host_driven,
-                                         register)
+                                         _make_index_fn, _preprocess, _zmask, register)
 
 
 def _solver_weight(w):
@@ -231,6 +230,6 @@ def register_ift(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tenso
 # node; see dicp_tpu_torch.jit) for inference-only calls; with inputs that
 # require grad, and on the CPU, it is register_ift itself.  A forward and
 # backward captured together: jit over a function that calls
-# torch.autograd.grad (dicp_tpu_torch.bench.fwdbwd_jit).
-register_ift_jit = jit(register_ift, static_argnames=("cfg",),
-                       eager_if=lambda a: host_driven(a["cfg"]), name="register_ift_jit")
+# torch.autograd.grad (dicp_tpu_torch.bench.fwdbwd_jit).  A Gumbel config
+# raises in the first call's eager run, as register_ift does.
+register_ift_jit = jit(register_ift, static_argnames=("cfg",), name="register_ift_jit")

@@ -27,15 +27,21 @@ CPU, where the tests run); when an input requires grad while grad mode is on
 ``torch.autograd.grad`` of a jitted call is that of ``fn`` itself; capture a
 forward and backward together by calling ``torch.autograd.grad`` inside
 ``fn``); where ``eager_if(arguments)`` says so (the host-driven paths:
-Gumbel noise sources); and inside :func:`disable_jit`, as inside
+Gumbel noise from an explicit ``uniform`` object); and inside
+:func:`disable_jit`, as inside
 ``jax.disable_jit()``.  A capture that fails raises: there is no eager
 fallback on the card.
 
 ``prepare(arguments)`` runs on the host before every call, eager or not,
 and may replace arguments in the bound ``arguments`` dict: SGD-ICP draws
-its mini-batch indices there from a host-seeded source, so that the
-program receives them as a tensor and the source never enters the cache
-key.
+its mini-batch indices there from a host-seeded source, and a Gumbel
+solve's seed becomes a key tensor there, so that the program receives them
+as tensors and the source never enters the cache key.
+
+``capture_error_mode`` is ``torch.cuda.graph``'s: programs that run a NCCL
+collective are captured in ``"thread_local"`` mode, because c10d's
+watchdog thread queries CUDA events while a capture runs, which the
+default ``"global"`` mode refuses.
 
 Loops whose exit the device decides are written with :func:`device_while`.
 Under capture it becomes a CUDA graph conditional WHILE node
@@ -161,6 +167,21 @@ def device_while(flag: torch.Tensor, body: Callable[[], None]) -> None:
     _check(end, "graph_while_end")
 
 
+def device_if(flag: torch.Tensor, body: Callable[[], None]) -> None:
+    """Run ``body()`` once where the 0-dim bool tensor ``flag`` holds True:
+    a :func:`device_while` whose body clears a copy of the flag (under
+    capture a conditional node, uncaptured a host check).  CUDA refuses
+    NCCL's kernels inside a conditional node's body: ``body`` runs no
+    collective."""
+    once = flag.clone()
+
+    def run_once():
+        body()
+        once.fill_(False)
+
+    device_while(once, run_once)
+
+
 # ---- programs ------------------------------------------------------------
 
 class ProgramInfo(NamedTuple):
@@ -229,8 +250,9 @@ def _is_tensor(x) -> bool:
 
 
 class _Jitted:
-    def __init__(self, fn, static_argnames, eager_if, name, prepare):
+    def __init__(self, fn, static_argnames, eager_if, name, prepare, capture_error_mode):
         self.fn = fn
+        self.capture_error_mode = capture_error_mode
         self.static = tuple(static_argnames)
         self.eager_if = eager_if
         self.prepare = prepare
@@ -317,7 +339,8 @@ class _Jitted:
         launch_counts.prepare(device)
         _local.capture = prog
         try:
-            with torch.cuda.graph(prog.graph, stream=_stream(device, "capture")):
+            with torch.cuda.graph(prog.graph, stream=_stream(device, "capture"),
+                                  capture_error_mode=self.capture_error_mode):
                 captured = self.fn(*cbound.args, **cbound.kwargs)
         except BaseException:
             prog.release()
@@ -348,9 +371,12 @@ class _Jitted:
 
 def jit(fn, *, static_argnames: Sequence[str] = (),
         eager_if: Optional[Callable[[dict], bool]] = None, name: Optional[str] = None,
-        prepare: Optional[Callable[[dict], None]] = None):
+        prepare: Optional[Callable[[dict], None]] = None,
+        capture_error_mode: str = "global"):
     """``fn`` as a captured device program on the card (see the module
     docstring).  ``eager_if(arguments)``: calls to run eagerly; ``name``:
     the programs' name in :func:`programs`; ``prepare(arguments)``: host
-    work that rewrites the bound arguments before each call."""
-    return _Jitted(fn, static_argnames, eager_if, name, prepare)
+    work that rewrites the bound arguments before each call;
+    ``capture_error_mode``: ``torch.cuda.graph``'s ("thread_local" for
+    programs with collectives)."""
+    return _Jitted(fn, static_argnames, eager_if, name, prepare, capture_error_mode)

@@ -19,26 +19,31 @@ and every target row; plain PyTorch, as the JAX package leaves it to XLA.
 Dense up to ``DENSE_MAX_ENTRIES`` distance entries per batch element, else
 an online softmax over target chunks that never holds the (n, m) logits.
 
-Random draws.  torch and JAX streams differ, so the noise comes from an
-explicit source, any object with JAX's stream structure as a method
+Random draws.  The noise comes from a source with JAX's stream structure
+as a method,
 
     uniform(pair_ids, iteration, chunk, shape, dtype, device) -> Tensor
 
 returning U[0, 1) draws of ``shape``.  ``pair_ids`` (global batch indices,
 one per leading row of ``shape``, or None for one stream over the whole
-shape), ``iteration`` (None outside a solve) and ``chunk`` (the streaming
-chunk's index, None on the dense path) name the stream, as JAX derives it
-with ``fold_in(key, i)``, ``fold_in(key, it)`` and ``fold_in(key, chunk)``.
-A draw that depends only on its own stream makes a chunked batch equal the
-unchunked one, and a batch's first rows equal a smaller batch, bit for bit.
-:class:`SeededNoise` is the port's source (a seed or a ``torch.Generator``,
-drawing on the tensors' device, never from torch's global generator); a
-test can pass an object that returns JAX's own draws.
+shape), ``iteration`` (None outside a solve; an int, or the device loop's
+0-dim int32 counter) and ``chunk`` (the streaming chunk's index, None on the
+dense path) name the stream, as JAX derives it with ``fold_in(key, i)``,
+``fold_in(key, it)`` and ``fold_in(key, chunk)``.  A draw that depends only
+on its own stream makes a chunked batch equal the unchunked one, and a
+batch's first rows equal a smaller batch, bit for bit.
+
+:class:`ThreefryNoise` is the port's source: JAX's own threefry2x32
+streams, computed as plain integer arithmetic on the tensors' device from a
+key tensor, so a seed ``s`` draws the bits of ``jax.random.PRNGKey(s)`` and
+no host value enters a draw (a solve that draws it can be captured).  Any
+other object with a ``uniform`` method is used as it is, on the host's
+schedule (:func:`host_driven`).
 """
 
 from __future__ import annotations
 
-import hashlib
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -82,40 +87,206 @@ def hard_nn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return gather_rows(y, nn_indices(x, y))
 
 
-class SeededNoise:
-    """The port's Gumbel noise source: every stream (pair, iteration, chunk)
-    draws from its own ``torch.Generator``, seeded from a hash of the base
-    seed and the stream's name and created on the tensors' device.  A
-    ``torch.Generator`` given as the base is read once for the seed."""
+# ---- JAX's threefry2x32 streams on the device ------------------------------
+#
+# Words are uint32 bit patterns held in int32 tensors: adds wrap modulo
+# 2**32 and left shifts drop the high bits, on the CPU and on the card
+# alike; a logical right shift is an arithmetic one masked to its width.
+# The code follows jax/_src/prng.py (threefry2x32's unrolled rounds,
+# threefry_seed, threefry_fold_in, the partitionable random_bits) and
+# jax/_src/random.py::_uniform.
 
-    def __init__(self, seed):
-        if isinstance(seed, torch.Generator):
-            seed = int(torch.randint(0, 2**62, (1,), generator=seed, device=seed.device))
-        self.seed = int(seed)
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
-    def _stream(self, path, shape, dtype, device) -> torch.Tensor:
-        digest = hashlib.blake2b(repr((self.seed,) + path).encode(), digest_size=8).digest()
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int.from_bytes(digest, "little") >> 1)
-        return torch.rand(shape, generator=gen, dtype=dtype, device=device)
+
+def _i32(word: int) -> int:
+    """The uint32 ``word`` as the int32 value of its bit pattern."""
+    word = int(word) & _M32
+    return word - (1 << 32) if word >= (1 << 31) else word
+
+
+def _word_tensor(x) -> torch.Tensor:
+    return x if torch.is_tensor(x) else torch.tensor(_i32(x), dtype=torch.int32)
+
+
+def threefry2x32(k1, k2, x1, x2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 block (20 rounds) of key words (k1, k2) over the
+    count words (x1, x2): broadcasting int32 tensors of uint32 bit patterns
+    (or ints, taken as uint32); returns the two output words, int32
+    tensors of the broadcast shape, updated in place round by round."""
+    k1, k2, x1, x2 = map(_word_tensor, (k1, k2, x1, x2))
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    v0, v1 = (t.contiguous() for t in torch.broadcast_tensors(x1 + ks[0], x2 + ks[1]))
+    for i in range(5):
+        for rot in _ROTATIONS[i % 2]:
+            v0 += v1
+            high = v1 << rot
+            v1 >>= 32 - rot
+            v1 &= (1 << rot) - 1
+            v1 |= high
+            v1 ^= v0
+        v0 += ks[(i + 1) % 3]
+        v1 += ks[(i + 2) % 3] + (i + 1)
+    return v0, v1
+
+
+def seed_words(seed: int) -> Tuple[int, int]:
+    """``jax.random.PRNGKey(seed)``'s key data: the seed's high and low 32
+    bits (threefry_seed of a 64-bit integer)."""
+    seed = int(seed)
+    return (seed >> 32) & _M32, seed & _M32
+
+
+def fold_in(k1, k2, data):
+    """``jax.random.fold_in``: the key (k1, k2) hashed with the count
+    (0, data); ``data`` an int or an integer tensor, taken as uint32."""
+    if torch.is_tensor(data):
+        data = data.to(torch.int32)
+    return threefry2x32(k1, k2, 0, data)
+
+
+def _index_tensor(ids: Sequence[int], device) -> torch.Tensor:
+    """``ids`` as an integer tensor built on ``device`` by aranges,
+    one per run of consecutive or repeated ids (a host list copied to the
+    card would be a host copy, which a capture refuses)."""
+    ids = [int(i) for i in ids]
+    parts, lo = [], 0
+    while lo < len(ids):
+        step = 1 if lo + 1 < len(ids) and ids[lo + 1] == ids[lo] + 1 else 0
+        hi = lo + 1
+        while hi < len(ids) and ids[hi] == ids[hi - 1] + step:
+            hi += 1
+        parts.append(torch.arange(hi - lo, device=device) * step + ids[lo])
+        lo = hi
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _uniform_from_bits(b1: torch.Tensor, b2: torch.Tensor, dtype) -> torch.Tensor:
+    """``jax.random.uniform``'s floats in [0, 1) from the two output words:
+    the mantissa's bits OR'ed into 1.0's exponent, minus 1.0 (the scale by
+    maxval - minval = 1, the shift by minval = 0 and the max with 0 are exact
+    on these values).  f32 takes the high 23 bits of b1 ^ b2, f64 the high
+    52 bits of b1 << 32 | b2."""
+    if dtype == torch.float32:
+        b1 ^= b2
+        b1 >>= 9
+        b1 &= 0x7FFFFF
+        b1 |= 0x3F800000
+        return b1.view(torch.float32) - 1.0
+    if dtype == torch.float64:
+        hi = b1.to(torch.int64) & _M32
+        lo = b2.to(torch.int64) & _M32
+        bits = (hi << 20) | (lo >> 12) | 0x3FF0000000000000
+        return bits.view(torch.float64) - 1.0
+    raise TypeError(f"Gumbel noise is drawn in float32 or float64, not {dtype}")
+
+
+def _words(key) -> Tuple[int, int]:
+    """The two threefry key words of an int seed (``PRNGKey(seed)``), a
+    ``torch.Generator`` (read once for a seed) or (2,) integer key data (a
+    tensor, or an array as ``jax.random.key_data`` gives it)."""
+    if isinstance(key, torch.Generator):
+        key = int(torch.randint(0, 2**62, (1,), generator=key, device=key.device))
+    if isinstance(key, int) and not isinstance(key, bool):
+        return seed_words(key)
+    if torch.is_tensor(key):
+        key = key.to("cpu", torch.int64).numpy() & _M32
+    if hasattr(key, "__array__"):
+        import numpy as np
+
+        arr = np.asarray(key)
+        if arr.shape == (2,) and arr.dtype.kind in "ui":
+            return tuple(int(w) & _M32 for w in arr.tolist())
+    raise TypeError("Gumbel NN takes its noise from an int seed, a torch.Generator, (2,) "
+                    "uint32 key data or an object with a uniform(pair_ids, iteration, chunk, "
+                    f"shape, dtype, device) method, got {type(key).__name__}")
+
+
+def key_data(key, device) -> torch.Tensor:
+    """``key`` (see :class:`ThreefryNoise`) as the (2,) int32 tensor of its
+    key words' bit patterns on ``device``, built there by fills (no host
+    copy); a (2,) int32 tensor already on ``device`` is returned as it is."""
+    device = torch.device(device)
+    if (torch.is_tensor(key) and key.shape == (2,) and key.dtype == torch.int32
+            and key.device == device):
+        return key
+    return torch.stack([torch.full((), _i32(w), dtype=torch.int32, device=device)
+                        for w in _words(key)])
+
+
+class ThreefryNoise:
+    """The port's Gumbel noise source: JAX's threefry2x32 streams.
+
+    The stream of (pair i, iteration it, chunk c) is ``jax.random.uniform(
+    fold_in(fold_in(fold_in(key, i), it), c), shape)`` (the folds of absent
+    names skipped), with the partitionable counter layout: each row's
+    counter runs over its own block alone.  The draw is integer arithmetic
+    on the key words and, in a device loop, its counter: nothing is read
+    from the host.  ``key``: an int seed, a ``torch.Generator``, (2,)
+    uint32 key data, or the (2,) int32 tensor of :func:`key_data` (a
+    program's input, used on its device as it is)."""
+
+    def __init__(self, key):
+        if torch.is_tensor(key) and key.shape == (2,) and key.dtype == torch.int32:
+            self.key, self.words = key, None
+        else:
+            self.key, self.words = None, _words(key)
+        self._pairs: dict = {}
+
+    def _key(self, device):
+        if self.key is not None:
+            key = self.key.to(device)
+            return key[0], key[1]
+        return tuple(torch.full((), _i32(w), dtype=torch.int32, device=device)
+                     for w in self.words)
+
+    def pair_keys(self, pair_ids: Sequence[int], device):
+        """The (len(pair_ids), 1) key words of the pairs' streams,
+        ``fold_in(key, i)``, computed once per (ids, device) and kept: a
+        solve calls this before its loop, so that the loop body folds in
+        only its iteration."""
+        name = (tuple(int(i) for i in pair_ids), str(torch.device(device)))
+        if name not in self._pairs:
+            k1, k2 = fold_in(*self._key(device), _index_tensor(pair_ids, device))
+            self._pairs[name] = (k1[:, None], k2[:, None])
+        return self._pairs[name]
 
     def uniform(self, pair_ids, iteration, chunk, shape, dtype, device) -> torch.Tensor:
-        if pair_ids is None:
-            return self._stream((None, iteration, chunk), tuple(shape), dtype, device)
-        return torch.stack([self._stream((int(i), iteration, chunk), tuple(shape[1:]),
-                                         dtype, device) for i in pair_ids])
+        shape = tuple(shape)
+        if pair_ids is not None:
+            (k1, k2), block = self.pair_keys(pair_ids, device), shape[1:]
+        else:
+            k1, k2 = self._key(device)
+            block = shape
+        if iteration is not None:
+            k1, k2 = fold_in(k1, k2, iteration)
+        if chunk is not None:
+            k1, k2 = fold_in(k1, k2, chunk)
+        size = math.prod(block)
+        if size < 2**31:
+            hi, lo = 0, torch.arange(size, dtype=torch.int32, device=device)
+        else:   # the count's two words (a narrowing cast keeps the low 32 bits)
+            count = torch.arange(size, dtype=torch.int64, device=device)
+            hi, lo = (count >> 32).to(torch.int32), count.to(torch.int32)
+        b1, b2 = threefry2x32(k1, k2, hi, lo)
+        return _uniform_from_bits(b1, b2, dtype).reshape(shape)
+
+
+def host_driven(key) -> bool:
+    """Whether noise from ``key`` is drawn on the host's schedule: an object
+    with its own ``uniform`` method other than :class:`ThreefryNoise`.  A
+    solve that draws such noise cannot be captured."""
+    return callable(getattr(key, "uniform", None)) and not isinstance(key, ThreefryNoise)
 
 
 def gumbel_noise(key):
-    """A noise source from ``key``: an int seed or a ``torch.Generator`` (->
-    :class:`SeededNoise`), or an object with a ``uniform`` method, as is."""
-    if isinstance(key, (int, torch.Generator)) and not isinstance(key, bool):
-        return SeededNoise(key)
+    """A noise source from ``key``: an int seed, a ``torch.Generator`` or
+    (2,) key data (-> :class:`ThreefryNoise`, JAX's streams of that key),
+    or an object with a ``uniform`` method, as is."""
     if callable(getattr(key, "uniform", None)):
         return key
-    raise TypeError("Gumbel NN takes its noise from an int seed, a torch.Generator or an "
-                    f"object with a uniform(pair_ids, iteration, chunk, shape, dtype, device) "
-                    f"method, got {type(key).__name__}")
+    return ThreefryNoise(key)
 
 
 def gumbel_nn(x: torch.Tensor, y: torch.Tensor, key, tau: float = 0.1, eps: float = 1e-10,

@@ -3,9 +3,9 @@ functional :mod:`dicp_tpu_torch.knn` (mirrors ``dicp_tpu/nn.py``).
 
 The reference class defaults to ``use_gumbel=True``, and so does this one.
 Gumbel noise comes from an explicit source (:func:`knn.gumbel_noise`):
-``find_nn`` takes one as ``key``, or uses the seed 0 so drop-in calls work
-and repeat (the JAX shim's default is ``jax.random.key(0)``, whose draws
-differ from torch's)."""
+``find_nn`` takes one as ``key``, or uses the seed 0, JAX's threefry
+streams of ``PRNGKey(0)``: the draws of the JAX shim's default
+``jax.random.key(0)``."""
 
 from __future__ import annotations
 

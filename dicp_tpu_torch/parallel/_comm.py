@@ -22,8 +22,14 @@ of the flattened parts, one ``all_reduce``, then split): the counterpart of
 the tuple that JAX psums at once.
 
 Each collective adds one to ``counts[(kind, group size, elements)]`` where it
-is launched, and nowhere else; tests and the chip smoke run read it as they
-read the kernels' launch counters (:func:`reset_counts` sets them to 0).
+is launched, and nowhere else.  A collective made while its stream is
+captured (a program of :mod:`dicp_tpu_torch.jit`) runs at each replay, and
+in a loop body at each iteration run, where no Python runs: it is counted on
+the card instead, by an add captured beside it on a device counter of its
+key (:func:`ops.launch_counts.count_keyed`).  :func:`collectives` is the
+host count plus the device count; tests and the chip smoke run read it as
+they read the kernels' launch counters (:func:`reset_counts` sets both to
+0).
 """
 
 from __future__ import annotations
@@ -34,17 +40,34 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
-# Collectives launched by this process: (kind, group size, elements) -> count.
+from dicp_tpu_torch.ops import launch_counts
+
+# Collectives launched by this process outside a capture:
+# (kind, group size, elements) -> count.
 counts: Counter = Counter()
 
 
 def reset_counts() -> None:
     counts.clear()
+    launch_counts.reset_keyed()
+
+
+def collectives() -> Counter:
+    """Every collective launched since :func:`reset_counts`: the host
+    count plus those that captured programs ran (a host wait where any
+    program was captured)."""
+    return counts + Counter(launch_counts.read_keyed())
+
+
+def _count(kind: str, group, x: torch.Tensor) -> None:
+    key = (kind, dist.get_world_size(group), x.numel())
+    if launch_counts.count_keyed(key, x.device):
+        counts[key] += 1
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     out = x.detach().clone().contiguous()
-    counts[("all_reduce", dist.get_world_size(group), out.numel())] += 1
+    _count("all_reduce", group, out)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
@@ -77,7 +100,7 @@ class _RingShift(torch.autograd.Function):
         rank = dist.get_rank(group)
         send = x.detach().contiguous()
         recv = torch.empty_like(send)
-        counts[("ring_shift", size, send.numel())] += 1
+        _count("ring_shift", group, send)
         ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, (rank + 1) % size),
                           group),
                dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, (rank - 1) % size),

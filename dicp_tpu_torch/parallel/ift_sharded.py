@@ -32,7 +32,7 @@ from dicp_tpu_torch.ops import tiled_knn
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn, query_order
 from dicp_tpu_torch.parallel._comm import psum
 from dicp_tpu_torch.parallel.sharding import (MapShardedResult, _axis, _global_inputs,
-                                              _linearize, _map_sharded_solve, _pad_rows)
+                                              _linearize, _pad_rows, map_sharded_fn)
 from dicp_tpu_torch.registration import _certified_gate, _damping
 
 
@@ -105,25 +105,30 @@ def _pose_vjp_xi_bar(cfg: ICPConfig, T_star, T_bar):
 
 class _ShardedFixedPoint(torch.autograd.Function):
     """(T, converged, iterations, cost) of one early-exit map-sharded solve
-    from this rank's (source rows, weight rows), the target and T_init; only
-    T carries a gradient, and the backward is the IFT adjoint."""
+    from the padded global (source, weight) columns, the target and T_init;
+    only T carries a gradient, and the backward is the IFT adjoint."""
 
     @staticmethod
-    def forward(ctx, cfg, group, src, w, tgt, t_init):
+    def forward(ctx, cfg, mesh, axis, src, w, tgt, t_init):
         # smooth weight forms (the backward linearises the smooth
-        # stationarity), the early-exit loop, no gradient through it
-        with torch.no_grad():
-            T, done, it, cost = _map_sharded_solve(
-                cfg.with_(differentiable=True, driver="while"), src, w, tgt, t_init, group)
+        # stationarity) and the early-exit loop: JAX's core runs
+        # map_sharded_fn with this config; no gradient through it
+        fn = map_sharded_fn(mesh, cfg.with_(differentiable=True, driver="while"), axis=axis)
+        # detached: whether an input requires grad is no part of the program
+        T, done, it, cost = fn(*(x.detach() for x in (src, w, tgt, t_init)))
+        group, rank, n_dev = _axis(mesh, axis)
+        n_loc = src.shape[0] // n_dev
         ctx.cfg, ctx.group = cfg, group
+        ctx.rows = slice(rank * n_loc, (rank + 1) * n_loc)
         ctx.save_for_backward(src, w, tgt, t_init, T)
         ctx.mark_non_differentiable(done, it, cost)
         return T, done, it, cost
 
     @staticmethod
     def backward(ctx, T_bar, *_):
-        cfg, group = ctx.cfg, ctx.group
-        src, w, tgt, t_init, T_star = ctx.saved_tensors
+        cfg, group, rows = ctx.cfg, ctx.group, ctx.rows
+        src_all, w_all, tgt, t_init, T_star = ctx.saved_tensors
+        src, w = src_all[rows], w_all[rows]
         dtype = src.dtype
         k = 3 if cfg.dim == 2 else 6
         xi_bar = _pose_vjp_xi_bar(cfg, T_star, T_bar)
@@ -150,9 +155,14 @@ class _ShardedFixedPoint(torch.autograd.Function):
         # every rank uses the target whole: its cotangent is the group's sum
         # (every rank asks for it or none does); the fixed point forgets its
         # initialisation
-        if ctx.needs_input_grad[4]:
+        if ctx.needs_input_grad[5]:
             tgt_bar = psum(tgt_bar, group)
-        return None, None, src_bar, w_bar, tgt_bar, torch.zeros_like(T_star)
+        # this rank's rows of the global source and weight
+        src_bar_all = src_all.new_zeros(src_all.shape)
+        src_bar_all[rows] = src_bar
+        w_bar_all = w_all.new_zeros(w_all.shape)
+        w_bar_all[rows] = w_bar
+        return None, None, None, src_bar_all, w_bar_all, tgt_bar, torch.zeros_like(T_star)
 
 
 def register_map_sharded_ift(
@@ -168,19 +178,19 @@ def register_map_sharded_ift(
 
     The forward of :func:`~dicp_tpu_torch.parallel.sharding.register_map_sharded`
     (the early-exit loop, smooth weights; as in JAX, without its input rules
-    and pad exclusion); a gradient through the returned ``T`` costs one k x k
-    solve and one stationarity VJP instead of the unrolled loop.  Requires
-    convergence for exactness (check ``.converged``)."""
+    and pad exclusion), run by :func:`~dicp_tpu_torch.parallel.sharding.map_sharded_fn`
+    (a captured program on the card); a gradient through the returned ``T``
+    costs one k x k solve and one stationarity VJP instead of the unrolled
+    loop, run eagerly.  Requires convergence for exactness (check
+    ``.converged``)."""
     if cfg.use_gumbel:
         raise ValueError("IFT gradients require hard (deterministic) NN")
-    group, rank, n_dev = _axis(mesh, axis)
+    _, _, n_dev = _axis(mesh, axis)
     source, target, T_init, weight = _global_inputs(mesh, axis, cfg, source, target, T_init,
                                                     weight)
     n = source.shape[0]
     src_cols = 6 if cfg.icp_type == "symmetric" else 3
     pad = (-n) % n_dev
     source, weight = _pad_rows(source, pad), _pad_rows(weight, pad)
-    n_loc = (n + pad) // n_dev
-    rows = slice(rank * n_loc, (rank + 1) * n_loc)
     return MapShardedResult(*_ShardedFixedPoint.apply(
-        cfg, group, source[rows, :src_cols], weight[rows], target, T_init))
+        cfg, mesh, axis, source[:, :src_cols], weight, target, T_init))

@@ -23,10 +23,16 @@ With identical damping this is exact block elimination of the damped dense
 system, except that the separator diagonal receives K copies of the
 Tikhonov term (K * damping), as in JAX.  The edges are linearised by
 :func:`odometry.edge_residual_and_jac`, as the dense back end's are.
+
+As in JAX, the partition and each rank's slices are host work before the
+program (:func:`_partition_inputs`); the program (:func:`_partitioned_program`,
+JAX's ``jax.jit(shard_map(...))`` around a ``lax.scan``) runs the
+fixed-trip GN loop with its collectives, captured on the card.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -34,6 +40,7 @@ import torch
 
 from dicp_tpu_torch import se3
 from dicp_tpu_torch.api import _as_tensor
+from dicp_tpu_torch.jit import jit
 from dicp_tpu_torch.odometry import PoseGraph, edge_residual_and_jac
 from dicp_tpu_torch.parallel._comm import psum, psum_many
 from dicp_tpu_torch.parallel.sharding import _axis
@@ -138,81 +145,114 @@ def pose_graph_optimize_partitioned(
     partition.  Returns the optimised poses (V, 4, 4), the same on every
     rank.  Matches :func:`dicp_tpu_torch.odometry.pose_graph_optimize` (pose
     0 gauge-fixed, the same damping up to the K-fold separator-diagonal
-    term)."""
-    group, rank, K = _axis(mesh, axis)
+    term).  On the card one captured program per partition shape."""
+    group = mesh.get_group(axis)
+    return _partitioned_program(group)(**_partition_inputs(poses, graph, mesh, axis),
+                                       iterations=int(iterations), damping=float(damping))
+
+
+def _partition_inputs(poses, graph: PoseGraph, mesh, axis: str = "map") -> dict:
+    """The host work before the program: the partition of the graph and this
+    rank's edges, measurements, weights and local indices as tensors on the
+    poses' device, and the gauge's places (statics of the program)."""
+    _, rank, K = _axis(mesh, axis)
     poses = torch.as_tensor(poses)
     dtype, device = poses.dtype, poses.device
-    V = poses.shape[0]
 
     def host(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
-    part = partition_graph(V, host(graph.edges_i), host(graph.edges_j), K)
-    I_max = part.int_ids.shape[1]
-    S = part.sep_ids.shape[0]
-    L, nI, nS = I_max + S, I_max * 6, S * 6
+    part = partition_graph(poses.shape[0], host(graph.edges_i), host(graph.edges_j), K)
 
     def local(a, dt=torch.int64):
         return torch.as_tensor(a[rank], device=device).to(dt)
 
     e_idx = local(part.e_idx)
-    t_meas = _as_tensor(graph.t_meas, device, dtype).to(device)[e_idx]
-    w_edge = (_as_tensor(graph.info, device, dtype).to(device)[e_idx]
-              * local(part.e_valid, dtype))[:, None, None]
-    eg_i, eg_j = local(part.eg_i), local(part.eg_j)
-    loc_i, loc_j = local(part.loc_i), local(part.loc_j)
-    int_ids = local(part.int_ids)
-    sep_ids = torch.as_tensor(part.sep_ids, device=device).long()
-    # gauge fix of pose 0 by exact row/column elimination (identity block,
-    # zero rhs), in this rank's interiors or, after the reduction, among the
-    # separators; damping everywhere makes padded interior blocks damping * I
-    m = torch.zeros((L * 6,), dtype=dtype, device=device)
-    if part.gauge_dev == rank:
-        m[part.gauge_loc * 6:(part.gauge_loc + 1) * 6] = 1.0
-    keep = 1.0 - m
-    ms = torch.zeros((nS,), dtype=dtype, device=device)
-    if part.gauge_sep >= 0:
-        ms[part.gauge_sep * 6:(part.gauge_sep + 1) * 6] = 1.0
-    eye = torch.eye(L * 6, dtype=dtype, device=device)
+    return dict(
+        poses=poses,
+        t_meas=_as_tensor(graph.t_meas, device, dtype).to(device)[e_idx],
+        w_edge=_as_tensor(graph.info, device, dtype).to(device)[e_idx] * local(part.e_valid,
+                                                                             dtype),
+        eg_i=local(part.eg_i), eg_j=local(part.eg_j),
+        loc_i=local(part.loc_i), loc_j=local(part.loc_j),
+        int_ids=local(part.int_ids),
+        sep_ids=torch.as_tensor(part.sep_ids, device=device).long(),
+        gauge_loc=part.gauge_loc if part.gauge_dev == rank else -1,
+        gauge_sep=part.gauge_sep)
 
-    batched_rj = torch.func.vmap(lambda ti, tj, tm: edge_residual_and_jac(ti, tj, tm, dtype))
-    for _ in range(iterations):
-        r, J_i, J_j = batched_rj(poses[eg_i], poses[eg_j], t_meas)
-        # H[rows[e], cols[e]] += blk[e] in edge order (index_put_ adds
-        # duplicates in order), in JAX's order of the four blocks
-        H = torch.zeros((L, L, 6, 6), dtype=dtype, device=device)
-        b = torch.zeros((L, 6), dtype=dtype, device=device)
-        for rows, J_r in ((loc_i, J_i), (loc_j, J_j)):
-            for cols, J_c in ((loc_i, J_i), (loc_j, J_j)):
-                H.index_put_((rows, cols), torch.einsum("eab,eac->ebc", J_r * w_edge, J_c),
-                             accumulate=True)
-            b.index_put_((rows,), torch.einsum("eab,ea->eb", J_r * w_edge, r), accumulate=True)
 
-        Hd = H.permute(0, 2, 1, 3).reshape(L * 6, L * 6) + damping * eye
-        Hd = Hd * keep[:, None] * keep[None, :] + torch.diag(m)
-        bv = b.reshape(-1) * keep
-        H_II, H_IS, H_SS = Hd[:nI, :nI], Hd[:nI, nI:], Hd[nI:, nI:]
-        b_I, b_S = bv[:nI], bv[nI:]
+def _block_mask(size: int, block: int, dtype, device) -> torch.Tensor:
+    """(size,) with 1.0 on the 6 entries of 6-block ``block`` (none where
+    ``block`` < 0), built on the device by a comparison."""
+    idx = torch.arange(size, device=device)
+    return ((idx >= block * 6) & (idx < block * 6 + 6) & (block >= 0)).to(dtype)
 
-        # local elimination of the interiors
-        X = torch.linalg.solve(H_II, torch.cat([H_IS, b_I[:, None]], dim=1))
-        X_IS, x_b = X[:, :nS], X[:, nS]
 
-        # the Schur-reduced separator system: one all-reduce
-        S_red, rhs_red = psum_many([H_SS - H_IS.T @ X_IS, b_S - H_IS.T @ x_b], group)
-        if part.gauge_sep >= 0:
-            S_red = S_red * (1.0 - ms)[:, None] * (1.0 - ms)[None, :] + torch.diag(ms)
-            rhs_red = rhs_red * (1.0 - ms)
-        d_S = -torch.linalg.solve(S_red, rhs_red[:, None])[:, 0]
-        d_I = -(x_b + X_IS @ d_S)
+@functools.lru_cache(maxsize=64)
+def _partitioned_program(group):
+    """The fixed-trip partitioned GN loop over ``group``'s ranks as a
+    program of :mod:`dicp_tpu_torch.jit` (captured in "thread_local" mode:
+    it runs collectives), static in ``iterations`` and the gauge's places."""
 
-        # the (V, 6) update: interiors are disjoint across ranks (the sum
-        # concatenates); separators are the same on every rank, added once
-        upd = torch.zeros((V, 6), dtype=dtype, device=device)
-        valid = (int_ids >= 0)[:, None]
-        upd.index_put_((torch.clamp(int_ids, 0, V - 1),),
-                       torch.where(valid, d_I.reshape(I_max, 6), 0.0), accumulate=True)
-        upd = psum(upd, group)
-        upd = upd.index_put((sep_ids,), d_S.reshape(S, 6), accumulate=True)
-        poses = poses @ se3.vec2tran(upd)
-    return poses
+    def program(poses, t_meas, w_edge, eg_i, eg_j, loc_i, loc_j, int_ids, sep_ids,
+                iterations: int, damping: float, gauge_loc: int, gauge_sep: int):
+        dtype, device = poses.dtype, poses.device
+        V, I_max, S = poses.shape[0], int_ids.shape[0], sep_ids.shape[0]
+        L, nI, nS = I_max + S, I_max * 6, S * 6
+        w = w_edge[:, None, None]
+        # gauge fix of pose 0 by exact row/column elimination (identity
+        # block, zero rhs), in this rank's interiors or, after the
+        # reduction, among the separators; damping everywhere makes padded
+        # interior blocks damping * I
+        m = _block_mask(L * 6, gauge_loc, dtype, device)
+        keep = 1.0 - m
+        ms = _block_mask(nS, gauge_sep, dtype, device)
+        eye = torch.eye(L * 6, dtype=dtype, device=device)
+
+        batched_rj = torch.func.vmap(
+            lambda ti, tj, tm: edge_residual_and_jac(ti, tj, tm, dtype))
+        for _ in range(iterations):
+            r, J_i, J_j = batched_rj(poses[eg_i], poses[eg_j], t_meas)
+            # H[rows[e], cols[e]] += blk[e] in edge order (index_put_ adds
+            # duplicates in order), in JAX's order of the four blocks
+            H = torch.zeros((L, L, 6, 6), dtype=dtype, device=device)
+            b = torch.zeros((L, 6), dtype=dtype, device=device)
+            for rows, J_r in ((loc_i, J_i), (loc_j, J_j)):
+                for cols, J_c in ((loc_i, J_i), (loc_j, J_j)):
+                    H.index_put_((rows, cols), torch.einsum("eab,eac->ebc", J_r * w, J_c),
+                                 accumulate=True)
+                b.index_put_((rows,), torch.einsum("eab,ea->eb", J_r * w, r), accumulate=True)
+
+            Hd = H.permute(0, 2, 1, 3).reshape(L * 6, L * 6) + damping * eye
+            Hd = Hd * keep[:, None] * keep[None, :] + torch.diag(m)
+            bv = b.reshape(-1) * keep
+            H_II, H_IS, H_SS = Hd[:nI, :nI], Hd[:nI, nI:], Hd[nI:, nI:]
+            b_I, b_S = bv[:nI], bv[nI:]
+
+            # local elimination of the interiors (solve_ex: linalg.solve's LU
+            # without its host check of ``info``)
+            X = torch.linalg.solve_ex(H_II, torch.cat([H_IS, b_I[:, None]], dim=1),
+                                      check_errors=False)[0]
+            X_IS, x_b = X[:, :nS], X[:, nS]
+
+            # the Schur-reduced separator system: one all-reduce
+            S_red, rhs_red = psum_many([H_SS - H_IS.T @ X_IS, b_S - H_IS.T @ x_b], group)
+            if gauge_sep >= 0:
+                S_red = S_red * (1.0 - ms)[:, None] * (1.0 - ms)[None, :] + torch.diag(ms)
+                rhs_red = rhs_red * (1.0 - ms)
+            d_S = -torch.linalg.solve_ex(S_red, rhs_red[:, None], check_errors=False)[0][:, 0]
+            d_I = -(x_b + X_IS @ d_S)
+
+            # the (V, 6) update: interiors are disjoint across ranks (the sum
+            # concatenates); separators are the same on every rank, added once
+            upd = torch.zeros((V, 6), dtype=dtype, device=device)
+            valid = (int_ids >= 0)[:, None]
+            upd.index_put_((torch.clamp(int_ids, 0, V - 1),),
+                           torch.where(valid, d_I.reshape(I_max, 6), 0.0), accumulate=True)
+            upd = psum(upd, group)
+            upd = upd.index_put((sep_ids,), d_S.reshape(S, 6), accumulate=True)
+            poses = poses @ se3.vec2tran(upd)
+        return poses
+
+    return jit(program, static_argnames=("iterations", "gauge_loc", "gauge_sep"),
+               name="pose_graph_optimize_partitioned", capture_error_mode="thread_local")

@@ -21,6 +21,16 @@ collectives of :mod:`dicp_tpu_torch.parallel._comm` on that axis's group
 * **ring**: the target split too; correspondences from :func:`ring_nn`,
   whose target shards travel around the ring (send/recv).
 
+Programs.  :func:`map_sharded_fn` is the counterpart of JAX's jitted
+``shard_map``: a program of :mod:`dicp_tpu_torch.jit` per (mesh, cfg, axis,
+target_sharded, n_real), captured on the card with its collectives inside.
+CUDA refuses NCCL's kernels in a conditional node's body, so the captured
+loop is a fixed trip of masked steps, each with its all-reduce (JAX's scan
+driver), where a step past the exit skips its local terms in a run-once
+node; every rank reads the same all-reduced step norm, so the ranks' steps
+and collectives pair up.  ``register_batch_sharded`` runs ``register_jit``
+on its rows.
+
 Gradients.  A global input that each rank slices or uses whole goes through
 ``_comm.replicated`` (the backward sums the ranks' partial cotangents), and
 so does the pose where each iteration's local terms consume it: the
@@ -31,6 +41,7 @@ through.  Every rank then holds JAX's gradient of the global arrays.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -39,10 +50,11 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from dicp_tpu_torch import knn, losses, se3
 from dicp_tpu_torch.config import ICPConfig
+from dicp_tpu_torch.jit import capturing, device_if, device_while, jit
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn, query_order
 from dicp_tpu_torch.ops.smallsolve import solve_spd
-from dicp_tpu_torch.parallel._comm import psum_many, replicated, ring_shift
-from dicp_tpu_torch.registration import ICPResult, _damping, register
+from dicp_tpu_torch.parallel._comm import psum, replicated, ring_shift
+from dicp_tpu_torch.registration import ICPResult, _damping, _register_captured, _zmask
 
 
 def make_mesh(shape: Optional[Tuple[int, int]] = None,
@@ -96,19 +108,6 @@ def shard_batch(mesh: DeviceMesh, *arrays, axis: str = "batch"):
     return tuple(out)
 
 
-class _OffsetNoise:
-    """A Gumbel noise source whose streams are named by global batch index:
-    this rank's rows start at ``offset``."""
-
-    def __init__(self, noise, offset: int):
-        self.noise, self.offset = noise, offset
-
-    def uniform(self, pair_ids, *args):
-        if pair_ids is not None:
-            pair_ids = [p + self.offset for p in pair_ids]
-        return self.noise.uniform(pair_ids, *args)
-
-
 def register_batch_sharded(
     mesh: DeviceMesh,
     source,
@@ -120,19 +119,19 @@ def register_batch_sharded(
 ) -> ICPResult:
     """Batch-data-parallel registration: N scan pairs split over 'batch'.
 
-    Each rank runs :func:`registration.register` on its own rows and returns
-    their ``ICPResult`` (a world of one returns every row); no collective.
-    N must be divisible by the batch axis size.  Gumbel noise streams are
-    named by global batch index, so the rows equal an unsharded solve."""
+    Each rank runs ``register_jit`` (JAX: ``jax.jit(register)``) on its own
+    rows and returns their ``ICPResult`` (a world of one returns every
+    row); no collective.  N must be divisible by the batch axis size.
+    Gumbel noise streams are named by global batch index (the rank's first
+    row is a static of its program), so the rows equal an unsharded solve."""
     _, rank, n_batch = _axis(mesh, "batch")
     if source.shape[0] % n_batch != 0:
         raise ValueError(f"batch {source.shape[0]} not divisible by mesh axis {n_batch}")
     arrays = shard_batch(mesh, source, target, T_init,
                          *(() if weight is None else (weight,)))
-    if cfg.differentiable and cfg.use_gumbel and key is not None:
-        key = _OffsetNoise(knn.gumbel_noise(key), rank * (source.shape[0] // n_batch))
     src, tgt, ti = arrays[:3]
-    return register(src, tgt, ti, arrays[3] if weight is not None else None, cfg, key)
+    return _register_captured(src, tgt, ti, arrays[3] if weight is not None else None, cfg,
+                              key, pair_offset=rank * (source.shape[0] // n_batch))
 
 
 class MapShardedResult(NamedTuple):
@@ -178,10 +177,8 @@ def _preshard(cfg: ICPConfig, source, target, weight):
     if cfg.icp_type == "pt2pt":
         target = target[..., :3]
     if cfg.dim == 2:
-        zmask = torch.tensor([1.0, 1.0, 0.0], dtype=source.dtype, device=source.device)
-        zmask6 = torch.cat([zmask, zmask])
-        source = source * (zmask6 if source.shape[-1] == 6 else zmask)
-        target = target * (zmask6 if target.shape[-1] == 6 else zmask)
+        source = source * _zmask(source.shape[-1], source.dtype, source.device)
+        target = target * _zmask(target.shape[-1], target.dtype, target.device)
     if cfg.source_zeroes_are_pad:
         nonzero = torch.linalg.vector_norm(source[..., :3], dim=-1) != 0.0
         weight = weight * nonzero.to(source.dtype)
@@ -228,7 +225,8 @@ def _linearize(cfg: ICPConfig, C, cp, ps_t, src_nrm, nn6, w, smooth: bool):
 
 
 def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_init, group,
-                       target_sharded: bool = False, n_real: Optional[int] = None):
+                       target_sharded: bool = False, n_real: Optional[int] = None,
+                       device_loop: Optional[bool] = None):
     """This rank's part of the map-sharded Gauss-Newton solve; returns (T,
     converged, iterations, cost), the same on every rank of ``group``.
 
@@ -237,7 +235,16 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
     One early-exit loop serves both JAX drivers (a frozen iteration of the
     scan driver is the identity); every rank reads the same reduced step
     norm, so all stop together.  With ``target_sharded`` the target is this
-    rank's shard and correspondences come from :func:`ring_nn`."""
+    rank's shard and correspondences come from :func:`ring_nn`.
+
+    ``device_loop`` (None: unless an input requires grad): the loop is a
+    masked step over a state held in tensors (``C``, ``r``, a 0-dim int32
+    ``it``, a 0-dim bool ``done``, ``cost``; it runs where ``it <
+    max_iterations & ~done``), the exit decided on the device: under
+    capture a fixed trip of ``max_iterations`` steps, uncaptured under
+    :func:`jit.device_while`'s host loop; otherwise the host loop, which
+    reads the step norm once per iteration and which autograd can record.
+    All give the same bits."""
     dtype, device = source_shard.dtype, source_shard.device
     rank, k_dev = dist.get_rank(group), dist.get_world_size(group)
     n_loc = source_shard.shape[0]
@@ -261,7 +268,19 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
             qord = query_order(cl_index, (src_pts @ C0.T + r0).detach())
         fixup = cfg.resolved_cluster_fixup(n_loc)
 
-    def gn_iteration(C, r):
+    # the summands of the iteration's one all-reduce, flat: (A, b, cost), or
+    # on the cluster tier the gated and ungated equations and the certified
+    # count (the 50% certification fallback must fire on the GLOBAL
+    # fraction, or shards diverge near the threshold)
+    k = 3 if cfg.dim == 2 else 6
+    n_ne = k * k + k + 1
+    if n_real is not None:
+        denom = float(n_real)
+    else:
+        denom = n_loc * k_dev
+
+    def local_terms(C, r):
+        """This rank's summands at the pose (C, r), flat."""
         # the replicated pose enters this rank's local terms: its cotangent
         # from them is summed over the group
         Cr = replicated(torch.cat([C.reshape(-1), r]), group)
@@ -274,7 +293,7 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
         elif method == "cluster":
             # fused=cfg.sharded_fused (None: K2 on CUDA queries, the group
             # scan on the CPU); the certificate gate is applied on the GLOBAL
-            # fraction below, inside the normal equations' all-reduce
+            # fraction, after the all-reduce
             idx, _, cert = cluster_nn(cl_index, ps_t, probes=cfg.cluster_probes,
                                       use_pallas=False, fused=cfg.sharded_fused, order=qord,
                                       fixup=fixup)
@@ -284,39 +303,41 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
             nn6 = target[knn.nn_indices(ps_t, tgt_pts).long()]
         J, res, w = _linearize(cfg, C_l, cp, ps_t, src_nrm, nn6, weight_shard,
                                cfg.differentiable)
-        if valid is not None and cfg.icp_type == "pt2pt":
-            valid = torch.repeat_interleave(valid, 3)
-        k = J.shape[-1]
 
         def ne(wv):
             return [J.T @ (wv[:, None] * J), J.T @ (wv * res), torch.sum(wv * res * res)]
 
         if valid is None:
-            A, b, cost = psum_many(ne(w), group)
+            parts = ne(w)
         else:
-            # the 50% certification fallback must fire on the GLOBAL fraction,
-            # or shards diverge near the threshold: the gated and ungated
-            # equations and the certified count share the one all-reduce
+            if cfg.icp_type == "pt2pt":
+                valid = torch.repeat_interleave(valid, 3)
             rep = valid.shape[0] // n_loc
             if n_real is not None:
                 # the wrapper's zero-weight pads leave the fraction
                 real = (rank * n_loc + torch.arange(n_loc, device=device)) < n_real
                 cnt_local = torch.sum(valid[::rep] * real.to(dtype))
-                denom = float(n_real)
             else:
                 cnt_local = torch.sum(valid) / rep
-                denom = n_loc * k_dev
-            A_g, b_g, c_g, A_f, b_f, c_f, cnt = psum_many(ne(w * valid) + ne(w) + [cnt_local],
-                                                          group)
-            use = cnt / denom >= 0.5
-            A = torch.where(use, A_g, A_f)
-            b = torch.where(use, b_g, b_f)
-            cost = torch.where(use, c_g, c_f)
+            parts = ne(w * valid) + ne(w) + [cnt_local]
+        return torch.cat([p.reshape(-1) for p in parts])
+
+    def finish(C, r, total):
+        """The step from the all-reduced summands ``total``: (C, r) updated,
+        the step norm, the cost."""
+        A, b, cost = total[:k * k].reshape(k, k), total[k * k:k * k + k], total[n_ne - 1]
+        if method == "cluster":
+            A_f, b_f = total[n_ne:n_ne + k * k].reshape(k, k), total[n_ne + k * k:2 * n_ne - 1]
+            use = total[2 * n_ne] / denom >= 0.5
+            A = torch.where(use, A, A_f)
+            b = torch.where(use, b, b_f)
+            cost = torch.where(use, cost, total[2 * n_ne - 1])
         A = A + _damping(cfg, A) * torch.eye(k, dtype=dtype, device=device)
         if cfg.solve_method == "closed":
             delta_k = -solve_spd(A, b)
         else:
-            delta_k = -torch.linalg.solve(A, b[:, None])[:, 0]
+            # solve_ex: linalg.solve's LU without its host check of ``info``
+            delta_k = -torch.linalg.solve_ex(A, b[:, None], check_errors=False)[0][:, 0]
         if cfg.dim == 2:
             z = delta_k.new_zeros((1,))
             delta6 = torch.cat([z, z, delta_k, z])
@@ -326,17 +347,74 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
         r_new = r - delta6[3:]
         return C_new, r_new, torch.linalg.vector_norm(delta6), cost
 
-    C, r = C0, r0
-    it, done = 0, False
-    while it < cfg.max_iterations and not done:
-        C, r, step_norm, _ = gn_iteration(C, r)
-        it += 1
-        done = bool(step_norm < cfg.tolerance)
+    def gn_iteration(C, r):
+        return finish(C, r, psum(local_terms(C, r), group))
+
+    if device_loop is None:
+        device_loop = not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (source_shard, weight_shard, target, T_init)))
+    if device_loop:
+        # every field owns its storage: the steps overwrite them in place
+        C, r = C0.clone(), r0.clone()
+        it = torch.zeros((), dtype=torch.int32, device=device)
+        done = torch.zeros((), dtype=torch.bool, device=device)
+        cost = torch.zeros((), dtype=dtype, device=device)
+        T = cfg.max_iterations
+
+        def update(run, total):
+            """The state after the step from the all-reduced ``total`` where
+            the 0-dim bool ``run`` holds, as it was where it does not."""
+            C_n, r_n, step_norm, cost_n = finish(C, r, total)
+            for old, new in ((C, C_n), (r, r_n), (done, step_norm < cfg.tolerance),
+                             (cost, cost_n)):
+                old.copy_(torch.where(run, new, old))
+            it.copy_(torch.where(run, it + 1, it))
+
+        def step(run, gated: bool):
+            """One iteration where ``run`` holds, none (every field as it
+            was) where it does not; ``gated``: the work around the
+            all-reduce runs only where ``run`` holds (device_if)."""
+            if not gated:
+                update(run, psum(local_terms(C, r), group))
+                return
+            total = torch.zeros((n_ne * 2 + 1 if method == "cluster" else n_ne,),
+                                dtype=dtype, device=device)
+            device_if(run, lambda: total.copy_(local_terms(C, r)))
+            reduced = psum(total, group)
+            device_if(run, lambda: update(run, reduced))
+
+        if capturing(C):
+            # CUDA refuses NCCL's kernels inside a conditional node's body
+            # (cudaErrorInvalidValue at instantiation on 4 ranks), so the
+            # captured loop is JAX's scan driver: T masked steps, each with
+            # its all-reduce (T + 1 per replay with the cost pass), the work
+            # around it skipped by run-once nodes in a step that does not
+            # run; the ring's terms hold collectives beyond one rank, and
+            # run in every step
+            gated = method != "ring" or k_dev == 1
+            for _ in range(T):
+                step((it < T) & ~done, gated)
+        else:
+            flag = torch.full((), T > 0, dtype=torch.bool, device=device)
+
+            def body():
+                step(flag, gated=False)
+                flag.copy_((it < T) & ~done)
+
+            device_while(flag, body)
+    else:
+        C, r = C0, r0
+        steps, stop = 0, False
+        while steps < cfg.max_iterations and not stop:
+            C, r, step_norm, _ = gn_iteration(C, r)
+            steps += 1
+            stop = bool(step_norm < cfg.tolerance)
+        done = torch.full((), stop, dtype=torch.bool, device=device)
+        it = torch.full((), steps, dtype=torch.int32, device=device)
     # the in-loop cost is taken at each iteration's INPUT pose; report the
     # cost at the returned pose (one more correspondence pass)
     _, _, _, cost = gn_iteration(C, r)
-    return (se3._homogeneous(C, r), torch.tensor(done, device=device),
-            torch.tensor(it, dtype=torch.int32, device=device), cost)
+    return se3._homogeneous(C, r), done, it, cost
 
 
 def _global_inputs(mesh: DeviceMesh, axis: str, cfg: ICPConfig, source, target, T_init,
@@ -380,7 +458,7 @@ def register_map_sharded(
     divide: the source is padded with zero-weight points, which also leave
     the certificate gate's fraction.  Per GN step the ranks exchange only the
     all-reduced normal equations."""
-    group, rank, n_dev = _axis(mesh, axis)
+    group, _, n_dev = _axis(mesh, axis)
     source, target, T_init, weight = _global_inputs(mesh, axis, cfg, source, target, T_init,
                                                     weight)
     n = source.shape[0]
@@ -389,11 +467,57 @@ def register_map_sharded(
     source, target, weight = _preshard(cfg, source, replicated(target, group), weight)
     pad = (-n) % n_dev
     source, weight = _pad_rows(source, pad), _pad_rows(weight, pad)
-    n_loc = (n + pad) // n_dev
-    rows = slice(rank * n_loc, (rank + 1) * n_loc)
-    return MapShardedResult(*_map_sharded_solve(
-        cfg, source[rows, :src_cols], weight[rows], target, T_init, group,
-        n_real=n if pad else None))
+    fn = map_sharded_fn(mesh, cfg, axis=axis, target_sharded=False, n_real=n if pad else None)
+    return MapShardedResult(*fn(source[:, :src_cols], weight, target, T_init))
+
+
+def map_sharded_fn(mesh: DeviceMesh, cfg: ICPConfig, axis: str = "map",
+                   target_sharded: bool = False, n_real: Optional[int] = None):
+    """The program behind :func:`register_map_sharded` and
+    :func:`register_ring_sharded`, and the sharded IFT's forward: JAX's
+    ``jax.jit(shard_map(...))`` of the same name.
+
+    Returns ``fn(source, weight, target, T_init) -> (T, converged,
+    iterations, cost)``, the same on every rank, over the padded GLOBAL
+    source columns (n, 3|6) and weight (n,), the target and T_init (4, 4).
+    Each rank takes its own rows of the source and weight by its coordinate
+    on ``axis`` (JAX's ``P(axis)``); the target is replicated, or with
+    ``target_sharded`` the sentinel-padded global target of which each rank
+    takes its own rows.  ``n_real``: the real source points before the
+    padding (the certificate gate's fraction).
+
+    On the card ``fn`` is a :func:`dicp_tpu_torch.jit.jit` program: a call
+    per input shape captures the solve and later calls replay it; it is
+    captured in ``"thread_local"`` mode (c10d's watchdog queries events
+    meanwhile).  A replay runs ``cfg.max_iterations`` masked steps and
+    ``cfg.max_iterations + 1`` all-reduces (an uncaptured call: the
+    iterations it needs, plus one).  A call whose input requires grad runs
+    eagerly (the jit rule).  On the CPU it is the solve itself.  The mesh
+    and cfg live in the closure, not in the program's key.
+
+    lru-cached on (mesh, cfg, axis, target_sharded, n_real), as JAX's is,
+    and on the axis's process group: a mesh of a new world equals the old
+    world's mesh, and must not get its programs.  SPMD: every rank must take
+    the same cache miss or hit, or the first call's eager run pairs its
+    collectives with another rank's replay and waits forever.  Ranks that
+    call with the same shapes do."""
+    return _map_sharded_fn(mesh, cfg, axis, target_sharded, n_real, mesh.get_group(axis))
+
+
+@functools.lru_cache(maxsize=64)
+def _map_sharded_fn(mesh, cfg, axis, target_sharded, n_real, group):
+    _, rank, n_dev = _axis(mesh, axis)
+
+    def program(source, weight, target, T_init):
+        n_loc = source.shape[0] // n_dev
+        rows = slice(rank * n_loc, (rank + 1) * n_loc)
+        if target_sharded:
+            m_loc = target.shape[0] // n_dev
+            target = target[rank * m_loc:(rank + 1) * m_loc]
+        return _map_sharded_solve(cfg, source[rows], weight[rows], target, T_init, group,
+                                  target_sharded=target_sharded, n_real=n_real)
+
+    return jit(program, name="map_sharded_fn", capture_error_mode="thread_local")
 
 
 def register_ring_sharded(
@@ -416,7 +540,7 @@ def register_ring_sharded(
     win a distance comparison.  Ties across shards resolve by ring order, not
     by the lowest global index (see :func:`ring_nn`).  Forward only when the
     target requires a gradient (the ring has no backward)."""
-    group, rank, n_dev = _axis(mesh, axis)
+    _, _, n_dev = _axis(mesh, axis)
     source, target, T_init, weight = _global_inputs(mesh, axis, cfg, source, target, T_init,
                                                     weight)
     n, m = source.shape[0], target.shape[0]
@@ -428,8 +552,5 @@ def register_ring_sharded(
         sentinel = target.new_zeros((pad_m, target.shape[1]))
         sentinel[:, :3] = 1e15
         target = torch.cat([target, sentinel])
-    n_loc, m_loc = (n + pad_n) // n_dev, (m + pad_m) // n_dev
-    return MapShardedResult(*_map_sharded_solve(
-        cfg, source[rank * n_loc:(rank + 1) * n_loc, :src_cols],
-        weight[rank * n_loc:(rank + 1) * n_loc], target[rank * m_loc:(rank + 1) * m_loc],
-        T_init, group, target_sharded=True))
+    fn = map_sharded_fn(mesh, cfg, axis=axis, target_sharded=True)
+    return MapShardedResult(*fn(source[:, :src_cols], weight, target, T_init))

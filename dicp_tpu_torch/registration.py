@@ -35,6 +35,11 @@ the source ``register`` is given as ``key`` (:func:`knn.gumbel_noise`), with
 one stream per GLOBAL batch element and iteration, as JAX derives its keys:
 a ``batch_chunk`` solve equals the unchunked one, and the first rows of a
 batch equal a smaller batch, bit for bit.  No hard-NN closure is built then.
+An int seed, a ``torch.Generator`` or key data draws JAX's threefry streams
+on the device (:class:`knn.ThreefryNoise`; ``key=s`` gives the noise of
+``jax.random.PRNGKey(s)``), inside the device loop too, so such a solve is
+captured like any other; only an explicit ``uniform`` object drives the
+loop from the host (:func:`host_driven`).
 
 Shapes (ragged and unbatched inputs are handled in :mod:`dicp_tpu_torch.api`):
   source  (N, n, 3|6)   target (N, m, 3|6)   T_init (N, 4, 4)
@@ -451,7 +456,8 @@ def _run_loop(cfg: ICPConfig, source, target, weight, C, r, corr_fn, noise=None,
     return carry, torch.stack(deltas), torch.stack(weights), torch.stack(costs), it
 
 
-def _run_device_loop(cfg: ICPConfig, source, target, weight, C, r, corr_fn):
+def _run_device_loop(cfg: ICPConfig, source, target, weight, C, r, corr_fn, noise=None,
+                     pair_ids=None):
     """The loop of :func:`_run_loop` with its exit decided on the device, the
     counterpart of JAX's ``_run_while``: a body over a state held in
     tensors, run by :func:`jit.device_while` (a CUDA graph WHILE node under
@@ -464,7 +470,8 @@ def _run_device_loop(cfg: ICPConfig, source, target, weight, C, r, corr_fn):
     to every field, so a body run after the flag fell leaves every output
     bit for bit as it was.  Returns what :func:`_run_loop` returns, with the
     executed count as a 0-dim int32 tensor; unexecuted history slots are
-    padded as ``_run_while`` pads them."""
+    padded as ``_run_while`` pads them.  Gumbel noise is drawn at the
+    device counter ``it``: JAX's ``fold_in(k, it)`` inside its loop."""
     T = cfg.max_iterations
     N, dtype, dev = source.shape[0], source.dtype, source.device
     P = weight.shape[-1]
@@ -472,13 +479,15 @@ def _run_device_loop(cfg: ICPConfig, source, target, weight, C, r, corr_fn):
     carry = _Carry(*(f.clone() for f in _init_carry(source, weight, C, r)))
     it = torch.zeros((), dtype=torch.int32, device=dev)
     flag = torch.full((), T > 0, dtype=torch.bool, device=dev)
+    if isinstance(noise, knn.ThreefryNoise):
+        noise.pair_keys(pair_ids, dev)   # the streams' pair folds, outside the loop body
     hist = ((torch.zeros((T, N, 6), dtype=dtype, device=dev),
              torch.zeros((T, N, P), dtype=dtype, device=dev),
              torch.zeros((T, N), dtype=dtype, device=dev))
             if cfg.collect_histories else ())
 
     def body():
-        new, out = _apply_step(cfg, source, target, carry, it, corr_fn)
+        new, out = _apply_step(cfg, source, target, carry, it, corr_fn, noise, pair_ids)
         for old, val in zip(carry, new):
             old.copy_(torch.where(flag, val, old))
         j = torch.clamp(it, max=max(T - 1, 0)).reshape(1).long()
@@ -547,7 +556,10 @@ def register(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tensor,
     return _register(source, target, T_init, weight, cfg, key, device_loop=False)
 
 
-def _register(source, target, T_init, weight, cfg, key, device_loop: bool) -> ICPResult:
+def _register(source, target, T_init, weight, cfg, key, device_loop: bool,
+              pair_offset: int = 0) -> ICPResult:
+    """:func:`register`; ``pair_offset``: the global batch index of the
+    first row (the Gumbel streams of a rank's rows)."""
     if source.dim() != 3 or target.dim() != 3 or T_init.dim() != 3:
         raise ValueError("register() expects batched (N, n, 3), (N, m, 3|6), (N, 4, 4); "
                          "use dicp_tpu_torch.api.ICP for ragged/unbatched inputs")
@@ -560,50 +572,66 @@ def _register(source, target, T_init, weight, cfg, key, device_loop: bool) -> IC
     if cfg.batch_chunk is not None and source.shape[0] > cfg.batch_chunk:
         return _chunked_over_batch(
             lambda s, t, ti, w, ids: _register_impl(s, t, ti, w, cfg, noise, ids, device_loop),
-            cfg.batch_chunk, source, target, T_init, weight)
-    return _register_impl(source, target, T_init, weight, cfg, noise, device_loop=device_loop)
+            cfg.batch_chunk, source, target, T_init, weight, pair_offset)
+    pair_ids = list(range(pair_offset, pair_offset + source.shape[0]))
+    return _register_impl(source, target, T_init, weight, cfg, noise, pair_ids, device_loop)
 
 
-def host_driven(cfg: ICPConfig) -> bool:
-    """Whether a solve needs the host inside its loop: Gumbel noise draws
-    (seeded on the host per iteration)."""
-    return cfg.differentiable and cfg.use_gumbel
+def host_driven(cfg: ICPConfig, key=None) -> bool:
+    """Whether a solve needs the host inside its loop: Gumbel noise from an
+    explicit ``uniform`` object (:func:`knn.host_driven`).  An int seed, a
+    Generator or key data draws on the device."""
+    return cfg.differentiable and cfg.use_gumbel and knn.host_driven(key)
 
 
 def _register_program(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tensor,
                       weight: Optional[torch.Tensor] = None, cfg: ICPConfig = ICPConfig(),
-                      key=None) -> ICPResult:
+                      key=None, pair_offset: int = 0) -> ICPResult:
     """:func:`register` with the device-decided loop, what ``register_jit``
     captures; it keeps the eager loop where gradients flow or the host
     drives the loop (:func:`host_driven`)."""
     grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (source, target, T_init, weight))
     return _register(source, target, T_init, weight, cfg, key,
-                     device_loop=not (grad or host_driven(cfg)))
+                     device_loop=not (grad or host_driven(cfg, key)), pair_offset=pair_offset)
+
+
+def _key_arguments(a: dict) -> None:
+    """``register_jit``'s host work: a Gumbel solve's int seed, Generator or
+    key data becomes the (2,) key tensor on the source's device, so a new
+    key replays the same program (JAX's key is a traced argument); the key
+    of any other solve is dropped."""
+    cfg, key = a["cfg"], a["key"]
+    if not (cfg.differentiable and cfg.use_gumbel):
+        a["key"] = None
+    elif key is not None and not knn.host_driven(key):
+        a["key"] = knn.key_data(key, a["source"].device)
 
 
 # The JAX package's ``register_jit`` is ``jax.jit(register)``: one compiled
 # program whose early exit is a device-side while loop.  The port's is a
 # captured CUDA graph with a WHILE node on the card (see dicp_tpu_torch.jit),
 # and runs the same device-loop body in a host loop on the CPU.
-_register_captured = jit(_register_program, static_argnames=("cfg", "key"),
-                         eager_if=lambda a: host_driven(a["cfg"]), name="register_jit")
+_register_captured = jit(_register_program, static_argnames=("cfg", "pair_offset"),
+                         eager_if=lambda a: host_driven(a["cfg"], a["key"]),
+                         prepare=_key_arguments, name="register_jit")
 
 
 def register_jit(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tensor,
                  weight: Optional[torch.Tensor] = None, cfg: ICPConfig = ICPConfig(),
                  key=None) -> ICPResult:
     """:func:`register` as a captured program on the card (its results
-    bit for bit).  ``key`` is part of the program's cache key only where the
-    solve draws Gumbel noise from it, and such solves run eagerly."""
-    return _register_captured(source, target, T_init, weight, cfg,
-                              key if host_driven(cfg) else None)
+    bit for bit).  A Gumbel solve's key enters as a (2,) key tensor, an
+    input like the clouds; an explicit ``uniform`` object runs eagerly."""
+    return _register_captured(source, target, T_init, weight, cfg, key)
 
 
-def _chunked_over_batch(call, chunk: int, source, target, T_init, weight):
+def _chunked_over_batch(call, chunk: int, source, target, T_init, weight,
+                        pair_offset: int = 0):
     """Apply ``call(source, target, T_init, weight, pair_ids)`` to sequential
     chunks of ``chunk`` batch elements and concatenate the ``ICPResult``s;
-    ``pair_ids`` lists the chunk's global batch indices (the Gumbel streams).
+    ``pair_ids`` lists the chunk's global batch indices (the Gumbel streams),
+    counted from ``pair_offset``.
 
     Identical to one big call: batch elements are independent, and every
     chunk's histories have the same fixed length.  As in JAX the batch is
@@ -620,7 +648,7 @@ def _chunked_over_batch(call, chunk: int, source, target, T_init, weight):
         return torch.cat([a, a[-1:].expand((pad,) + a.shape[1:])]) if pad else a
 
     source, target, T_init, weight = map(prep, (source, target, T_init, weight))
-    ids = list(range(N)) + [N - 1] * pad
+    ids = list(range(pair_offset, pair_offset + N)) + [pair_offset + N - 1] * pad
     parts = []
     for lo in range(0, N + pad, chunk):
         hi = lo + chunk
@@ -666,11 +694,12 @@ def _register_impl(source, target, T_init, weight, cfg, noise=None, pair_ids=Non
     else:
         corr_fn = _make_corr_fn(cfg, source, target, C, r)
     if device_loop or capturing(source):
-        if noise is not None:
-            raise ValueError("Gumbel noise is drawn from host seeds per iteration: "
-                             "its solve cannot be captured")
+        if knn.host_driven(noise) and capturing(source):
+            raise ValueError("an explicit uniform noise source draws on the host: its "
+                             "solve cannot be captured (pass an int seed, a Generator or "
+                             "key data)")
         carry, deltas, weights, costs, it_final = _run_device_loop(
-            cfg, source, target, weight, C, r, corr_fn)
+            cfg, source, target, weight, C, r, corr_fn, noise, pair_ids)
     else:
         carry, deltas, weights, costs, it_final = _run_loop(
             cfg, source, target, weight, C, r, corr_fn, noise, pair_ids)

@@ -180,6 +180,52 @@ def _map_sharded(mesh, source, target, cfg, T_init, weight, axis, entry, grad_wr
     return out
 
 
+def job_map_sharded_loops(mesh, source, target, cfg, entry="register_map_sharded",
+                          axis="map"):
+    """One solve through ``map_sharded_fn``'s program (the masked step under
+    ``device_while``, a host loop here), through the fixed trip its capture
+    takes (run uncaptured), and on the host loop that autograd records
+    (``device_loop=False``), each with its collectives; and whether equal
+    arguments give ``map_sharded_fn`` one callable (its cache) and other
+    ones another."""
+    import functools
+
+    import torch
+
+    from dicp_tpu_torch import parallel
+    from dicp_tpu_torch.jit import capturing
+    from dicp_tpu_torch.parallel import _comm, sharding
+
+    def run():
+        _comm.reset_counts()
+        res = getattr(parallel, entry)(mesh, torch.as_tensor(source), torch.as_tensor(target),
+                                       None, None, cfg=cfg, axis=axis)
+        return {"T": _np(res.T), "converged": bool(res.converged),
+                "iterations": int(res.iterations), "cost": float(res.cost),
+                "counts": sorted(_comm.collectives().items())}
+
+    device = run()
+    # the captured form's fixed trip, run uncaptured (its run-once nodes
+    # become host checks)
+    sharding.capturing = lambda x=None: True
+    try:
+        trip = run()
+    finally:
+        sharding.capturing = capturing
+    solve = sharding._map_sharded_solve
+    sharding._map_sharded_solve = functools.partial(solve, device_loop=False)
+    try:
+        host = run()
+    finally:
+        sharding._map_sharded_solve = solve
+    fn = sharding.map_sharded_fn(mesh, cfg, axis)
+    cached = (fn is sharding.map_sharded_fn(mesh, cfg, axis=axis, target_sharded=False,
+                                            n_real=None)
+              and fn is not sharding.map_sharded_fn(mesh, cfg, axis, True)
+              and fn is not sharding.map_sharded_fn(mesh, cfg.with_(max_iterations=1), axis))
+    return {"device": device, "trip": trip, "host": host, "cached": cached}
+
+
 def job_batch_sharded(mesh, source, target, T_init, cfg, weight=None, key=None):
     """This rank's rows of a batch-sharded solve and their global indices."""
     import torch

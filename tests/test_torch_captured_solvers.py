@@ -369,7 +369,9 @@ def test_these_entry_points_are_jit_programs():
     """register_anderson_jit, map_merge, map_step, SLAM's three programs and
     _svd_icp_impl are jit programs (captured on a CUDA tensor), and so are
     odometry's and the dense pose graph's programs, register_gicp_jit and
-    register_sgd_jit; a solve is host-driven only for Gumbel noise."""
+    register_sgd_jit; a solve is host-driven only for Gumbel noise from an
+    explicit uniform object (a seed draws JAX's threefry streams on the
+    device)."""
     from dicp_tpu_torch import gicp, odometry, sgd_icp
 
     for fn in (register_anderson_jit, map_merge, map_step, ts._closure_solve, ts._make_anchor,
@@ -382,4 +384,10 @@ def test_these_entry_points_are_jit_programs():
     host_driven = tm.map_step.fn.__globals__["_register_program"].__globals__["host_driven"]
     assert not host_driven(ICPConfig(differentiable=False, anderson_m=3,
                                      collect_histories=False))
-    assert host_driven(ICPConfig(differentiable=True, use_gumbel=True))
+    gumbel = ICPConfig(differentiable=True, use_gumbel=True)
+
+    class Explicit:
+        def uniform(self, pair_ids, iteration, chunk, shape, dtype, device):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+    assert host_driven(gumbel, Explicit()) and not host_driven(gumbel, 7)

@@ -3,9 +3,10 @@ f64 on the CPU: ``knn.gumbel_nn`` (dense and streamed) and the Gumbel solve
 (``register``, ``ICP.icp`` on ragged targets) against JAX's, with JAX's own
 uniform draws injected through the port's noise protocol, so the two differ
 only by rounding (tolerance 1e-10).  The port's own streams (a seed or a
-``torch.Generator``) are held to batch_chunk == unchunked and first rows ==
-a smaller batch, bit for bit.  Mirrors ``tests/test_nn.py:99-141`` and
-``tests/test_icp_inputs.py:253-283``."""
+``torch.Generator``: JAX's threefry streams, ``tests/test_torch_threefry.py``
+holds them to JAX's draws) are held to batch_chunk == unchunked and first
+rows == a smaller batch, bit for bit.  Mirrors ``tests/test_nn.py:99-141``
+and ``tests/test_icp_inputs.py:253-283``."""
 
 import numpy as np
 import pytest
@@ -133,12 +134,17 @@ def test_gumbel_streaming_matches_hard_nn_when_separated():
 
 
 def test_noise_sources():
-    """A seed and a torch.Generator give per-stream draws that repeat, differ
-    between streams, leave torch's global generator untouched, and take
+    """A seed and a torch.Generator give the threefry source, whose
+    per-stream draws repeat, differ between streams, are JAX's for the
+    seed's PRNGKey, leave torch's global generator untouched, and take
     their dtype; anything else is refused."""
     state = torch.get_rng_state()
     noise = tknn.gumbel_noise(11)
+    assert isinstance(noise, tknn.ThreefryNoise)
     a = noise.uniform([0, 1], 3, None, (2, 4, 5), torch.float64, torch.device("cpu"))
+    want = JaxNoise(jax.random.PRNGKey(11)).uniform([0, 1], 3, None, (2, 4, 5), torch.float64,
+                                                     "cpu")
+    assert torch.equal(a, want)
     b = tknn.gumbel_noise(11).uniform([1], 3, None, (1, 4, 5), torch.float64, "cpu")
     assert torch.equal(a[1:], b) and not torch.equal(a[0], a[1])
     assert not torch.equal(noise.uniform(None, 3, 0, (4, 5), torch.float64, "cpu"),

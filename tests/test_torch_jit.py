@@ -53,22 +53,26 @@ def test_cache_key_follows_shape_dtype_device_cfg_and_requires_grad(source_np, t
     assert len({key, *others}) == 1 + len(others)
 
 
-def test_register_jit_keys_on_the_noise_source_only_where_it_is_drawn(source_np, target_np,
-                                                                       monkeypatch):
-    """Outside Gumbel a solve ignores ``key``: register_jit leaves it out of
-    the program's call (and so of its cache key), so a new key object or
-    seed never captures a new program; a Gumbel solve gets its key (and
-    runs eagerly)."""
-    seen = []
-    monkeypatch.setattr(registration, "_register_captured",
-                        lambda *args: seen.append(args[-1]) or "called")
+def test_register_jit_keys_on_the_noise_source_only_where_it_is_drawn(source_np, target_np):
+    """Outside Gumbel a solve ignores ``key``: register_jit drops it before
+    the call (``prepare``), so a new key object or seed never captures a new
+    program.  A Gumbel solve's int seed, Generator or key data enters as a
+    (2,) key tensor, an input like the clouds: every such key shares one
+    program; an explicit ``uniform`` object runs eagerly."""
     src, tgt, ti = _pair(source_np, target_np)
-    gen = torch.Generator().manual_seed(3)
-    for key in (7, gen, [1, 2], object()):
-        assert register_jit(src, tgt, ti, None, CFG, key) == "called"
+    plain = PROGRAM.cache_key(src, tgt, ti, None, CFG)
+    for key in (7, torch.Generator().manual_seed(3), [1, 2], object()):
+        assert PROGRAM.cache_key(src, tgt, ti, None, CFG, key) == plain
     gumbel = CFG.with_(differentiable=True, use_gumbel=True)
-    register_jit(src, tgt, ti, None, gumbel, gen)
-    assert seen == [None] * 4 + [gen]
+    keys = {PROGRAM.cache_key(src, tgt, ti, None, gumbel, key)
+            for key in (7, 8, torch.Generator().manual_seed(3), np.array([0, 9], np.uint32))}
+    assert len(keys) == 1 and keys != {PROGRAM.cache_key(src, tgt, ti, None, gumbel)}
+
+    class Explicit:
+        def uniform(self, pair_ids, iteration, chunk, shape, dtype, device):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+    assert PROGRAM.eager_reason(src, tgt, ti, None, gumbel, Explicit()) == "eager_if"
 
 
 def test_eager_reasons(source_np, target_np):
@@ -78,8 +82,9 @@ def test_eager_reasons(source_np, target_np):
     assert PROGRAM.eager_reason(grad_src, tgt, ti, None, CFG) == "an input requires grad"
     with torch.no_grad():
         assert PROGRAM.eager_reason(grad_src, tgt, ti, None, CFG) == "no CUDA tensor"
+    # a Gumbel solve's seed draws on the device: eager here only for the CPU
     gumbel = CFG.with_(differentiable=True, use_gumbel=True)
-    assert PROGRAM.eager_reason(src, tgt, ti, None, gumbel, 7) == "eager_if"
+    assert PROGRAM.eager_reason(src, tgt, ti, None, gumbel, 7) == "no CUDA tensor"
     # the Anderson driver's loop is a device loop: only the CPU keeps it eager
     anderson = CFG.with_(anderson_m=4, collect_histories=False)
     assert PROGRAM.eager_reason(src, tgt, ti, None, anderson) == "no CUDA tensor"
