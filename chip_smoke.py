@@ -278,10 +278,11 @@ Phases, each raising on failure (the script then exits non-zero):
     (its share of the captured solve); the streamed gumbel_nn at phase 4's
     shape; the same threefry draws on the card and on the CPU, bit for bit;
     then in an NCCL world of one (destroyed at the end) map_sharded_fn's
-    programs: register_map_sharded at phase 8's pair (K2 in the WHILE body
-    with the all-reduce; collectives per replay = iterations + 1; K2 held
-    to its plain version on the captured call), register_ring_sharded at
-    phase 4's first pair, register_map_sharded_ift's forward (its gradient,
+    programs: register_map_sharded at phase 8's pair (the fixed trip:
+    max_iterations masked steps, each with its all-reduce, K2 in run-once
+    nodes; collectives per replay = max_iterations + 1; K2 held to its
+    plain version on the captured call), register_ring_sharded at phase 4's
+    first pair, register_map_sharded_ift's forward (its gradient,
     the forward a replay, cosine > 0.99 with the unrolled one); the
     batch-sharded solve at phase 9's batch (register_jit); the partitioned
     pose graph's program on phase 20's graph (within 1e-4 of the dense one)
@@ -347,6 +348,12 @@ process each, in the same turns.  The last line holds every time as JSON.
 
 times K6 and K7 alone that way: neither lies on a path.
 
+    python3 chip_smoke.py --ab DIR --only gumbel
+
+times phase 26's Gumbel programs captured (the headline solve, the draw of
+one iteration, the streamed gumbel_nn), each checkout's own in a process
+of its own, in the same turns; both must give one sum(T).
+
     python3 chip_smoke.py --ranks K
 
 runs parallel/'s programs on K processes, one card each (NCCL; K cards
@@ -354,8 +361,10 @@ needed): map_sharded_fn's (map-sharded at phase 8's pair through K2, the
 ring at phase 4's first pair, the sharded IFT's forward and gradient), the
 batch-sharded solve and the partitioned pose graph, each against its
 eager form bit for bit and the same on every rank, with their collectives
-and times; then tries a WHILE node whose body holds an all-reduce and
-prints CUDA's answer.  The last line is the ranks' exit codes as JSON.
+and times, and the IFT gradient against the same gradient in a world of
+one and the unrolled one (dense tier: cosines > 0.999; cluster tier: > 0.99
+on the rows both worlds certify); then tries a WHILE node whose body holds
+an all-reduce and prints CUDA's answer.  The last line is the ranks' exit codes as JSON.
 """
 
 from __future__ import annotations
@@ -4446,6 +4455,58 @@ print("K4 wrapper ms", c.cuda_median_ms(call, warmup=3, iters=20), c._chain_ms(c
 """
 
 
+GUMBEL_SNIPPET = """
+import numpy as np, torch
+import chip_smoke as c
+from dicp_tpu_torch import jit, knn, register_jit
+dev = torch.device("cuda", 0)
+src, tgt, ti = c.reference_batch(dev)
+solve = lambda: register_jit(src, tgt, ti, None, c.GUMBEL_CFG, key=c.KEY_GUMBEL)
+T_sum = float(solve().T.double().sum())
+shape = tuple(src.shape[:2]) + (tgt.shape[1],)
+noise = knn.ThreefryNoise(knn.key_data(c.KEY_GUMBEL, dev))
+ids = list(range(shape[0]))
+noise.pair_keys(ids, dev)
+it = torch.tensor(7, dtype=torch.int32, device=dev)
+draw = jit.jit(lambda it: noise.uniform(ids, it, None, shape, torch.float32, dev), name="draw")
+draw(it)
+xs, ys, _ = c.scene_pairs(np.random.default_rng(c.SEED), c.B, c.N_SRC, c.M_TGT)
+x, y, key = c.to_torch(xs, dev), c.to_torch(ys, dev), knn.key_data(c.KEY_GUMBEL, dev)
+gnn = jit.jit(lambda x, y, key: knn.gumbel_nn(x, y, key), name="gumbel_nn")
+gnn(x, y, key)
+print("Gumbel ms", c.cuda_median_ms(solve, warmup=2, iters=10),
+      c.cuda_median_ms(lambda: draw(it), warmup=3, iters=20),
+      c.cuda_median_ms(lambda: gnn(x, y, key), warmup=1, iters=3), "sum(T)", T_sum)
+"""
+
+
+def _ab_gumbel(parent: Path) -> dict:
+    """Phase 26's Gumbel programs captured, each checkout in a process of its
+    own, in turns (parent, this, this, parent): the headline solve
+    (register_jit(use_gumbel=True), median of 10), the draw of one
+    iteration (median of 20) and the streamed gumbel_nn at phase 4's shape
+    (median of 3); both checkouts' solves must give one sum(T)."""
+    names = ("Gumbel headline solve", "the draw of one iteration", "streamed gumbel_nn")
+    rows = {name: {"parent": [], "this": []} for name in names}
+    sums = set()
+    for who in ("parent", "this", "this", "parent"):
+        run = subprocess.run([sys.executable, "-c", GUMBEL_SNIPPET],
+                             cwd=parent if who == "parent" else ROOT, capture_output=True,
+                             text=True, timeout=600)
+        _check(run.returncode == 0, f"the Gumbel programs of {who}: {run.stderr[-2000:]}")
+        got = re.search(r"^Gumbel ms ([\d.]+) ([\d.]+) ([\d.]+) sum\(T\) (\S+)", run.stdout,
+                        flags=re.M)
+        _check(got is not None, f"the Gumbel programs timed ({who})")
+        for name, ms in zip(names, got.groups()[:3]):
+            rows[name][who].append(float(ms))
+        sums.add(got.group(4))
+    _check(len(sums) == 1, f"both checkouts' Gumbel solves give one sum(T) ({sums})")
+    for name, times in rows.items():
+        print(f"  {name}: parent {times['parent']} ms, this {times['this']} ms (order parent, "
+              f"this, this, parent; one process each; captured, CUDA events)")
+    return rows
+
+
 def _ab_paths(parent: Path) -> dict:
     """Phases 4, 8 and 9 end to end (ms per icp call, median of 5), phase 12's
     registrations/s, and K4 through its wrapper at the headline (call by
@@ -4499,8 +4560,14 @@ def main_ab(parent: Path, only: str | None = None) -> None:
     tensors after holding both to the plain versions: timed call by call (as
     phases 2, 6, 7, 11 and 13 time the wrappers) and back to back.  Then the
     paths end to end (_ab_paths).  ``only="score"`` times K6 and K7 alone
-    (neither lies on a path)."""
+    (neither lies on a path); ``only="gumbel"`` times phase 26's Gumbel
+    programs alone (_ab_gumbel)."""
     card = phase0_device()
+    if only == "gumbel":
+        rows = _ab_gumbel(parent)
+        print(f"card: {card}")
+        print(json.dumps({"card": card, "parent": str(parent), "runs": rows}))
+        return
     device = torch.device("cuda", 0)
     names = ("score_nn",) if only == "score" else AB_KERNELS
     _build.build_all(names)
@@ -4767,9 +4834,12 @@ def _rank_worker() -> None:
     iterations), each: eager (jit.disable_jit) against a capture and two
     replays bit for bit, the same on every rank, collectives per call and
     per replay, ms eager and captured (CUDA events, rank 0's); the IFT
-    gradient with a captured forward against the eager forward's, and its
-    cosine with the unrolled gradient printed.  Then a WHILE node whose
-    body holds an all-reduce, and CUDA's answer."""
+    gradient with a captured forward against the eager forward's; against
+    the same gradient in a world of one (each rank alone in a group) and
+    the unrolled one, at the solve's tolerance and with both solves run
+    max_iterations, on the cluster tier (cosine > 0.99 on the rows both
+    worlds certify) and the dense tier (cosines > 0.999).  Then a WHILE
+    node whose body holds an all-reduce, and CUDA's answer."""
     from dicp_tpu_torch.odometry import PoseGraph
     from dicp_tpu_torch.parallel.multihost import initialize_distributed
     from dicp_tpu_torch.registration import _register_captured as register_program
@@ -4850,10 +4920,9 @@ def _rank_worker() -> None:
           trip=cfg_d.max_iterations)
     probe = torch.linspace(0.5, 1.5, 16, device=dev).reshape(4, 4)
 
-    def grad_of(fn):
-        s = src.clone().requires_grad_(True)
-        return torch.autograd.grad(torch.sum(fn(mesh_map, s, target, ti, cfg=cfg_d).T * probe),
-                                   s)[0]
+    def grad_of(fn, cfg=cfg_d, mesh=mesh_map, source=src):
+        s = source.clone().requires_grad_(True)
+        return torch.autograd.grad(torch.sum(fn(mesh, s, target, ti, cfg=cfg).T * probe), s)[0]
 
     g_i = grad_of(register_map_sharded_ift)
     with jit.disable_jit():
@@ -4862,11 +4931,61 @@ def _rank_worker() -> None:
            and bool(torch.isfinite(g_i).all()) and bool((g_i != 0).any()),
            "the IFT gradient with a captured forward equals the eager forward's, finite, "
            "nonzero, the same on every rank")
-    cos = bench.cosine(g_i, grad_of(register_map_sharded))
-    say(f"  sharded IFT gradient, the forward a replay: equal to the eager forward's bit for "
-        f"bit, the same on every rank; cosine with the unrolled gradient {cos:.6f} (phase 21 "
-        f"gates it > 0.99 in a world of one; the unrolled solve stops after the iterations "
-        f"the tolerance allows, and each rank's query order is its own)")
+    # the same gradients in a world of one: each rank alone in a group of
+    # its own (every rank makes every group, as new_group requires), at the
+    # solve's tolerance and with both solves run all of max_iterations; on
+    # the cluster tier (phase 8's pair) and on the dense tier (exact
+    # correspondences, no certificate gate; every 10th source point), the
+    # programs dropped after each pair of gradients (their pools)
+    from torch.distributed.device_mesh import DeviceMesh
+
+    alone = [dist.new_group([r]) for r in range(world)][rank]
+    mesh_one = DeviceMesh.from_group(alone, "cuda", mesh_dim_names=("map",))
+    cfg_dense = cfg_d.with_(nn_method="dense")
+    grads = {}
+    for tier, c0, s_in in (("cluster", cfg_d, src), ("dense", cfg_dense, src[::10])):
+        for c in (c0, c0.with_(tolerance=0.0)):
+            for ranks, m in ((world, mesh_map), (1, mesh_one)):
+                grads[tier, c.tolerance, ranks] = [
+                    grad_of(fn, c, m, s_in)
+                    for fn in (register_map_sharded_ift, register_map_sharded)]
+                jit.clear_caches()
+                torch.cuda.empty_cache()
+    _check(torch.equal(grads["cluster", cfg_d.tolerance, world][0], g_i),
+           "the IFT gradient replays")
+
+    def rows(g):
+        return g.abs().sum(dim=-1) != 0
+
+    # the gates: on the dense tier the IFT gradient on several ranks is one
+    # rank's and the unrolled one's limit (> 0.999); on the cluster tier
+    # each rank sorts and blocks its own queries, the certified rows are
+    # not one world's (the certificate gate zeroes the others), and the
+    # gradients are held where both worlds certify the row (> 0.99)
+    for (tier, tol, ranks), (g_ift, g_unrolled) in grads.items():
+        cos_unrolled = bench.cosine(g_ift, g_unrolled)
+        line = (f"  sharded IFT gradient, {tier} tier, {ranks} rank(s), tolerance {tol:g}: "
+                f"cosine with the unrolled gradient {cos_unrolled:.6f}")
+        if ranks == world:
+            g1_ift, g1_unrolled = grads[tier, tol, 1]
+            both = rows(g_ift) & rows(g1_ift)
+            cos_one, cos_both = bench.cosine(g_ift, g1_ift), bench.cosine(g_ift[both],
+                                                                          g1_ift[both])
+            line += (f"; against one rank's: IFT {cos_one:.6f}, unrolled "
+                     f"{bench.cosine(g_unrolled, g1_unrolled):.6f}; source rows with a "
+                     f"gradient {int(rows(g_ift).sum())} here, {int(rows(g1_ift).sum())} on "
+                     f"one rank, {int(both.sum())} on both, IFT cosine on those "
+                     f"{cos_both:.6f}")
+            if tier == "dense":
+                _check(min(cos_one, cos_unrolled) > 0.999,
+                       f"dense tier, tolerance {tol:g}: the IFT gradient on {world} ranks "
+                       f"against one rank's ({cos_one:.6f}) and the unrolled one "
+                       f"({cos_unrolled:.6f}), cosines > 0.999")
+            else:
+                _check(cos_both > 0.99, f"cluster tier, tolerance {tol:g}: the IFT gradient "
+                       f"on {world} ranks against one rank's on the rows both certify, "
+                       f"cosine {cos_both:.6f} > 0.99")
+        say(line)
     s9, t9, _ = scene_pairs(np.random.default_rng(SEED + 9), 2 * world, N_RAW, M_RAW)
     s9, t9 = to_torch(s9, dev), to_torch(t9, dev)
     ti9 = torch.eye(4, dtype=torch.float32, device=dev).expand(s9.shape[0], 4, 4)
@@ -4910,8 +5029,7 @@ def _rank_worker() -> None:
         jit.device_while(flag, body)
         return y
 
-    probe_prog = jit.jit(reduce_in_while, name="reduce_in_while",
-                         capture_error_mode="thread_local")
+    probe_prog = jit.jit(reduce_in_while, name="reduce_in_while")
     try:
         probe_prog(acc)
         answer = "captured"
@@ -4928,13 +5046,15 @@ def _rank_worker() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         main_ab(Path(sys.argv[2]).resolve())
-    elif sys.argv[1:2] == ["--ab"] and sys.argv[3:] == ["--only", "score"]:
-        main_ab(Path(sys.argv[2]).resolve(), only="score")
+    elif sys.argv[1:2] == ["--ab"] and sys.argv[3:4] == ["--only"] and \
+            sys.argv[4:] in (["score"], ["gumbel"]):
+        main_ab(Path(sys.argv[2]).resolve(), only=sys.argv[4])
     elif sys.argv[1:2] == ["--ranks"] and len(sys.argv) == 3:
         main_ranks(int(sys.argv[2]))
     elif sys.argv[1:] == ["--rank-worker"]:
         _rank_worker()
     elif len(sys.argv) > 1:
-        raise SystemExit("usage: python3 chip_smoke.py [--ab DIR [--only score] | --ranks K]")
+        raise SystemExit("usage: python3 chip_smoke.py [--ab DIR [--only score|gumbel] | "
+                         "--ranks K]")
     else:
         main()

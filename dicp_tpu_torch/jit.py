@@ -38,10 +38,10 @@ its mini-batch indices there from a host-seeded source, and a Gumbel
 solve's seed becomes a key tensor there, so that the program receives them
 as tensors and the source never enters the cache key.
 
-``capture_error_mode`` is ``torch.cuda.graph``'s: programs that run a NCCL
-collective are captured in ``"thread_local"`` mode, because c10d's
-watchdog thread queries CUDA events while a capture runs, which the
-default ``"global"`` mode refuses.
+Programs are captured in ``torch.cuda.graph``'s ``"thread_local"`` error
+mode, not its default ``"global"``: c10d's watchdog thread queries CUDA
+events while a program with a NCCL collective is captured, which the
+``"global"`` mode refuses.
 
 Loops whose exit the device decides are written with :func:`device_while`.
 Under capture it becomes a CUDA graph conditional WHILE node
@@ -250,9 +250,8 @@ def _is_tensor(x) -> bool:
 
 
 class _Jitted:
-    def __init__(self, fn, static_argnames, eager_if, name, prepare, capture_error_mode):
+    def __init__(self, fn, static_argnames, eager_if, name, prepare):
         self.fn = fn
-        self.capture_error_mode = capture_error_mode
         self.static = tuple(static_argnames)
         self.eager_if = eager_if
         self.prepare = prepare
@@ -340,7 +339,7 @@ class _Jitted:
         _local.capture = prog
         try:
             with torch.cuda.graph(prog.graph, stream=_stream(device, "capture"),
-                                  capture_error_mode=self.capture_error_mode):
+                                  capture_error_mode="thread_local"):
                 captured = self.fn(*cbound.args, **cbound.kwargs)
         except BaseException:
             prog.release()
@@ -371,12 +370,9 @@ class _Jitted:
 
 def jit(fn, *, static_argnames: Sequence[str] = (),
         eager_if: Optional[Callable[[dict], bool]] = None, name: Optional[str] = None,
-        prepare: Optional[Callable[[dict], None]] = None,
-        capture_error_mode: str = "global"):
+        prepare: Optional[Callable[[dict], None]] = None):
     """``fn`` as a captured device program on the card (see the module
     docstring).  ``eager_if(arguments)``: calls to run eagerly; ``name``:
     the programs' name in :func:`programs`; ``prepare(arguments)``: host
-    work that rewrites the bound arguments before each call;
-    ``capture_error_mode``: ``torch.cuda.graph``'s ("thread_local" for
-    programs with collectives)."""
-    return _Jitted(fn, static_argnames, eager_if, name, prepare, capture_error_mode)
+    work that rewrites the bound arguments before each call."""
+    return _Jitted(fn, static_argnames, eager_if, name, prepare)

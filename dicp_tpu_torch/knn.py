@@ -114,17 +114,22 @@ def threefry2x32(k1, k2, x1, x2) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 block (20 rounds) of key words (k1, k2) over the
     count words (x1, x2): broadcasting int32 tensors of uint32 bit patterns
     (or ints, taken as uint32); returns the two output words, int32
-    tensors of the broadcast shape, updated in place round by round."""
+    tensors of the broadcast shape, updated in place round by round: five
+    elementwise passes a round, in two buffers and one more."""
     k1, k2, x1, x2 = map(_word_tensor, (k1, k2, x1, x2))
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     v0, v1 = (t.contiguous() for t in torch.broadcast_tensors(x1 + ks[0], x2 + ks[1]))
+    low = torch.empty_like(v1)
     for i in range(5):
         for rot in _ROTATIONS[i % 2]:
             v0 += v1
-            high = v1 << rot
-            v1 >>= 32 - rot
-            v1 &= (1 << rot) - 1
-            v1 |= high
+            # v1 rotated left: its top ``rot`` bits moved down (an arithmetic
+            # shift masked to a logical one) plus v1 * 2**rot, which wraps
+            # as v1 << rot does; the two have no bit in common
+            torch.bitwise_right_shift(v1, 32 - rot, out=low)
+            low &= (1 << rot) - 1
+            low.add_(v1, alpha=1 << rot)
+            v1, low = low, v1
             v1 ^= v0
         v0 += ks[(i + 1) % 3]
         v1 += ks[(i + 2) % 3] + (i + 1)

@@ -191,8 +191,8 @@ def _block_mask(size: int, block: int, dtype, device) -> torch.Tensor:
 @functools.lru_cache(maxsize=64)
 def _partitioned_program(group):
     """The fixed-trip partitioned GN loop over ``group``'s ranks as a
-    program of :mod:`dicp_tpu_torch.jit` (captured in "thread_local" mode:
-    it runs collectives), static in ``iterations`` and the gauge's places."""
+    program of :mod:`dicp_tpu_torch.jit`, static in ``iterations`` and the
+    gauge's places."""
 
     def program(poses, t_meas, w_edge, eg_i, eg_j, loc_i, loc_j, int_ids, sep_ids,
                 iterations: int, damping: float, gauge_loc: int, gauge_sep: int):
@@ -255,4 +255,4 @@ def _partitioned_program(group):
         return poses
 
     return jit(program, static_argnames=("iterations", "gauge_loc", "gauge_sep"),
-               name="pose_graph_optimize_partitioned", capture_error_mode="thread_local")
+               name="pose_graph_optimize_partitioned")

@@ -50,7 +50,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from dicp_tpu_torch import knn, losses, se3
 from dicp_tpu_torch.config import ICPConfig
-from dicp_tpu_torch.jit import capturing, device_if, device_while, jit
+from dicp_tpu_torch.jit import capturing, device_if, jit
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn, query_order
 from dicp_tpu_torch.ops.smallsolve import solve_spd
 from dicp_tpu_torch.parallel._comm import psum, replicated, ring_shift
@@ -142,6 +142,18 @@ class MapShardedResult(NamedTuple):
     cost: torch.Tensor        # () final weighted squared cost
 
 
+def _ring_fold(x, y_cur, best_d, best_row):
+    """The running (best distance, best row) of the queries ``x`` after the
+    visiting shard ``y_cur``."""
+    with torch.no_grad():
+        d2 = knn.pairwise_sq_dist(x.detach(), y_cur[:, :3].detach())
+        idx = torch.argmin(d2, dim=-1)
+        dmin = torch.gather(d2, 1, idx[:, None])[:, 0]
+        better = dmin < best_d
+        best_d = torch.where(better, dmin, best_d)
+    return best_d, torch.where(better[:, None], y_cur[idx], best_row)
+
+
 def ring_nn(x: torch.Tensor, y_shard: torch.Tensor, group) -> torch.Tensor:
     """1-NN of local queries against a RING-SHARDED target.
 
@@ -156,13 +168,29 @@ def ring_nn(x: torch.Tensor, y_shard: torch.Tensor, group) -> torch.Tensor:
     best_row = y_shard.new_zeros((x.shape[0], y_shard.shape[1]))
     y_cur = y_shard
     for step in range(k_dev):
-        with torch.no_grad():
-            d2 = knn.pairwise_sq_dist(x.detach(), y_cur[:, :3].detach())
-            idx = torch.argmin(d2, dim=-1)
-            dmin = torch.gather(d2, 1, idx[:, None])[:, 0]
-            better = dmin < best_d
-            best_d = torch.where(better, dmin, best_d)
-        best_row = torch.where(better[:, None], y_cur[idx], best_row)
+        best_d, best_row = _ring_fold(x, y_cur, best_d, best_row)
+        if step + 1 < k_dev:
+            y_cur = ring_shift(y_cur, group)
+    return best_row
+
+
+def _ring_nn_where(run: torch.Tensor, x: torch.Tensor, y_shard: torch.Tensor,
+                   group) -> torch.Tensor:
+    """:func:`ring_nn` where the 0-dim bool ``run`` holds.  The shifts pair
+    up across ranks and run in any case (CUDA refuses NCCL's kernels in a
+    conditional node's body); each fold is a run-once node (:func:`device_if`),
+    skipped where ``run`` does not hold, and the rows are then stale."""
+    k_dev = dist.get_world_size(group)
+    best_d = torch.full((x.shape[0],), torch.inf, dtype=x.dtype, device=x.device)
+    best_row = y_shard.new_zeros((x.shape[0], y_shard.shape[1]))
+
+    def fold(y_cur):
+        for old, new in zip((best_d, best_row), _ring_fold(x, y_cur, best_d, best_row)):
+            old.copy_(new)
+
+    y_cur = y_shard
+    for step in range(k_dev):
+        device_if(run, functools.partial(fold, y_cur))
         if step + 1 < k_dev:
             y_cur = ring_shift(y_cur, group)
     return best_row
@@ -225,8 +253,7 @@ def _linearize(cfg: ICPConfig, C, cp, ps_t, src_nrm, nn6, w, smooth: bool):
 
 
 def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_init, group,
-                       target_sharded: bool = False, n_real: Optional[int] = None,
-                       device_loop: Optional[bool] = None):
+                       target_sharded: bool = False, n_real: Optional[int] = None):
     """This rank's part of the map-sharded Gauss-Newton solve; returns (T,
     converged, iterations, cost), the same on every rank of ``group``.
 
@@ -237,14 +264,15 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
     norm, so all stop together.  With ``target_sharded`` the target is this
     rank's shard and correspondences come from :func:`ring_nn`.
 
-    ``device_loop`` (None: unless an input requires grad): the loop is a
-    masked step over a state held in tensors (``C``, ``r``, a 0-dim int32
-    ``it``, a 0-dim bool ``done``, ``cost``; it runs where ``it <
-    max_iterations & ~done``), the exit decided on the device: under
-    capture a fixed trip of ``max_iterations`` steps, uncaptured under
-    :func:`jit.device_while`'s host loop; otherwise the host loop, which
-    reads the step norm once per iteration and which autograd can record.
-    All give the same bits."""
+    Under capture the loop is a fixed trip, as JAX's ``lax.scan`` form
+    runs it: ``max_iterations`` masked steps over a state held in tensors (``C``,
+    ``r``, a 0-dim int32 ``it``, a 0-dim bool ``done``, ``cost``; a step runs
+    where ``it < max_iterations & ~done``), each with its all-reduce: CUDA
+    refuses NCCL's kernels inside a conditional node's body, so the exit
+    cannot be a WHILE node.  The work around the collectives is in run-once
+    nodes, skipped in a step that does not run.  Otherwise the loop runs on
+    the host, reads the step norm once per iteration, and autograd can
+    record it.  Both give the same bits."""
     dtype, device = source_shard.dtype, source_shard.device
     rank, k_dev = dist.get_rank(group), dist.get_world_size(group)
     n_loc = source_shard.shape[0]
@@ -279,14 +307,19 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
     else:
         denom = n_loc * k_dev
 
-    def local_terms(C, r):
-        """This rank's summands at the pose (C, r), flat."""
+    def pose_rows(C, r):
+        """(C, cp, ps_t): this rank's source points rotated and moved by the
+        pose (C, r)."""
         # the replicated pose enters this rank's local terms: its cotangent
         # from them is summed over the group
         Cr = replicated(torch.cat([C.reshape(-1), r]), group)
         C_l, r_l = Cr[:9].reshape(3, 3), Cr[9:]
         cp = src_pts @ C_l.T
-        ps_t = cp + r_l
+        return C_l, cp, cp + r_l
+
+    def local_terms(C, r):
+        """This rank's summands at the pose (C, r), flat."""
+        C_l, cp, ps_t = pose_rows(C, r)
         valid = None
         if method == "ring":
             nn6 = ring_nn(ps_t, target, group)
@@ -301,6 +334,11 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
             valid = cert.to(dtype)
         else:
             nn6 = target[knn.nn_indices(ps_t, tgt_pts).long()]
+        return terms(C_l, cp, ps_t, nn6, valid)
+
+    def terms(C_l, cp, ps_t, nn6, valid):
+        """The summands, flat, from the matched rows ``nn6`` (and the
+        certificate ``valid`` on the cluster tier)."""
         J, res, w = _linearize(cfg, C_l, cp, ps_t, src_nrm, nn6, weight_shard,
                                cfg.differentiable)
 
@@ -350,10 +388,7 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
     def gn_iteration(C, r):
         return finish(C, r, psum(local_terms(C, r), group))
 
-    if device_loop is None:
-        device_loop = not (torch.is_grad_enabled() and any(
-            t.requires_grad for t in (source_shard, weight_shard, target, T_init)))
-    if device_loop:
+    if capturing(C0):
         # every field owns its storage: the steps overwrite them in place
         C, r = C0.clone(), r0.clone()
         it = torch.zeros((), dtype=torch.int32, device=device)
@@ -370,38 +405,20 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
                 old.copy_(torch.where(run, new, old))
             it.copy_(torch.where(run, it + 1, it))
 
-        def step(run, gated: bool):
-            """One iteration where ``run`` holds, none (every field as it
-            was) where it does not; ``gated``: the work around the
-            all-reduce runs only where ``run`` holds (device_if)."""
-            if not gated:
-                update(run, psum(local_terms(C, r), group))
-                return
+        for _ in range(T):
+            run = (it < T) & ~done
             total = torch.zeros((n_ne * 2 + 1 if method == "cluster" else n_ne,),
                                 dtype=dtype, device=device)
-            device_if(run, lambda: total.copy_(local_terms(C, r)))
+            if method == "ring" and k_dev > 1:
+                # the ring's shifts run in every step, the search and the
+                # terms around them where the step runs
+                C_l, cp, ps_t = pose_rows(C, r)
+                nn6 = _ring_nn_where(run, ps_t, target, group)
+                device_if(run, lambda: total.copy_(terms(C_l, cp, ps_t, nn6, None)))
+            else:
+                device_if(run, lambda: total.copy_(local_terms(C, r)))
             reduced = psum(total, group)
             device_if(run, lambda: update(run, reduced))
-
-        if capturing(C):
-            # CUDA refuses NCCL's kernels inside a conditional node's body
-            # (cudaErrorInvalidValue at instantiation on 4 ranks), so the
-            # captured loop is JAX's scan driver: T masked steps, each with
-            # its all-reduce (T + 1 per replay with the cost pass), the work
-            # around it skipped by run-once nodes in a step that does not
-            # run; the ring's terms hold collectives beyond one rank, and
-            # run in every step
-            gated = method != "ring" or k_dev == 1
-            for _ in range(T):
-                step((it < T) & ~done, gated)
-        else:
-            flag = torch.full((), T > 0, dtype=torch.bool, device=device)
-
-            def body():
-                step(flag, gated=False)
-                flag.copy_((it < T) & ~done)
-
-            device_while(flag, body)
     else:
         C, r = C0, r0
         steps, stop = 0, False
@@ -487,11 +504,10 @@ def map_sharded_fn(mesh: DeviceMesh, cfg: ICPConfig, axis: str = "map",
     padding (the certificate gate's fraction).
 
     On the card ``fn`` is a :func:`dicp_tpu_torch.jit.jit` program: a call
-    per input shape captures the solve and later calls replay it; it is
-    captured in ``"thread_local"`` mode (c10d's watchdog queries events
-    meanwhile).  A replay runs ``cfg.max_iterations`` masked steps and
-    ``cfg.max_iterations + 1`` all-reduces (an uncaptured call: the
-    iterations it needs, plus one).  A call whose input requires grad runs
+    per input shape captures the solve and later calls replay it.  A
+    replay runs ``cfg.max_iterations`` masked steps and
+    ``cfg.max_iterations + 1`` all-reduces (an uncaptured call, the host
+    loop: the iterations it needs, plus one).  A call whose input requires grad runs
     eagerly (the jit rule).  On the CPU it is the solve itself.  The mesh
     and cfg live in the closure, not in the program's key.
 
@@ -517,7 +533,7 @@ def _map_sharded_fn(mesh, cfg, axis, target_sharded, n_real, group):
         return _map_sharded_solve(cfg, source[rows], weight[rows], target, T_init, group,
                                   target_sharded=target_sharded, n_real=n_real)
 
-    return jit(program, name="map_sharded_fn", capture_error_mode="thread_local")
+    return jit(program, name="map_sharded_fn")
 
 
 def register_ring_sharded(

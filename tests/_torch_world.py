@@ -82,13 +82,13 @@ class World:
             try:
                 status, value = results.get(timeout=timeout or self.timeout)
             except queue.Empty:
+                tail = self._log_tail(rank)
                 self.close()
-                raise TimeoutError(f"rank {rank} gave no result for {job}:\n"
-                                   + self._log_tail(rank)) from None
+                raise TimeoutError(f"rank {rank} gave no result for {job}:\n{tail}") from None
             if status != "ok":
+                tail = self._log_tail(rank)
                 self.close()
-                raise RuntimeError(f"rank {rank} failed in {job}: {value}\n"
-                                   + self._log_tail(rank))
+                raise RuntimeError(f"rank {rank} failed in {job}: {value}\n{tail}")
             out.append(value)
         return out
 
@@ -182,14 +182,10 @@ def _map_sharded(mesh, source, target, cfg, T_init, weight, axis, entry, grad_wr
 
 def job_map_sharded_loops(mesh, source, target, cfg, entry="register_map_sharded",
                           axis="map"):
-    """One solve through ``map_sharded_fn``'s program (the masked step under
-    ``device_while``, a host loop here), through the fixed trip its capture
-    takes (run uncaptured), and on the host loop that autograd records
-    (``device_loop=False``), each with its collectives; and whether equal
-    arguments give ``map_sharded_fn`` one callable (its cache) and other
-    ones another."""
-    import functools
-
+    """One solve through ``map_sharded_fn``'s program (uncaptured: the host
+    loop) and through the fixed trip its capture takes (run uncaptured),
+    each with its collectives; and whether equal arguments give
+    ``map_sharded_fn`` one callable (its cache) and other ones another."""
     import torch
 
     from dicp_tpu_torch import parallel
@@ -204,7 +200,7 @@ def job_map_sharded_loops(mesh, source, target, cfg, entry="register_map_sharded
                 "iterations": int(res.iterations), "cost": float(res.cost),
                 "counts": sorted(_comm.collectives().items())}
 
-    device = run()
+    host = run()
     # the captured form's fixed trip, run uncaptured (its run-once nodes
     # become host checks)
     sharding.capturing = lambda x=None: True
@@ -212,18 +208,12 @@ def job_map_sharded_loops(mesh, source, target, cfg, entry="register_map_sharded
         trip = run()
     finally:
         sharding.capturing = capturing
-    solve = sharding._map_sharded_solve
-    sharding._map_sharded_solve = functools.partial(solve, device_loop=False)
-    try:
-        host = run()
-    finally:
-        sharding._map_sharded_solve = solve
     fn = sharding.map_sharded_fn(mesh, cfg, axis)
     cached = (fn is sharding.map_sharded_fn(mesh, cfg, axis=axis, target_sharded=False,
                                             n_real=None)
               and fn is not sharding.map_sharded_fn(mesh, cfg, axis, True)
               and fn is not sharding.map_sharded_fn(mesh, cfg.with_(max_iterations=1), axis))
-    return {"device": device, "trip": trip, "host": host, "cached": cached}
+    return {"host": host, "trip": trip, "cached": cached}
 
 
 def job_batch_sharded(mesh, source, target, T_init, cfg, weight=None, key=None):

@@ -2,15 +2,14 @@
 jitted ``shard_map`` of the same name) and the partitioned pose graph's
 program, in a world of 2 gloo ranks (``tests/_torch_world.py``), f64.
 
-On the CPU a program is its function: the map-sharded solve's masked step
-runs under ``device_while``'s host loop, and the pose graph's fixed-trip
-loop as written.  The map-sharded solve is held to the host loop that
-autograd records (the parent's loop: ``_map_sharded_solve(
-device_loop=False)``) bit for bit in T, iterations, convergence and cost,
-with the same collectives (one all-reduce per iteration plus the cost
-pass), and so is the fixed trip that its capture takes (run uncaptured:
-max_iterations + 1 all-reduces); the pose graph to the dense
-``pose_graph_optimize`` within 1e-4."""
+On the CPU a program is its function: the map-sharded solve runs its host
+loop, and the pose graph's fixed-trip loop as written.  The fixed trip that
+the map-sharded solve's capture takes (run uncaptured: max_iterations + 1
+all-reduces; on the ring its shifts in every step, its folds only in the
+steps that run) is held to the host loop bit for bit in T, iterations,
+convergence and cost; the host loop runs one all-reduce per iteration plus
+the cost pass.  The pose graph is held to the dense ``pose_graph_optimize``
+within 1e-4."""
 
 import inspect
 from collections import Counter
@@ -68,32 +67,28 @@ CASES = {
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_program_equals_the_host_loop(world, source_np, target_np, case):
-    """map_sharded_fn's program, uncaptured and as the fixed trip its capture
-    takes, gives the host loop's bits (T, iterations, converged, cost) on
-    every rank.  Uncaptured it runs the host loop's collectives: one
-    all-reduce per iteration and one in the cost pass (the ring adds its
-    shifts); the fixed trip runs max_iterations + 1 all-reduces.  Equal
-    arguments give one cached callable."""
+    """The fixed trip that map_sharded_fn's capture takes gives the host
+    loop's bits (T, iterations, converged, cost) on every rank.  The host
+    loop runs one all-reduce per iteration and one in the cost pass (the
+    ring adds its shifts); the fixed trip runs max_iterations + 1
+    all-reduces, and on the ring as many shifts.  Equal arguments give one
+    cached callable."""
     entry, n, cfg = CASES[case]
     res = world.run("map_sharded_loops", (1, 2), source=source_np[:n, :3], target=target_np,
                     cfg=cfg, entry=entry)
     for r in res:
-        dev, trip, host = r["device"], r["trip"], r["host"]
-        for got in (dev, trip):
-            np.testing.assert_array_equal(got["T"], host["T"])
-            assert (got["iterations"], got["converged"], got["cost"]) == \
-                (host["iterations"], host["converged"], host["cost"])
-        np.testing.assert_array_equal(dev["T"], res[0]["device"]["T"])
-        assert dev["counts"] == host["counts"]
-        trip_reduces = sum(v for (kind, _, _), v in trip["counts"] if kind == "all_reduce")
-        assert trip_reduces == cfg.max_iterations + 1
-        counts = Counter({k: v for k, v in dev["counts"]})
-        reduces = sum(v for (kind, _, _), v in counts.items() if kind == "all_reduce")
-        assert reduces == dev["iterations"] + 1
-        if case == "ring":
-            shifts = sum(v for (kind, _, _), v in counts.items() if kind == "ring_shift")
-            assert shifts == dev["iterations"] + 1    # K - 1 = 1 shift per pass
-        assert dev["converged"] and r["cached"]
+        trip, host = r["trip"], r["host"]
+        np.testing.assert_array_equal(trip["T"], host["T"])
+        assert (trip["iterations"], trip["converged"], trip["cost"]) == \
+            (host["iterations"], host["converged"], host["cost"])
+        np.testing.assert_array_equal(host["T"], res[0]["host"]["T"])
+        for got, want in ((host, host["iterations"] + 1), (trip, cfg.max_iterations + 1)):
+            counts = Counter({k: v for k, v in got["counts"]})
+            assert sum(v for (kind, _, _), v in counts.items() if kind == "all_reduce") == want
+            if case == "ring":   # K - 1 = 1 shift per pass
+                assert sum(v for (kind, _, _), v in counts.items()
+                           if kind == "ring_shift") == want
+        assert host["converged"] and r["cached"]
 
 
 def _partitioned(world, V, closures, iterations):
