@@ -9,8 +9,8 @@ Phases, each raising on failure (the script then exits non-zero):
    name and power limit; checks that float32 matmuls run in full precision.
 1. build: compiles the CUDA kernels of the checkout, one nvcc per source, all
    started together (csrc/tiled_nn.cu, cluster_search.cu, cluster_topk.cu,
-   fused_gn.cu, score_nn.cu, and graph_while.cu, the WHILE node's
-   condition kernel and plumbing);
+   fused_gn.cu, score_nn.cu, threefry.cu (D1, the Gumbel draw), and
+   graph_while.cu, the WHILE node's condition kernel and plumbing);
    prints K1's -Xptxas=-v report.
 2. K1 against its plain PyTorch version on the card, bit for bit: indices and
    squared distances identical, at the main path's shapes and at edge cases
@@ -287,8 +287,26 @@ Phases, each raising on failure (the script then exits non-zero):
     batch-sharded solve at phase 9's batch (register_jit); the partitioned
     pose graph's program on phase 20's graph (within 1e-4 of the dense one)
     and refine_robust(mesh=...) (its second pass and the next call replay
-    the program); then eager against captured in turns.
-16. (run after 17-26) a torch.profiler pass over 3 calls each of phases
+    the program); then eager against captured in turns.  Since D1 these
+    Gumbel cases draw through csrc/threefry.cu.
+27. (run after 26) the unrolled gradient captured and the draw kernel D1:
+    D1 against its plain version bit for bit (f32, f64) at the dense Gumbel
+    block (256, 65, 65), a streamed chunk (8, 12,288, 1,365), counters past
+    int32 and one stream over a whole shape, then one row of 2**32 + 8,192
+    elements against the plain arithmetic on windows at 0, 2**31 and 2**32
+    (the counter's high word); D1 timed call by call and back to back
+    beside its plain version and its bound.  The captured unrolled units,
+    each held to its uncaptured run as phase 24 holds its cases (a replay
+    on fresh inputs too): bench.unrolled_jit at the headline (B = 256,
+    dense tier), the same gradient through ICP.icp, bench.unrolled_jit at
+    phase 4's shape (tiled tier: K1 once per executed step, held to its
+    plain version on the captured call's first and last launch) and the
+    Gumbel headline's unrolled gradient with an int key (D1 twice per
+    executed step: the forward and the backward's recomputed step); a
+    Gumbel solve that exits early (a skipped step draws nothing).
+    Launches per replay, first-call cost, pools against the eager peak,
+    eager against captured in turns.
+16. (run after 17-27) a torch.profiler pass over 3 calls each of phases
     4 (captured, through ICP.icp, and eager register), 8 and 9 (captured),
     12 (eager and captured), one W = 1 warm stream of phase 17's first 9
     scans (captured windows and eager windows), one gn scan-to-map stream
@@ -310,7 +328,7 @@ of 7 rounds: the kernel's time, free of the host's launch overhead).
 
 Each main path (phases 4, 8, 9, 12, 14, each run of 17 and 18, the pyramid of 19,
 the first SLAM run of 20, phase 21's map-sharded and batch-sharded solves,
-each row and example of 22, and phases 23's to 26's captured runs) is driven with
+each row and example of 22, and phases 23's to 27's captured runs) is driven with
 the kernels' launch counts set to 0 just before it and read just after.
 ICP.icp, the pipeline, map_step (phases 18 and 20) and SLAM's closures
 run captured programs (dicp_tpu_torch.jit): a
@@ -326,7 +344,10 @@ for this run's inputs; K1's entry also holds its launches per SLAM scan
 call (phase 17), per scan of each scan-to-map stream (phase 18), per SLAM
 closure attempt (phase 20), per pyramid call (phase 19) and per map-sharded
 call (phase 21); K1-K4's entries hold their launches per suite row and
-example (phase 22).  The last line is
+example (phase 22); D1's entry (threefry_uniform, replacing XLA's threefry
+inside jax.random.uniform: no Pallas kernel) its launches in phases 26 and
+27, its bound the larger of its instructions at the issue rate and the
+bytes it writes.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
     python3 chip_smoke.py --ab DIR
@@ -373,6 +394,7 @@ import contextlib
 import functools
 import importlib
 import json
+import math
 import os
 import re
 import statistics
@@ -423,7 +445,7 @@ SEED = 0
 B, N_SRC, M_TGT = 8, 12288, 16000  # phase 4: the slice at real size
 TOL_POSE = 1e-3                    # rad and m, phases 3, 4, 8 and 9
 KERNELS = ("tiled_nn", "cluster_search", "cluster_topk", "fused_gn", "score_nn",
-           "graph_while")
+           "graph_while", "threefry")
 M_MAP = 100_000                    # phases 6-8: one raw scan against its map
 B_RAW, N_RAW, M_RAW = 8, 50_000, 60_000  # phases 6 and 9: batched raw scans
 PROBES, GROUP = 32, 128            # the cluster tier's defaults
@@ -711,6 +733,7 @@ def _reset_launches() -> None:
     cluster_search.fused_topk.launches = 0
     exp_knn.nn_v1.launches = 0
     exp_knn.nn_v2.launches = 0
+    knn.threefry_launches = 0
 
 
 def _launches() -> dict:
@@ -719,7 +742,8 @@ def _launches() -> dict:
     host = {"tiled_nn": tiled_knn.launches, "fused_gn": fused_gn.launches,
             "cluster_search": cluster_search.fused_search.launches,
             "cluster_block_search": cluster_search.block_search.launches,
-            "cluster_topk": cluster_search.fused_topk.launches}
+            "cluster_topk": cluster_search.fused_topk.launches,
+            "threefry_uniform": knn.threefry_launches}
     return {name: n + launch_counts.read(name) for name, n in host.items()}
 
 
@@ -2904,7 +2928,7 @@ def _fresh(x: torch.Tensor, seed: int, scale: float = 1e-3) -> torch.Tensor:
 
 def _diff_fields(eager, got) -> dict:
     """Fields of ``got`` that differ from ``eager``, with their max |difference|."""
-    return {name: _max_abs_diff(a.double(), b.double())
+    return {name: _max_abs_diff(a.detach().double(), b.detach().double())
             for (name, a), (_, b) in zip(_leaves(eager), _leaves(got))
             if not torch.equal(a, b)}
 
@@ -2927,7 +2951,7 @@ def _counted(call, counter=None):
 
 
 def _captured_equals_eager(label: str, eager_call, jitted_call, jitted, fresh=None,
-                           counter=None) -> int:
+                           counter=None, replayed=None) -> int:
     """Two replays of a fresh capture and the replay of a second fresh
     capture equal the eager result bit for bit in every field, each replay
     run under the sync debug mode's "error" (a host wait raises), and each
@@ -2940,8 +2964,10 @@ def _captured_equals_eager(label: str, eager_call, jitted_call, jitted, fresh=No
     eager call's and the program's pools.  Returns the host waits per
     replay (0).  ``counter``: what "launches" counts (default
     :func:`_launches`; :func:`_launches_and_collectives` adds the
-    collectives)."""
+    collectives).  ``replayed(launches)``: what a replay launches where an
+    eager call launches ``launches`` (default the same)."""
     counter = counter or _launches
+    replayed = replayed or (lambda launches: launches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2960,8 +2986,8 @@ def _captured_equals_eager(label: str, eager_call, jitted_call, jitted, fresh=No
             with _no_host_wait():
                 outs.append(jitted_call())
             got = _delta(before, counter())
-            _check(got == want, f"{label}: a replay launches what the eager call does "
-                   f"({got} vs {want})")
+            _check(got == replayed(want), f"{label}: a replay launches "
+                   f"{replayed(want)} (eager {want}), got {got}")
     for k, got in enumerate(outs):
         diff = _diff_fields(eager, got)
         _check(not diff, f"{label}: replay {k} equals the eager call bit for bit "
@@ -2978,8 +3004,8 @@ def _captured_equals_eager(label: str, eager_call, jitted_call, jitted, fresh=No
         launched = _delta(before, counter())
         _check(len(jitted.cache) == programs and prog.replays == replays + 1,
                f"{label}: the fresh inputs replay the program")
-        _check(launched == want_fresh, f"{label}: the fresh replay launches what the eager "
-               f"call does ({launched} vs {want_fresh})")
+        _check(launched == replayed(want_fresh), f"{label}: the fresh replay launches "
+               f"{replayed(want_fresh)} (eager {want_fresh}), got {launched}")
         diff = _diff_fields(eager_fresh, got)
         _check(not diff, f"{label}: the fresh replay equals the eager call on the fresh "
                f"inputs bit for bit (differing: {diff})")
@@ -2987,8 +3013,8 @@ def _captured_equals_eager(label: str, eager_call, jitted_call, jitted, fresh=No
                       f"call bit for bit (launches {want_fresh}, as eager)")
     print(f"  {label}: {len(outs)} replays (two of one capture, one of a second) equal the "
           f"eager call bit for bit in {', '.join(n for n, _ in _leaves(eager))}{fresh_note}; "
-          f"host waits per replay 0 (sync debug mode 'error'); launches per replay {want}, "
-          f"as eager; "
+          f"host waits per replay 0 (sync debug mode 'error'); launches per replay "
+          f"{replayed(want)} (eager {want}); "
           f"first call (eager run + capture) {', '.join(f'{t * 1e3:.3f}' for t in firsts)} ms "
           f"against {eager_s * 1e3:.3f} ms eager (one call each, cold); program pools "
           f"{', '.join(f'{b / 2**20:.1f}' for b in pools)} MiB against the eager call's "
@@ -4186,6 +4212,236 @@ def phase26_captured_gumbel_parallel(device, head_inputs, sources, targets, pair
     return {"launches": launches, "k2_err": k2_err}
 
 
+# --- phase 27: the unrolled gradient captured, and the draw kernel D1 ---------
+
+CFG_UNROLL_SLICE = CFG_SLICE.with_(differentiable=True)   # phase 4's solve, unrolled
+# D1's instructions per element (csrc/threefry.cu): 2 adds, 20 rounds of add,
+# funnel-shift rotate and xor, 5 key injections of 2 adds; then the float:
+# f32 xor, shift, or and subtract, f64 two shifts, two ors and subtract
+D1_OPS = {torch.float32: 2 + 20 * 3 + 5 * 2 + 4, torch.float64: 2 + 20 * 3 + 5 * 2 + 5}
+D1_CHUNK = 1365                    # the streamed gumbel_nn's chunk at phase 4's shape
+D1_LARGE_ROW = 2**32 + 8192        # one row past both words of D1's counter
+
+
+def _d1_bound(elements: int, dtype) -> dict:
+    """D1's bound: its instructions at the issue rate (the card's INT32
+    pipes are half of it: a lower bound either way) or its bytes written."""
+    t_ops = D1_OPS[dtype] * elements / ISSUE_RATE * 1e3
+    t_bytes = elements * torch.finfo(dtype).bits / 8 / HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes"}
+
+
+def _d1_against_plain(device) -> dict:
+    """D1 against its plain version on the card, bit for bit (f32, f64): the
+    dense Gumbel block, a streamed chunk, counters whose uint32 patterns are
+    negative int32, one stream over a whole shape; then one row of
+    D1_LARGE_ROW elements, held to the plain arithmetic on windows around
+    2**31 and 2**32 (the counter's high word); timed at the streamed chunk
+    and the dense block, call by call and back to back, beside the plain
+    version and the bound.  Returns the kernels line's entry."""
+    noise = knn.ThreefryNoise(KEY_GUMBEL)
+    cases = ((f"the dense Gumbel block ({B_HEAD}, 65, 65), iteration 7", range(B_HEAD), 7,
+              None, (65, 65)),
+             (f"a streamed chunk ({B}, {N_SRC}, {D1_CHUNK}), iteration 3, chunk 11", range(B),
+              3, 11, (N_SRC, D1_CHUNK)),
+             ("iteration -1 and chunk 2**32 - 1 (uint32 words past int32)", (5, 9), -1,
+              2**32 - 1, (3, 700)),
+             ("one stream over (3, 1000, 17), no iteration, chunk 2", None, None, 2,
+              (3, 1000, 17)))
+    for dtype in (torch.float32, torch.float64):
+        for label, ids, it, chunk, block in cases:
+            if ids is None:
+                k1, k2 = (w.reshape(1) for w in noise._key(device))
+            else:
+                k1, k2 = noise.pair_keys(list(ids), device)
+            it_t = None if it is None else torch.tensor(it, dtype=torch.int32, device=device)
+            got = knn.threefry_uniform(k1, k2, it_t, chunk, block, dtype)
+            want = knn.threefry_uniform_plain(k1, k2, it_t, chunk, block, dtype)
+            _check(torch.equal(got, want), f"D1 bit-equal to its plain version: {label} "
+                   f"({dtype})")
+    k1, k2 = noise.pair_keys([3], device)
+    it_t = torch.tensor(2, dtype=torch.int32, device=device)
+    big = knn.threefry_uniform(k1, k2, it_t, 1, (D1_LARGE_ROW,), torch.float32)
+    f1, f2 = knn.fold_in(*knn.fold_in(k1, k2, it_t), 1)
+    for lo, hi in ((0, 4096), (2**31 - 2048, 2**31 + 2048), (2**32 - 4096, D1_LARGE_ROW)):
+        count = torch.arange(lo, hi, dtype=torch.int64, device=device)
+        b1, b2 = knn.threefry2x32(f1, f2, (count >> 32).to(torch.int32), count.to(torch.int32))
+        want = knn._uniform_from_bits(b1, b2, torch.float32).reshape(-1)
+        _check(torch.equal(big[0, lo:hi], want), f"D1's row of {D1_LARGE_ROW} elements "
+               f"equals the plain arithmetic on [{lo}, {hi})")
+    del big
+    torch.cuda.empty_cache()
+    print(f"  D1 == plain bit for bit (f32, f64): {'; '.join(c[0] for c in cases)}; and one "
+          f"row of {D1_LARGE_ROW} f32 elements on [0, 4096), 2**31 +- 2048 and "
+          f"[2**32 - 4096, {D1_LARGE_ROW})")
+
+    timed = {}
+    for label, ids, it, chunk, block in cases[:2]:
+        k1, k2 = noise.pair_keys(list(ids), device)
+        it_t = torch.tensor(it, dtype=torch.int32, device=device)
+        elements = len(ids) * math.prod(block)
+        call = lambda: knn.threefry_uniform(k1, k2, it_t, chunk, block, torch.float32)  # noqa: E731
+        plain = lambda: knn.threefry_uniform_plain(k1, k2, it_t, chunk, block,  # noqa: E731
+                                                   torch.float32)
+        ms, chain = cuda_median_ms(call, warmup=3, iters=20), _chain_ms(call)
+        plain_ms = cuda_median_ms(plain, warmup=1, iters=5)
+        bound = _d1_bound(elements, torch.float32)
+        timed[label] = {"ms": ms, "ms_back_to_back": chain, "plain_ms": plain_ms, **bound}
+        print(f"  D1 at {label}, f32: {ms:.4f} ms call by call, {chain:.4f} ms back to back; "
+              f"plain {plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+              f"{D1_OPS[torch.float32]} instructions per element at {ISSUE_RATE:.4g}/s, "
+              f"{elements * 4} bytes at {HBM_BYTES:.4g} B/s); library: none (torch.rand is "
+              f"Philox, another function)")
+    streamed = timed[cases[1][0]]
+    return {"max_abs_err": 0.0, "ms": streamed["ms"], "plain_ms": streamed["plain_ms"],
+            "bound_ms": streamed["bound_ms"], "bound_by": streamed["bound_by"],
+            "library_ms": None, "ms_back_to_back": streamed["ms_back_to_back"],
+            "dense_block": timed[cases[0][0]]}
+
+
+def _unrolled_cases(device, head_inputs, sources, targets) -> tuple:
+    """The captured unrolled units against their uncaptured runs
+    (_captured_equals_eager): bench.unrolled_jit at the headline, the same
+    through ICP.icp, bench.unrolled_jit at phase 4's shape (K1 recorded on
+    the captured call) and the Gumbel headline's unrolled gradient with an
+    int key.  Returns the (eager, captured) calls, K1's recordings and the
+    iterations of each unit."""
+    calls, rec, iters = {}, {}, {}
+    src, tgt, ti = head_inputs
+    cfg = ICPConfig(**HEAD)
+    src_b = _fresh(src, 270)
+
+    def unit(s=src):
+        return bench.fwdbwd(register, cfg, s, tgt, ti)
+
+    label = (f"bench.unrolled_jit, the headline pair at B={B_HEAD} (dense tier, "
+             f"max_iterations {cfg.max_iterations})")
+    calls[label] = (unit, lambda: bench.unrolled_jit(src, tgt, ti, cfg))
+    _captured_equals_eager(label, *calls[label], bench.unrolled_jit,
+                           (lambda: unit(src_b), lambda: bench.unrolled_jit(src_b, tgt, ti, cfg)))
+    iters[label] = float(unit()[0].iterations.max())
+
+    solver = ICP(icp_type="pt2pl", differentiable=True, max_iterations=HEAD["max_iterations"],
+                 tolerance=HEAD["tolerance"], device=device, collect_histories=False)
+
+    def icp_unit(s, t, t0):
+        with torch.enable_grad():
+            s = s.clone().requires_grad_(True)
+            res = solver.icp(s, t, t0, trim_dist=HEAD["trim_dist"],
+                             loss_fn={"name": "huber", "metric": HEAD["loss_metric"]},
+                             dim=HEAD["dim"])
+            value = res["T"].sum()
+            (grad,) = torch.autograd.grad(value, s)
+        return res["T"].detach(), res["stats"]["iterations"], value.detach(), grad
+
+    icp_jit = jit.jit(icp_unit, name="icp_unrolled")
+    label_i = f"ICP.icp(differentiable=True) unrolled gradient, the headline pair at B={B_HEAD}"
+    calls[label_i] = (lambda: icp_unit(src, tgt, ti), lambda: icp_jit(src, tgt, ti))
+    _captured_equals_eager(label_i, *calls[label_i], icp_jit,
+                           (lambda: icp_unit(src_b, tgt, ti), lambda: icp_jit(src_b, tgt, ti)))
+
+    s4, t4 = to_torch(sources, device), to_torch(targets, device)
+    ti4 = torch.eye(4, dtype=torch.float32, device=device).expand(s4.shape[0], 4, 4)
+    s4b = _fresh(s4, 271)
+    cfg4 = CFG_UNROLL_SLICE
+
+    def unit4(s=s4):
+        return bench.fwdbwd(register, cfg4, s, t4, ti4)
+
+    label4 = (f"bench.unrolled_jit, phase 4's {tuple(s4.shape)} -> {tuple(t4.shape)} (tiled "
+              f"tier, K1; max_iterations {cfg4.max_iterations})")
+    calls[label4] = (unit4, lambda: bench.unrolled_jit(s4, t4, ti4, cfg4))
+    _captured_equals_eager(label4, *calls[label4], bench.unrolled_jit,
+                           (lambda: unit4(s4b), lambda: bench.unrolled_jit(s4b, t4, ti4, cfg4)))
+    _record_captured("tiled_nn", "the captured unrolled unit at phase 4's shape",
+                     calls[label4][1], rec)
+    iters[label4] = float(unit4()[0].iterations.max())
+
+    def gumbel_unit(s, t, t0, key):
+        with torch.enable_grad():
+            s = s.clone().requires_grad_(True)
+            res = register(s, t, t0, None, GUMBEL_CFG, key=key)
+            value = res.T.sum()
+            (grad,) = torch.autograd.grad(value, s)
+        return res, value.detach(), grad
+
+    gumbel_jit = jit.jit(gumbel_unit, name="gumbel_unrolled")
+    label_g = (f"the Gumbel headline's unrolled gradient at B={B_HEAD}, key an int (dense "
+               f"(65, 65) draws per pair and executed step)")
+    calls[label_g] = (lambda: gumbel_unit(src, tgt, ti, KEY_GUMBEL),
+                      lambda: gumbel_jit(src, tgt, ti, KEY_GUMBEL))
+    # the backward recomputes each executed step: its draw again (D1 twice)
+    twice = lambda want: {k: 2 * v if k == "threefry_uniform" else v  # noqa: E731
+                          for k, v in want.items()}
+    _captured_equals_eager(label_g, *calls[label_g], gumbel_jit,
+                           (lambda: gumbel_unit(src_b, tgt, ti, KEY_GUMBEL),
+                            lambda: gumbel_jit(src_b, tgt, ti, KEY_GUMBEL)), replayed=twice)
+    iters[label_g] = float(calls[label_g][0]()[0].iterations.max())
+
+    # an early exit with Gumbel NN (near-hard at tau 0.01, a loose tolerance):
+    # a skipped step draws nothing, forward or backward
+    cfg_x = GUMBEL_CFG.with_(gumbel_tau=0.01, tolerance=0.1)
+
+    def exit_unit(s):
+        return bench.fwdbwd(lambda *a: register(*a, key=KEY_GUMBEL), cfg_x, s, tgt, ti)
+
+    exit_jit = jit.jit(lambda s: exit_unit(s), name="gumbel_unrolled_exit")
+    label_x = (f"the Gumbel unrolled gradient at B={B_HEAD}, tau 0.01, tolerance 0.1 (early "
+               f"exit)")
+    _captured_equals_eager(label_x, lambda: exit_unit(src), lambda: exit_jit(src), exit_jit,
+                           replayed=twice)
+    steps = float(exit_unit(src)[0].iterations.max())
+    _check(steps < cfg_x.max_iterations, f"{label_x}: steps past the exit ({steps})")
+    print(f"  {label_x}: {steps:.0f} executed steps of {cfg_x.max_iterations}; D1 launches "
+          f"per replay 2 x {steps:.0f} (forward and the backward's recomputed step), none in "
+          f"the {cfg_x.max_iterations - steps:.0f} skipped steps")
+    return calls, rec, iters
+
+
+def phase27_unrolled_captured(device, head_inputs, sources, targets) -> dict:
+    """D1 against its plain version and timed; the captured unrolled units
+    against their uncaptured runs; launches per replay; then eager against
+    captured in turns.  Returns the phase's launches, D1's entry of the
+    kernels line and K1's largest |difference| to its plain version."""
+    t_phase = time.perf_counter()
+    d1 = _d1_against_plain(device)
+    _reset_launches()
+    calls, rec, iters = _unrolled_cases(device, head_inputs, sources, targets)
+    launches = _launches()
+    k1_err = _held_to_plain("tiled_nn", rec)
+    for label, (eager_call, jitted_call) in calls.items():
+        jitted_call()        # _held_to_plain's recording cleared the caches: capture anew
+        torch.cuda.synchronize()
+        before = _launches()
+        t0 = time.perf_counter()
+        jitted_call()
+        enqueue = time.perf_counter() - t0      # the call returns once the replay is enqueued
+        torch.cuda.synchronize()
+        per_replay = _delta(before, _launches())
+        # the device's own time: a replay queued whole behind a 0.2 s spin
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(0.2 * 1.98e9))
+        start.record()
+        jitted_call()
+        end.record()
+        end.synchronize()
+        steps = iters.get(label)
+        note = (f"; {steps:.0f} executed steps of the trip" if steps is not None else "")
+        print(f"  {label}: launches per replay {per_replay}{note}; host ms to enqueue one "
+              f"replay {enqueue * 1e3:.3f}, device ms of one replay queued whole "
+              f"{start.elapsed_time(end):.3f}")
+        heavy = "phase 4" in label
+        _alternated(label, eager_call, jitted_call, rounds=2,
+                    iters=TURN_ITERS_HEAVY if heavy else 5)
+    jit.clear_caches()
+    print(f"phase 27 ok: D1 bit-equal to its plain version; the unrolled gradient captured "
+          f"(a fixed trip of run-once steps, forward and backward) equals its uncaptured run "
+          f"bit for bit, no host wait in a replay; launches {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "d1": d1, "k1_err": k1_err}
+
+
 def main() -> None:
     card = phase0_device()
     device = torch.device("cuda", 0)
@@ -4230,12 +4486,14 @@ def main() -> None:
         last = phase26_captured_gumbel_parallel(
             device, reference_batch(device), sources, targets, pair,
             (to_torch(raw_sources, device), to_torch(raw_targets, device)), slam_case)
+        unrolled = phase27_unrolled_captured(device, reference_batch(device), sources, targets)
         timed["cluster_search"]["max_abs_err"] = max(timed["cluster_search"]["max_abs_err"],
                                                      k2_err, k2_err_s2m, pyramid["k2_err"],
                                                      slam_k2["k2_err"], par["k2_err"],
                                                      solvers["k2_err"], backend["k2_err"],
                                                      last["k2_err"])
-        k1["max_abs_err"] = max(k1["max_abs_err"], slam_k1["k1_err"], solvers["k1_err"])
+        k1["max_abs_err"] = max(k1["max_abs_err"], slam_k1["k1_err"], solvers["k1_err"],
+                                unrolled["k1_err"])
         for name, got in (("tiled_nn", k1), ("cluster_search", timed["cluster_search"]),
                           ("cluster_topk", timed["cluster_topk"]), ("fused_gn", k4)):
             got["max_abs_err"] = max(got["max_abs_err"], suite["max_abs_err"].get(name, 0.0))
@@ -4295,11 +4553,13 @@ def main() -> None:
         **k1,
         "launches": (launches + slam_k1["launches"] + suite_launches("tiled_nn")[1]
                      + captured["launches"]["tiled_nn"] + solvers["launches"]["tiled_nn"]
-                     + backend["launches"]["tiled_nn"] + last["launches"]["tiled_nn"]),
+                     + backend["launches"]["tiled_nn"] + last["launches"]["tiled_nn"]
+                     + unrolled["launches"]["tiled_nn"]),
         "launches_in_phase23": captured["launches"]["tiled_nn"],
         "launches_in_phase24": solvers["launches"]["tiled_nn"],
         "launches_in_phase25": backend["launches"]["tiled_nn"],
         "launches_in_phase26": last["launches"]["tiled_nn"],
+        "launches_in_phase27": unrolled["launches"]["tiled_nn"],
         "launches_per_slam_scan": slam_k1["launches_per_slam_scan"],
         "launches_per_suite_row": suite_launches("tiled_nn")[0],
     }]
@@ -4353,6 +4613,15 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda",
                         "source": "dicp_tpu_torch/csrc/score_nn.cu", "replaces": replaces,
                         "launches": ab_launches[name], **scored[name]})
+    d1_launches = (last["launches"]["threefry_uniform"]
+                   + unrolled["launches"]["threefry_uniform"])
+    _check(d1_launches > 0, f"threefry_uniform launched on the Gumbel paths ({d1_launches})")
+    kernels.append({"name": "threefry_uniform", "route": "cuda",
+                    "source": "dicp_tpu_torch/csrc/threefry.cu",
+                    "replaces": "jax.random.uniform (XLA threefry2x32; no Pallas kernel)",
+                    "launches": d1_launches, **unrolled["d1"],
+                    "launches_in_phase26": last["launches"]["threefry_uniform"],
+                    "launches_in_phase27": unrolled["launches"]["threefry_uniform"]})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

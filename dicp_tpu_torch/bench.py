@@ -14,9 +14,12 @@ the spread of the calls goes to stderr.  The same unit captured as one
 CUDA graph, forward and backward (:data:`fwdbwd_jit`, the counterpart of
 bench.py's ``jax.jit(jax.value_and_grad(...))``), is timed in turns with
 it; its rate goes to stderr beside the eager one, and the JSON line keeps
-the eager unit's.  ``BENCH_FULL=1`` adds the unrolled gradient's rate and
-the forward-only rate (the early-exit driver), timed in turns with the
-headline.
+the eager unit's.  ``BENCH_FULL=1`` adds the unrolled gradient's rate
+(:func:`fwdbwd` through :func:`register`, bench.py's ``unrolled_step``),
+the same unit captured forward and backward (:data:`unrolled_jit`, the
+counterpart of bench.py's jitted ``unrolled_step``: JAX's scan driver as a
+fixed trip of run-once steps) and the forward-only rate (the early-exit
+driver), timed in turns with the headline.
 
 Gates, as bench.py's: T finite; the IFT and the unrolled gradients finite;
 their cosine > 0.99.  Detail goes to stderr with the card's name and power
@@ -98,6 +101,20 @@ def _unit(src, tgt, ti, cfg: ICPConfig):
 fwdbwd_jit = jit(_unit, static_argnames=("cfg",), name="fwdbwd")
 
 
+def _unrolled(src, tgt, ti, cfg: ICPConfig):
+    """The unrolled unit over plain tensors, what :data:`unrolled_jit`
+    captures: (result, sum(T), gradient with respect to the sources)."""
+    with torch.enable_grad():
+        return fwdbwd(register, cfg, src, tgt, ti)
+
+
+# The unrolled gradient, forward and backward, as one captured program on
+# the card (bench.py's ``jax.jit`` of ``unrolled_step``): under capture the
+# solve on which autograd records takes the fixed trip, a run-once node per
+# step forward and backward, so the program waits for no host read.
+unrolled_jit = jit(_unrolled, static_argnames=("cfg",), name="unrolled")
+
+
 def forward_only(cfg: ICPConfig, src, tgt, ti):
     """The forward alone on the early-exit driver (bench.py's fwd_step)."""
     return register(src, tgt, ti, None, cfg.with_(differentiable=False, driver="while")).T
@@ -164,6 +181,9 @@ def run(device=None, full: bool = False, log=sys.stderr) -> dict:
         calls["IFT fwd+bwd captured"] = lambda: fwdbwd_jit(src, tgt, ti, cfg)
     if full:
         calls["unrolled fwd+bwd"] = lambda: fwdbwd(register, ICPConfig(**HEAD), src, tgt, ti)
+        if device.type == "cuda":
+            calls["unrolled fwd+bwd captured"] = lambda: unrolled_jit(src, tgt, ti,
+                                                                      ICPConfig(**HEAD))
         calls["forward only (while)"] = lambda: forward_only(cfg, src, tgt, ti)
     times = time_alternated(calls, device)
     for name, ms in times.items():

@@ -149,7 +149,11 @@ def _jit_detail(fn: Callable, device, per: Optional[int] = None) -> dict:
     on the card, the same eager call on the CPU): median and spread of
     ``reps`` calls after one (the capture), and registrations/s for ``per``
     registrations a call.  The row's own value stays the eager call's."""
-    ms = _times(fn, device)
+    return _jit_fields(_times(fn, device), per)
+
+
+def _jit_fields(ms: List[float], per: Optional[int] = None) -> dict:
+    """:func:`_jit_detail`'s fields from the jitted form's times ``ms``."""
     out = {"jit_median_ms": round(_med(ms), 4),
            "jit_spread_ms": [round(min(ms), 4), round(max(ms), 4)]}
     if per is not None:
@@ -221,16 +225,21 @@ def bench_batch256(device=None):
     """Config #3: B=256 batched differentiable ICP, forward and backward:
     the unrolled gradient and the IFT one (bench.py's headline; K4 as its
     forward), measured by :func:`bench.run` with its ``BENCH_FULL`` variants
-    (in turns, after bench.py's gates)."""
+    (in turns, after bench.py's gates).  On the card each row carries its
+    unit captured forward and backward (``bench.unrolled_jit``,
+    ``bench.fwdbwd_jit``), timed in the same turns, as a ``jit_*`` detail;
+    the row's value stays the eager unit's."""
     device = _device(device)
     times = bench.run(device, full=True)["times"]
     rows = []
     for name, key in (("batch256_fwdbwd", "unrolled fwd+bwd"),
                       ("batch256_fwdbwd_ift", "IFT fwd+bwd")):
         rate = bench.B / _med(times[key]) * 1e3
+        jitted = times.get(f"{key} captured")
         rows.append(_emit(name, rate, "registrations/s", times[key],
                           vs_cpu_baseline=round(rate / bench.BASELINE_REG_PER_S, 2),
-                          clock=_clock(device)))
+                          clock=_clock(device),
+                          **({} if jitted is None else _jit_fields(jitted, bench.B))))
     return rows
 
 

@@ -23,8 +23,11 @@
   PyTorch does not have.  ``sharded_fused`` selects the cluster tier's search
   in the map-sharded solve (:mod:`dicp_tpu_torch.parallel.sharding`), as in
   JAX: None gives ``cluster_nn``'s own choice (K2 on CUDA queries), False the
-  group scan.  ``driver`` is validated and selects no loop: one early-exit loop gives the
-  results of both JAX drivers (see :mod:`dicp_tpu_torch.registration`).
+  group scan.  ``driver`` is validated; uncaptured one early-exit loop gives the
+  results of both JAX drivers (see :mod:`dicp_tpu_torch.registration`).  Under
+  a CUDA graph capture a solve on which autograd records (``driver="scan"``,
+  which ``differentiable=True`` resolves to, is JAX's form of it) takes the
+  fixed trip of JAX's scan driver, any other the device-decided loop.
   :meth:`ICPConfig.resolved_driver` is read by K4's gate and by the
   Anderson validation, as in JAX.
 * The YAML loader imports ``yaml`` only when a file is given; with no file the

@@ -23,14 +23,22 @@ enqueued whole, as XLA runs a jitted function:
 
 ``fn`` runs eagerly, uncaptured: on tensors that lie on no CUDA device (the
 CPU, where the tests run); when an input requires grad while grad mode is on
-(a captured forward cannot feed a later eager backward, so
-``torch.autograd.grad`` of a jitted call is that of ``fn`` itself; capture a
-forward and backward together by calling ``torch.autograd.grad`` inside
-``fn``); where ``eager_if(arguments)`` says so (the host-driven paths:
+(a captured forward cannot feed a backward taken later, outside the
+program, so ``register_jit(s).T.sum().backward()`` is the backward of ``fn``
+itself); where ``eager_if(arguments)`` says so (the host-driven paths:
 Gumbel noise from an explicit ``uniform`` object); and inside
 :func:`disable_jit`, as inside
 ``jax.disable_jit()``.  A capture that fails raises: there is no eager
 fallback on the card.
+
+A forward and its backward are captured together, the counterpart of
+``jax.jit(jax.grad(f))``, by calling ``torch.autograd.grad`` inside ``fn``
+(``bench.fwdbwd_jit``, ``bench.unrolled_jit``).  A solve on which autograd
+records inside a capture (through ``register``, ``register_jit`` or
+``ICP.icp``) takes the fixed trip of JAX's scan driver
+(``registration._run_fixed_trip``): one run-once node per step in the
+forward and one in the backward, which autograd runs on a thread of its
+own on the capturing stream; so the program reads nothing on the host.
 
 ``prepare(arguments)`` runs on the host before every call, eager or not,
 and may replace arguments in the bound ``arguments`` dict: SGD-ICP draws
@@ -75,6 +83,9 @@ from dicp_tpu_torch.ops import launch_counts
 CACHE_SIZE = 4
 
 _local = threading.local()
+# device index -> the program being captured there: read by device_while on
+# any thread, since autograd runs a captured backward on a thread of its own
+_capturing: dict = {}
 _live: "collections.OrderedDict[int, _Program]" = collections.OrderedDict()
 _jitted: "weakref.WeakSet[_Jitted]" = weakref.WeakSet()
 
@@ -143,10 +154,10 @@ def device_while(flag: torch.Tensor, body: Callable[[], None]) -> None:
         while bool(flag):
             body()
         return
-    prog = getattr(_local, "capture", None)
+    dev = flag.device
+    prog = _capturing.get(dev.index)
     if prog is None:
         raise RuntimeError("device_while under a capture that jit did not begin")
-    dev = flag.device
     lib = _lib()
     outer = torch.cuda.current_stream(dev)
     side = prog.body_stream
@@ -336,7 +347,7 @@ class _Jitted:
         call.update(pytree.tree_unflatten(statics, spec))
         cbound = inspect.BoundArguments(self.signature, call)
         launch_counts.prepare(device)
-        _local.capture = prog
+        _capturing[device.index] = prog
         try:
             with torch.cuda.graph(prog.graph, stream=_stream(device, "capture"),
                                   capture_error_mode="thread_local"):
@@ -345,7 +356,7 @@ class _Jitted:
             prog.release()
             raise
         finally:
-            _local.capture = None
+            _capturing.pop(device.index, None)
         prog.out_leaves, prog.out_spec = pytree.tree_flatten(captured)
         pools = [prog.graph.pool()] + ([prog.body_pool] if prog.body_pool_refs else [])
         prog.pool_bytes = _pool_bytes(pools)

@@ -43,13 +43,19 @@ schedule (:func:`host_driven`).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from dicp_tpu_torch.config import DENSE_MAX_ENTRIES
-from dicp_tpu_torch.ops import tiled_knn
+from dicp_tpu_torch.ops import _build, launch_counts, tiled_knn
+
+# Launches of the draw kernel D1 (csrc/threefry.cu) that ran at once; a
+# captured launch counts on the card (ops.launch_counts).
+threefry_launches = 0
 
 
 def pairwise_sq_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -187,6 +193,84 @@ def _uniform_from_bits(b1: torch.Tensor, b2: torch.Tensor, dtype) -> torch.Tenso
     raise TypeError(f"Gumbel noise is drawn in float32 or float64, not {dtype}")
 
 
+def threefry_uniform_plain(k1: torch.Tensor, k2: torch.Tensor, iteration, chunk,
+                           block: Sequence[int], dtype) -> torch.Tensor:
+    """The plain version of the draw kernel D1 (:func:`threefry_uniform`):
+    int32 elementwise passes on any device."""
+    if iteration is not None:
+        k1, k2 = fold_in(k1, k2, iteration)
+    if chunk is not None:
+        k1, k2 = fold_in(k1, k2, chunk)
+    block = tuple(block)
+    size = math.prod(block)
+    device = k1.device
+    if size < 2**31:
+        hi, lo = 0, torch.arange(size, dtype=torch.int32, device=device)
+    else:   # the count's two words (a narrowing cast keeps the low 32 bits)
+        count = torch.arange(size, dtype=torch.int64, device=device)
+        hi, lo = (count >> 32).to(torch.int32), count.to(torch.int32)
+    b1, b2 = threefry2x32(k1.reshape(-1, 1), k2.reshape(-1, 1), hi, lo)
+    return _uniform_from_bits(b1, b2, dtype).reshape((k1.numel(),) + block)
+
+
+@functools.lru_cache(maxsize=None)
+def _threefry_kernel():
+    fn = _build.load("threefry").threefry_uniform_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _threefry_uniform_cuda(k1, k2, iteration, chunk, block, dtype) -> torch.Tensor:
+    global threefry_launches
+    device = k1.device
+    block = tuple(block)
+    size = math.prod(block)
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"Gumbel noise is drawn in float32 or float64, not {dtype}")
+    k1 = k1.reshape(-1).to(torch.int32).contiguous()
+    k2 = k2.reshape(-1).to(torch.int32).contiguous()
+    rows = k1.numel()
+    if rows > 65535 or k2.numel() != rows:
+        raise ValueError(f"threefry_uniform takes up to 65535 rows of key words, got "
+                         f"{rows} and {k2.numel()}")
+    if iteration is not None:
+        # a device int32 the kernel reads; an int becomes one by a fill (no host copy)
+        iteration = (iteration.to(torch.int32).reshape(()) if torch.is_tensor(iteration)
+                     else torch.full((), _i32(iteration), dtype=torch.int32, device=device))
+        if iteration.device != device:
+            raise ValueError(f"the iteration lies on {iteration.device}, the keys on {device}")
+    out = torch.empty((rows,) + block, dtype=dtype, device=device)
+    err = _threefry_kernel()(k1.data_ptr(), k2.data_ptr(), rows,
+                             None if iteration is None else iteration.data_ptr(),
+                             int(chunk is not None), 0 if chunk is None else int(chunk) & _M32,
+                             size, int(dtype == torch.float64), out.data_ptr(), device.index,
+                             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"threefry_uniform kernel launch failed: CUDA error {err}")
+    threefry_launches += launch_counts.count("threefry_uniform", device)
+    return out
+
+
+def threefry_uniform(k1: torch.Tensor, k2: torch.Tensor, iteration, chunk,
+                     block: Sequence[int], dtype) -> torch.Tensor:
+    """U[0, 1) draws of shape (rows,) + ``block``: row r is
+    ``jax.random.uniform(key_r, block)`` for the key words (k1[r], k2[r])
+    (int32 tensors of R elements, uint32 bit patterns) folded with
+    ``iteration`` (None, an int or a 0-dim int32 tensor, read on the device)
+    and then ``chunk`` (None or an int), each where given, with the
+    partitionable counter layout.  A CUDA tensor launches the kernel D1
+    (``csrc/threefry.cu``) or raises; a CPU tensor takes
+    :func:`threefry_uniform_plain`."""
+    if k1.device.type == "cpu":
+        return threefry_uniform_plain(k1, k2, iteration, chunk, block, dtype)
+    if k1.device.type == "cuda":
+        return _threefry_uniform_cuda(k1, k2, iteration, chunk, block, dtype)
+    raise ValueError(f"threefry draws run on cpu or cuda tensors, got {k1.device}")
+
+
 def _words(key) -> Tuple[int, int]:
     """The two threefry key words of an int seed (``PRNGKey(seed)``), a
     ``torch.Generator`` (read once for a seed) or (2,) integer key data (a
@@ -218,6 +302,16 @@ def key_data(key, device) -> torch.Tensor:
         return key
     return torch.stack([torch.full((), _i32(w), dtype=torch.int32, device=device)
                         for w in _words(key)])
+
+
+def split(key, num: int, device) -> Tuple[torch.Tensor, ...]:
+    """``jax.random.split(key, num)`` with the partitionable counter layout:
+    key i is the threefry block of ``key`` over the count words (0, i),
+    which is ``fold_in(key, i)``.  ``key``: what :class:`ThreefryNoise`
+    takes; returns ``num`` (2,) int32 key tensors on ``device``."""
+    k1, k2 = ThreefryNoise(key)._key(device)
+    k1, k2 = fold_in(k1, k2, torch.arange(num, dtype=torch.int32, device=device))
+    return tuple(torch.stack([a, b]) for a, b in zip(k1, k2))
 
 
 class ThreefryNoise:
@@ -264,18 +358,7 @@ class ThreefryNoise:
         else:
             k1, k2 = self._key(device)
             block = shape
-        if iteration is not None:
-            k1, k2 = fold_in(k1, k2, iteration)
-        if chunk is not None:
-            k1, k2 = fold_in(k1, k2, chunk)
-        size = math.prod(block)
-        if size < 2**31:
-            hi, lo = 0, torch.arange(size, dtype=torch.int32, device=device)
-        else:   # the count's two words (a narrowing cast keeps the low 32 bits)
-            count = torch.arange(size, dtype=torch.int64, device=device)
-            hi, lo = (count >> 32).to(torch.int32), count.to(torch.int32)
-        b1, b2 = threefry2x32(k1, k2, hi, lo)
-        return _uniform_from_bits(b1, b2, dtype).reshape(shape)
+        return threefry_uniform(k1, k2, iteration, chunk, block, dtype).reshape(shape)
 
 
 def host_driven(key) -> bool:

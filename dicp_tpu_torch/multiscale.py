@@ -13,9 +13,11 @@ user weight rides through the voxel mean as an extra column, and
 mean(w) * count == sum(w) over a voxel's members, so a coarse level solves
 the full-resolution weighted objective restricted to centroids.
 
-JAX splits one PRNG key across the levels; the port takes one noise source
-per level instead (what :func:`registration.register`'s ``key`` accepts),
-needed only with Gumbel NN in a differentiable config.
+With Gumbel NN in a differentiable config, one key (an int seed, a
+``torch.Generator`` or (2,) key data) is split into one key per level as
+JAX's ``jax.random.split(key, len(levels))`` splits it
+(:func:`knn.split`); a sequence of one noise source per level (what
+:func:`registration.register`'s ``key`` accepts) is used as it is.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from dicp_tpu_torch import knn
 from dicp_tpu_torch.config import ICPConfig
 from dicp_tpu_torch.ops.voxel import voxel_downsample
 from dicp_tpu_torch.registration import ICPResult, register
@@ -129,9 +132,10 @@ def register_multiscale(
 
     ``warmup_stop_gradient`` (default) detaches the pose handed from level
     to level: gradients are the last level's alone, which at a fixed point
-    loses nothing.  ``key``: with Gumbel NN in a differentiable ``cfg``, a
-    sequence of one noise source per level (see :func:`registration.register`);
-    ignored otherwise."""
+    loses nothing.  ``key``: with Gumbel NN in a differentiable ``cfg``, one
+    key, split into one per level as ``jax.random.split`` splits it, or a
+    list or tuple of one noise source per level (see
+    :func:`registration.register`); ignored otherwise."""
     if not levels:
         raise ValueError("levels must be a non-empty static sequence of "
                          "ScaleLevel (coarsest first)")
@@ -141,9 +145,15 @@ def register_multiscale(
                              f"budgets n_source/m_target")
     if cfg.use_gumbel and cfg.differentiable:
         if key is None:
-            raise ValueError("Gumbel NN requires an explicit PRNG key: a sequence of one "
-                             "noise source per level")
-        keys = list(key)
+            raise ValueError("Gumbel NN requires an explicit PRNG key: one key, or a "
+                             "sequence of one noise source per level")
+        if isinstance(key, (list, tuple)):
+            keys = list(key)
+        elif knn.host_driven(key):
+            raise TypeError("an explicit uniform noise source cannot be split across the "
+                            "levels: pass one key, or one noise source per level")
+        else:
+            keys = list(knn.split(key, len(levels), source.device))
         if len(keys) != len(levels):
             raise ValueError(f"key holds {len(keys)} noise sources for {len(levels)} levels")
     else:

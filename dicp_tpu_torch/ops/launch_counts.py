@@ -25,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-KERNELS = ("tiled_nn", "fused_gn", "cluster_search", "cluster_block_search", "cluster_topk")
+KERNELS = ("tiled_nn", "fused_gn", "cluster_search", "cluster_block_search", "cluster_topk",
+           "threefry_uniform")
 
 SLOTS = 256            # keyed counters per device
 

@@ -16,7 +16,14 @@ with the loop of :func:`_run_device_loop`, whose state lives in tensors and
 whose exit the device decides, captured on the card as one CUDA graph with
 a WHILE node (:mod:`dicp_tpu_torch.jit`).  Its results equal
 :func:`register`'s bit for bit.  Under any CUDA graph capture
-:func:`register` takes that loop too.
+:func:`register` takes that loop too, except where autograd records the
+solve: there it takes :func:`_run_fixed_trip`, the counterpart of JAX's
+``_run_scan`` (a fixed trip of ``max_iterations`` steps, each skipped past
+the exit), so a forward and its backward are captured together
+(``jax.jit(jax.grad(register))``).  Its values and gradients equal the
+host loop's bit for bit; with Gumbel NN the target's gradient sums the
+step's two uses of the target inside the step, so it equals the host
+loop's within rounding.
 
 Per-element convergence freezing (zeroing the weights of converged batch
 elements so that batch results equal serial results), the all-zero-weight
@@ -56,7 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dicp_tpu_torch import knn, losses, se3
 from dicp_tpu_torch.config import ICPConfig
-from dicp_tpu_torch.jit import capturing, device_while, jit
+from dicp_tpu_torch.jit import capturing, device_if, device_while, jit
 from dicp_tpu_torch.ops import tiled_knn
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn, query_order
 from dicp_tpu_torch.ops.fused_gn import fused_eligible, fused_gn_solve
@@ -167,14 +174,15 @@ def _certified_gate(cert: torch.Tensor, dtype, group=None) -> torch.Tensor:
     return torch.where(frac >= 0.5, w, torch.ones_like(w))
 
 
-def _make_corr_fn(cfg: ICPConfig, source, target, C0, r0):
+def _make_corr_fn(cfg: ICPConfig, source, target, C0, r0, index_fn=None):
     """Correspondence closure built once per solve: ``corr(ps_t)`` returns
     (the gathered target rows (normals ride along) for the current source
     points ``ps_t`` (N, n, 3), a per-point validity weight or None).
     Gradients keep hard-NN semantics: the indices of :func:`_make_index_fn`
-    carry none, and gradient reaches the target only through
-    :func:`knn.gather_rows`."""
-    index_fn = _make_index_fn(cfg, source, target, C0, r0)
+    (or of ``index_fn``, one built already) carry none, and gradient reaches
+    the target only through :func:`knn.gather_rows`."""
+    if index_fn is None:
+        index_fn = _make_index_fn(cfg, source, target, C0, r0)
 
     def corr(ps_t):
         idx, valid = index_fn(ps_t)
@@ -513,6 +521,160 @@ def _run_device_loop(cfg: ICPConfig, source, target, weight, C, r, corr_fn, nois
     return carry, deltas, weights, costs, it
 
 
+_GRAD_FIELDS = 3   # the carry's differentiable fields lead it: C, r, w_init
+
+
+class _Trip(NamedTuple):
+    """What every step of one fixed trip shares: the config, the index
+    closure (hard NN; None with Gumbel NN), whether it returns a validity
+    weight (the cluster tier's certificate), and the noise and its pair ids
+    (Gumbel NN)."""
+
+    cfg: ICPConfig
+    index_fn: object
+    gated: bool
+    noise: object
+    pair_ids: object
+
+    def step(self, source, target, carry: _Carry, it, corr_fn):
+        return _apply_step(self.cfg, source, target, carry, it, corr_fn, self.noise,
+                           self.pair_ids)
+
+
+def _when(run, body) -> None:
+    """``body()`` where the 0-dim bool ``run`` holds (a run-once node under
+    capture); always where ``run`` is None (``const_iter``)."""
+    if run is None:
+        body()
+    else:
+        device_if(run, body)
+
+
+class _FixedStep(torch.autograd.Function):
+    """One step of :func:`_run_fixed_trip`: ``_apply_step`` where ``run``
+    holds, JAX's ``skip`` branch where it does not (the carry as it was;
+    zero deltas and the carry's ``prev_w_save`` and ``prev_cost`` as the
+    history rows).
+
+    The forward saves its input carry, the flag and the step's hard-NN
+    correspondences (the int32 indices and, on the cluster tier, the
+    certificate gate), nothing of the step's own graph.  The backward, where
+    the flag holds, recomputes the step from them with grad enabled (the
+    ``remat`` form; the search is not run again, a Gumbel draw is) and takes
+    its VJP; where it does not, it passes the cotangent of the carry
+    through unchanged, as the VJP of JAX's ``lax.cond`` does.  Both sides
+    are run-once nodes under capture: a skipped step runs none of the
+    step's work (no search, no draw), only the copies that pass it by."""
+
+    @staticmethod
+    def forward(ctx, trip: _Trip, it, run, source, target, *fields):
+        carry = _Carry(*fields)
+        N, n = source.shape[0], source.shape[1]
+        idx = valid = None
+        if trip.index_fn is not None:
+            idx = torch.zeros((N, n), dtype=torch.int32, device=source.device)
+            valid = source.new_zeros((N, n)) if trip.gated else None
+        # the skip branch's values, overwritten where the step runs
+        outs = [f.clone() for f in carry] + [source.new_zeros((N, 6)),
+                                             carry.prev_w_save.clone(),
+                                             carry.prev_cost.clone()]
+
+        def corr(ps_t):
+            got, gate = trip.index_fn(ps_t)
+            idx.copy_(got)
+            if gate is not None:
+                valid.copy_(gate)
+            return knn.gather_rows(target, got), gate
+
+        def body():
+            new, hist = trip.step(source, target, carry, it,
+                                  corr if trip.index_fn is not None else None)
+            for dst, val in zip(outs, (*new, *hist)):
+                dst.copy_(val)
+
+        _when(run, body)
+        ctx.trip, ctx.it, ctx.run, ctx.idx, ctx.valid = trip, it, run, idx, valid
+        ctx.save_for_backward(source, target, *fields)
+        ctx.set_materialize_grads(False)
+        # w_init (input 7) carries gradient only from a weight that requires it
+        ctx.mark_non_differentiable(*outs[_GRAD_FIELDS - (not ctx.needs_input_grad[7]):])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        trip, it = ctx.trip, ctx.it
+        source, target, *fields = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:3 + 2 + _GRAD_FIELDS]
+        inputs = (source, target, *fields[:_GRAD_FIELDS])
+        cot = cotangents[:_GRAD_FIELDS]
+        # a skipped step's VJP: the carry's cotangent through, none to the clouds
+        grads = [None if not need[i] else
+                 (torch.zeros_like(x) if i < 2 or cot[i - 2] is None else cot[i - 2].clone())
+                 for i, x in enumerate(inputs)]
+
+        def body():
+            with torch.enable_grad():
+                leaves = [x.detach().requires_grad_(need[i]) for i, x in enumerate(inputs)]
+                src, tgt = leaves[0], leaves[1]
+                carry = _Carry(*leaves[2:], *(f.detach() for f in fields[_GRAD_FIELDS:]))
+
+                def corr(ps_t):
+                    return knn.gather_rows(tgt, ctx.idx), ctx.valid
+
+                new, _ = trip.step(src, tgt, carry, it,
+                                   corr if trip.index_fn is not None else None)
+                roots = [(o, g) for o, g in zip(new[:_GRAD_FIELDS], cot)
+                         if g is not None and o.requires_grad]
+                wanted = [i for i in range(len(leaves)) if need[i]]
+                got = torch.autograd.grad([o for o, _ in roots], [leaves[i] for i in wanted],
+                                          [g for _, g in roots], allow_unused=True)
+            for i, g in zip(wanted, got):
+                if g is None:
+                    grads[i].zero_()
+                else:
+                    grads[i].copy_(g)
+
+        if any(need):
+            _when(ctx.run, body)
+        return (None, None, None, *grads, *(None,) * (len(fields) - _GRAD_FIELDS))
+
+
+def _run_fixed_trip(cfg: ICPConfig, source, target, weight, C, r, index_fn, gated: bool,
+                    noise=None, pair_ids=None):
+    """The counterpart of JAX's ``_run_scan``: a fixed trip of
+    ``max_iterations`` steps (:class:`_FixedStep`), each skipped where every
+    batch element has converged (run in every step with ``const_iter``).  A
+    captured solve on which autograd records takes it: its forward and its
+    backward are run-once nodes per step, so the program neither waits for
+    the host nor launches anything in a skipped step.
+
+    Returns what :func:`_run_loop` returns, with the executed count as a
+    0-dim int32 tensor; history rows past the exit are what ``skip`` emits,
+    which are the host loop's padding.  The step counter ``it`` is the
+    device count of executed steps (Gumbel noise is drawn at
+    ``fold_in(k, it)``)."""
+    T = cfg.max_iterations
+    dev = source.device
+    if isinstance(noise, knn.ThreefryNoise):
+        noise.pair_keys(pair_ids, dev)   # the streams' pair folds, outside the steps
+    trip = _Trip(cfg, index_fn, gated, noise, pair_ids)
+    carry = _init_carry(source, weight, C, r)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    hist = []
+    for _ in range(T):
+        run = None if cfg.const_iter else ~torch.all(carry.converged)
+        outs = _FixedStep.apply(trip, it, run, source, target, *carry)
+        carry = _Carry(*outs[:len(_Carry._fields)])
+        if cfg.collect_histories:
+            hist.append(outs[len(_Carry._fields):])
+        it = it + 1 if run is None else it + run.to(torch.int32)
+
+    if not cfg.collect_histories:
+        deltas = source.new_zeros((1, source.shape[0], 6))
+        return carry, deltas, carry.prev_w_save[None], carry.prev_cost[None], it
+    return carry, *(torch.stack(h) for h in zip(*hist)), it
+
+
 def _finalize(cfg: ICPConfig, source, carry: _Carry, deltas, weights, costs, it_final):
     """Post-loop stats fill and result assembly; ``it_final`` is the executed
     count, an int or (device loop) a 0-dim tensor."""
@@ -689,11 +851,20 @@ def _register_impl(source, target, T_init, weight, cfg, noise=None, pair_ids=Non
     if noise is not None:
         # Gumbel soft NN draws its own correspondences in _gn_step: no
         # hard-NN closure (nor a cluster index) is built
-        corr_fn = None
+        index_fn = corr_fn = None
         pair_ids = list(range(source.shape[0])) if pair_ids is None else pair_ids
     else:
-        corr_fn = _make_corr_fn(cfg, source, target, C, r)
-    if device_loop or capturing(source):
+        index_fn = _make_index_fn(cfg, source, target, C, r)
+        corr_fn = _make_corr_fn(cfg, source, target, C, r, index_fn)
+    recording = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (source, target, weight, C, r))
+    if recording and capturing(source):
+        # the unrolled gradient captured: JAX's scan driver
+        gated = cfg.resolved_nn_method(source.shape[-2], target.shape[-2],
+                                       source.device) == "cluster"
+        carry, deltas, weights, costs, it_final = _run_fixed_trip(
+            cfg, source, target, weight, C, r, index_fn, gated, noise, pair_ids)
+    elif device_loop or capturing(source):
         if knn.host_driven(noise) and capturing(source):
             raise ValueError("an explicit uniform noise source draws on the host: its "
                              "solve cannot be captured (pass an int seed, a Generator or "
@@ -713,7 +884,10 @@ def executed_iterations(result: ICPResult) -> int:
 
 
 def slice_histories(result: ICPResult) -> ICPResult:
-    """Trim histories to the executed length."""
+    """Trim histories to the executed length.  A no-op under capture (as
+    JAX's is under tracing): the fixed-length histories are returned."""
+    if capturing(result.iterations):
+        return result
     k = executed_iterations(result)
     return result._replace(costs=result.costs[:, :k], deltas=result.deltas[:, :k],
                            weights=result.weights[:, :k])

@@ -239,3 +239,101 @@ def test_host_driven_only_for_explicit_sources():
                 tknn.key_data(1, "cpu"), tknn.ThreefryNoise(1)):
         assert not host_driven(gumbel, key)
     assert not host_driven(ICPConfig(differentiable=False, use_gumbel=True), Explicit())
+
+
+# ---------------------------------------------------------------- the kernel D1
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("it,chunk", [(3, None), (0, 11), (-1, 2**32 - 1), (None, 4)])
+def test_d1_plain_in_its_wrapper_layout_equals_jax(dtype, it, chunk):
+    """D1's plain version driven through the kernel wrapper's arguments:
+    the (N, 1) pair key words, a 0-dim int32 counter (or none), a chunk,
+    the block shape and the dtype; row i equals jax.random.uniform(
+    fold_in(fold_in(fold_in(PRNGKey(s), i), it), c), block) bit for bit,
+    counters whose uint32 patterns are negative int32 included."""
+    s, ids, block = 13, [0, 4, 4, 9], (5, 17)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    k1, k2 = tknn.ThreefryNoise(s).pair_keys(ids, "cpu")
+    counter = None if it is None else torch.tensor(tknn._i32(it), dtype=torch.int32)
+    got = tknn.threefry_uniform(k1, k2, counter, chunk, block, tdt)
+    it_j = None if it is None else it & 0xFFFFFFFF
+    want = np.stack([_jax_draw(jax.random.PRNGKey(s), i, it_j, chunk, block, jdt) for i in ids])
+    assert got.shape == (len(ids),) + block and got.dtype == tdt
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_d1_count_words_past_two_to_the_32():
+    """The partitionable layout's two count words: element j of a block is
+    threefry2x32 over (j >> 32, j mod 2**32), which a count past 2**31
+    splits (the plain version's int64 path, the kernel's 64-bit index), as
+    JAX's primitive sees them; at j near 2**31 and 2**32."""
+    rng = np.random.default_rng(4)
+    k = _u32(rng, 2)
+    j = np.concatenate([np.arange(2**31 - 3, 2**31 + 3), np.arange(2**32 - 3, 2**32 + 3)])
+    hi, lo = (j >> 32).astype(np.uint32), (j & 0xFFFFFFFF).astype(np.uint32)
+    want = jprng.threefry2x32_p.bind(jnp.uint32(k[0]), jnp.uint32(k[1]), jnp.asarray(hi),
+                                     jnp.asarray(lo))
+    count = torch.as_tensor(j.astype(np.int64))
+    got = tknn.threefry2x32(int(k[0]), int(k[1]), (count >> 32).to(torch.int32),
+                            count.to(torch.int32))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy().view(np.uint32))
+
+
+def test_d1_wrapper_routes_cpu_to_plain():
+    """A CPU tensor takes the plain version; another device raises."""
+    k1, k2 = tknn.ThreefryNoise(2).pair_keys([1, 2], "cpu")
+    assert torch.equal(tknn.threefry_uniform(k1, k2, 5, 3, (4, 6), torch.float32),
+                       tknn.threefry_uniform_plain(k1, k2, 5, 3, (4, 6), torch.float32))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tknn.threefry_uniform(k1.to("meta"), k2.to("meta"), None, None, (3,), torch.float32)
+
+
+# ---------------------------------------------------------------- one key per pyramid
+
+@pytest.mark.parametrize("seed", [0, 11, 2**40 + 3])
+def test_split_equals_jax_random_split(seed):
+    """knn.split(key, L) equals jax.random.split(PRNGKey(s), L)'s key data bit
+    for bit (JAX's partitionable layout: key i is fold_in(key, i))."""
+    assert jax.config.jax_threefry_partitionable
+    for num in (1, 2, 3, 5):
+        want = np.asarray(jax.random.key_data(jax.random.split(jax.random.PRNGKey(seed), num)))
+        got = np.stack([k.numpy().view(np.uint32) for k in tknn.split(seed, num, "cpu")])
+        np.testing.assert_array_equal(got, want)
+
+
+def test_register_multiscale_with_one_key_matches_jax():
+    """register_multiscale(key=s) against JAX's register_multiscale with
+    PRNGKey(s), the key split across two levels on both sides: level poses
+    within 1e-10 and the same iterations; a list of per-level sources is
+    still taken as it is, and an explicit uniform object alone is refused."""
+    import dataclasses
+
+    from dicp_tpu import multiscale as jms
+
+    from dicp_tpu_torch.convert import config_from_dict
+    from dicp_tpu_torch.multiscale import ScaleLevel, register_multiscale
+    from tests.test_multiscale import _CFG as JCFG
+    from tests.test_multiscale import _pair
+
+    src, tgt, _ = _pair([0.1, -0.05, 0.1, 0.03, -0.02, 0.05])
+    cfg_kw = dict(differentiable=True, use_gumbel=True, driver="scan", max_iterations=6,
+                  tolerance=1e-12)
+    levels = (ScaleLevel(0.8, 96, 96, 4, 1e-5, trim_dist=20.0), ScaleLevel(0.0, 0, 0, 4, 1e-12))
+    Ti = np.eye(4)[None]
+    ref = jms.register_multiscale(jnp.asarray(src[None]), jnp.asarray(tgt[None]),
+                                  jnp.asarray(Ti), None, cfg=JCFG.with_(**cfg_kw),
+                                  levels=tuple(jms.ScaleLevel(*lv) for lv in levels),
+                                  key=jax.random.PRNGKey(11))
+    cfg = config_from_dict(dataclasses.asdict(JCFG)).with_(**cfg_kw)
+    args = (torch.as_tensor(src[None]), torch.as_tensor(tgt[None]), torch.as_tensor(Ti), None,
+            cfg, levels)
+    got = register_multiscale(*args, key=11)
+    np.testing.assert_allclose(got.level_T.numpy(), np.asarray(ref.level_T), rtol=0,
+                               atol=1e-10)
+    np.testing.assert_array_equal(got.level_iterations.numpy(),
+                                  np.asarray(ref.level_iterations))
+    per_level = register_multiscale(*args, key=list(tknn.split(11, 2, "cpu")))
+    assert torch.equal(per_level.level_T, got.level_T)
+    with pytest.raises(TypeError, match="split"):
+        register_multiscale(*args, key=Explicit())
