@@ -281,7 +281,8 @@ Phases, each raising on failure (the script then exits non-zero):
     programs: register_map_sharded at phase 8's pair (the fixed trip:
     max_iterations masked steps, each with its all-reduce, K2 in run-once
     nodes; collectives per replay = max_iterations + 1; K2 held to its
-    plain version on the captured call), register_ring_sharded at phase 4's
+    plain version on the eager call: a replay skips the fixed trip's last
+    steps, whose recorded buffers it never writes), register_ring_sharded at phase 4's
     first pair, register_map_sharded_ift's forward (its gradient,
     the forward a replay, cosine > 0.99 with the unrolled one); the
     batch-sharded solve at phase 9's batch (register_jit); the partitioned
@@ -300,13 +301,32 @@ Phases, each raising on failure (the script then exits non-zero):
     on fresh inputs too): bench.unrolled_jit at the headline (B = 256,
     dense tier), the same gradient through ICP.icp, bench.unrolled_jit at
     phase 4's shape (tiled tier: K1 once per executed step, held to its
-    plain version on the captured call's first and last launch) and the
+    plain version on the uncaptured unit's first and last launch) and the
     Gumbel headline's unrolled gradient with an int key (D1 twice per
     executed step: the forward and the backward's recomputed step); a
     Gumbel solve that exits early (a skipped step draws nothing).
     Launches per replay, first-call cost, pools against the eager peak,
     eager against captured in turns.
-16. (run after 17-27) a torch.profiler pass over 3 calls each of phases
+28. (run after 27) .backward() through captured programs (jit's program
+    pairs: a forward replay attached to the caller's inputs, a captured
+    backward that .backward() replays): register_ift_jit at the headline
+    (K4), register_jit(differentiable=True) at phase 3's and phase 4's
+    shapes (K1), ICP.icp, register_gicp_jit(differentiable=True) at
+    exp_gicp's row, register_sgd_jit(differentiable=True) at exp_sgd's
+    20k row, the Gumbel headline's unrolled gradient into source and
+    target (D1 twice per executed step) and the cluster tier at phase 8's
+    pair (K2), each held bit for bit to the same call under disable_jit()
+    in every output, the loss and every gradient (the Gumbel target
+    gradient within 1e-5 of its largest entry): the first call, fresh
+    inputs, two forwards with their backwards in reverse order, and a
+    retained second backward, every replay under the sync debug mode's
+    "error".  Then GICP's, SGD-ICP's and the cluster tier's fixed trips
+    inside one program held to the host loop as phase 24 holds its cases
+    (K2 held to its plain version on the host loop's first and last
+    launch; the cluster solve's certified share); eager against captured in turns,
+    first-call cost, launches per replay, pools against the eager peak,
+    and the headline's .backward() beside bench.fwdbwd_jit.
+16. (run after 17-28) a torch.profiler pass over 3 calls each of phases
     4 (captured, through ICP.icp, and eager register), 8 and 9 (captured),
     12 (eager and captured), one W = 1 warm stream of phase 17's first 9
     scans (captured windows and eager windows), one gn scan-to-map stream
@@ -392,6 +412,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import importlib
 import json
 import math
@@ -404,6 +425,7 @@ import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -2827,6 +2849,9 @@ def phase22_bench_suite_examples(device) -> dict:
            f"dicp_tpu_torch.bench printed {bench.METRIC}: {line}")
     _check(per_row["bench"].get("fused_gn", 0) > 0, "K4 launched by dicp_tpu_torch.bench")
     rows = {}
+    # one timed run of each pipeline configuration after its warm-up (the
+    # suite's 3 would take ~40 s more)
+    pipe_reps, bench_suite.PIPE_REPS = bench_suite.PIPE_REPS, 1
     for name in SUITE_ROWS:
         if name == "scan_to_map":
             fn = lambda: bench_suite.bench_scan_to_map(device, loop=False)   # noqa: E731
@@ -2835,6 +2860,7 @@ def phase22_bench_suite_examples(device) -> dict:
         else:
             fn = functools.partial(bench_suite.ALL[name], device)
         rows[name] = counted(name, fn, RECORD_ROWS.get(name, ()))
+    bench_suite.PIPE_REPS = pipe_reps
     n_rows = sum(len(r) for r in rows.values())
     for name, kernels in (("large_cloud", ("tiled_nn", "cluster_search", "cluster_topk")),
                           ("capacity", ("fused_gn",))):
@@ -3094,13 +3120,20 @@ def _windows_in_flight(host, window: int):
     return in_flight, len(events), torch.cat(rels).cpu()   # the final fetch
 
 
+TURN_BUDGET_MS = 1000.0   # eager ms that one visit of the turns may spend
+
+
 def _alternated(label: str, eager_call, jitted_call, unit: float = 0.0, what: str = "",
                 rounds: int = 4, iters: int = 5) -> dict:
     """ms per call, eager and captured in turns (E C C E E C C E for
-    ``rounds`` = 4, ``iters`` calls a visit after one warm-up), CUDA events
-    around each call."""
+    ``rounds`` = 4, ``iters`` calls a visit), CUDA events around each call
+    (bench.time_alternated with max_ms=TURN_BUDGET_MS: one eager call timed
+    first is eager's warm-up and sets the depth, a visit spends at most
+    TURN_BUDGET_MS of eager calls, an eager call slower than that takes two
+    rounds; the captured call is warmed up once, before its first visit)."""
     times = bench.time_alternated({"eager": eager_call, "captured": jitted_call},
-                                  torch.device("cuda", 0), iters=iters, rounds=rounds)
+                                  torch.device("cuda", 0), iters=iters, rounds=rounds,
+                                  max_ms=TURN_BUDGET_MS)
     med = {k: statistics.median(v) for k, v in times.items()}
     rate = (f"; {unit / med['eager'] * 1e3:.1f} -> {unit / med['captured'] * 1e3:.1f} {what}"
             if unit else "")
@@ -3330,20 +3363,28 @@ def _record_captured(name: str, label: str, call, recorded: dict) -> None:
         call()
 
 
+STREAM_BUDGET_S = 5.0   # an eager stream slower than this is timed once
+
+
 def _stream_turns(label: str, runs: dict, scans: int, warm: bool = True) -> dict:
-    """frames/s of each run in ``runs`` (eager, captured), in turns E C C E
-    E C C E, each visit one untimed run then one timed (``warm``); or E C C
-    E, each visit one timed run (the programs already captured, or never
-    reused)."""
+    """frames/s of each run in ``runs`` (eager, captured), in turns E C C E,
+    each visit one untimed run then one timed (``warm``), or one timed run
+    (the programs already captured, or never reused); E C where the first
+    timed eager run takes more than STREAM_BUDGET_S."""
     rates = {k: [] for k in runs}
-    for turn in ("eager", "captured", "captured", "eager") * (2 if warm else 1):
+    turns = ["eager", "captured", "captured", "eager"]
+    while turns:
+        turn = turns.pop(0)
         if warm:
             runs[turn]()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         runs[turn]()
         torch.cuda.synchronize()
-        rates[turn].append(scans / (time.perf_counter() - t0))
+        seconds = time.perf_counter() - t0
+        rates[turn].append(scans / seconds)
+        if turn == "eager" and len(rates["eager"]) == 1 and seconds > STREAM_BUDGET_S:
+            turns = ["captured"]
     med = {k: statistics.median(v) for k, v in rates.items()}
     print(f"  {label}: eager {med['eager']:.3f}, captured {med['captured']:.3f} frames/s "
           f"(medians of {len(rates['eager'])} runs in turns; eager "
@@ -3660,7 +3701,7 @@ def phase24_captured_solvers(device, slice_inputs, raw_inputs, slam_case, slam_s
 
 # --- phase 25: the odometry back end, GICP and SGD as captured programs -------
 
-TURN_ITERS_HEAVY = 2                # calls per visit in the turns of the slowest cases
+TURN_ITERS_HEAVY = 1                # calls per visit in the turns of the slowest cases
 SGD_RUNS = 4                        # captured SGD streams, bit-equal to each other
 
 
@@ -4046,7 +4087,7 @@ def _map_sharded_cases(device, mesh, pair, sources, targets, raw_inputs) -> tupl
     each with its all-reduce (the fixed trip: CUDA refuses NCCL's kernels in
     a conditional node's body), the eager form the iterations it needs:
     their collectives are printed and checked apart.  K2 recorded on the
-    captured map-sharded call; the IFT gradient against the unrolled one.
+    eager map-sharded call; the IFT gradient against the unrolled one.
     Returns the calls, K2's recordings and the map-sharded call's
     iterations."""
     calls, rec = {}, {}
@@ -4062,7 +4103,11 @@ def _map_sharded_cases(device, mesh, pair, sources, targets, raw_inputs) -> tupl
     calls[label] = (_eager(ms), ms)
     _captured_equals_eager(label, *calls[label], sharding.map_sharded_fn(mesh, CFG_MAP),
                            (_eager(lambda: ms(src2)), lambda: ms(src2)))
-    _record_captured("cluster_search", "the captured map-sharded call", ms, rec)
+    # recorded on the eager call: the program's last captured K2 launch lies
+    # in a step of its fixed trip that a replay skips, whose buffers it
+    # never writes; the program's K2 calls are the eager call's (bit-equal)
+    with _recording("cluster_search", rec.setdefault("the map-sharded call", {})):
+        _eager(ms)()
     it = _fixed_trip_collectives(label, calls[label], CFG_MAP)
 
     s4, t4 = to_torch(sources[0], device), to_torch(targets[0], device)
@@ -4179,7 +4224,7 @@ def phase26_captured_gumbel_parallel(device, head_inputs, sources, targets, pair
     counted), in an NCCL world of one destroyed at the end; then eager
     against captured in turns and the draw's share of the captured solve.
     Returns the phase's launches and K2's largest |difference| to its plain
-    version on the captured map-sharded call."""
+    version on the map-sharded call."""
     t_phase = time.perf_counter()
     _reset_launches()
     g_calls, draw_ms, eager_draw_ms, iters = _gumbel_cases(device, head_inputs, sources,
@@ -4354,8 +4399,11 @@ def _unrolled_cases(device, head_inputs, sources, targets) -> tuple:
     calls[label4] = (unit4, lambda: bench.unrolled_jit(s4, t4, ti4, cfg4))
     _captured_equals_eager(label4, *calls[label4], bench.unrolled_jit,
                            (lambda: unit4(s4b), lambda: bench.unrolled_jit(s4b, t4, ti4, cfg4)))
-    _record_captured("tiled_nn", "the captured unrolled unit at phase 4's shape",
-                     calls[label4][1], rec)
+    # K1 recorded on the uncaptured unit's calls: the program's last captured
+    # K1 launch lies in a step that a replay skips, whose buffers it never
+    # writes; the program's K1 calls are the host loop's (bit-equal above)
+    with _recording("tiled_nn", rec.setdefault("the unrolled unit at phase 4's shape", {})):
+        calls[label4][0]()
     iters[label4] = float(unit4()[0].iterations.max())
 
     def gumbel_unit(s, t, t0, key):
@@ -4442,6 +4490,406 @@ def phase27_unrolled_captured(device, head_inputs, sources, targets) -> dict:
     return {"launches": launches, "d1": d1, "k1_err": k1_err}
 
 
+# ---- phase 28: .backward() through captured programs (program pairs) -----
+
+class _BackwardCase(NamedTuple):
+    """A jitted call whose inputs require grad, differentiated by
+    ``.backward()``: ``call(*inputs)`` on leaves of ``inputs`` (those at
+    ``wrt`` require grad), ``jitted`` the program behind it; ``fresh``
+    other inputs of the same shapes; ``host_reads``: the call reads the
+    host outside its program (``ICP.icp``'s slice of the histories);
+    ``loose``: gradient positions in ``wrt`` held within a relative bound
+    instead of bit for bit; ``replayed``: what a replay launches where the
+    eager call launches ``launches``."""
+
+    label: str
+    jitted: object
+    call: object
+    inputs: tuple
+    fresh: tuple
+    wrt: tuple = (0,)
+    host_reads: bool = False
+    loose: dict = {}
+    replayed: object = None
+    heavy: bool = False
+
+
+class _TPc(NamedTuple):
+    T: torch.Tensor
+    pc: torch.Tensor
+    iterations: torch.Tensor
+
+
+TOL_GUMBEL_TARGET_GRAD = 1e-5   # relative: the target's two uses per step summed inside it
+
+
+def _loss(res) -> torch.Tensor:
+    """The scalar every phase-28 case differentiates: sum(T * probe) (and
+    0.01 sum(pc), 0.1 sum(cost) where the result has them)."""
+    probe = torch.linspace(0.5, 1.5, 16, dtype=res.T.dtype, device=res.T.device).reshape(4, 4)
+    value = torch.sum(res.T * probe)
+    if hasattr(res, "pc"):
+        value = value + 0.01 * torch.sum(res.pc)
+    if hasattr(res, "cost"):
+        value = value + 0.1 * torch.sum(res.cost)
+    return value
+
+
+def _leaf_inputs(case: _BackwardCase, inputs) -> list:
+    return [x.detach().clone().requires_grad_(i in case.wrt) for i, x in enumerate(inputs)]
+
+
+def _forward(case: _BackwardCase, leaves, strict: bool):
+    with _no_host_wait() if strict and not case.host_reads else contextlib.nullcontext():
+        return case.call(*leaves)
+
+
+def _backward(case: _BackwardCase, leaves, res, strict: bool, retain: bool = False) -> tuple:
+    """``.backward()`` of the case's loss: (result, loss, the gradients)."""
+    value = _loss(res)
+    with _no_host_wait() if strict else contextlib.nullcontext():
+        value.backward(retain_graph=retain)
+    return res, value.detach(), tuple(leaves[i].grad.clone() for i in case.wrt)
+
+
+def _fwd_bwd(case: _BackwardCase, inputs, strict: bool = False) -> tuple:
+    leaves = _leaf_inputs(case, inputs)
+    return _backward(case, leaves, _forward(case, leaves, strict), strict)
+
+
+def _same(case: _BackwardCase, what: str, want, got) -> float:
+    """``got`` equals ``want`` bit for bit in every output, the loss and
+    every gradient, except the ``loose`` gradients, held within their
+    relative bound.  Returns the largest relative gap of a loose gradient
+    (0.0 where there is none or it is bit-equal)."""
+    diff, gap = _diff_fields(want, got), 0.0
+    for j, bound in case.loose.items():
+        name = f"[2].[{j}]"
+        if name in diff:
+            scale = float(want[2][j].abs().max())
+            rel = diff.pop(name) / scale
+            _check(rel <= bound, f"{case.label}, {what}: gradient {j} within {bound} of the "
+                   f"uncaptured one relative to its largest entry ({rel:.3e})")
+            gap = max(gap, rel)
+    _check(not diff, f"{case.label}, {what}: equal to the disable_jit() run bit for bit "
+           f"(differing: {diff})")
+    return gap
+
+
+def _backward_equals_eager(case: _BackwardCase) -> dict:
+    """The case through its program pair against the same call under
+    disable_jit(): the first call (eager: its key's first sighting
+    captures nothing), the second (warm-up, the two captures, a replay),
+    fresh inputs, two forwards then their backwards in reverse order (the
+    older one's forward replayed again), and a second backward with
+    retain_graph, every replay and backward under the sync debug mode's
+    "error".  Returns the launches per forward + backward replay, the first
+    and second calls' and eager host seconds, the program's pool, the eager
+    peak and the largest relative gap of a loose gradient."""
+    replayed = case.replayed or (lambda launches: launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with jit.disable_jit():
+        want, _, eager_s = _counted(lambda: _fwd_bwd(case, case.inputs))
+        peak = torch.cuda.max_memory_allocated() - base
+        want_fresh, launches_fresh, _ = _counted(lambda: _fwd_bwd(case, case.fresh))
+    case.jitted.cache_clear()
+    first, _, first_s = _counted(lambda: _fwd_bwd(case, case.inputs))
+    _check(not case.jitted.cache, f"{case.label}: the first call captures nothing")
+    gap = _same(case, "the first call (eager)", want, first)
+    second, _, second_s = _counted(lambda: _fwd_bwd(case, case.inputs))
+    prog = next(reversed(case.jitted.cache.values()))
+    _check(prog.bwd_graph is not None and len(case.jitted.cache) == 1,
+           f"{case.label}: one program pair")
+    gap = max(gap, _same(case, "the second call (the captures)", want, second))
+    replays = prog.replays
+    got, per_replay, _ = _counted(lambda: _fwd_bwd(case, case.fresh, strict=True))
+    gap = max(gap, _same(case, "fresh inputs", want_fresh, got))
+    _check(per_replay == replayed(launches_fresh), f"{case.label}: a forward and backward "
+           f"replay launch {replayed(launches_fresh)} (eager {launches_fresh}), got {per_replay}")
+    # two forwards, then their backwards in reverse order
+    a, b = _leaf_inputs(case, case.inputs), _leaf_inputs(case, case.fresh)
+    ra, rb = _forward(case, a, True), _forward(case, b, True)
+    got_b = _backward(case, b, rb, True)
+    got_a = _backward(case, a, ra, True)
+    gap = max(gap, _same(case, "interleaved, the later call", want_fresh, got_b),
+              _same(case, "interleaved, the earlier call (its forward replayed again)",
+                    want, got_a))
+    # a second backward through the retained graph
+    leaves = _leaf_inputs(case, case.inputs)
+    once = _backward(case, leaves, _forward(case, leaves, True), True, retain=True)
+    with _no_host_wait():
+        _loss(once[0]).backward()      # the loss anew: its own graph is spent
+    gap = max(gap, _same(case, "retain_graph, the first backward", want, once))
+    twice = tuple(leaves[i].grad for i in case.wrt)
+    _check(all(torch.equal(t, 2 * g) for t, g in zip(twice, once[2])),
+           f"{case.label}: a second backward through the retained graph adds the same gradient")
+    _check(prog.replays - replays == 5 and len(case.jitted.cache) == 1,
+           f"{case.label}: five forward replays, one program ({prog.replays - replays})")
+    print(f"  {case.label}: .backward() through its program pair equals disable_jit() bit for "
+          f"bit in {len(_leaves(want))} outputs, the loss and the gradients"
+          f"{f' (the Gumbel target gradient within {TOL_GUMBEL_TARGET_GRAD}: largest relative gap {gap:.3e})' if case.loose else ''}: "
+          f"the first call (eager), the second, fresh inputs, two forwards with their "
+          f"backwards reversed (the earlier forward replayed again), a retained second "
+          f"backward; host waits per "
+          f"replay 0{' (the forward reads the host outside its program: ICP.icp slices its histories)' if case.host_reads else ''}; "
+          f"launches per forward + backward replay {per_replay} (eager {launches_fresh}); "
+          f"first call (eager) {first_s * 1e3:.1f} ms, second call (warm-up, two captures, "
+          f"a replay) {second_s * 1e3:.1f} ms, each with its backward, against "
+          f"{eager_s * 1e3:.1f} ms eager; pool {prog.pool_bytes / 2**20:.1f} MiB "
+          f"against the eager peak of {peak / 2**20:.1f} MiB")
+    return {"launches": per_replay, "first_ms": first_s * 1e3, "second_ms": second_s * 1e3,
+            "eager_ms": eager_s * 1e3, "pool": prog.pool_bytes, "peak": peak, "gap": gap}
+
+
+def _backward_cases(device, head_inputs, sources, targets, pair) -> list:
+    """Phase 28's .backward() cases, each at its phase's full shape."""
+    src, tgt, ti = head_inputs
+    cases = [_BackwardCase(
+        f"register_ift_jit, the headline pair at B={B_HEAD} (K4 forward)", register_ift_jit,
+        lambda s: register_ift_jit(s, tgt, ti, None, bench.head_config()), (src,),
+        (_fresh(src, 280),))]
+    cfg3 = ICPConfig(**HEAD)
+    cases.append(_BackwardCase(
+        f"register_jit(differentiable=True), phase 3's pair at B={B_HEAD} (dense tier)",
+        _register_captured, lambda s: register_jit(s, tgt, ti, None, cfg3), (src,),
+        (_fresh(src, 281),)))
+    s4, t4 = to_torch(sources, device), to_torch(targets, device)
+    ti4 = torch.eye(4, dtype=torch.float32, device=device).expand(s4.shape[0], 4, 4)
+    cases.append(_BackwardCase(
+        f"register_jit(differentiable=True), phase 4's {tuple(s4.shape)} -> {tuple(t4.shape)} "
+        f"(tiled tier, K1)", _register_captured,
+        lambda s: register_jit(s, t4, ti4, None, CFG_UNROLL_SLICE), (s4,),
+        (_fresh(s4, 282),), heavy=True))
+    solver = ICP(icp_type="pt2pl", differentiable=True, max_iterations=HEAD["max_iterations"],
+                 tolerance=HEAD["tolerance"], device=device, collect_histories=False)
+
+    def icp(s):
+        out = solver.icp(s, tgt, ti, trim_dist=HEAD["trim_dist"],
+                         loss_fn={"name": "huber", "metric": HEAD["loss_metric"]},
+                         dim=HEAD["dim"])
+        return _TPc(out["T"], out["pc"], out["stats"]["iterations"])
+
+    cases.append(_BackwardCase(f"ICP.icp(differentiable=True), the headline pair at "
+                               f"B={B_HEAD}", _register_captured, icp, (src,),
+                               (_fresh(src, 283),), host_reads=True))
+    S, Tg, Ti, _ = exp_gicp.saddle_batch(device)
+    gkw = dict(max_iterations=30, tolerance=1e-6, differentiable=True)
+    cases.append(_BackwardCase(
+        f"register_gicp_jit(differentiable=True), exp_gicp's B = {exp_gicp.B} x {exp_gicp.N} "
+        f"(normals inside the program)", register_gicp_jit,
+        lambda s: register_gicp_jit(s, Tg, Ti, **gkw), (S,), (_fresh(S, 284),)))
+    size, n, k, iters = exp_sgd.SIZES[0]
+    S2, Tg2, Ti2, _ = exp_sgd.inputs(n, device)
+    skw = dict(minibatch=k, iterations=iters, tolerance=1e-6, differentiable=True)
+    cases.append(_BackwardCase(
+        f"register_sgd_jit(differentiable=True), exp_sgd's {size} row (k = {k}, {iters} "
+        f"iterations)", register_sgd_jit, lambda s: register_sgd_jit(s, Tg2, Ti2, 0, **skw),
+        (S2,), (_fresh(S2, 285),), heavy=True))
+    tgt_g = tgt.clone()
+    cases.append(_BackwardCase(
+        f"register_jit, the Gumbel headline's unrolled gradient at B={B_HEAD} into the "
+        f"source and the target (D1)", _register_captured,
+        lambda s, t: register_jit(s, t, ti, None, GUMBEL_CFG, key=KEY_GUMBEL),
+        (src, tgt_g), (_fresh(src, 286), _fresh(tgt_g, 287)), wrt=(0, 1),
+        loose={1: TOL_GUMBEL_TARGET_GRAD}, heavy=True,
+        replayed=lambda want: {k: 2 * v if k == "threefry_uniform" else v
+                               for k, v in want.items()}))
+    src8, tgt8 = pair
+    ti8 = torch.eye(4, dtype=torch.float32, device=device)[None]
+    cfg8 = CFG_RAW.with_(differentiable=True)
+    cases.append(_BackwardCase(
+        f"register_jit(differentiable=True), phase 8's {src8.shape[0]} -> {tgt8.shape[0]} "
+        f"pair (cluster tier, K2)", _register_captured,
+        lambda s: register_jit(s, tgt8[None], ti8, None, cfg8), (src8[None],),
+        (_fresh(src8[None], 288),), heavy=True))
+    return cases
+
+
+def _evicted_pair_case(head_inputs) -> None:
+    """A loss over CACHE_SIZE + 1 register_jit(differentiable=True) calls of
+    different batch sizes (rows of the headline pair), each its key's second
+    call: the first call's pair leaves the cache when the last is captured,
+    yet its .backward() replays it; values and gradients equal disable_jit()
+    bit for bit, and the dropped pair is released once the loss is gone."""
+    src, tgt, ti = head_inputs
+    cfg = ICPConfig(**HEAD)
+    n = jit.CACHE_SIZE + 1
+    sizes = [8 * (b + 1) for b in range(n)]
+
+    def leaves():   # one per call: each gradient comes from one call
+        return [src[:b].detach().clone().requires_grad_(True) for b in sizes]
+
+    def loss(xs, first=None):
+        # unscaled: a scaled sum's cotangent reaches the pair expanded (stride
+        # 0) and is copied into a dense buffer, which may move the solve's
+        # backward by an ulp (PERF.md §6)
+        value = 0.0
+        for k, (x, b) in enumerate(zip(xs, sizes)):
+            res = register_jit(x, tgt[:b], ti[:b], None, cfg)
+            value = value + _loss(res)
+            if first is not None and k == 0:
+                first.append(next(reversed(_register_captured.cache.values())))
+        return value
+
+    with jit.disable_jit():
+        want_xs = leaves()
+        want = loss(want_xs)
+        want.backward()
+    _register_captured.cache_clear()
+    xs = leaves()
+    for x, b in zip(xs, sizes):     # first sightings: eager, nothing captured
+        register_jit(x, tgt[:b], ti[:b], None, cfg)
+    _check(not _register_captured.cache, "first sightings capture nothing")
+    first = []
+    value = loss(xs, first)
+    (dropped,) = first
+    _check(len(_register_captured.cache) == jit.CACHE_SIZE and id(dropped) in jit._retired
+           and all(p is not dropped for p in _register_captured.cache.values())
+           and jit._holders.get(id(dropped)) == 1 and dropped.inputs,
+           "the first pair out of the cache, held by its call, not released")
+    with _no_host_wait():
+        value.backward()
+    _check(torch.equal(value.detach(), want.detach())
+           and all(torch.equal(x.grad, w.grad) for x, w in zip(xs, want_xs)),
+           "a loss over CACHE_SIZE + 1 program pairs equals disable_jit() bit for bit")
+    del value
+    gc.collect()
+    _check(id(dropped) not in jit._holders and not dropped.inputs and not jit._released_later,
+           "the dropped pair released once the loss is gone")
+    print(f"  a loss over {n} register_jit(differentiable=True) calls of B = {sizes} (each "
+          f"its key's second call; the first pair out of the cache before the backward): "
+          f".backward() equals disable_jit() bit for bit, no host wait; the dropped pair "
+          f"released once the loss is gone")
+    _register_captured.cache_clear()
+
+
+def _in_program_cases(device, pair, recorded: dict) -> None:
+    """The repaired fixed trips inside one program (jit over a function that
+    calls torch.autograd.grad) against the uncaptured host loop
+    (_captured_equals_eager): GICP at exp_gicp's row, SGD at exp_sgd's 20k
+    row (its plan drawn before the call), and the cluster tier at phase 8's
+    pair (K2 recorded on the host loop's calls), each then timed against
+    eager in turns; prints the certified share of the cluster solve."""
+
+    def unit(solve, *inputs):
+        with torch.enable_grad():
+            s = inputs[0].clone().requires_grad_(True)
+            res = solve(s, *inputs[1:])
+            value = _loss(res)
+            (grad,) = torch.autograd.grad(value, s)
+        return res, value.detach(), grad
+
+    calls = {}
+    S, Tg, Ti, _ = exp_gicp.saddle_batch(device)
+    gkw = dict(max_iterations=30, tolerance=1e-6, differentiable=True)
+    gicp_unit = functools.partial(unit, lambda s, t, t0: register_gicp(s, t, t0, **gkw))
+    gicp_jit = jit.jit(gicp_unit, name="gicp_unrolled")
+    label = f"GICP's fixed trip in one program, exp_gicp's B = {exp_gicp.B} x {exp_gicp.N}"
+    calls[label] = (lambda: gicp_unit(S, Tg, Ti), lambda: gicp_jit(S, Tg, Ti))
+    S_b = _fresh(S, 290)
+    _captured_equals_eager(label, *calls[label], gicp_jit,
+                           (lambda: gicp_unit(S_b, Tg, Ti), lambda: gicp_jit(S_b, Tg, Ti)))
+    steps = float(calls[label][1]()[0].iterations.max())
+    print(f"  {label}: {steps:.0f} executed steps of {gkw['max_iterations']}")
+    _alternated(label, *calls[label], rounds=2, iters=1)
+    gicp_jit.cache_clear()
+
+    size, n, k, iters = exp_sgd.SIZES[0]
+    S2, Tg2, Ti2, _ = exp_sgd.inputs(n, device)
+    plan = plan_solve(0, S2.shape[0], n, device, S2.dtype, iterations=iters, minibatch=k)
+    skw = dict(minibatch=k, iterations=iters, tolerance=1e-6, differentiable=True)
+    sgd_unit = functools.partial(unit, lambda s, t, t0, p: register_sgd(s, t, t0, p, **skw))
+    sgd_jit = jit.jit(sgd_unit, name="sgd_unrolled")
+    label = f"SGD-ICP's fixed trip in one program, exp_sgd's {size} row"
+    calls[label] = (lambda: sgd_unit(S2, Tg2, Ti2, plan), lambda: sgd_jit(S2, Tg2, Ti2, plan))
+    S2_b = _fresh(S2, 291)
+    _captured_equals_eager(label, *calls[label], sgd_jit,
+                           (lambda: sgd_unit(S2_b, Tg2, Ti2, plan),
+                            lambda: sgd_jit(S2_b, Tg2, Ti2, plan)))
+    steps = float(calls[label][1]()[0].iterations.max())
+    print(f"  {label}: frozen at {steps:.0f} of {iters} iterations")
+    _alternated(label, *calls[label], rounds=2, iters=1)
+    sgd_jit.cache_clear()
+
+    src8, tgt8 = pair
+    ti8 = torch.eye(4, dtype=torch.float32, device=device)[None]
+    cfg8 = CFG_RAW.with_(differentiable=True)
+    cl_unit = functools.partial(unit, lambda s, t, t0: register(s, t, t0, None, cfg8))
+    cl_jit = jit.jit(cl_unit, name="cluster_unrolled")
+    label = (f"the cluster tier's unrolled gradient in one program, phase 8's "
+             f"{src8.shape[0]} -> {tgt8.shape[0]} pair (K2)")
+    calls[label] = (lambda: cl_unit(src8[None], tgt8[None], ti8),
+                    lambda: cl_jit(src8[None], tgt8[None], ti8))
+    src8_b = _fresh(src8[None], 292)
+    _captured_equals_eager(label, *calls[label], cl_jit,
+                           (lambda: cl_unit(src8_b, tgt8[None], ti8),
+                            lambda: cl_jit(src8_b, tgt8[None], ti8)))
+    _alternated(label, *calls[label], rounds=2, iters=1)
+    # K2 recorded on the host loop's calls: the program's last captured K2
+    # launch lies in a step that a replay skips, whose buffers it never
+    # writes; the program's K2 calls are the host loop's (bit-equal above)
+    with _recording("cluster_search", recorded.setdefault(label, {})):
+        res = calls[label][0]()[0]
+    index = ck.build_cluster_index(tgt8[:, :3], GROUP)
+    ps = torch.einsum("ij,pj->pi", res.T[0, :3, :3], src8) + res.T[0, :3, 3]
+    _, _, cert = ck.cluster_nn(index, ps, probes=PROBES)
+    share = float(cert.float().mean())
+    print(f"  {label}: {float(res.iterations.max()):.0f} executed steps of "
+          f"{cfg8.max_iterations}; certified share at the final pose {share:.4f} "
+          f"(probes {PROBES}, group {GROUP})")
+
+
+def phase28_backward(device, head_inputs, sources, targets, pair) -> dict:
+    """.backward() through captured programs (jit's program pairs) against
+    disable_jit(); GICP's, SGD's and the cluster tier's fixed trips inside
+    one program against the host loop; then eager against captured in
+    turns and the headline's .backward() beside bench.fwdbwd_jit.  Returns
+    the phase's launches and K2's largest |difference| to its plain
+    version."""
+    t_phase = time.perf_counter()
+    _reset_launches()
+    checked, cases = {}, _backward_cases(device, head_inputs, sources, targets, pair)
+    for case in cases:
+        checked[case.label] = _backward_equals_eager(case)
+        # timed while its program pair is cached
+        checked[case.label]["turns"] = _alternated(
+            f"{case.label}, forward + .backward()", functools.partial(_eager_fb, case),
+            functools.partial(_fwd_bwd, case, case.inputs), rounds=2,
+            iters=1 if case.heavy else 2)
+    head = cases[0]
+    _evicted_pair_case(head_inputs)
+    recorded = {}
+    _in_program_cases(device, pair, recorded)
+    launches = _launches()
+    k2_err = _held_to_plain("cluster_search", recorded)
+    src, tgt, ti = head_inputs
+    cfg = bench.head_config()
+    times = bench.time_alternated(
+        {"eager": lambda: _eager_fb(head),
+         ".backward() through register_ift_jit": lambda: _fwd_bwd(head, head.inputs),
+         "bench.fwdbwd_jit (forward and backward in one program)":
+             lambda: bench.fwdbwd_jit(src, tgt, ti, cfg)},
+        device, iters=5, rounds=2)
+    print(f"  the headline unit at B={B_HEAD}, ms per forward + gradient (medians of "
+          f"{len(times['eager'])}, in turns): " + "; ".join(
+              f"{name} {statistics.median(v):.4f} ({B_HEAD / statistics.median(v) * 1e3:.1f} "
+              f"registrations/s)" for name, v in times.items()))
+    jit.clear_caches()
+    print(f"phase 28 ok: .backward() through every captured program pair equals its "
+          f"disable_jit() run bit for bit (fresh inputs, interleaved forwards, retain_graph; "
+          f"no host wait in a replay); the GICP, SGD and cluster-tier fixed trips in one "
+          f"program equal the host loop; launches {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "k2_err": k2_err, "cases": checked}
+
+
+def _eager_fb(case: _BackwardCase) -> tuple:
+    with jit.disable_jit():
+        return _fwd_bwd(case, case.inputs)
+
+
 def main() -> None:
     card = phase0_device()
     device = torch.device("cuda", 0)
@@ -4487,11 +4935,12 @@ def main() -> None:
             device, reference_batch(device), sources, targets, pair,
             (to_torch(raw_sources, device), to_torch(raw_targets, device)), slam_case)
         unrolled = phase27_unrolled_captured(device, reference_batch(device), sources, targets)
+        backward = phase28_backward(device, reference_batch(device), sources, targets, pair)
         timed["cluster_search"]["max_abs_err"] = max(timed["cluster_search"]["max_abs_err"],
                                                      k2_err, k2_err_s2m, pyramid["k2_err"],
                                                      slam_k2["k2_err"], par["k2_err"],
                                                      solvers["k2_err"], backend["k2_err"],
-                                                     last["k2_err"])
+                                                     last["k2_err"], backward["k2_err"])
         k1["max_abs_err"] = max(k1["max_abs_err"], slam_k1["k1_err"], solvers["k1_err"],
                                 unrolled["k1_err"])
         for name, got in (("tiled_nn", k1), ("cluster_search", timed["cluster_search"]),
@@ -4554,12 +5003,13 @@ def main() -> None:
         "launches": (launches + slam_k1["launches"] + suite_launches("tiled_nn")[1]
                      + captured["launches"]["tiled_nn"] + solvers["launches"]["tiled_nn"]
                      + backend["launches"]["tiled_nn"] + last["launches"]["tiled_nn"]
-                     + unrolled["launches"]["tiled_nn"]),
+                     + unrolled["launches"]["tiled_nn"] + backward["launches"]["tiled_nn"]),
         "launches_in_phase23": captured["launches"]["tiled_nn"],
         "launches_in_phase24": solvers["launches"]["tiled_nn"],
         "launches_in_phase25": backend["launches"]["tiled_nn"],
         "launches_in_phase26": last["launches"]["tiled_nn"],
         "launches_in_phase27": unrolled["launches"]["tiled_nn"],
+        "launches_in_phase28": backward["launches"]["tiled_nn"],
         "launches_per_slam_scan": slam_k1["launches_per_slam_scan"],
         "launches_per_suite_row": suite_launches("tiled_nn")[0],
     }]
@@ -4589,11 +5039,13 @@ def main() -> None:
         per_row, in_suite = suite_launches(name)
         in23, in24 = captured["launches"][name], solvers["launches"][name]
         in25, in26 = backend["launches"][name], last["launches"][name]
+        in28 = backward["launches"][name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": count + in_suite + in23 + in24 + in25 + in26, **timed[name],
-                        **extra, "launches_per_suite_row": per_row, "launches_in_phase23": in23,
-                        "launches_in_phase24": in24, "launches_in_phase25": in25,
-                        "launches_in_phase26": in26})
+                        "launches": count + in_suite + in23 + in24 + in25 + in26 + in28,
+                        **timed[name], **extra, "launches_per_suite_row": per_row,
+                        "launches_in_phase23": in23, "launches_in_phase24": in24,
+                        "launches_in_phase25": in25, "launches_in_phase26": in26,
+                        "launches_in_phase28": in28})
     _check(k4_launches > 0, f"fused_gn launched on the headline path ({k4_launches})")
     kernels.append({"name": "fused_gn", "route": "cuda",
                     "source": "dicp_tpu_torch/csrc/fused_gn.cu",
@@ -4602,11 +5054,13 @@ def main() -> None:
                                  + captured["launches"]["fused_gn"]
                                  + solvers["launches"]["fused_gn"]
                                  + backend["launches"]["fused_gn"]
-                                 + last["launches"]["fused_gn"]), **k4,
+                                 + last["launches"]["fused_gn"]
+                                 + backward["launches"]["fused_gn"]), **k4,
                     "launches_in_phase23": captured["launches"]["fused_gn"],
                     "launches_in_phase24": solvers["launches"]["fused_gn"],
                     "launches_in_phase25": backend["launches"]["fused_gn"],
                     "launches_in_phase26": last["launches"]["fused_gn"],
+                    "launches_in_phase28": backward["launches"]["fused_gn"],
                     "launches_per_suite_row": suite_launches("fused_gn")[0]})
     for name, replaces in (("score_nn_v1", "benchmarks/exp_knn.py:69"),
                            ("score_nn_v2", "benchmarks/exp_knn.py:137")):
@@ -4614,14 +5068,16 @@ def main() -> None:
                         "source": "dicp_tpu_torch/csrc/score_nn.cu", "replaces": replaces,
                         "launches": ab_launches[name], **scored[name]})
     d1_launches = (last["launches"]["threefry_uniform"]
-                   + unrolled["launches"]["threefry_uniform"])
+                   + unrolled["launches"]["threefry_uniform"]
+                   + backward["launches"]["threefry_uniform"])
     _check(d1_launches > 0, f"threefry_uniform launched on the Gumbel paths ({d1_launches})")
     kernels.append({"name": "threefry_uniform", "route": "cuda",
                     "source": "dicp_tpu_torch/csrc/threefry.cu",
                     "replaces": "jax.random.uniform (XLA threefry2x32; no Pallas kernel)",
                     "launches": d1_launches, **unrolled["d1"],
                     "launches_in_phase26": last["launches"]["threefry_uniform"],
-                    "launches_in_phase27": unrolled["launches"]["threefry_uniform"]})
+                    "launches_in_phase27": unrolled["launches"]["threefry_uniform"],
+                    "launches_in_phase28": backward["launches"]["threefry_uniform"]})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

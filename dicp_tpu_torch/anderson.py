@@ -189,6 +189,9 @@ def _anderson_impl(source, target, T_init, weight, cfg, m, eps_rel, cap):
         it.copy_(torch.where(flag, it + 1, it))
         flag.copy_((it < T) & ~torch.all(s["converged"]))
 
+    # autograd records nothing here (no_grad, as JAX's lax.while_loop refuses
+    # jax.grad): captured or not, the body's in-place state is exact, and the
+    # results carry no gradient either way
     device_while(flag, body)
 
     C, r = _decode(s["u"])

@@ -40,7 +40,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -121,16 +121,32 @@ def forward_only(cfg: ICPConfig, src, tgt, ti):
 
 
 def time_alternated(calls: Dict[str, Callable], device, iters: int = 5,
-                    rounds: int = 2) -> Dict[str, list]:
+                    rounds: int = 2, max_ms: Optional[float] = None) -> Dict[str, list]:
     """ms of each call of each entry, the entries visited in turns (A B C C
     B A for ``rounds`` = 2), ``iters`` calls per visit after one warm-up
-    call (:func:`utils.timing.times_ms`)."""
+    call (:func:`utils.timing.times_ms`).
+
+    With ``max_ms`` an entry is warmed up before its first visit only, and
+    the first entry's warm-up, timed, sets the depth: a visit spends at most
+    ``max_ms`` on it (one call at least), and where one call takes longer
+    the turns stop after two rounds."""
+    names = list(calls)
+    once = max_ms is not None
+    warm = set()
+    if once:
+        first = times_ms(calls[names[0]], device, warmup=0, iters=1)[0]
+        iters = max(1, min(iters, int(max_ms // max(first, 1e-3))))
+        rounds = min(rounds, 2) if first > max_ms else rounds
+        warm.add(names[0])
     order = []
     for r in range(rounds):
-        order += list(calls) if r % 2 == 0 else list(calls)[::-1]
+        order += names if r % 2 == 0 else names[::-1]
     times = {name: [] for name in calls}
     for name in order:
-        times[name] += times_ms(calls[name], device, warmup=1, iters=iters)
+        times[name] += times_ms(calls[name], device, warmup=0 if name in warm else 1,
+                                iters=iters)
+        if once:
+            warm.add(name)
     return times
 
 

@@ -1,0 +1,164 @@
+"""JAX's differentiable scan driver as autograd steps that a capture can
+record: the machinery that ``registration``, ``gicp`` and ``sgd_icp`` share.
+
+JAX differentiates a solve through a ``lax.scan`` of a fixed number of
+steps, each skipped (its carry passed through) where every batch element has
+converged.  The port's solves run an early-exit loop instead: a host loop
+uncaptured, a CUDA graph WHILE node under capture (:func:`jit.device_while`),
+whose body is captured once and rewrites its state in place.  Autograd
+cannot record such a body: it would record the one captured iteration.  So
+a captured solve on which autograd records takes :func:`run`, a fixed trip
+of :class:`Step` autograd Functions:
+
+* the forward of a step and its recomputing backward are each a run-once
+  node (:func:`jit.device_if`), skipped where the step's flag does not hold,
+  so the program neither reads the host nor launches a skipped step's work;
+* the forward saves its input carry and what the step's search found (the
+  int32 hard-NN indices and, where the solve gates them, the validity
+  gate), nothing of the step's own graph; the backward recomputes the step
+  from them with grad enabled, without searching again (the search carries
+  no gradient), and takes its VJP;
+* a skipped step passes the carry's cotangent through, as the VJP of JAX's
+  ``lax.cond`` does, and gives none to the inputs.
+
+A solve describes its step with a :class:`Trip`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+
+from dicp_tpu_torch.jit import device_if
+
+
+class Trip:
+    """What every step of one fixed trip shares.
+
+    ``n_inputs`` leading tensors are the step's inputs (the clouds, the
+    weights), read by every step and differentiable; the carry follows, its
+    ``n_grad`` leading fields differentiable.  ``passthrough`` lists the
+    differentiable fields that a step returns unchanged: they carry a
+    gradient only where their own input does (every other one does where
+    anything differentiable flows into the step)."""
+
+    n_inputs: int
+    n_grad: int
+    passthrough: Tuple[int, ...] = ()
+
+    def found(self, inputs) -> List[Optional[torch.Tensor]]:
+        """Buffers, made before the step, for what its search returns (None
+        for a part the search returns as None)."""
+        return []
+
+    def search(self, *query):
+        """The step's search, without gradient: a tuple of tensors (or None)."""
+        raise NotImplementedError
+
+    def step(self, inputs, carry, it, search) -> Tuple[tuple, tuple]:
+        """(the new carry, the step's other outputs) from ``inputs`` and
+        ``carry`` at the executed-step counter ``it``, calling ``search``
+        where :meth:`search` would be called."""
+        raise NotImplementedError
+
+    def skipped(self, inputs, carry) -> tuple:
+        """The other outputs of a skipped step."""
+        return ()
+
+
+def when(run: Optional[torch.Tensor], body: Callable[[], None]) -> None:
+    """``body()`` where the 0-dim bool ``run`` holds (a run-once node under
+    capture); always where ``run`` is None."""
+    if run is None:
+        body()
+    else:
+        device_if(run, body)
+
+
+class Step(torch.autograd.Function):
+    """One step of :func:`run` (the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, trip: Trip, it, run, *tensors):
+        k, g = trip.n_inputs, trip.n_grad
+        inputs, fields = tensors[:k], tensors[k:]
+        found = trip.found(inputs)
+        # the skip branch's values, overwritten where the step runs
+        outs = [f.clone() for f in fields] + list(trip.skipped(inputs, fields))
+
+        def search(*query):
+            got = trip.search(*query)
+            for buf, part in zip(found, got):
+                if buf is not None:
+                    buf.copy_(part)
+            return got
+
+        def body():
+            new, other = trip.step(inputs, fields, it, search)
+            for dst, val in zip(outs, (*new, *other)):
+                dst.copy_(val)
+
+        when(run, body)
+        ctx.trip, ctx.it, ctx.run, ctx.found = trip, it, run, tuple(found)
+        ctx.save_for_backward(*tensors)
+        ctx.set_materialize_grads(False)
+        need = ctx.needs_input_grad[3:]
+        flows = any(need[:k + g])
+        ctx.mark_non_differentiable(*(
+            out for i, out in enumerate(outs)
+            if i >= g or not (need[k + i] if i in trip.passthrough else flows)))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        trip = ctx.trip
+        k, g = trip.n_inputs, trip.n_grad
+        saved = ctx.saved_tensors
+        fields = saved[k:]
+        wrt = saved[:k + g]
+        need = ctx.needs_input_grad[3:3 + k + g]
+        cot = cotangents[:g]
+        # a skipped step's VJP: the carry's cotangent through, none to the inputs
+        grads = [None if not need[i] else
+                 (torch.zeros_like(x) if i < k or cot[i - k] is None else cot[i - k].clone())
+                 for i, x in enumerate(wrt)]
+
+        def body():
+            with torch.enable_grad():
+                leaves = [x.detach().requires_grad_(need[i]) for i, x in enumerate(wrt)]
+                carry = (*leaves[k:], *(f.detach() for f in fields[g:]))
+                new, _ = trip.step(tuple(leaves[:k]), carry, ctx.it, lambda *q: ctx.found)
+                roots = [(o, c) for o, c in zip(new[:g], cot)
+                         if c is not None and o.requires_grad]
+                wanted = [i for i in range(len(leaves)) if need[i]]
+                got = (torch.autograd.grad([o for o, _ in roots], [leaves[i] for i in wanted],
+                                           [c for _, c in roots], allow_unused=True)
+                       if roots else [None] * len(wanted))
+            for i, grad in zip(wanted, got):
+                if grad is None:
+                    grads[i].zero_()
+                else:
+                    grads[i].copy_(grad)
+
+        if any(need):
+            when(ctx.run, body)
+        return (None, None, None, *grads, *(None,) * (len(fields) - g))
+
+
+def run(trip: Trip, steps: int, inputs: Sequence[torch.Tensor], carry: Sequence[torch.Tensor],
+        go: Optional[Callable[[tuple], torch.Tensor]]):
+    """``steps`` :class:`Step` s from ``carry``; step k runs where
+    ``go(carry)`` (a 0-dim bool) holds, every step where ``go`` is None.
+    Returns (the final carry, each step's other outputs, the executed-step
+    count as a 0-dim int32 tensor, which is also each step's ``it``)."""
+    inputs, carry = tuple(inputs), tuple(carry)
+    it = torch.zeros((), dtype=torch.int32, device=inputs[0].device)
+    others = []
+    for _ in range(steps):
+        flag = None if go is None else go(carry)
+        outs = Step.apply(trip, it, flag, *inputs, *carry)
+        carry, other = tuple(outs[:len(carry)]), tuple(outs[len(carry):])
+        others.append(other)
+        it = it + 1 if flag is None else it + flag.to(torch.int32)
+    return carry, others, it

@@ -25,7 +25,10 @@ run by :func:`jit.device_while`: it stops once every element has converged
 or the iterations are spent, a CUDA graph WHILE node in
 :data:`register_gicp_jit`'s captured program and a host loop that reads the
 flag once per iteration in :func:`register_gicp` (where autograd records
-it, the state is rebound instead of overwritten).
+it, the state is rebound instead of overwritten).  A captured solve on
+which autograd records takes JAX's scan instead, a fixed trip of
+``max_iterations`` autograd steps (:mod:`dicp_tpu_torch.fixed_trip`): a
+WHILE node would record one step.
 :func:`register_gicp_ift` differentiates through the fixed point with one
 6x6 adjoint solve (a ``torch.autograd.Function``); JAX does not jit it.
 """
@@ -37,8 +40,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch.func import jvp, vjp, vmap
 
-from dicp_tpu_torch import se3
-from dicp_tpu_torch.jit import device_while, jit
+from dicp_tpu_torch import fixed_trip, se3
+from dicp_tpu_torch.jit import capturing, device_while, jit, records
 from dicp_tpu_torch.knn import gather_rows
 from dicp_tpu_torch.ops.normals import estimate_normals
 from dicp_tpu_torch.ops.smallsolve import inv3, solve_spd
@@ -114,13 +117,13 @@ def _nearest(p, tgt):
         return torch.argmin(d2, dim=-1)
 
 
-def _gicp_step(T, src, src_n, tgt, tgt_n, weight, epsilon: float, trim2):
-    """One GN step for the batch: correspondences, Mahalanobis normal
-    equations, se(3) update.  Returns (T_new, step norm, mean cost), each
-    per element."""
+def _gicp_step(T, src, src_n, tgt, tgt_n, weight, epsilon: float, trim2, nearest=_nearest):
+    """One GN step for the batch: correspondences (``nearest(p, tgt)``),
+    Mahalanobis normal equations, se(3) update.  Returns (T_new, step norm,
+    mean cost), each per element."""
     p = _posed(T, src)                                  # (N, n, 3)
     # hard NN: the gradient flows into the gathered rows (knn.py's semantics)
-    idx = _nearest(p, tgt)
+    idx = nearest(p, tgt)
     q = gather_rows(tgt, idx)
     nt = gather_rows(tgt_n, idx)
 
@@ -141,30 +144,72 @@ def _gicp_step(T, src, src_n, tgt, tgt_n, weight, epsilon: float, trim2):
     return T_new, torch.sqrt(torch.sum(delta * delta, dim=-1)), cost
 
 
+def _advance(s: dict, src, tgt, tgt_n, src_n, weight, epsilon: float, trim2,
+             tolerance: float, nearest=_nearest) -> dict:
+    """The state (T, it, done, cost) after one step: an element's pose,
+    iteration count and cost freeze at the step whose norm falls below
+    ``tolerance``."""
+    active = ~s["done"]
+    T_new, dn, cost_new = _gicp_step(s["T"], src, src_n, tgt, tgt_n, weight, epsilon, trim2,
+                                     nearest)
+    return dict(T=torch.where(active[:, None, None], T_new, s["T"]),
+                it=torch.where(active, s["it"] + 1.0, s["it"]),
+                done=s["done"] | (active & (dn < tolerance)),
+                cost=torch.where(active, cost_new, s["cost"]))
+
+
+class _Trip(fixed_trip.Trip):
+    """GICP's steps in a fixed trip: inputs (src, tgt, tgt_n, src_n,
+    weight), the carry (T, cost, it, done) with T and cost differentiable;
+    the search is the argmin, saved as int32 indices."""
+
+    n_inputs, n_grad = 5, 2
+
+    def __init__(self, epsilon: float, trim2, tolerance: float):
+        self.epsilon, self.trim2, self.tolerance = epsilon, trim2, tolerance
+
+    def found(self, inputs):
+        src = inputs[0]
+        return [torch.zeros(src.shape[:2], dtype=torch.int32, device=src.device)]
+
+    def search(self, p, tgt):
+        return (_nearest(p, tgt),)
+
+    def step(self, inputs, carry, it, search):
+        src, tgt, tgt_n, src_n, weight = inputs
+        T, cost, count, done = carry
+        s = _advance(dict(T=T, it=count, done=done, cost=cost), src, tgt, tgt_n, src_n, weight,
+                     self.epsilon, self.trim2, self.tolerance,
+                     lambda p, t: search(p, t)[0])
+        return (s["T"], s["cost"], s["it"], s["done"]), ()
+
+
 def _solve(src, tgt, tgt_n, src_n, T0, weight, *, epsilon: float, trim2,
            max_iterations: int, tolerance: float):
-    """Both JAX drivers: an element's pose, iteration count and cost freeze
-    at the step whose norm falls below ``tolerance``.  The loop runs while
-    ``count < max_iterations`` and an element is active."""
+    """Both JAX drivers (:func:`_advance`).  The loop runs while ``count <
+    max_iterations`` and an element is active: a masked body under
+    :func:`jit.device_while`, or, where autograd records a captured solve,
+    a fixed trip of ``max_iterations`` steps (:mod:`dicp_tpu_torch.fixed_trip`,
+    JAX's ``lax.scan`` driver), each skipped once every element is done."""
     N, device = src.shape[0], src.device
     # every field owns its storage: the body overwrites it in place, unless
     # autograd records the loop
     s = dict(T=T0.clone(), it=src.new_zeros((N,)),
              done=torch.zeros((N,), dtype=torch.bool, device=device),
              cost=torch.full((N,), torch.inf, dtype=src.dtype, device=device))
+    recorded = records((src, tgt, tgt_n, src_n, T0, weight))
+    if recorded and capturing(src):
+        # a WHILE node would record one body: the fixed trip records each step
+        trip = _Trip(epsilon, trim2, tolerance)
+        (T, cost, it, done), _, _ = fixed_trip.run(
+            trip, max_iterations, (src, tgt, tgt_n, src_n, weight),
+            (s["T"], s["cost"], s["it"], s["done"]), lambda c: torch.any(~c[3]))
+        return T, it, done, cost
     count = torch.zeros((), dtype=torch.int32, device=device)
     flag = (count < max_iterations) & torch.any(~s["done"])
-    recorded = torch.is_grad_enabled() and any(
-        a.requires_grad for a in (src, tgt, tgt_n, src_n, T0, weight))
 
     def body():
-        active = ~s["done"]
-        T_new, dn, cost_new = _gicp_step(s["T"], src, src_n, tgt, tgt_n, weight, epsilon,
-                                         trim2)
-        new = dict(T=torch.where(active[:, None, None], T_new, s["T"]),
-                   it=torch.where(active, s["it"] + 1.0, s["it"]),
-                   done=s["done"] | (active & (dn < tolerance)),
-                   cost=torch.where(active, cost_new, s["cost"]))
+        new = _advance(s, src, tgt, tgt_n, src_n, weight, epsilon, trim2, tolerance)
         # masked: a body run after the flag fell changes no bit (the host
         # loop that autograd records runs the body only while the flag holds)
         for name, val in new.items():
@@ -175,6 +220,8 @@ def _solve(src, tgt, tgt_n, src_n, T0, weight, *, epsilon: float, trim2,
         count.copy_(torch.where(flag, count + 1, count))
         flag.copy_((count < max_iterations) & torch.any(~s["done"]))
 
+    # uncaptured, or captured with nothing recorded: a WHILE node whose body
+    # overwrites the state (the recorded host loop rebinds it instead)
     device_while(flag, body)
     return s["T"], s["it"], s["done"], s["cost"]
 

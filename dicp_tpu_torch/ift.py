@@ -227,9 +227,10 @@ def register_ift(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tenso
 
 # The JAX package's ``register_ift_jit`` is ``jax.jit(register_ift)``.  The
 # port's captures the forward as a CUDA graph on the card (its loop a WHILE
-# node; see dicp_tpu_torch.jit) for inference-only calls; with inputs that
-# require grad, and on the CPU, it is register_ift itself.  A forward and
-# backward captured together: jit over a function that calls
+# node; see dicp_tpu_torch.jit); with inputs that require grad it is a
+# program pair, whose captured backward (the adjoint solve) .backward()
+# replays; on the CPU it is register_ift itself.  A forward and backward
+# captured into one program: jit over a function that calls
 # torch.autograd.grad (dicp_tpu_torch.bench.fwdbwd_jit).  A Gumbel config
 # raises in the first call's eager run, as register_ift does.
 register_ift_jit = jit(register_ift, static_argnames=("cfg",), name="register_ift_jit")

@@ -19,24 +19,54 @@ enqueued whole, as XLA runs a jitted function:
   result the caller still holds.  Nothing waits for the device.
 * At most ``CACHE_SIZE`` programs are kept per function, least recently
   used first out.  :func:`programs` lists them with the bytes of their
-  private memory pools.
+  private memory pools.  A program pair (below) that leaves the cache while
+  a call of it can still be differentiated keeps its graphs and pools until
+  the last such call is gone (its autograd graph freed), so its
+  ``.backward()`` still replays.
 
 ``fn`` runs eagerly, uncaptured: on tensors that lie on no CUDA device (the
-CPU, where the tests run); when an input requires grad while grad mode is on
-(a captured forward cannot feed a backward taken later, outside the
-program, so ``register_jit(s).T.sum().backward()`` is the backward of ``fn``
-itself); where ``eager_if(arguments)`` says so (the host-driven paths:
-Gumbel noise from an explicit ``uniform`` object); and inside
-:func:`disable_jit`, as inside
-``jax.disable_jit()``.  A capture that fails raises: there is no eager
-fallback on the card.
+CPU, where the tests run); where ``eager_if(arguments)`` says so (the
+host-driven paths: Gumbel noise from an explicit ``uniform`` object); inside
+a capture (a jitted function called by another's program is part of it);
+and inside :func:`disable_jit`, as inside ``jax.disable_jit()``.  A capture
+that fails raises: there is no eager fallback on the card.
 
-A forward and its backward are captured together, the counterpart of
-``jax.jit(jax.grad(f))``, by calling ``torch.autograd.grad`` inside ``fn``
-(``bench.fwdbwd_jit``, ``bench.unrolled_jit``).  A solve on which autograd
-records inside a capture (through ``register``, ``register_jit`` or
-``ICP.icp``) takes the fixed trip of JAX's scan driver
-(``registration._run_fixed_trip``): one run-once node per step in the
+A call whose tensor input requires grad, with grad mode on, runs a program
+pair, the counterpart of ``jax.grad`` over ``jax.jit(f)``.  A key's first
+such call runs ``fn`` eagerly (autograd records it as it would without
+``jit``), so traffic whose shapes never repeat, as a batch of scans of
+varying size, costs what the eager solve costs and captures nothing.  From
+its second call (the last ``SEEN_SIZE`` keys are remembered) the key
+(which holds ``requires_grad`` and the grad mode) has a program pair: the
+miss warms ``fn`` up forward and backward on static leaf copies of the
+inputs, then captures
+the forward under ``torch.enable_grad()`` and, right after it and in the
+same memory pool, the backward: ``torch.autograd.grad`` of the
+differentiable outputs with respect to the static inputs that require grad,
+from static cotangent buffers (``torch.cuda.make_graphed_callables``' scheme,
+written here because both captures need the program in :data:`_capturing`,
+for the fixed trip's run-once nodes that autograd runs on a thread of its
+own, and the loops' body pool).  Each call replays the forward and returns
+clones of its outputs, attached by one autograd Function
+(:class:`_Replayed`) to the caller's own input tensors, so gradients flow
+on into whatever produced them; ``.backward()`` then copies the cotangents
+in (zero where an output got none) and replays the backward.  Outputs that
+are not floating point, or did not require grad in the capture, carry no
+gradient.  What it costs: the pair's pool holds the forward's saved tensors
+for the backward (the backward is captured with ``retain_graph``, so a
+retained second ``.backward()`` replays it again), and each call clones its
+inputs.  The static buffers hold one call at a time: where another call of
+the same program has replayed its forward since, a backward first replays
+the forward on its own saved inputs (a loss over two registrations of one
+shape pays one more forward).  A double backward (``create_graph=True``)
+through a program raises, where JAX allows it.
+
+A forward and its backward are also captured into one program, the
+counterpart of ``jax.jit(jax.grad(f))``, by calling ``torch.autograd.grad``
+inside ``fn`` (``bench.fwdbwd_jit``, ``bench.unrolled_jit``).  Either way a
+solve on which autograd records inside a capture (``register``, GICP,
+SGD-ICP) takes the fixed trip of JAX's scan driver
+(:mod:`dicp_tpu_torch.fixed_trip`): one run-once node per step in the
 forward and one in the backward, which autograd runs on a thread of its
 own on the capturing stream; so the program reads nothing on the host.
 
@@ -81,6 +111,7 @@ from torch.utils import _pytree as pytree
 from dicp_tpu_torch.ops import launch_counts
 
 CACHE_SIZE = 4
+SEEN_SIZE = 64   # grad keys remembered per function: a pair is captured at the second call
 
 _local = threading.local()
 # device index -> the program being captured there: read by device_while on
@@ -88,6 +119,14 @@ _local = threading.local()
 _capturing: dict = {}
 _live: "collections.OrderedDict[int, _Program]" = collections.OrderedDict()
 _jitted: "weakref.WeakSet[_Jitted]" = weakref.WeakSet()
+# program pairs that live calls may still replay (id -> the number of such
+# calls, _PairReplays), those of them out of the cache, and programs whose
+# release waits for a running capture to end (a release frees graphs and pools);
+# reentrant: a collection inside a locked block may run _let_go
+_held_lock = threading.RLock()
+_holders: dict = {}
+_retired: set = set()
+_released_later: list = []
 
 
 # ---- the WHILE node ------------------------------------------------------
@@ -217,13 +256,85 @@ class _Program:
         self.out_spec = None
         self.pool_bytes = 0
         self.replays = 0
+        # a program pair's backward: its graph, the static cotangents of the
+        # differentiable outputs (diff_out), the static gradients of the
+        # inputs that require grad (grad_in)
+        self.bwd_graph: Optional[torch.cuda.CUDAGraph] = None
+        self.diff_out: List[int] = []
+        self.grad_in: List[int] = []
+        self.cotangents: List[torch.Tensor] = []
+        self.grads: list = []
+        self.generation = 0   # forward replays so far
 
     def release(self) -> None:
-        self.inputs, self.out_leaves = [], []
+        self.inputs, self.out_leaves, self.cotangents, self.grads = [], [], [], []
+        if self.bwd_graph is not None:
+            self.bwd_graph.reset()
         self.graph.reset()
         for _ in range(self.body_pool_refs):
             torch._C._cuda_releasePool(self.device.index, self.body_pool)
         self.body_pool_refs = 0
+
+
+@contextlib.contextmanager
+def _capture_of(prog: _Program):
+    """The block captures ``prog``: its kernels' device counters exist, and
+    device_while finds it (on any thread); a failure releases it."""
+    launch_counts.prepare(prog.device)
+    _capturing[prog.device.index] = prog
+    try:
+        yield
+    except BaseException:
+        prog.release()
+        raise
+    finally:
+        _capturing.pop(prog.device.index, None)
+
+
+def _retire(prog) -> None:
+    """``prog`` leaves its function's cache: released now, or, while a call
+    of it can still be differentiated, when the last such call is gone."""
+    with _held_lock:
+        if _holders.get(id(prog)):
+            _retired.add(id(prog))
+            return
+    _release_safely(prog)
+
+
+def _let_go(prog) -> None:
+    """A differentiable call of ``prog`` is gone (its autograd graph freed)."""
+    with _held_lock:
+        _holders[id(prog)] -= 1
+        if _holders[id(prog)]:
+            return
+        del _holders[id(prog)]
+        if id(prog) not in _retired:
+            return
+        _retired.discard(id(prog))
+    _release_safely(prog)
+
+
+def _release_safely(prog) -> None:
+    """Release ``prog``, or, where a capture is running (a finalizer may run
+    inside one), at the next cache insertion or :func:`clear_caches` after
+    it (:func:`_release_later`)."""
+    with _held_lock:
+        _released_later.append(prog)
+    _release_later()
+
+
+def _release_later() -> None:
+    if _capturing or capturing():
+        return
+    with _held_lock:
+        progs = _released_later[:]
+        del _released_later[:]
+    for prog in progs:
+        prog.release()
+
+
+def _pools(prog: _Program) -> list:
+    return [prog.graph.pool()] + ([prog.body_pool] if prog.body_pool_refs else [])
 
 
 def _pool_bytes(pools) -> int:
@@ -237,6 +348,7 @@ def clear_caches() -> None:
     """Drop the programs of every jitted function (:meth:`_Jitted.cache_clear`)."""
     for fn in list(_jitted):
         fn.cache_clear()
+    _release_later()
 
 
 def programs() -> List[ProgramInfo]:
@@ -260,6 +372,95 @@ def _is_tensor(x) -> bool:
     return isinstance(x, torch.Tensor)
 
 
+def _on_card(tensors) -> bool:
+    """Whether a call on these tensors runs on the card."""
+    return any(x.device.type == "cuda" for x in tensors)
+
+
+def records(tensors) -> bool:
+    """Whether autograd records a call on these tensors (None entries are
+    absent arguments)."""
+    return torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in tensors)
+
+
+class _Replayed(torch.autograd.Function):
+    """One call of a program pair: ``pair.forward(inputs)`` gives its
+    outputs, attached to the caller's ``inputs``; the backward returns
+    ``pair.backward(cotangents)``, the gradients of the inputs (None where
+    one needs none).
+
+    ``pair`` holds the replays (:class:`_PairReplays` on the card; any
+    object with ``forward``, ``backward``, ``generation`` and ``lock``, so
+    that eager stand-ins can drive this on the CPU).  ``forward`` writes one
+    set of static buffers and counts its calls in ``generation``: the
+    Function keeps clones of its inputs and the generation of its replay,
+    and where another forward has replayed since, its backward replays the
+    forward on its own inputs first."""
+
+    @staticmethod
+    def forward(ctx, pair, diff_out, *inputs):
+        outs = pair.forward(inputs)
+        ctx.pair, ctx.generation = pair, pair.generation
+        ctx.inputs = [x.detach().clone() for x in inputs]
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(*(o for i, o in enumerate(outs) if i not in diff_out))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        if torch.is_grad_enabled():
+            raise RuntimeError("a double backward (create_graph=True) through a captured "
+                               "program is not supported: run the function under "
+                               "dicp_tpu_torch.jit.disable_jit() for higher derivatives")
+        pair = ctx.pair
+        with pair.lock:
+            if pair.generation != ctx.generation:
+                pair.forward(ctx.inputs)   # another call's forward holds the buffers
+                ctx.generation = pair.generation
+            grads = pair.backward(cotangents)
+        return (None, None, *grads)
+
+
+class _PairReplays:
+    """The replays of a program pair (:class:`_Program` with a backward
+    graph), for one call's :class:`_Replayed`.  While it lives (as long as
+    the call's autograd graph) it holds the program: a program that leaves
+    the cache is released only when its last holder is gone."""
+
+    def __init__(self, prog: "_Program", lock):
+        self.prog, self.lock = prog, lock
+        with _held_lock:
+            _holders[id(prog)] = _holders.get(id(prog), 0) + 1
+        weakref.finalize(self, _let_go, prog).atexit = False
+
+    @property
+    def generation(self) -> int:
+        return self.prog.generation
+
+    def forward(self, inputs) -> list:
+        prog = self.prog
+        with torch.no_grad():
+            for buf, x in zip(prog.inputs, inputs):
+                buf.copy_(x)
+        prog.graph.replay()
+        prog.replays += 1
+        prog.generation += 1
+        return [x.detach().clone() for x in prog.out_leaves if _is_tensor(x)]
+
+    def backward(self, cotangents) -> list:
+        prog = self.prog
+        for buf, i in zip(prog.cotangents, prog.diff_out):
+            if cotangents[i] is None:
+                buf.zero_()
+            else:
+                buf.copy_(cotangents[i])
+        prog.bwd_graph.replay()
+        grads = [None] * len(prog.inputs)
+        for i, g in zip(prog.grad_in, prog.grads):
+            grads[i] = None if g is None else g.clone()
+        return grads
+
+
 class _Jitted:
     def __init__(self, fn, static_argnames, eager_if, name, prepare):
         self.fn = fn
@@ -269,7 +470,8 @@ class _Jitted:
         self.name = name or getattr(fn, "__name__", "fn")
         self.signature = inspect.signature(fn)
         self.cache: "collections.OrderedDict[tuple, _Program]" = collections.OrderedDict()
-        self.lock = threading.Lock()
+        self.seen: "collections.OrderedDict[tuple, None]" = collections.OrderedDict()
+        self.lock = threading.RLock()
         functools.update_wrapper(self, fn)
         _jitted.add(self)
 
@@ -286,18 +488,19 @@ class _Jitted:
         if getattr(_local, "disabled", False):
             return "disable_jit"
         tensors = [x for x in leaves if _is_tensor(x)]
-        if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-            return "an input requires grad"
         if self.eager_if is not None and self.eager_if(bound.arguments):
             return "eager_if"
-        if not any(x.device.type == "cuda" for x in tensors):
+        if not _on_card(tensors):
             return "no CUDA tensor"
+        if capturing():
+            return "inside a capture"
         return None
 
     def _key(self, bound, leaves, spec) -> tuple:
+        tensors = [x for x in leaves if _is_tensor(x)]
         return (tuple(bound.arguments[k] for k in self.static), str(spec),
                 tuple((tuple(x.shape), x.dtype, x.device, x.requires_grad) if _is_tensor(x)
-                      else ("value", x) for x in leaves))
+                      else ("value", x) for x in leaves), records(tensors))
 
     def cache_key(self, *args, **kwargs) -> tuple:
         """The key of a call with these arguments in the cache."""
@@ -305,7 +508,8 @@ class _Jitted:
 
     def eager_reason(self, *args, **kwargs) -> Optional[str]:
         """Why a call with these arguments runs ``fn`` eagerly, or None where
-        it runs a captured program."""
+        it runs a captured program (a differentiable call from its key's
+        second call on)."""
         bound, leaves, _ = self._bind(args, kwargs)
         return self._eager_reason(bound, leaves)
 
@@ -319,18 +523,35 @@ class _Jitted:
             raise ValueError(f"inputs lie on different devices: {sorted(map(str, devices))}")
         key = self._key(bound, leaves, spec)
         with self.lock:
+            grad = key[-1]   # autograd records the call: a program pair
             prog = self.cache.get(key)
-            if prog is not None:
-                self.cache.move_to_end(key)
-                return self._replay(prog, tensors)
-            return self._miss(key, devices.pop(), bound, leaves, spec)
+            if prog is None and grad and key not in self.seen:
+                self.seen[key] = None   # first sighting: eager, nothing captured
+                while len(self.seen) > SEEN_SIZE:
+                    self.seen.popitem(last=False)
+                return self.fn(*bound.args, **bound.kwargs)
+            if prog is None and grad:
+                prog = self._capture_pair(key, devices.pop(), bound, leaves, spec)
+                self._insert(key, prog)
+            elif prog is None:
+                return self._miss(key, devices.pop(), bound, leaves, spec)
+            self.cache.move_to_end(key)
+            if grad and prog.bwd_graph is not None:
+                return self._replay_pair(prog, tensors)
+            return self._replay(prog, tensors)
 
     def _replay(self, prog: _Program, tensors):
-        for buf, x in zip(prog.inputs, tensors):
-            buf.copy_(x)
+        with torch.no_grad():
+            for buf, x in zip(prog.inputs, tensors):
+                buf.copy_(x)
         prog.graph.replay()
         prog.replays += 1
         leaves = [x.clone() if _is_tensor(x) else x for x in prog.out_leaves]
+        return pytree.tree_unflatten(leaves, prog.out_spec)
+
+    def _replay_pair(self, prog: _Program, tensors):
+        outs = iter(_Replayed.apply(_PairReplays(prog, self.lock), prog.diff_out, *tensors))
+        leaves = [next(outs) if _is_tensor(x) else x for x in prog.out_leaves]
         return pytree.tree_unflatten(leaves, prog.out_spec)
 
     def _miss(self, key, device, bound, leaves, spec):
@@ -338,28 +559,70 @@ class _Jitted:
         self._insert(key, self._capture(key, device, bound, leaves, spec))
         return out
 
-    def _capture(self, key, device, bound, leaves, spec) -> _Program:
-        prog = _Program(self.name, key, device)
-        statics = [torch.empty_like(x, memory_format=torch.contiguous_format).copy_(x)
+    def _static_call(self, prog: _Program, bound, leaves, spec, grad: bool):
+        """The bound arguments of ``fn`` on static copies of the tensor
+        leaves (leaves that require grad where the caller's do and ``grad``),
+        which become ``prog.inputs``."""
+        statics = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                   .copy_(x.detach()).requires_grad_(grad and x.requires_grad)
                    if _is_tensor(x) else x for x in leaves]
         prog.inputs = [x for x in statics if _is_tensor(x)]
         call = collections.OrderedDict(bound.arguments)
         call.update(pytree.tree_unflatten(statics, spec))
-        cbound = inspect.BoundArguments(self.signature, call)
-        launch_counts.prepare(device)
-        _capturing[device.index] = prog
-        try:
+        return inspect.BoundArguments(self.signature, call)
+
+    def _capture(self, key, device, bound, leaves, spec) -> _Program:
+        prog = _Program(self.name, key, device)
+        cbound = self._static_call(prog, bound, leaves, spec, grad=False)
+        with _capture_of(prog):
             with torch.cuda.graph(prog.graph, stream=_stream(device, "capture"),
                                   capture_error_mode="thread_local"):
                 captured = self.fn(*cbound.args, **cbound.kwargs)
-        except BaseException:
-            prog.release()
-            raise
-        finally:
-            _capturing.pop(device.index, None)
         prog.out_leaves, prog.out_spec = pytree.tree_flatten(captured)
-        pools = [prog.graph.pool()] + ([prog.body_pool] if prog.body_pool_refs else [])
-        prog.pool_bytes = _pool_bytes(pools)
+        prog.pool_bytes = _pool_bytes(_pools(prog))
+        return prog
+
+    def _capture_pair(self, key, device, bound, leaves, spec) -> _Program:
+        """A program pair (the module docstring): warm-up, the forward's
+        capture, then the backward's, in the forward's pool."""
+        prog = _Program(self.name, key, device)
+        cbound = self._static_call(prog, bound, leaves, spec, grad=True)
+        wrt = [x for x in prog.inputs if x.requires_grad]
+
+        def differentiable(out):
+            return [i for i, x in enumerate(o for o in out if _is_tensor(o))
+                    if x.requires_grad and x.is_floating_point()]
+
+        def backward(outs, cotangents, **kw):
+            return torch.autograd.grad(outs, wrt, cotangents, allow_unused=True, **kw)
+
+        # warm-up, forward and backward: builds, the allocator, cuBLAS's
+        # workspace of autograd's thread
+        with torch.enable_grad():
+            out = pytree.tree_leaves(self.fn(*cbound.args, **cbound.kwargs))
+        tensors = [o for o in out if _is_tensor(o)]
+        diff = differentiable(out)
+        if diff:
+            backward([tensors[i] for i in diff], [torch.zeros_like(tensors[i]) for i in diff])
+        del out, tensors
+        stream = _stream(device, "capture")
+        with _capture_of(prog):
+            with torch.cuda.graph(prog.graph, stream=stream, capture_error_mode="thread_local"):
+                with torch.enable_grad():
+                    captured = self.fn(*cbound.args, **cbound.kwargs)
+            prog.out_leaves, prog.out_spec = pytree.tree_flatten(captured)
+            prog.diff_out = differentiable(prog.out_leaves)
+            if prog.diff_out:
+                tensors = [o for o in prog.out_leaves if _is_tensor(o)]
+                outs = [tensors[i] for i in prog.diff_out]
+                prog.cotangents = [torch.zeros_like(o) for o in outs]
+                prog.grad_in = [i for i, x in enumerate(prog.inputs) if x.requires_grad]
+                prog.bwd_graph = torch.cuda.CUDAGraph()
+                # retain_graph: the saved tensors stay for a second backward
+                with torch.cuda.graph(prog.bwd_graph, pool=prog.graph.pool(), stream=stream,
+                                      capture_error_mode="thread_local"):
+                    prog.grads = list(backward(outs, prog.cotangents, retain_graph=True))
+        prog.pool_bytes = _pool_bytes(_pools(prog))
         return prog
 
     def _insert(self, key, prog) -> None:
@@ -368,15 +631,18 @@ class _Jitted:
         while len(self.cache) > CACHE_SIZE:
             _, old = self.cache.popitem(last=False)
             _live.pop(id(old), None)
-            old.release()
+            _retire(old)
+        _release_later()
 
     def cache_clear(self) -> None:
-        """Drop every program of this function."""
+        """Drop every program of this function (a program pair's once no
+        call of it can be differentiated) and forget the keys seen."""
         with self.lock:
             for prog in self.cache.values():
                 _live.pop(id(prog), None)
-                prog.release()
+                _retire(prog)
             self.cache.clear()
+            self.seen.clear()
 
 
 def jit(fn, *, static_argnames: Sequence[str] = (),

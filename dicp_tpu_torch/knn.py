@@ -51,6 +51,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from dicp_tpu_torch.config import DENSE_MAX_ENTRIES
+from dicp_tpu_torch.jit import records
 from dicp_tpu_torch.ops import _build, launch_counts, tiled_knn
 
 # Launches of the draw kernel D1 (csrc/threefry.cu) that ran at once; a
@@ -68,7 +69,7 @@ def pairwise_sq_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     x2 = torch.sum(x * x, dim=-1, keepdim=True)
     y2 = torch.sum(y * y, dim=-1, keepdim=True)
     xy = x @ y.transpose(-1, -2)
-    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+    if records((x, y)):
         return torch.clamp(x2 + y2.transpose(-1, -2) - 2.0 * xy, min=0.0)
     d2 = x2 + y2.transpose(-1, -2)
     return d2.sub_(xy, alpha=2.0).clamp_(min=0.0)

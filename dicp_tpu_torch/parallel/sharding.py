@@ -50,7 +50,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from dicp_tpu_torch import knn, losses, se3
 from dicp_tpu_torch.config import ICPConfig
-from dicp_tpu_torch.jit import capturing, device_if, jit
+from dicp_tpu_torch.jit import capturing, device_if, jit, records
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn, query_order
 from dicp_tpu_torch.ops.smallsolve import solve_spd
 from dicp_tpu_torch.parallel._comm import psum, replicated, ring_shift
@@ -185,6 +185,8 @@ def _ring_nn_where(run: torch.Tensor, x: torch.Tensor, y_shard: torch.Tensor,
     best_row = y_shard.new_zeros((x.shape[0], y_shard.shape[1]))
 
     def fold(y_cur):
+        # in place, in a run-once node: a captured solve on which autograd
+        # records raises before it gets here (_map_sharded_solve)
         for old, new in zip((best_d, best_row), _ring_fold(x, y_cur, best_d, best_row)):
             old.copy_(new)
 
@@ -389,6 +391,12 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
         return finish(C, r, psum(local_terms(C, r), group))
 
     if capturing(C0):
+        if records((source_shard, weight_shard, target, T_init)):
+            # the steps overwrite their state in place, which autograd cannot
+            # record (map_sharded_fn runs such a call eagerly)
+            raise ValueError("a captured map-sharded solve cannot be differentiated: call "
+                             "it uncaptured (its host loop records) or use "
+                             "register_map_sharded_ift")
         # every field owns its storage: the steps overwrite them in place
         C, r = C0.clone(), r0.clone()
         it = torch.zeros((), dtype=torch.int32, device=device)
@@ -405,6 +413,8 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
                 old.copy_(torch.where(run, new, old))
             it.copy_(torch.where(run, it + 1, it))
 
+        # each step's run-once nodes overwrite state in place: nothing records
+        # them (a recorded capture raised above)
         for _ in range(T):
             run = (it < T) & ~done
             total = torch.zeros((n_ne * 2 + 1 if method == "cluster" else n_ne,),
@@ -508,7 +518,7 @@ def map_sharded_fn(mesh: DeviceMesh, cfg: ICPConfig, axis: str = "map",
     replay runs ``cfg.max_iterations`` masked steps and
     ``cfg.max_iterations + 1`` all-reduces (an uncaptured call, the host
     loop: the iterations it needs, plus one).  A call whose input requires grad runs
-    eagerly (the jit rule).  On the CPU it is the solve itself.  The mesh
+    eagerly (``eager_if``).  On the CPU it is the solve itself.  The mesh
     and cfg live in the closure, not in the program's key.
 
     lru-cached on (mesh, cfg, axis, target_sharded, n_real), as JAX's is,
@@ -533,7 +543,11 @@ def _map_sharded_fn(mesh, cfg, axis, target_sharded, n_real, group):
         return _map_sharded_solve(cfg, source[rows], weight[rows], target, T_init, group,
                                   target_sharded=target_sharded, n_real=n_real)
 
-    return jit(program, name="map_sharded_fn")
+    # a call on which autograd records runs eagerly: the captured fixed trip
+    # overwrites its state in place, and its collectives have no captured
+    # backward
+    return jit(program, name="map_sharded_fn",
+               eager_if=lambda a: records([x for x in a.values() if torch.is_tensor(x)]))
 
 
 def register_ring_sharded(

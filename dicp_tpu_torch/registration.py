@@ -61,9 +61,9 @@ import torch
 import torch.distributed
 from torch.utils.checkpoint import checkpoint
 
-from dicp_tpu_torch import knn, losses, se3
+from dicp_tpu_torch import fixed_trip, knn, losses, se3
 from dicp_tpu_torch.config import ICPConfig
-from dicp_tpu_torch.jit import capturing, device_if, device_while, jit
+from dicp_tpu_torch.jit import capturing, device_while, jit, records
 from dicp_tpu_torch.ops import tiled_knn
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn, query_order
 from dicp_tpu_torch.ops.fused_gn import fused_eligible, fused_gn_solve
@@ -507,6 +507,9 @@ def _run_device_loop(cfg: ICPConfig, source, target, weight, C, r, corr_fn, nois
             go = go & ~torch.all(carry.converged)
         flag.copy_(go)
 
+    # the body overwrites its state in place: autograd never records it
+    # (_register_impl sends a recorded captured solve to the fixed trip, and
+    # a recorded uncaptured one to the host loop)
     device_while(flag, body)
 
     if not cfg.collect_histories:
@@ -521,154 +524,68 @@ def _run_device_loop(cfg: ICPConfig, source, target, weight, C, r, corr_fn, nois
     return carry, deltas, weights, costs, it
 
 
-_GRAD_FIELDS = 3   # the carry's differentiable fields lead it: C, r, w_init
+class _Trip(fixed_trip.Trip):
+    """The steps of one fixed trip (:func:`_run_fixed_trip`): inputs
+    (source, target), the :class:`_Carry` (C, r and w_init differentiable;
+    w_init passed through), the history rows as the step's other outputs.
+    The search is the index closure (hard NN: the int32 indices and, on the
+    cluster tier, the certificate gate); with Gumbel NN there is none."""
 
+    n_inputs, n_grad, passthrough = 2, 3, (2,)
 
-class _Trip(NamedTuple):
-    """What every step of one fixed trip shares: the config, the index
-    closure (hard NN; None with Gumbel NN), whether it returns a validity
-    weight (the cluster tier's certificate), and the noise and its pair ids
-    (Gumbel NN)."""
+    def __init__(self, cfg: ICPConfig, index_fn, gated: bool, noise, pair_ids):
+        self.cfg, self.index_fn, self.gated = cfg, index_fn, gated
+        self.noise, self.pair_ids = noise, pair_ids
 
-    cfg: ICPConfig
-    index_fn: object
-    gated: bool
-    noise: object
-    pair_ids: object
-
-    def step(self, source, target, carry: _Carry, it, corr_fn):
-        return _apply_step(self.cfg, source, target, carry, it, corr_fn, self.noise,
-                           self.pair_ids)
-
-
-def _when(run, body) -> None:
-    """``body()`` where the 0-dim bool ``run`` holds (a run-once node under
-    capture); always where ``run`` is None (``const_iter``)."""
-    if run is None:
-        body()
-    else:
-        device_if(run, body)
-
-
-class _FixedStep(torch.autograd.Function):
-    """One step of :func:`_run_fixed_trip`: ``_apply_step`` where ``run``
-    holds, JAX's ``skip`` branch where it does not (the carry as it was;
-    zero deltas and the carry's ``prev_w_save`` and ``prev_cost`` as the
-    history rows).
-
-    The forward saves its input carry, the flag and the step's hard-NN
-    correspondences (the int32 indices and, on the cluster tier, the
-    certificate gate), nothing of the step's own graph.  The backward, where
-    the flag holds, recomputes the step from them with grad enabled (the
-    ``remat`` form; the search is not run again, a Gumbel draw is) and takes
-    its VJP; where it does not, it passes the cotangent of the carry
-    through unchanged, as the VJP of JAX's ``lax.cond`` does.  Both sides
-    are run-once nodes under capture: a skipped step runs none of the
-    step's work (no search, no draw), only the copies that pass it by."""
-
-    @staticmethod
-    def forward(ctx, trip: _Trip, it, run, source, target, *fields):
-        carry = _Carry(*fields)
+    def found(self, inputs):
+        if self.index_fn is None:
+            return []
+        source = inputs[0]
         N, n = source.shape[0], source.shape[1]
-        idx = valid = None
-        if trip.index_fn is not None:
-            idx = torch.zeros((N, n), dtype=torch.int32, device=source.device)
-            valid = source.new_zeros((N, n)) if trip.gated else None
-        # the skip branch's values, overwritten where the step runs
-        outs = [f.clone() for f in carry] + [source.new_zeros((N, 6)),
-                                             carry.prev_w_save.clone(),
-                                             carry.prev_cost.clone()]
+        return [torch.zeros((N, n), dtype=torch.int32, device=source.device),
+                source.new_zeros((N, n)) if self.gated else None]
 
-        def corr(ps_t):
-            got, gate = trip.index_fn(ps_t)
-            idx.copy_(got)
-            if gate is not None:
-                valid.copy_(gate)
-            return knn.gather_rows(target, got), gate
+    def search(self, ps_t):
+        return self.index_fn(ps_t)
 
-        def body():
-            new, hist = trip.step(source, target, carry, it,
-                                  corr if trip.index_fn is not None else None)
-            for dst, val in zip(outs, (*new, *hist)):
-                dst.copy_(val)
+    def step(self, inputs, carry, it, search):
+        source, target = inputs
+        corr = None
+        if self.index_fn is not None:
+            def corr(ps_t):
+                idx, gate = search(ps_t)
+                return knn.gather_rows(target, idx), gate
+        new, hist = _apply_step(self.cfg, source, target, _Carry(*carry), it, corr,
+                                self.noise, self.pair_ids)
+        return tuple(new), hist
 
-        _when(run, body)
-        ctx.trip, ctx.it, ctx.run, ctx.idx, ctx.valid = trip, it, run, idx, valid
-        ctx.save_for_backward(source, target, *fields)
-        ctx.set_materialize_grads(False)
-        # w_init (input 7) carries gradient only from a weight that requires it
-        ctx.mark_non_differentiable(*outs[_GRAD_FIELDS - (not ctx.needs_input_grad[7]):])
-        return tuple(outs)
-
-    @staticmethod
-    def backward(ctx, *cotangents):
-        trip, it = ctx.trip, ctx.it
-        source, target, *fields = ctx.saved_tensors
-        need = ctx.needs_input_grad[3:3 + 2 + _GRAD_FIELDS]
-        inputs = (source, target, *fields[:_GRAD_FIELDS])
-        cot = cotangents[:_GRAD_FIELDS]
-        # a skipped step's VJP: the carry's cotangent through, none to the clouds
-        grads = [None if not need[i] else
-                 (torch.zeros_like(x) if i < 2 or cot[i - 2] is None else cot[i - 2].clone())
-                 for i, x in enumerate(inputs)]
-
-        def body():
-            with torch.enable_grad():
-                leaves = [x.detach().requires_grad_(need[i]) for i, x in enumerate(inputs)]
-                src, tgt = leaves[0], leaves[1]
-                carry = _Carry(*leaves[2:], *(f.detach() for f in fields[_GRAD_FIELDS:]))
-
-                def corr(ps_t):
-                    return knn.gather_rows(tgt, ctx.idx), ctx.valid
-
-                new, _ = trip.step(src, tgt, carry, it,
-                                   corr if trip.index_fn is not None else None)
-                roots = [(o, g) for o, g in zip(new[:_GRAD_FIELDS], cot)
-                         if g is not None and o.requires_grad]
-                wanted = [i for i in range(len(leaves)) if need[i]]
-                got = torch.autograd.grad([o for o, _ in roots], [leaves[i] for i in wanted],
-                                          [g for _, g in roots], allow_unused=True)
-            for i, g in zip(wanted, got):
-                if g is None:
-                    grads[i].zero_()
-                else:
-                    grads[i].copy_(g)
-
-        if any(need):
-            _when(ctx.run, body)
-        return (None, None, None, *grads, *(None,) * (len(fields) - _GRAD_FIELDS))
+    def skipped(self, inputs, carry):
+        carry = _Carry(*carry)
+        return (inputs[0].new_zeros((inputs[0].shape[0], 6)), carry.prev_w_save.clone(),
+                carry.prev_cost.clone())
 
 
 def _run_fixed_trip(cfg: ICPConfig, source, target, weight, C, r, index_fn, gated: bool,
                     noise=None, pair_ids=None):
     """The counterpart of JAX's ``_run_scan``: a fixed trip of
-    ``max_iterations`` steps (:class:`_FixedStep`), each skipped where every
-    batch element has converged (run in every step with ``const_iter``).  A
-    captured solve on which autograd records takes it: its forward and its
-    backward are run-once nodes per step, so the program neither waits for
-    the host nor launches anything in a skipped step.
+    ``max_iterations`` steps (:mod:`dicp_tpu_torch.fixed_trip`), each
+    skipped where every batch element has converged (run in every step with
+    ``const_iter``).  A captured solve on which autograd records takes it:
+    its forward and its backward are run-once nodes per step, so the program
+    neither waits for the host nor launches anything in a skipped step.
 
     Returns what :func:`_run_loop` returns, with the executed count as a
     0-dim int32 tensor; history rows past the exit are what ``skip`` emits,
     which are the host loop's padding.  The step counter ``it`` is the
     device count of executed steps (Gumbel noise is drawn at
     ``fold_in(k, it)``)."""
-    T = cfg.max_iterations
-    dev = source.device
     if isinstance(noise, knn.ThreefryNoise):
-        noise.pair_keys(pair_ids, dev)   # the streams' pair folds, outside the steps
+        noise.pair_keys(pair_ids, source.device)   # the streams' pair folds, outside the steps
     trip = _Trip(cfg, index_fn, gated, noise, pair_ids)
-    carry = _init_carry(source, weight, C, r)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    hist = []
-    for _ in range(T):
-        run = None if cfg.const_iter else ~torch.all(carry.converged)
-        outs = _FixedStep.apply(trip, it, run, source, target, *carry)
-        carry = _Carry(*outs[:len(_Carry._fields)])
-        if cfg.collect_histories:
-            hist.append(outs[len(_Carry._fields):])
-        it = it + 1 if run is None else it + run.to(torch.int32)
-
+    go = None if cfg.const_iter else (lambda c: ~torch.all(c[3]))   # ~all(converged)
+    fields, hist, it = fixed_trip.run(trip, cfg.max_iterations, (source, target),
+                                      _init_carry(source, weight, C, r), go)
+    carry = _Carry(*fields)
     if not cfg.collect_histories:
         deltas = source.new_zeros((1, source.shape[0], 6))
         return carry, deltas, carry.prev_w_save[None], carry.prev_cost[None], it
@@ -752,8 +669,7 @@ def _register_program(source: torch.Tensor, target: torch.Tensor, T_init: torch.
     """:func:`register` with the device-decided loop, what ``register_jit``
     captures; it keeps the eager loop where gradients flow or the host
     drives the loop (:func:`host_driven`)."""
-    grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (source, target, T_init, weight))
+    grad = records((source, target, T_init, weight))
     return _register(source, target, T_init, weight, cfg, key,
                      device_loop=not (grad or host_driven(cfg, key)), pair_offset=pair_offset)
 
@@ -856,9 +772,7 @@ def _register_impl(source, target, T_init, weight, cfg, noise=None, pair_ids=Non
     else:
         index_fn = _make_index_fn(cfg, source, target, C, r)
         corr_fn = _make_corr_fn(cfg, source, target, C, r, index_fn)
-    recording = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (source, target, weight, C, r))
-    if recording and capturing(source):
+    if records((source, target, weight, C, r)) and capturing(source):
         # the unrolled gradient captured: JAX's scan driver
         gated = cfg.resolved_nn_method(source.shape[-2], target.shape[-2],
                                        source.device) == "cluster"

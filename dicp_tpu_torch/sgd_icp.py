@@ -19,7 +19,10 @@ Structure, as in JAX:
   results are those of the full trip.  The loop is a masked body over a
   state held in tensors, run by :func:`jit.device_while` (a CUDA graph
   WHILE node in :data:`register_sgd_jit`'s captured program, a host loop
-  that reads the flag once per iteration in :func:`register_sgd`);
+  that reads the flag once per iteration in :func:`register_sgd`); a
+  captured solve on which autograd records takes a fixed trip of
+  ``iterations`` autograd steps instead (:mod:`dicp_tpu_torch.fixed_trip`,
+  JAX's scan), since a WHILE node would record one step;
 * the mini-batch search is a dense (k, m) score-form pass
   |p|^2 + |t|^2 - 2 p·t^T, or the Hilbert cluster index built once per solve
   and queried with the plain group scan (``fused=False``, as JAX pins it:
@@ -59,8 +62,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from dicp_tpu_torch import losses, se3
-from dicp_tpu_torch.jit import device_while, jit
+from dicp_tpu_torch import fixed_trip, losses, se3
+from dicp_tpu_torch.jit import capturing, device_while, jit, records
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn
 from dicp_tpu_torch.ops.normals import estimate_normals
 from dicp_tpu_torch.ops.smallsolve import solve_spd
@@ -267,19 +270,104 @@ def _cluster_nn_fn(tgt, group, probes, fixup):
     return nn_fn
 
 
+class _Rule(NamedTuple):
+    """The options of one solve's iterations."""
+    icp_type: str
+    loss_name: Optional[str]
+    loss_metric: float
+    trim_dist: Optional[float]
+    differentiable: bool
+    iterations: int
+    optimizer: str
+    tolerance: float
+    ema_beta: float
+    patience: int
+
+
+def _advance(s: dict, count, plan: SGDPlan, rule: _Rule, src, tgt, tgt_n, weight,
+             nn_fn) -> dict:
+    """The state (T, m1, m2, streak, cost_ema, done, num_it) after the
+    iteration whose executed-iteration counter is ``count`` (0-dim int32):
+    its draws and schedule row read at ``count``, frozen elements carried
+    forward."""
+    dt = src.dtype
+    at = torch.clamp(count, max=max(rule.iterations - 1, 0)).reshape(1).long()
+    # uniform with replacement, one stream per element and iteration
+    idx = plan.indices.index_select(0, at)[0]
+    sched = None if plan.schedule is None else plan.schedule.index_select(0, at)[0]
+    done = s["done"]
+    H, g, cost = _minibatch_system(
+        s["T"], idx, src, tgt, tgt_n, weight, nn_fn, icp_type=rule.icp_type,
+        loss_name=rule.loss_name, loss_metric=rule.loss_metric, trim_dist=rule.trim_dist,
+        differentiable=rule.differentiable)
+    delta, m1n, m2n = _step_delta(H, g, s["m1"], s["m2"], None, optimizer=rule.optimizer,
+                                  lr=None, lr_decay=None, b1=0.9, b2=0.999, dt=dt,
+                                  sched=sched)
+    T_new = se3.vec2tran(delta) @ s["T"]
+    # `patience` CONSECUTIVE sub-tolerance steps: one step can dip below
+    # by mini-batch luck
+    streak_new = torch.where(torch.linalg.vector_norm(delta.detach(), dim=-1) < rule.tolerance,
+                             s["streak"] + 1, torch.zeros_like(s["streak"]))
+    cost_new = torch.where(count == 0, cost,
+                           rule.ema_beta * s["cost_ema"] + (1.0 - rule.ema_beta) * cost)
+    below = streak_new >= rule.patience
+    # convergence freezing (batch == serial)
+    return dict(T=torch.where(done[:, None, None], s["T"], T_new),
+                m1=torch.where(done[:, None], s["m1"], m1n),
+                m2=torch.where(done[:, None], s["m2"], m2n),
+                streak=torch.where(done, s["streak"], streak_new),
+                cost_ema=torch.where(done, s["cost_ema"], cost_new),
+                done=done | below,
+                num_it=torch.where(below & (s["num_it"] == 0), (count + 1).to(dt),
+                                   s["num_it"]))
+
+
+_ORDER = ("T", "m1", "m2", "cost_ema", "streak", "done", "num_it")
+
+
+class _Trip(fixed_trip.Trip):
+    """SGD-ICP's iterations in a fixed trip: inputs (src, tgt, tgt_n,
+    weight), the carry of :data:`_ORDER` (T, the moments and the cost
+    differentiable).  The plan is read at the trip's executed-step counter;
+    the search is the mini-batch's 1-NN, saved as int32 indices beside the
+    cluster tier's certificate gate."""
+
+    n_inputs, n_grad = 4, 4
+
+    def __init__(self, plan: SGDPlan, rule: _Rule, nn_fn, gated: bool):
+        self.plan, self.rule, self.nn_fn, self.gated = plan, rule, nn_fn, gated
+
+    def found(self, inputs):
+        shape, device = self.plan.indices.shape[1:], inputs[0].device
+        return [torch.zeros(shape, dtype=torch.int32, device=device),
+                torch.zeros(shape, dtype=torch.bool, device=device) if self.gated else None]
+
+    def search(self, p):
+        return self.nn_fn(p)
+
+    def step(self, inputs, carry, it, search):
+        new = _advance(dict(zip(_ORDER, carry)), it, self.plan, self.rule, *inputs, search)
+        return tuple(new[name] for name in _ORDER), ()
+
+
 def _solve(src, tgt, tgt_n, weight, T0, plan: SGDPlan, *, icp_type, loss_name, loss_metric,
            trim_dist, differentiable, iterations, optimizer, tolerance, ema_beta, patience,
            nn_method, cluster_group, cluster_probes, cluster_fixup):
-    """The trip: a masked body per iteration while ``count < iterations``
-    and an element is active (every field ``where(flag, new, old)``; where
-    autograd records the loop, the state is rebound instead of
-    overwritten)."""
+    """The trip (:func:`_advance`): a masked body per iteration while
+    ``count < iterations`` and an element is active (every field
+    ``where(flag, new, old)``; where autograd records the loop, the state is
+    rebound instead of overwritten).  A captured solve on which autograd
+    records takes a fixed trip of ``iterations`` steps instead
+    (:mod:`dicp_tpu_torch.fixed_trip`, JAX's ``lax.scan``), each skipped
+    once every element is frozen."""
     dt, device = src.dtype, src.device
     N = src.shape[0]
     if nn_method == "cluster":
         nn_fn = _cluster_nn_fn(tgt, cluster_group, cluster_probes, cluster_fixup)
     else:
         nn_fn = _dense_nn_fn(tgt)
+    rule = _Rule(icp_type, loss_name, loss_metric, trim_dist, differentiable, iterations,
+                 optimizer, tolerance, ema_beta, patience)
 
     # every field owns its storage: the body overwrites it in place
     s = dict(T=T0.clone(),
@@ -289,52 +377,32 @@ def _solve(src, tgt, tgt_n, weight, T0, plan: SGDPlan, *, icp_type, loss_name, l
              cost_ema=torch.full((N,), torch.inf, dtype=dt, device=device),
              done=torch.zeros((N,), dtype=torch.bool, device=device),
              num_it=torch.zeros((N,), dtype=dt, device=device))
-    count = torch.zeros((), dtype=torch.int32, device=device)
-    flag = (count < iterations) & ~torch.all(s["done"])
-    recorded = torch.is_grad_enabled() and any(
-        a.requires_grad for a in (src, tgt, tgt_n, weight, T0))
+    recorded = records((src, tgt, tgt_n, weight, T0))
+    if recorded and capturing(src):
+        # a WHILE node would record one body: the fixed trip records each step
+        trip = _Trip(plan, rule, nn_fn, nn_method == "cluster")
+        fields, _, _ = fixed_trip.run(trip, iterations, (src, tgt, tgt_n, weight),
+                                      tuple(s[name] for name in _ORDER),
+                                      lambda c: ~torch.all(c[_ORDER.index("done")]))
+        s = dict(zip(_ORDER, fields))
+    elif iterations > 0:
+        count = torch.zeros((), dtype=torch.int32, device=device)
+        flag = (count < iterations) & ~torch.all(s["done"])
 
-    def body():
-        at = torch.clamp(count, max=max(iterations - 1, 0)).reshape(1).long()
-        # uniform with replacement, one stream per element and iteration
-        idx = plan.indices.index_select(0, at)[0]
-        sched = None if plan.schedule is None else plan.schedule.index_select(0, at)[0]
-        done = s["done"]
-        H, g, cost = _minibatch_system(
-            s["T"], idx, src, tgt, tgt_n, weight, nn_fn, icp_type=icp_type,
-            loss_name=loss_name, loss_metric=loss_metric, trim_dist=trim_dist,
-            differentiable=differentiable)
-        delta, m1n, m2n = _step_delta(H, g, s["m1"], s["m2"], None, optimizer=optimizer,
-                                      lr=None, lr_decay=None, b1=0.9, b2=0.999, dt=dt,
-                                      sched=sched)
-        T_new = se3.vec2tran(delta) @ s["T"]
-        # `patience` CONSECUTIVE sub-tolerance steps: one step can dip below
-        # by mini-batch luck
-        streak_new = torch.where(torch.linalg.vector_norm(delta.detach(), dim=-1) < tolerance,
-                                 s["streak"] + 1, torch.zeros_like(s["streak"]))
-        cost_new = torch.where(count == 0, cost,
-                               ema_beta * s["cost_ema"] + (1.0 - ema_beta) * cost)
-        below = streak_new >= patience
-        # convergence freezing (batch == serial)
-        new = dict(T=torch.where(done[:, None, None], s["T"], T_new),
-                   m1=torch.where(done[:, None], s["m1"], m1n),
-                   m2=torch.where(done[:, None], s["m2"], m2n),
-                   streak=torch.where(done, s["streak"], streak_new),
-                   cost_ema=torch.where(done, s["cost_ema"], cost_new),
-                   done=done | below,
-                   num_it=torch.where(below & (s["num_it"] == 0), (count + 1).to(dt),
-                                      s["num_it"]))
-        # masked: a body run after the flag fell changes no bit (the host
-        # loop that autograd records runs the body only while the flag holds)
-        for name, val in new.items():
-            if recorded:
-                s[name] = val
-            else:
-                s[name].copy_(torch.where(flag, val, s[name]))
-        count.copy_(torch.where(flag, count + 1, count))
-        flag.copy_((count < iterations) & ~torch.all(s["done"]))
+        def body():
+            new = _advance(s, count, plan, rule, src, tgt, tgt_n, weight, nn_fn)
+            # masked: a body run after the flag fell changes no bit (the host
+            # loop that autograd records runs the body only while the flag holds)
+            for name, val in new.items():
+                if recorded:
+                    s[name] = val
+                else:
+                    s[name].copy_(torch.where(flag, val, s[name]))
+            count.copy_(torch.where(flag, count + 1, count))
+            flag.copy_((count < iterations) & ~torch.all(s["done"]))
 
-    if iterations > 0:
+        # uncaptured, or captured with nothing recorded: a WHILE node whose
+        # body overwrites the state (the recorded host loop rebinds it instead)
         device_while(flag, body)
     num_it = torch.where(s["num_it"] == 0, float(iterations), s["num_it"])
     return s["T"], num_it, s["done"], s["cost_ema"]

@@ -13,7 +13,10 @@ them (JAX's ``lax.scan``); ``False`` is an early-exit loop (JAX's
 ``lax.while_loop``): a body over a state held in tensors, masked by its flag,
 run by :func:`jit.device_while`.  :func:`_svd_icp_impl` is, as in JAX, the
 compiled program: on the card a captured CUDA graph (the early exit a WHILE
-node), eagerly on the CPU or where an input requires grad.  Converged
+node; with an input that requires grad a program pair, whose backward
+``.backward()`` replays), eagerly on the CPU.  Under a capture on which
+autograd records, ``differentiable=False`` raises, as ``jax.grad`` refuses
+JAX's while loop: pass ``differentiable=True``.  Converged
 elements stay frozen, so a batch equals its elements solved one by one.  The
 convergence test is the reference's: the sum of squared residuals to the
 current correspondences below ``tolerance``.
@@ -28,7 +31,7 @@ import torch
 
 from dicp_tpu_torch import knn, se3
 from dicp_tpu_torch.api import _as_tensor, _resolve_device
-from dicp_tpu_torch.jit import device_while, jit
+from dicp_tpu_torch.jit import capturing, device_while, jit, records
 
 
 class SVDICPResult(NamedTuple):
@@ -210,9 +213,16 @@ def _svd_icp_impl(source, target, T_init, weight, max_iterations, tolerance, tri
     converged = torch.zeros((N,), dtype=torch.bool, device=device)
     iters = torch.zeros((N,), dtype=torch.int32, device=device)
     if differentiable:
+        # unrolled in Python: a capture records every step, as JAX's scan does
         for it in range(max_iterations):
             C, r, converged, iters = step(C, r, converged, iters, it)
     else:
+        if capturing(source) and records((source, target, T_init, weight)):
+            # a WHILE node would record one body; JAX refuses jax.grad through
+            # this lax.while_loop
+            raise ValueError("pt2pt_svd_icp(differentiable=False) runs an early-exit loop "
+                             "that a captured program cannot differentiate: pass "
+                             "differentiable=True for gradients")
         # the state owns its storage: the body overwrites it in place
         state = (C.clone(), r.clone(), converged, iters)
         it = torch.zeros((), dtype=torch.int32, device=device)
@@ -226,6 +236,7 @@ def _svd_icp_impl(source, target, T_init, weight, max_iterations, tolerance, tri
             it.copy_(torch.where(flag, it + 1, it))
             flag.copy_((it < max_iterations) & ~torch.all(state[2]))
 
+        # captured, autograd records nothing here (checked above): one WHILE node
         device_while(flag, body)
         C, r, converged, iters = state
 
