@@ -134,7 +134,8 @@ Phases, each raising on failure (the script then exits non-zero):
     fetched), final-pose error and ATE against the exact truth, iterations
     and K2 launches per scan; gates: every scan converged, ATE < 1e-3 (gn),
     < 5e-3 (sgd), < max(5 x gn's, 2e-3) (quantized), four same-seed sgd
-    runs bit-equal, K2 on every gn scan and never on the sgd path.  K2
+    runs bit-equal, K2 on every gn scan and never on the sgd path, whose
+    mini-batches D2 draws on the card from JAX's per-scan keys.  K2
     against its plain version bit for bit on the first and last K2 call of
     the gn stream, whose targets hold groups of the map's sentinel rows (a
     gate).  A mature map built by map_step: at most 65,536 occupied rows,
@@ -261,15 +262,24 @@ Phases, each raising on failure (the script then exits non-zero):
     an empty cache captures once and replays for the second pass);
     register_gicp_jit at exp_gicp's batch with a 3-column target (normals
     inside the program) and with normals given; register_sgd_jit at
-    exp_sgd's two rows (the mini-batch plan drawn on the host before each
-    call, its time printed); each step of phase 18's SGD stream through the
-    captured map_step(solver="sgd"), four captured streams bit-equal to the
-    eager one with phase 18's gates (ATE < 5e-3, no K2); K2 held to its
-    plain version on the captured odometry call; then eager against
-    captured in turns (refine_robust also as a one-shot captured call from
-    an empty cache), the host draw's share of each captured SGD call, and
-    the SGD stream's frames/s.
-26. (run after 25) the Gumbel solve on JAX's threefry streams and
+    exp_sgd's two rows with an int seed (D2 draws the mini-batches inside
+    the program; the host's part of a captured call and of its key work
+    printed) and at the 20k row with an explicit SeededSampler(0) (its
+    plan's indices drawn before each call; no D2 launch); each step of
+    phase 18's SGD stream through the captured
+    map_step(solver="sgd"), four captured streams bit-equal to the eager
+    one with phase 18's gates (ATE < 5e-3, no K2); one 'adam' and one 'sgd'
+    step on the card bit-equal to the CPU's f32 step on the same plan; K2
+    held to its plain version on the captured odometry call; then eager
+    against captured in turns (refine_robust also as a one-shot captured
+    call from an empty cache), the host's share of each captured SGD call,
+    and the SGD stream's frames/s.
+26. (run after 25) D2 (csrc/threefry.cu's randint) against its plain
+    version bit for bit at a device iteration (exp_sgd's (1, 1024) and
+    (1, 2048) rows, an (8, 512) batch, n = 2**31 - 1, a ragged shape, a
+    span of 1), timed call by call and back to back through its wrapper
+    and inside a CUDA graph of 100 launches, beside its plain version and
+    its bound; the Gumbel solve on JAX's threefry streams and
     parallel/'s programs captured, each against its eager form as phase 24
     holds its cases (collectives counted beside the kernels'
     launches): register_jit(use_gumbel=True) at phase 15's headline (a new
@@ -313,14 +323,16 @@ Phases, each raising on failure (the script then exits non-zero):
     (K4), register_jit(differentiable=True) at phase 3's and phase 4's
     shapes (K1), ICP.icp, register_gicp_jit(differentiable=True) at
     exp_gicp's row, register_sgd_jit(differentiable=True) at exp_sgd's
-    20k row, the Gumbel headline's unrolled gradient into source and
+    20k row (D2 twice per executed step), the Gumbel headline's unrolled
+    gradient into source and
     target (D1 twice per executed step) and the cluster tier at phase 8's
     pair (K2), each held bit for bit to the same call under disable_jit()
     in every output, the loss and every gradient (the Gumbel target
     gradient within 1e-5 of its largest entry): the first call, fresh
     inputs, two forwards with their backwards in reverse order, and a
     retained second backward, every replay under the sync debug mode's
-    "error".  Then GICP's, SGD-ICP's and the cluster tier's fixed trips
+    "error".  Then GICP's, SGD-ICP's (on a key, and on SeededSampler(0)'s
+    drawn plan with no D2 launch) and the cluster tier's fixed trips
     inside one program held to the host loop as phase 24 holds its cases
     (K2 held to its plain version on the host loop's first and last
     launch; the cluster solve's certified share); eager against captured in turns,
@@ -367,7 +379,10 @@ call (phase 21); K1-K4's entries hold their launches per suite row and
 example (phase 22); D1's entry (threefry_uniform, replacing XLA's threefry
 inside jax.random.uniform: no Pallas kernel) its launches in phases 26 and
 27, its bound the larger of its instructions at the issue rate and the
-bytes it writes.  The last line is
+bytes it writes; D2's entry (threefry_randint, replacing XLA's threefry
+inside jax.random.randint) its launches on the SGD paths of phases 18, 22,
+25 and 28, its bound the larger of its instructions at the INT32 rate and
+the int64 draws it writes.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
     python3 chip_smoke.py --ab DIR
@@ -434,7 +449,7 @@ from torch.utils import _pytree as pytree
 
 from dicp_tpu_torch import ICP, ICPConfig, anderson, bench, io, jit, knn, mapping, pipeline
 from dicp_tpu_torch import pt2pt_svd_icp, register, register_anderson, register_ift
-from dicp_tpu_torch import register_ift_jit, register_jit, se3, slam, svd_icp
+from dicp_tpu_torch import register_ift_jit, register_jit, se3, sgd_icp, slam, svd_icp
 from dicp_tpu_torch.benchmarks import bench_suite, exp_gicp, exp_knn, exp_multiscale, exp_sgd
 from dicp_tpu_torch.examples import large_cloud_demo, odometry_demo, serving_demo, slam_demo
 from dicp_tpu_torch.convert import to_torch
@@ -756,6 +771,7 @@ def _reset_launches() -> None:
     exp_knn.nn_v1.launches = 0
     exp_knn.nn_v2.launches = 0
     knn.threefry_launches = 0
+    knn.randint_launches = 0
 
 
 def _launches() -> dict:
@@ -765,7 +781,8 @@ def _launches() -> dict:
             "cluster_search": cluster_search.fused_search.launches,
             "cluster_block_search": cluster_search.block_search.launches,
             "cluster_topk": cluster_search.fused_topk.launches,
-            "threefry_uniform": knn.threefry_launches}
+            "threefry_uniform": knn.threefry_launches,
+            "threefry_randint": knn.randint_launches}
     return {name: n + launch_counts.read(name) for name, n in host.items()}
 
 
@@ -2259,11 +2276,12 @@ def phase18_scan_to_map(device):
     """Scan-to-map odometry at the JAX suite's deployment, through
     bench_suite's host loop (its scan_to_map_60k, _sgd and _sgd_sub rows);
     returns K2's launches per stream, K2's largest |difference| on the
-    path's own calls and a short gn stream for phase 16's profile."""
+    path's own calls, D2's launches per stream and a short gn stream for
+    phase 16's profile."""
     t_phase = time.perf_counter()
     seq = bench_suite.scan_to_map_sequence()
     scans, poses_true, step = seq
-    launches, recorded = {}, {}
+    launches, d2, recorded = {}, {}, {}
 
     @contextlib.contextmanager
     def first_run(label):
@@ -2273,7 +2291,8 @@ def phase18_scan_to_map(device):
               if label == "scan_to_map_60k" else contextlib.nullcontext()):
             yield
         torch.cuda.synchronize()
-        launches[label] = _launches()["cluster_search"]
+        counts = _launches()
+        launches[label], d2[label] = counts["cluster_search"], counts["threefry_randint"]
 
     out = bench_suite.scan_to_map_host_loop(device, seq=seq, first_run=first_run)
     # the quantized stream's bar: tests/test_mapping.py:146's
@@ -2282,7 +2301,7 @@ def phase18_scan_to_map(device):
     out.update(bench_suite.scan_to_map_host_loop(device, variants=quantized, seq=seq,
                                                  first_run=first_run, emit=False))
     for label, o in out.items():
-        res, k2 = o["first"], launches[label]
+        res, k2, draws = o["first"], launches[label], d2[label]
         its = res.iterations[1:].double()
         print(f"  stream {label}: {S_S2M / statistics.median(o['ms']) * 1e3:.3f} frames/s "
               f"(median of {len(o['ms'])} after one run; runs "
@@ -2290,9 +2309,12 @@ def phase18_scan_to_map(device):
               f"{o['final_pose_err']:.3e}, ATE (align=False) {o['ate']:.3e}, "
               f"{int(res.converged.sum())}/{S_S2M} converged, iterations per scan "
               f"{float(its.mean()):.3f} (min {float(its.min()):.0f}, max "
-              f"{float(its.max()):.0f}), K2 {k2 / (S_S2M - 1):.3f} launches per scan")
+              f"{float(its.max()):.0f}), K2 {k2 / (S_S2M - 1):.3f} launches per scan, D2 "
+              f"{draws / (S_S2M - 1):.3f}")
         if "sgd" in label:
             _check(k2 == 0, f"{label}: the SGD mini-batch search runs no kernel ({k2})")
+            _check(draws > 0, f"{label}: the mini-batches are drawn on the card by D2 "
+                   f"({draws} launches)")
             same = all(torch.equal(r.poses, res.poses) for r in o["runs"])
             print(f"  {label}: four runs with one seed give equal poses, bit for bit: {same}")
             _check(same, f"{label}: two runs with one seed give the same poses")
@@ -2337,9 +2359,9 @@ def phase18_scan_to_map(device):
     _check(n_occ <= CAP_S2M, "the map holds at most its capacity")
     _check(beyond, "the map's empty rows sit beyond its occupied bounding box")
     print(f"phase 18 ok: {S_S2M} scans of {N_S2M} points against a {CAP_S2M}-row map, K2 "
-          f"launches {launches}, {time.perf_counter() - t_phase:.1f} s")
+          f"launches {launches}, D2 launches {d2}, {time.perf_counter() - t_phase:.1f} s")
     profile_seq = (scans[:PROFILE_S2M_SCANS], poses_true[:PROFILE_S2M_SCANS], step)
-    return launches, k2_err, lambda: bench_suite.scan_to_map_host_loop(
+    return launches, d2, k2_err, lambda: bench_suite.scan_to_map_host_loop(
         device, variants=(("gn", {}, bench_suite.TOL_ATE_GN),), seq=profile_seq, reps=0,
         emit=False)
 
@@ -3711,16 +3733,53 @@ def _fresh_rows(x: torch.Tensor, seed: int, scale: float = 1e-3) -> torch.Tensor
     return torch.where(real, _fresh(x, seed, scale), x)
 
 
-def _host_ms(call, reps: int = 5) -> float:
-    """Median host ms of ``call()`` to the card's end."""
+def _host_ms(call, reps: int = 5, wait: bool = True) -> float:
+    """Median host ms of ``call()`` from an idle card to the card's end (or,
+    ``wait=False``, to the call's return: the host's part of the call)."""
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         call()
-        torch.cuda.synchronize()
+        if wait:
+            torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
+
+
+def _key_host_ms(call, key_work) -> dict:
+    """The host's part of a captured SGD call with a key (the bind, the
+    key's element keys made by fills, the input copies, the replay and the
+    output clones enqueued) and of its key work alone, median ms."""
+    return {"call": _host_ms(call, wait=False), "key": _host_ms(key_work, wait=False)}
+
+
+def _sgd_steps_card_equal_cpu(device) -> None:
+    """One 'adam' and one 'sgd' update (sgd_icp._step_delta) on the card
+    equal the CPU's f32 step bit for bit, on the same plan's schedule rows
+    and the same inputs (H, g and the moments of 8 elements): the rules
+    divide by the schedule's tensors, a true division on both devices."""
+    gen = torch.Generator().manual_seed(SEED + 25)
+    A = torch.randn((8, 6, 6), generator=gen)
+    H = A @ A.transpose(-1, -2) + 0.1 * torch.eye(6)
+    g, m1 = torch.randn((8, 6), generator=gen), torch.randn((8, 6), generator=gen)
+    m2 = torch.rand((8, 6), generator=gen) + 0.1
+    for optimizer, lr in (("adam", 0.05), ("sgd", 0.3)):
+        kw = dict(iterations=40, minibatch=1024, optimizer=optimizer, lr=lr, lr_decay=0.02)
+        plans = {dev: plan_solve(0, 8, 20_000, dev, torch.float32, **kw)
+                 for dev in (device, torch.device("cpu"))}
+        for it in (0, 7, 39):
+            steps = {dev: sgd_icp._step_delta(
+                H.to(dev), g.to(dev), m1.to(dev), m2.to(dev), None, optimizer=optimizer,
+                lr=None, lr_decay=None, b1=0.9, b2=0.999, dt=torch.float32,
+                sched=plan.schedule[it]) for dev, plan in plans.items()}
+            card, cpu = steps[device], steps[torch.device("cpu")]
+            _check(all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)),
+                   f"the '{optimizer}' step at iteration {it} on the card equals the CPU's f32 "
+                   f"step bit for bit")
+    print("  the 'adam' and 'sgd' steps (iterations 0, 7, 39; 8 elements) on the card equal "
+          "the CPU's f32 steps bit for bit on the same plan's schedule and inputs")
 
 
 def _one_shot_turns(label: str, eager_call, one_shot_call, turns: int = 2) -> dict:
@@ -3837,9 +3896,10 @@ def _gicp_cases(device) -> dict:
 
 
 def _sgd_cases(device) -> tuple:
-    """register_sgd_jit at exp_sgd's rows; returns the calls and the host
-    draw ms per call."""
-    calls, draws = {}, {}
+    """register_sgd_jit at exp_sgd's rows with an int seed (its mini-batches
+    drawn inside the program by D2); returns the calls and the host ms of
+    each captured call and of its key work."""
+    calls, hosts = {}, {}
     for size, n, k, iters in exp_sgd.SIZES:
         S, Tg, Ti, T_np = exp_sgd.inputs(n, device)
         S2 = _fresh(S, 253)
@@ -3854,18 +3914,46 @@ def _sgd_cases(device) -> tuple:
         res = register_sgd_jit(S, Tg, Ti, 0, **kw)
         err = float(_log_err(np.linalg.inv(T_np), res.T).max())
         _check(err < exp_sgd.TOL_SGD, f"{label}: transform error {err} < {exp_sgd.TOL_SGD}")
-        draws[label] = _host_ms(lambda: plan_solve(0, 1, n, device, torch.float32,
-                                                   iterations=iters, minibatch=k))
+        hosts[label] = _key_host_ms(lambda: register_sgd_jit(S, Tg, Ti, 0, **kw),
+                                    lambda: knn.element_keys(0, 1, device))
         print(f"  {label}: transform error {err:.3e}, iterations "
-              f"{float(res.iterations[0]):.0f}; the host draw of its plan ({iters} x 1 "
-              f"streams of {k}) {draws[label]:.3f} ms per call")
-    return calls, draws
+              f"{float(res.iterations[0]):.0f}; no host draw: the host's part of a captured "
+              f"call with a key {hosts[label]['call']:.3f} ms, its key's element keys "
+              f"{hosts[label]['key']:.3f} ms (median of 5, from an idle card to the return)")
+    _sgd_source_case(device)
+    return calls, hosts
+
+
+def _sgd_source_case(device) -> None:
+    """register_sgd_jit at exp_sgd's 20k row with an explicit source
+    (SeededSampler(0)): its plan's indices drawn on the host's request
+    before each call and read by the WHILE body at the device counter;
+    held to eager, also on fresh inputs, and drawing nothing by D2."""
+    size, n, k, iters = exp_sgd.SIZES[0]
+    S, Tg, Ti, _ = exp_sgd.inputs(n, device)
+    S2 = _fresh(S, 254)
+    kw = dict(minibatch=k, iterations=iters, tolerance=1e-6)
+    source = SeededSampler(0)
+    label = f"register_sgd_jit, exp_sgd's {size} row, an explicit SeededSampler(0)"
+    before = _launches()["threefry_randint"]
+    _captured_equals_eager(label, functools.partial(register_sgd, S, Tg, Ti, source, **kw),
+                           functools.partial(register_sgd_jit, S, Tg, Ti, source, **kw),
+                           register_sgd_jit,
+                           (functools.partial(register_sgd, S2, Tg, Ti, source, **kw),
+                            functools.partial(register_sgd_jit, S2, Tg, Ti, source, **kw)))
+    d2 = _launches()["threefry_randint"] - before
+    _check(d2 == 0, f"{label}: an explicit source launches no threefry_randint ({d2})")
+    host = _host_ms(lambda: register_sgd_jit(S, Tg, Ti, source, **kw), wait=False)
+    print(f"  {label}: threefry_randint launches 0; the host's part of a captured call "
+          f"(its plan of {iters} x 1 streams of {k} drawn before the replay) {host:.3f} ms "
+          f"(median of 5, from an idle card to the return)")
+    register_sgd_jit.cache_clear()
 
 
 def _sgd_stream_cases(device) -> tuple:
     """Each step of phase 18's SGD stream through the captured map_step; the
     captured stream's gates; returns the calls, the stream's runs and the
-    host draw ms per step."""
+    host ms of a captured step and of its key work."""
     scans, poses_true, _ = bench_suite.scan_to_map_sequence()
     truth = torch.as_tensor(poses_true, dtype=torch.float64)
     skw = bench_suite.S2M_SGD
@@ -3897,14 +3985,16 @@ def _sgd_stream_cases(device) -> tuple:
     _captured_equals_eager(f"map_step sgd, {label}, step 6", *call, map_step,
                            (_eager(lambda: map_step(*args2, **kw2)),
                             lambda: map_step(*args2, **kw2)))
-    draw = _host_ms(lambda: plan_solve(SeededSampler(0).fold_in(6), 1, N_S2M, device,
-                                       torch.float32, iterations=skw["sgd_iterations"],
-                                       minibatch=skw["sgd_minibatch"]))
-    print(f"  {label}: the host draw of a step's plan ({skw['sgd_iterations']} streams of "
-          f"{skw['sgd_minibatch']}) {draw:.3f} ms per step")
+    _check(isinstance(kw["key"], np.ndarray) and kw["key"].shape == (2,),
+           f"{label}: map_step takes scan 6's key data ({kw['key']!r})")
+    host = _key_host_ms(lambda: map_step(*args, **kw),
+                        lambda: knn.element_keys(mapping._scan_keys(0)(6), 1, device))
+    print(f"  {label}: no host draw: the host's part of a captured step with a key "
+          f"{host['call']:.3f} ms, its key work (fold_in(key(0), 6) and the element keys) "
+          f"{host['key']:.3f} ms (median of 5, from an idle card to the return)")
     map_step.cache_clear()
     return ({f"{label}: map_step, step 6": call},
-            {"eager": _eager(stream), "captured": stream}, draw)
+            {"eager": _eager(stream), "captured": stream}, host)
 
 
 def phase25_captured_backend(device, host, slam_case) -> dict:
@@ -3918,9 +4008,12 @@ def phase25_captured_backend(device, host, slam_case) -> dict:
     odo_calls, rec = _odometry_cases(device, host)
     pg_calls = _pose_graph_cases(device, slam_case)
     gicp_calls = _gicp_cases(device)
-    sgd_calls, draws = _sgd_cases(device)
-    s2m_calls, s2m_runs, step_draw = _sgd_stream_cases(device)
+    sgd_calls, hosts = _sgd_cases(device)
+    s2m_calls, s2m_runs, step_host = _sgd_stream_cases(device)
     launches = _launches()
+    _check(launches["threefry_randint"] > 0,
+           f"the SGD programs draw on the card by D2 ({launches['threefry_randint']})")
+    _sgd_steps_card_equal_cpu(device)
     k2_err = _held_to_plain("cluster_search", rec, pads=(None, "at the origin"))
 
     # eager against captured, in turns (fewer calls a visit where eager takes
@@ -3936,10 +4029,10 @@ def phase25_captured_backend(device, host, slam_case) -> dict:
     for label, (eager_call, jitted_call) in {**gicp_calls, **sgd_calls, **s2m_calls}.items():
         med = _alternated(label, eager_call, jitted_call, rounds=2,
                           iters=5 if label in light else TURN_ITERS_HEAVY)
-        draw = draws.get(label, step_draw if "map_step" in label else None)
-        if draw is not None:
-            print(f"    host draw {draw:.3f} ms = {draw / med['captured']:.3f} of the captured "
-                  f"call")
+        host = hosts.get(label, step_host if "map_step" in label else None)
+        if host is not None:
+            print(f"    the host's part {host['call']:.3f} ms = "
+                  f"{host['call'] / med['captured']:.3f} of the captured call (no host draw)")
     _stream_turns(f"scan-to-map sgd stream, {S_S2M} scans", s2m_runs, S_S2M, warm=False)
     for info in jit.programs():
         print(f"  cached program {info.name}: {info.pool_bytes / 2**20:.1f} MiB of private "
@@ -3990,6 +4083,109 @@ def _draws_card_equal_cpu(device) -> None:
     print("  threefry draws on the card equal the CPU's bit for bit (f32, f64; (256, 65, 65) "
           "at a device counter, (8, 512, 1365) with a chunk folded in, one stream over "
           "(3, 1000, 17))")
+
+
+# D2's instructions per sample (csrc/threefry.cu): two threefry blocks of D1's
+# 72 (2 adds, 20 rounds of add, funnel-shift rotate and xor, 5 key injections
+# of 2 adds), three u64 remainders counted at 20 integer instructions each (an
+# estimate of the multiply-by-reciprocal sequence), and 6 to assemble the two
+# 64-bit words and combine the remainders
+D2_OPS = 2 * 72 + 3 * 20 + 6
+# INT32 instructions per s: 132 SMs x 64 INT32 lanes x 1.98 GHz
+INT32_RATE = 132 * 64 * 1.98e9
+
+
+def _d2_bound(samples: int) -> dict:
+    """D2's bound: its instructions at the INT32 issue rate, or its int64
+    output written."""
+    t_ops = D2_OPS * samples / INT32_RATE * 1e3
+    t_bytes = samples * 8 / HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _d2_against_plain(device) -> dict:
+    """D2 (knn.threefry_randint) against its plain version on the card, bit
+    for bit, at a device iteration: exp_sgd's two rows ((1, 1024) at n =
+    20,000, (1, 2048) at n = 100,000), an (8, 512) batch, n = 2**31 - 1 at an
+    iteration past int32, a ragged (3, 1000) at n = 65,537 and a span of 1;
+    then timed at exp_sgd's 100k row, call by call and back to back, beside
+    the plain version and the bound.  Returns the kernels line's entry."""
+    cases = (("exp_sgd's 20k row (1, 1024), n = 20,000", 1, 1024, 20_000, 3),
+             ("exp_sgd's 100k row (1, 2048), n = 100,000", 1, 2048, 100_000, 39),
+             ("an (8, 512) batch, n = 60,000", 8, 512, 60_000, 0),
+             ("(8, 512), n = 2**31 - 1, iteration 2**31 + 5", 8, 512, 2**31 - 1, 2**31 + 5),
+             ("a ragged (3, 1000), n = 65,537", 3, 1000, 65_537, 17),
+             ("(2, 300), n = 1", 2, 300, 1, 4))
+    for label, rows, k, n, it in cases:
+        keys = knn.element_keys(SEED + 26, rows, device)
+        k1, k2 = keys[:, 0].contiguous(), keys[:, 1].contiguous()
+        it_t = torch.full((), knn._i32(it), dtype=torch.int32, device=device)
+        got = knn.threefry_randint(k1, k2, it_t, k, n)
+        want = knn.threefry_randint_plain(k1, k2, it_t, k, n)
+        _check(got.dtype == torch.int64 and torch.equal(got, want),
+               f"D2 bit-equal to its plain version: {label}")
+        _check(bool((got >= 0).all()) and bool((got < max(n, 1)).all()),
+               f"D2's draws lie in [0, {n}): {label}")
+    print(f"  D2 == plain bit for bit at a device iteration: {'; '.join(c[0] for c in cases)}")
+    label, rows, k, n, it = cases[1]
+    keys = knn.element_keys(SEED + 26, rows, device)
+    k1, k2 = keys[:, 0].contiguous(), keys[:, 1].contiguous()
+    it_t = torch.full((), it, dtype=torch.int32, device=device)
+    call = lambda: knn.threefry_randint(k1, k2, it_t, k, n)  # noqa: E731
+    plain = lambda: knn.threefry_randint_plain(k1, k2, it_t, k, n)  # noqa: E731
+    ms, chain = cuda_median_ms(call, warmup=3, iters=20), _chain_ms(call)
+    plain_ms = cuda_median_ms(plain, warmup=1, iters=5)
+    out = torch.empty((rows, k), dtype=torch.int64, device=device)
+
+    def launch():
+        err = knn._randint_kernel()(k1.data_ptr(), k2.data_ptr(), rows, it_t.data_ptr(), k, n,
+                                    out.data_ptr(), device.index,
+                                    torch.cuda.current_stream(device).cuda_stream)
+        _check(err == 0, f"D2's launcher returned CUDA error {err}")
+
+    graph = _graph_launch_ms(launch)
+    _check(torch.equal(out, call()), "D2's graph launches wrote its draws")
+    bound = _d2_bound(rows * k)
+    print(f"  D2 at {label}: {ms:.4f} ms call by call, {chain:.4f} ms back to back (both "
+          f"through the wrapper: host-bound), {graph:.5f} ms a launch in a CUDA graph of "
+          f"{GRAPH_LAUNCHES} launches (device time); plain {plain_ms:.4f} ms; bound "
+          f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}; {D2_OPS} instructions per sample "
+          f"at {INT32_RATE:.4g}/s, {rows * k * 8} bytes at {HBM_BYTES:.4g} B/s); library: none "
+          f"(torch.randint is Philox, another function)")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None,
+            "ms_back_to_back": chain, "ms_in_graph": graph}
+
+
+GRAPH_LAUNCHES = 100
+
+
+def _graph_launch_ms(launch, rounds: int = 7) -> float:
+    """Device ms per launch of ``launch()`` (a raw launcher on the current
+    stream): GRAPH_LAUNCHES launches captured in one CUDA graph, replayed
+    between two CUDA events, median of ``rounds`` (no host launch cost)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / GRAPH_LAUNCHES)
+    del graph
+    return statistics.median(times)
 
 
 def _gumbel_cases(device, head_inputs, sources, targets) -> tuple:
@@ -4226,6 +4422,7 @@ def phase26_captured_gumbel_parallel(device, head_inputs, sources, targets, pair
     Returns the phase's launches and K2's largest |difference| to its plain
     version on the map-sharded call."""
     t_phase = time.perf_counter()
+    d2 = _d2_against_plain(device)
     _reset_launches()
     g_calls, draw_ms, eager_draw_ms, iters = _gumbel_cases(device, head_inputs, sources,
                                                            targets)
@@ -4254,7 +4451,7 @@ def phase26_captured_gumbel_parallel(device, head_inputs, sources, targets, pair
           f"forms bit for bit, no host wait in a replay, kernel launches as eager (collectives: "
           f"map_sharded_fn's fixed trip max_iterations + 1 per replay, the pose graph's as "
           f"eager); launches {launches}; {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "k2_err": k2_err}
+    return {"launches": launches, "k2_err": k2_err, "d2": d2}
 
 
 # --- phase 27: the unrolled gradient captured, and the draw kernel D1 ---------
@@ -4514,6 +4711,13 @@ class _BackwardCase(NamedTuple):
     heavy: bool = False
 
 
+def _recomputed_draws(want: dict) -> dict:
+    """What a fixed trip's replay launches where the recorded host loop
+    launches ``want``: D2 twice per executed step (the forward and the
+    recomputing backward draw the same bits)."""
+    return {k: 2 * v if k == "threefry_randint" else v for k, v in want.items()}
+
+
 class _TPc(NamedTuple):
     T: torch.Tensor
     pc: torch.Tensor
@@ -4685,8 +4889,9 @@ def _backward_cases(device, head_inputs, sources, targets, pair) -> list:
     skw = dict(minibatch=k, iterations=iters, tolerance=1e-6, differentiable=True)
     cases.append(_BackwardCase(
         f"register_sgd_jit(differentiable=True), exp_sgd's {size} row (k = {k}, {iters} "
-        f"iterations)", register_sgd_jit, lambda s: register_sgd_jit(s, Tg2, Ti2, 0, **skw),
-        (S2,), (_fresh(S2, 285),), heavy=True))
+        f"iterations; D2)", register_sgd_jit,
+        lambda s: register_sgd_jit(s, Tg2, Ti2, 0, **skw), (S2,), (_fresh(S2, 285),),
+        heavy=True, replayed=_recomputed_draws))
     tgt_g = tgt.clone()
     cases.append(_BackwardCase(
         f"register_jit, the Gumbel headline's unrolled gradient at B={B_HEAD} into the "
@@ -4769,7 +4974,9 @@ def _in_program_cases(device, pair, recorded: dict) -> None:
     """The repaired fixed trips inside one program (jit over a function that
     calls torch.autograd.grad) against the uncaptured host loop
     (_captured_equals_eager): GICP at exp_gicp's row, SGD at exp_sgd's 20k
-    row (its plan drawn before the call), and the cluster tier at phase 8's
+    row (its key's element keys made before the call, D2 drawing in the
+    trip's forward and recomputing backward; and an explicit source's plan,
+    its indices drawn ahead and D2 not launched), and the cluster tier at phase 8's
     pair (K2 recorded on the host loop's calls), each then timed against
     eager in turns; prints the certified share of the cluster solve."""
 
@@ -4805,12 +5012,27 @@ def _in_program_cases(device, pair, recorded: dict) -> None:
     label = f"SGD-ICP's fixed trip in one program, exp_sgd's {size} row"
     calls[label] = (lambda: sgd_unit(S2, Tg2, Ti2, plan), lambda: sgd_jit(S2, Tg2, Ti2, plan))
     S2_b = _fresh(S2, 291)
+    _check(plan.keys is not None, f"{label}: an int seed's plan holds element keys")
     _captured_equals_eager(label, *calls[label], sgd_jit,
                            (lambda: sgd_unit(S2_b, Tg2, Ti2, plan),
-                            lambda: sgd_jit(S2_b, Tg2, Ti2, plan)))
+                            lambda: sgd_jit(S2_b, Tg2, Ti2, plan)), replayed=_recomputed_draws)
     steps = float(calls[label][1]()[0].iterations.max())
     print(f"  {label}: frozen at {steps:.0f} of {iters} iterations")
     _alternated(label, *calls[label], rounds=2, iters=1)
+    sgd_jit.cache_clear()
+    # an explicit source's plan: its indices drawn ahead, read by each step
+    drawn = plan_solve(SeededSampler(0), S2.shape[0], n, device, S2.dtype, iterations=iters,
+                       minibatch=k)
+    label = f"SGD-ICP's fixed trip in one program, exp_sgd's {size} row, SeededSampler(0)'s plan"
+    _check(drawn.keys is None and drawn.indices is not None,
+           f"{label}: an explicit source's plan holds its drawn indices")
+    before = _launches()["threefry_randint"]
+    _captured_equals_eager(label, lambda: sgd_unit(S2, Tg2, Ti2, drawn),
+                           lambda: sgd_jit(S2, Tg2, Ti2, drawn), sgd_jit,
+                           (lambda: sgd_unit(S2_b, Tg2, Ti2, drawn),
+                            lambda: sgd_jit(S2_b, Tg2, Ti2, drawn)))
+    d2 = _launches()["threefry_randint"] - before
+    _check(d2 == 0, f"{label}: the drawn-ahead plan launches no threefry_randint ({d2})")
     sgd_jit.cache_clear()
 
     src8, tgt8 = pair
@@ -4914,7 +5136,7 @@ def main() -> None:
     phase15_gumbel(device, sources, targets)
     with tempfile.TemporaryDirectory(prefix="dicp_smoke_scans_") as workdir:
         odo_launches, stream_w1, k2_err, host = phase17_lidar_odometry(device, Path(workdir))
-        s2m_launches, k2_err_s2m, s2m_stream = phase18_scan_to_map(device)
+        s2m_launches, s2m_d2, k2_err_s2m, s2m_stream = phase18_scan_to_map(device)
         pyramid = phase19_gicp_multiscale(device)
         slam_k1, slam_k2, slam_stream, slam_case, slam_scans = phase20_slam(device)
         par = phase21_parallel(device, pair, T_pair, sources, targets, T_true, raw_sources,
@@ -5078,6 +5300,20 @@ def main() -> None:
                     "launches_in_phase26": last["launches"]["threefry_uniform"],
                     "launches_in_phase27": unrolled["launches"]["threefry_uniform"],
                     "launches_in_phase28": backward["launches"]["threefry_uniform"]})
+    d2_launches = {"phase 18 (scan-to-map sgd streams, first runs)": sum(s2m_d2.values()),
+                   "phase 22 (the suite's rows)": suite_launches("threefry_randint")[1],
+                   "phase 25": backend["launches"]["threefry_randint"],
+                   "phase 28": backward["launches"]["threefry_randint"]}
+    _check(all(d2_launches.values()), f"threefry_randint launched on every SGD path "
+           f"({d2_launches})")
+    kernels.append({"name": "threefry_randint", "route": "cuda",
+                    "source": "dicp_tpu_torch/csrc/threefry.cu",
+                    "replaces": "jax.random.randint (XLA threefry2x32; no Pallas kernel)",
+                    "launches": sum(d2_launches.values()), **last["d2"],
+                    "launches_by_phase": d2_launches,
+                    "launches_per_scan_to_map_scan": {
+                        label: k / (S_S2M - 1) for label, k in s2m_d2.items() if k},
+                    "launches_per_suite_row": suite_launches("threefry_randint")[0]})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

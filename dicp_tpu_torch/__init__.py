@@ -18,8 +18,8 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
 * :mod:`dicp_tpu_torch.ift`: :func:`register_ift`, implicit-function-theorem
   gradients through the fixed point, and ``register_ift_jit``, captured like
   ``register_jit``.  ``register_gicp_jit`` and ``register_sgd_jit`` (whose
-  mini-batch indices are drawn on the host before each call) are captured
-  the same way, as are batched ``odometry`` and ``pose_graph_optimize``.
+  mini-batches are drawn inside the program from JAX's PRNG key) are
+  captured the same way, as are batched ``odometry`` and ``pose_graph_optimize``.
 * :mod:`dicp_tpu_torch.anderson`: :func:`register_anderson`, the
   Anderson-accelerated driver, and ``register_anderson_jit``, captured like
   ``register_jit`` (its loop a WHILE node too).
@@ -40,7 +40,8 @@ built with ``nvcc`` at first use on a CUDA tensor; so are the score-form
   preprocessing over the shared ``native/`` runtime).
 * :mod:`dicp_tpu_torch.ops.voxel`: fixed-shape voxel-grid downsampling.
 * :mod:`dicp_tpu_torch.sgd_icp`: :func:`register_sgd`, stochastic
-  mini-batch ICP with an explicit mini-batch source.
+  mini-batch ICP on JAX's PRNG keys (its mini-batches drawn on the device)
+  or an explicit mini-batch source.
 * :mod:`dicp_tpu_torch.mapping`: scan-to-map odometry against a fused voxel
   map (:func:`scan_to_map_odometry`; :func:`map_step` and :func:`map_merge`,
   captured programs on the card, as JAX jits them).

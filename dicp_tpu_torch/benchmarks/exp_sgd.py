@@ -6,8 +6,8 @@ against the full pt2pl :func:`register` (auto tier), both from the same
 precomputed 6-column target (weighted normals), at n = m = 20k (k = 1024)
 and 100k (k = 2048): ms per registration (CUDA events, median of 5 after
 one call) and the transform error of each.  Each row also carries its
-jitted call's times (``jit_*``: :data:`register_sgd_jit`, whose mini-batch
-indices are drawn on the host before each call, and ``register_jit``;
+jitted call's times (``jit_*``: :data:`register_sgd_jit`, which draws its
+mini-batches inside the program from the key, and ``register_jit``;
 captured programs on the card, as JAX's rows time ``jax.jit`` programs); a
 row's value stays the eager call's.  ``DICP_SGD_SMOKE=1`` runs one 2k-point
 size instead.

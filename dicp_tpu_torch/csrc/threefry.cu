@@ -1,5 +1,5 @@
-// D1: JAX's threefry2x32 uniform draws for the Gumbel soft NN on Hopper
-// (sm_90a).
+// D1: JAX's threefry2x32 uniform draws for the Gumbel soft NN, and D2:
+// jax.random.randint's draws for SGD-ICP's mini-batches, on Hopper (sm_90a).
 //
 // Replaces no Pallas kernel: the JAX package draws its Gumbel noise with
 // jax.random.uniform (dicp_tpu/knn.py:98, :124), which XLA lowers to its own
@@ -112,6 +112,55 @@ __global__ void __launch_bounds__(kThreads) threefry_uniform_kernel(
   }
 }
 
+// D2.  Replaces no Pallas kernel: the JAX package draws SGD-ICP's mini-batch
+// with jax.random.randint(fold_in(key, it), (k,), 0, n) (dicp_tpu/sgd_icp.py:
+// 179-180), XLA's threefry2x32 again.  With x64 on it draws int64: for each
+// row r and j < k
+//
+//   key      = fold_in((k1[r], k2[r]), *iteration)   (where given)
+//   hi, lo   = the 64-bit words b1 << 32 | b2 of threefry2x32(fold_in(key, h),
+//              (j >> 32, j mod 2^32)) for h = 0 and 1   (_split, partitionable)
+//   out[r, j] = ((hi mod n) * ((2^32 mod n)^2 mod n) + lo mod n) mod n
+//
+// (jax/_src/random.py::_randint, the span n >= 1).  Every product stays
+// below 2^64 for n <= 2^32.  Grid (ceil(k / 256), rows); threads 0 and 1
+// fold the row's key with the iteration and then with 0 and 1 into shared
+// memory; each thread draws one sample (two blocks and three u64 remainders).
+__global__ void __launch_bounds__(kThreads) threefry_randint_kernel(
+    const int32_t* __restrict__ k1, const int32_t* __restrict__ k2,
+    const int32_t* __restrict__ iteration, long long k, unsigned long long span,
+    long long* __restrict__ out) {
+  __shared__ uint32_t halves[2][2];
+  const int row = blockIdx.y;
+  if (threadIdx.x < 2) {
+    uint32_t a = static_cast<uint32_t>(k1[row]), b = static_cast<uint32_t>(k2[row]);
+    if (iteration != nullptr) {
+      uint32_t x0 = 0, x1 = static_cast<uint32_t>(*iteration);
+      threefry(a, b, x0, x1);
+      a = x0;
+      b = x1;
+    }
+    uint32_t x0 = 0, x1 = threadIdx.x;
+    threefry(a, b, x0, x1);
+    halves[threadIdx.x][0] = x0;
+    halves[threadIdx.x][1] = x1;
+  }
+  __syncthreads();
+  const long long j = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (j >= k) return;
+  unsigned long long mod[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t x0 = static_cast<uint32_t>(static_cast<unsigned long long>(j) >> 32);
+    uint32_t x1 = static_cast<uint32_t>(j);
+    threefry(halves[h][0], halves[h][1], x0, x1);
+    mod[h] = ((static_cast<unsigned long long>(x0) << 32) | x1) % span;
+  }
+  const unsigned long long r32 = (1ull << 32) % span;
+  out[static_cast<long long>(row) * k + j] =
+      static_cast<long long>((mod[0] * (r32 * r32 % span) + mod[1]) % span);
+}
+
 }  // namespace
 
 // out (rows, size) of f32 (f64 != 0: f64); k1, k2 (rows,) int32 key words;
@@ -134,5 +183,23 @@ extern "C" int threefry_uniform_launch(const int32_t* k1, const int32_t* k2, int
   else
     threefry_uniform_kernel<false><<<grid, kThreads, 0, s>>>(k1, k2, iteration, has_chunk,
                                                              chunk, size, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (rows, k) int64 in [0, n) (n <= 0 draws 0); k1, k2 (rows,) int32 key
+// words; iteration a device int32 or null.
+extern "C" int threefry_randint_launch(const int32_t* k1, const int32_t* k2, int rows,
+                                       const int32_t* iteration, long long k, long long n,
+                                       long long* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows == 0 || k == 0) return 0;
+  const long long blocks = (k + kThreads - 1) / kThreads;
+  if (rows < 0 || rows > 65535 || k < 0 || blocks > 2147483647LL || n > (1LL << 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned int>(blocks), rows);
+  const unsigned long long span = n > 0 ? static_cast<unsigned long long>(n) : 1ull;
+  threefry_randint_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      k1, k2, iteration, k, span, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,15 +48,17 @@ import functools
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from dicp_tpu_torch.config import DENSE_MAX_ENTRIES
 from dicp_tpu_torch.jit import records
 from dicp_tpu_torch.ops import _build, launch_counts, tiled_knn
 
-# Launches of the draw kernel D1 (csrc/threefry.cu) that ran at once; a
-# captured launch counts on the card (ops.launch_counts).
+# Launches of the draw kernels D1 and D2 (csrc/threefry.cu) that ran at
+# once; a captured launch counts on the card (ops.launch_counts).
 threefry_launches = 0
+randint_launches = 0
 
 
 def pairwise_sq_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -224,6 +226,25 @@ def _threefry_kernel():
     return fn
 
 
+def _launch_words(name: str, k1, k2, iteration):
+    """The draw kernels' key words (k1, k2) as contiguous int32 rows, their
+    count, and ``iteration`` as the device int32 they read (an int becomes
+    one by a fill: no host copy) or None."""
+    device = k1.device
+    k1 = k1.reshape(-1).to(torch.int32).contiguous()
+    k2 = k2.reshape(-1).to(torch.int32).contiguous()
+    rows = k1.numel()
+    if rows > 65535 or k2.numel() != rows:
+        raise ValueError(f"{name} takes up to 65535 rows of key words, got "
+                         f"{rows} and {k2.numel()}")
+    if iteration is not None:
+        iteration = (iteration.to(torch.int32).reshape(()) if torch.is_tensor(iteration)
+                     else torch.full((), _i32(iteration), dtype=torch.int32, device=device))
+        if iteration.device != device:
+            raise ValueError(f"the iteration lies on {iteration.device}, the keys on {device}")
+    return k1, k2, rows, iteration
+
+
 def _threefry_uniform_cuda(k1, k2, iteration, chunk, block, dtype) -> torch.Tensor:
     global threefry_launches
     device = k1.device
@@ -231,18 +252,7 @@ def _threefry_uniform_cuda(k1, k2, iteration, chunk, block, dtype) -> torch.Tens
     size = math.prod(block)
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"Gumbel noise is drawn in float32 or float64, not {dtype}")
-    k1 = k1.reshape(-1).to(torch.int32).contiguous()
-    k2 = k2.reshape(-1).to(torch.int32).contiguous()
-    rows = k1.numel()
-    if rows > 65535 or k2.numel() != rows:
-        raise ValueError(f"threefry_uniform takes up to 65535 rows of key words, got "
-                         f"{rows} and {k2.numel()}")
-    if iteration is not None:
-        # a device int32 the kernel reads; an int becomes one by a fill (no host copy)
-        iteration = (iteration.to(torch.int32).reshape(()) if torch.is_tensor(iteration)
-                     else torch.full((), _i32(iteration), dtype=torch.int32, device=device))
-        if iteration.device != device:
-            raise ValueError(f"the iteration lies on {iteration.device}, the keys on {device}")
+    k1, k2, rows, iteration = _launch_words("threefry_uniform", k1, k2, iteration)
     out = torch.empty((rows,) + block, dtype=dtype, device=device)
     err = _threefry_kernel()(k1.data_ptr(), k2.data_ptr(), rows,
                              None if iteration is None else iteration.data_ptr(),
@@ -272,25 +282,148 @@ def threefry_uniform(k1: torch.Tensor, k2: torch.Tensor, iteration, chunk,
     raise ValueError(f"threefry draws run on cpu or cuda tensors, got {k1.device}")
 
 
-def _words(key) -> Tuple[int, int]:
-    """The two threefry key words of an int seed (``PRNGKey(seed)``), a
-    ``torch.Generator`` (read once for a seed) or (2,) integer key data (a
-    tensor, or an array as ``jax.random.key_data`` gives it)."""
+# ---- jax.random.randint's draws (D2) ----------------------------------------
+#
+# With x64 on, randint(key, (k,), 0, n) draws int64: _split(key) gives
+# fold_in(key, 0) and fold_in(key, 1) (the partitionable layout), each draws
+# k 64-bit words b1 << 32 | b2 at the counts (0, j), and
+# idx = ((hi mod n) * ((2**32 mod n)**2 mod n) + lo mod n) mod n
+# (jax/_src/random.py::_randint; a span n <= 0 draws 0).
+
+RANDINT_MAX_SPAN = 2**31 - 1
+
+
+def _block_words(k1: int, k2: int, x1: int, x2: int) -> Tuple[int, int]:
+    """:func:`threefry2x32` of one block on Python ints (uint32 words): the
+    host's key arithmetic, free of any device op."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    v0, v1 = (x1 + k1) & _M32, (x2 + k2) & _M32
+    for i in range(5):
+        for rot in _ROTATIONS[i % 2]:
+            v0 = (v0 + v1) & _M32
+            v1 = ((v1 << rot) & _M32 | v1 >> (32 - rot)) ^ v0
+        v0 = (v0 + ks[(i + 1) % 3]) & _M32
+        v1 = (v1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return v0, v1
+
+
+def fold_in_words(k1: int, k2: int, data: int) -> Tuple[int, int]:
+    """:func:`fold_in` on the host: the key words (k1, k2) hashed with
+    ``data`` (taken as uint32)."""
+    return _block_words(int(k1) & _M32, int(k2) & _M32, 0, int(data) & _M32)
+
+
+def _span(n: int) -> int:
+    n = int(n)
+    if n > RANDINT_MAX_SPAN:
+        raise ValueError(f"threefry_randint draws from spans below 2**31, got {n}")
+    return max(n, 1)
+
+
+def threefry_randint_plain(k1: torch.Tensor, k2: torch.Tensor, iteration, k: int,
+                           n: int) -> torch.Tensor:
+    """The plain version of the draw kernel D2 (:func:`threefry_randint`):
+    int32 elementwise passes on any device, int64 for the modulus (values
+    below 2**62: every factor is below 2**31)."""
+    span = _span(n)
+    if iteration is not None:
+        k1, k2 = fold_in(k1, k2, iteration)
+    k1, k2 = k1.reshape(-1, 1), k2.reshape(-1, 1)
+    count = torch.arange(int(k), dtype=torch.int32, device=k1.device)
+    r32 = 2**32 % span
+    mods = []
+    for half in (0, 1):      # the high 64 bits, then the low
+        b1, b2 = threefry2x32(*fold_in(k1, k2, half), 0, count)
+        w1, w2 = b1.to(torch.int64) & _M32, b2.to(torch.int64) & _M32
+        mods.append((w1 % span * r32 + w2) % span)
+    return (mods[0] * (r32 * r32 % span) + mods[1]) % span
+
+
+@functools.lru_cache(maxsize=None)
+def _randint_kernel():
+    fn = _build.load("threefry").threefry_randint_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _threefry_randint_cuda(k1, k2, iteration, k, n) -> torch.Tensor:
+    global randint_launches
+    device = k1.device
+    span = _span(n)
+    k1, k2, rows, iteration = _launch_words("threefry_randint", k1, k2, iteration)
+    out = torch.empty((rows, int(k)), dtype=torch.int64, device=device)
+    err = _randint_kernel()(k1.data_ptr(), k2.data_ptr(), rows,
+                            None if iteration is None else iteration.data_ptr(), int(k), span,
+                            out.data_ptr(), device.index,
+                            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"threefry_randint kernel launch failed: CUDA error {err}")
+    randint_launches += launch_counts.count("threefry_randint", device)
+    return out
+
+
+def threefry_randint(k1: torch.Tensor, k2: torch.Tensor, iteration, k: int,
+                     n: int) -> torch.Tensor:
+    """(rows, k) int64 draws in [0, n): row r is ``jax.random.randint(
+    fold_in(key_r, iteration), (k,), 0, n)`` with x64 on, for the key words
+    (k1[r], k2[r]) (int32 tensors of R elements, uint32 bit patterns) and
+    ``iteration`` (None: no fold; an int, or a 0-dim int32 tensor read on
+    the device).  ``n`` below 2**31; n <= 0 draws 0, as JAX does.  A CUDA
+    tensor launches the kernel D2 (``csrc/threefry.cu``) or raises; a CPU
+    tensor takes :func:`threefry_randint_plain`."""
+    if k1.device.type == "cpu":
+        return threefry_randint_plain(k1, k2, iteration, k, n)
+    if k1.device.type == "cuda":
+        return _threefry_randint_cuda(k1, k2, iteration, k, n)
+    raise ValueError(f"threefry draws run on cpu or cuda tensors, got {k1.device}")
+
+
+# ---- JAX's key forms ---------------------------------------------------------
+#
+# The one resolver of what a key given to the port means: an int seed is
+# jax.random.PRNGKey(seed), a torch.Generator is read once for such a seed,
+# (2,) integer key data (jax.random.key_data(k), or a tensor) is one key;
+# for a batch, (N, 2) key data is N keys and a sequence of N single keys one
+# each.  Gumbel's noise (ThreefryNoise, split) and SGD-ICP's element keys
+# (element_keys) read keys only through these functions.
+
+def _key_array(key):
+    """Integer key data given on the host (a tensor or an array) as a numpy
+    array; None for anything else."""
+    if torch.is_tensor(key) or hasattr(key, "__array__"):
+        arr = np.asarray(key.cpu() if torch.is_tensor(key) else key)
+        if arr.dtype.kind in "ui":
+            return arr
+    return None
+
+
+def _host_words(key) -> Optional[Tuple[int, int]]:
+    """The two threefry key words of one key given on the host: an int seed
+    (``PRNGKey(seed)``), a ``torch.Generator`` (read once for a seed) or
+    (2,) integer key data; None for anything else."""
+    if isinstance(key, bool):
+        return None
     if isinstance(key, torch.Generator):
         key = int(torch.randint(0, 2**62, (1,), generator=key, device=key.device))
-    if isinstance(key, int) and not isinstance(key, bool):
+    if isinstance(key, int):
         return seed_words(key)
-    if torch.is_tensor(key):
-        key = key.to("cpu", torch.int64).numpy() & _M32
-    if hasattr(key, "__array__"):
-        import numpy as np
+    arr = _key_array(key)
+    if arr is not None and arr.shape == (2,):
+        return tuple(int(w) & _M32 for w in arr.tolist())
+    return None
 
-        arr = np.asarray(key)
-        if arr.shape == (2,) and arr.dtype.kind in "ui":
-            return tuple(int(w) & _M32 for w in arr.tolist())
-    raise TypeError("Gumbel NN takes its noise from an int seed, a torch.Generator, (2,) "
-                    "uint32 key data or an object with a uniform(pair_ids, iteration, chunk, "
-                    f"shape, dtype, device) method, got {type(key).__name__}")
+
+def _words(key) -> Tuple[int, int]:
+    """:func:`_host_words` of ``key``, which must be one key."""
+    words = _host_words(key)
+    if words is None:
+        raise TypeError("Gumbel NN takes its noise from an int seed, a torch.Generator, (2,) "
+                        "uint32 key data or an object with a uniform(pair_ids, iteration, "
+                        f"chunk, shape, dtype, device) method, got {type(key).__name__}")
+    return words
 
 
 def key_data(key, device) -> torch.Tensor:
@@ -305,14 +438,59 @@ def key_data(key, device) -> torch.Tensor:
                         for w in _words(key)])
 
 
+def _filled(rows, device) -> torch.Tensor:
+    """The (len(rows), 2) int32 tensor of the key words ``rows`` on
+    ``device``, one fill per row (the int64 whose little-endian int32 halves
+    are the two words): no host copy."""
+    out = torch.empty((len(rows),), dtype=torch.int64, device=device)
+    for i, (a, b) in enumerate(rows):
+        out[i].fill_((int(a) & _M32) | (_i32(b) << 32))
+    return out.view(torch.int32).reshape(len(rows), 2)
+
+
+def element_keys(key, N: int, device) -> Optional[torch.Tensor]:
+    """The (N, 2) int32 key words (uint32 bit patterns) of the N elements
+    of a batch, on ``device``, as ``dicp_tpu.sgd_icp._per_element_keys``
+    derives them: one key (an int seed, a Generator, (2,) key data) split N
+    ways (``jax.random.split``: key i is ``fold_in(key, i)``), (N, 2) key
+    data used as it is, a sequence of N single keys one each.  Keys given
+    on the host are folded there (:func:`fold_in_words`) and filled in (no
+    host copy); key data already on a CUDA device stays there.  None for
+    anything that is not a key form."""
+    device = torch.device(device)
+    if torch.is_tensor(key) and key.device.type != "cpu":
+        words = key if key.dtype == torch.int32 else key.to(torch.int64).to(torch.int32)
+        if tuple(key.shape) == (N, 2):
+            return words.to(device)
+        if tuple(key.shape) == (2,):
+            words = words.to(device)
+            k1, k2 = fold_in(words[0], words[1],
+                             torch.arange(N, dtype=torch.int32, device=device))
+            return torch.stack([k1, k2], dim=1)
+        raise ValueError(f"key data must have shape (2,) or ({N}, 2); got {tuple(key.shape)}")
+    if isinstance(key, (list, tuple)):
+        rows = [_host_words(k) for k in key]
+        if len(rows) != N or any(r is None for r in rows):
+            return None
+    elif (one := _host_words(key)) is not None:
+        rows = [fold_in_words(*one, i) for i in range(N)]
+    else:
+        arr = _key_array(key)
+        if arr is None or arr.shape != (N, 2):
+            return None
+        rows = arr.tolist()
+    return _filled(rows, device)
+
+
 def split(key, num: int, device) -> Tuple[torch.Tensor, ...]:
     """``jax.random.split(key, num)`` with the partitionable counter layout:
     key i is the threefry block of ``key`` over the count words (0, i),
-    which is ``fold_in(key, i)``.  ``key``: what :class:`ThreefryNoise`
-    takes; returns ``num`` (2,) int32 key tensors on ``device``."""
-    k1, k2 = ThreefryNoise(key)._key(device)
-    k1, k2 = fold_in(k1, k2, torch.arange(num, dtype=torch.int32, device=device))
-    return tuple(torch.stack([a, b]) for a, b in zip(k1, k2))
+    which is ``fold_in(key, i)`` (:func:`element_keys` of one key).
+    ``key``: one key, as :class:`ThreefryNoise` takes it; returns ``num``
+    (2,) int32 key tensors on ``device``."""
+    if not (torch.is_tensor(key) and key.device.type != "cpu" and tuple(key.shape) == (2,)):
+        key = np.array(_words(key), dtype=np.uint32)     # one key (a Generator read once)
+    return tuple(element_keys(key, num, device).unbind(0))
 
 
 class ThreefryNoise:

@@ -43,10 +43,12 @@ As in JAX, the public :func:`map_merge` and :func:`map_step` are the
 compiled programs themselves (:mod:`dicp_tpu_torch.jit`): on the card each
 is a captured CUDA graph per static arguments and input shapes (the GN or
 SGD solve's loop a WHILE node, the merge inside the step's program); on
-the CPU they run eagerly.  An SGD step's mini-batch indices are drawn on
-the host before each call (:func:`sgd_icp.plan_solve`) and enter the
-program as a tensor.  ``map_merge.fn`` and ``map_step.fn`` are the
-functions uncaptured.
+the CPU they run eagerly.  An SGD step's key enters the program as its
+(1, 2) element key words (:func:`knn.element_keys`, made on the
+device by fills), from which the solve loop draws JAX's mini-batches on
+the device; an explicit source's indices are drawn on the host before the
+call (:func:`sgd_icp.plan_solve`).  ``map_merge.fn`` and ``map_step.fn``
+are the functions uncaptured.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ from typing import Iterable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from dicp_tpu_torch import se3
+from dicp_tpu_torch import knn, se3
 from dicp_tpu_torch.api import _resolve_device
 from dicp_tpu_torch.config import ICPConfig
 from dicp_tpu_torch.jit import jit
@@ -66,7 +68,7 @@ from dicp_tpu_torch.ops.normals import estimate_normals_weighted, smallest_eigve
 from dicp_tpu_torch.ops.voxel import _lexsort, segment_sum
 from dicp_tpu_torch.pipeline import _prefetched, _quantize_host, _Uploader, dequantize_scan
 from dicp_tpu_torch.registration import _register_program
-from dicp_tpu_torch.sgd_icp import SeededSampler, plan_solve, register_sgd
+from dicp_tpu_torch.sgd_icp import plan_solve, register_sgd
 
 # Initial placeholder for empty rows (the dynamic bounded sentinel replaces
 # it at the first merge).  Observation counts are deliberately uncapped: a
@@ -226,14 +228,16 @@ def map_merge(m: LocalMap, scan_world: torch.Tensor, voxel: float,
 
 
 def _plan_sgd_step(a: dict) -> None:
-    """``map_step``'s host work: an SGD step's ``key`` becomes its plan (one
+    """``map_step``'s host work: an SGD step's ``key`` becomes its (1, 2)
+    element key words on the device, or an explicit source's plan (one
     element; the scan's points, or the rows of its packed form)."""
     if a["solver"] != "sgd" or a["key"] is None:
         return
     scan = a["scan"][0] if isinstance(a["scan"], (tuple, list)) else a["scan"]
-    a["key"] = plan_solve(a["key"], 1, scan.shape[0], scan.device, a["t_pred"].dtype,
-                          iterations=int(a["sgd_iterations"]),
-                          minibatch=int(a["sgd_minibatch"]))
+    keys = knn.element_keys(a["key"], 1, scan.device)
+    a["key"] = keys if keys is not None else plan_solve(
+        a["key"], 1, scan.shape[0], scan.device, a["t_pred"].dtype,
+        iterations=int(a["sgd_iterations"]), minibatch=int(a["sgd_minibatch"]))
 
 
 @functools.partial(jit, static_argnames=("cfg", "voxel", "insert", "merge_mode", "solver",
@@ -252,8 +256,9 @@ def map_step(m: LocalMap, scan, t_pred: torch.Tensor, weight: Optional[torch.Ten
     Returns (pose (4, 4), converged (), iterations (), new map).
 
     ``solver``: ``"gn"`` (:func:`registration.register` over every scan
-    point) or ``"sgd"`` (:func:`sgd_icp.register_sgd` with the mini-batch
-    source ``key``, required).  For ``"sgd"`` the returned ``converged`` and
+    point) or ``"sgd"`` (:func:`sgd_icp.register_sgd` with the PRNG key or
+    mini-batch source ``key``, required: JAX's key forms draw JAX's
+    mini-batches).  For ``"sgd"`` the returned ``converged`` and
     the merge guard are the pose-consistency gate: a finite pose whose
     correction log(t_pred^-1 pose) has norm <= ``sgd_max_correction`` (one
     norm over the mixed-unit 6-vector, as in JAX).  A solve that fails its
@@ -263,13 +268,14 @@ def map_step(m: LocalMap, scan, t_pred: torch.Tensor, weight: Optional[torch.Ten
     packed quantized tuple, decoded by :func:`pipeline.dequantize_scan`.
 
     On the card a step is one captured program whose solve loop exits on
-    the device; an ``"sgd"`` step's draws are made on the host before the
-    call (:func:`sgd_icp.plan_solve`) and enter it as a tensor."""
+    the device; an ``"sgd"`` step's key enters it as a tensor of key words
+    and its mini-batches are drawn inside (an explicit source's on the host
+    before the call, :func:`sgd_icp.plan_solve`)."""
     if solver not in ("gn", "sgd"):
         raise ValueError(f"solver must be gn|sgd, got {solver}")
     if solver == "sgd" and key is None:
         raise ValueError("solver='sgd' needs an explicit PRNG key (the mini-batch sampler "
-                         "must be reproducible): an int seed, a torch.Generator or a sampler")
+                         "must be reproducible): an int seed, key data or a sampler")
     if deq is not None:
         scan = dequantize_scan(scan, deq)
     with_normals = cfg.icp_type != "pt2pt"
@@ -303,12 +309,15 @@ def map_step(m: LocalMap, scan, t_pred: torch.Tensor, weight: Optional[torch.Ten
     return pose, ok, res.iterations[0], new_map
 
 
-def _scan_key(seed, k: int):
-    """The mini-batch source of scan ``k``: an int seed derives its own
-    stream per scan (JAX: ``fold_in(key(seed), k)``); a callable is asked."""
+def _scan_keys(seed):
+    """``k ->`` the key of scan ``k``: for an int seed (or a
+    ``torch.Generator``, read once for a seed) the (2,) uint32 key data of
+    JAX's ``fold_in(key(seed), k)``, computed on the host; a callable
+    ``seed`` is asked."""
     if callable(seed):
-        return seed(k)
-    return SeededSampler(seed).fold_in(k)
+        return seed
+    base = knn._words(seed)
+    return lambda k: np.array(knn.fold_in_words(*base, k), dtype=np.uint32)
 
 
 def scan_to_map_odometry(
@@ -345,8 +354,9 @@ def scan_to_map_odometry(
     dicp_tpu/mapping.py:399-414); ``warm_start=False`` predicts prev_pose.
     ``insert_every``: merge every k-th scan only.  ``merge_mode``: "mean"
     or "freeze" (:func:`map_merge`).  ``solver="sgd"``: the stochastic
-    front end; the source of scan k is derived from ``seed`` (an int), or
-    ``seed(k)`` when ``seed`` is callable.
+    front end; scan k's key is JAX's ``fold_in(key(seed), k)`` for an int
+    ``seed``, so the stream draws JAX's mini-batches; ``seed(k)`` (any key
+    form or source of :func:`map_step`) when ``seed`` is callable.
 
     Each scan crosses to the device in one pinned copy (on the card, on a
     copy stream), its host preparation in a prefetch thread.  ``quantize``:
@@ -378,6 +388,7 @@ def scan_to_map_odometry(
             first = False
 
     m = None
+    scan_key = _scan_keys(seed) if solver == "sgd" else None
     poses, convs, iters = [], [], []
     prev_pose = xi_ema = None
     for k, (arrays, n_parts) in enumerate(_prefetched(prep(scans))):
@@ -401,7 +412,7 @@ def scan_to_map_odometry(
             pose, conv, it, m = map_step(
                 m, scan, t_pred, w, cfg, voxel, insert=(k % insert_every == 0),
                 merge_mode=merge_mode, solver=solver,
-                key=_scan_key(seed, k) if solver == "sgd" else None,
+                key=None if scan_key is None else scan_key(k),
                 sgd_minibatch=sgd_minibatch, sgd_iterations=sgd_iterations,
                 sgd_max_correction=sgd_max_correction, merge_subsample=merge_subsample,
                 deq=deq)

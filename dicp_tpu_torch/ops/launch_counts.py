@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 KERNELS = ("tiled_nn", "fused_gn", "cluster_search", "cluster_block_search", "cluster_topk",
-           "threefry_uniform")
+           "threefry_uniform", "threefry_randint")
 
 SLOTS = 256            # keyed counters per device
 

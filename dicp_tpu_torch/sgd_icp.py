@@ -31,28 +31,34 @@ Structure, as in JAX:
   points, the smooth robust weights and the solves, never through the
   neighbour indices (hard-NN semantics).
 
-Random draws.  torch and JAX streams differ, so the mini-batch indices come
-from an explicit source ``key``: an int seed or a ``torch.Generator``
-(:class:`SeededSampler`: one ``torch.Generator`` per (batch element,
-iteration) stream, seeded from a hash of the stream's name and created on
-the tensors' device, so draws on the card stay on the card), a sequence of
-N of those (one stream per batch element, JAX's batch of keys), or any
-object with
+Random draws.  ``key`` takes JAX's key forms and draws JAX's mini-batches:
+element i of the batch draws ``randint(fold_in(key_i, it), (k,), 0, n)`` at
+iteration ``it`` (int64, x64 on), on the tensors' device, at the loop's own
+executed-iteration counter (:func:`knn.threefry_randint`: the kernel D2 on
+the card), so nothing is drawn on the host.  The element keys are those
+of JAX's ``_per_element_keys`` (:func:`knn.element_keys`): an int seed is
+``jax.random.PRNGKey(seed)`` (a ``torch.Generator`` is read once for such
+a seed) and (2,) uint32 key data (``jax.random.key_data(k)``, or a tensor)
+is one key, each split N ways; (N, 2) key data is N element keys used as
+they are; a sequence of N single keys gives one element key each.
+
+The explicit sources stay: an object with
 
     indices(pair_ids, iteration, k, n, device) -> (len(pair_ids), k) int64
 
-drawing uniformly from [0, n) with replacement (a test serves JAX's own
-``randint(fold_in(key, it), (k,), 0, n)`` draws through it).
+drawing uniformly from [0, n) with replacement (:class:`SeededSampler`, one
+``torch.Generator`` per (batch element, iteration) stream; a test serves
+JAX's own draws through it), or a sequence of N of those.  Their draws are
+made ahead, on the host's request, before the loop: one ``indices`` call
+per iteration for the whole trip (:func:`plan_solve`), indexed by the
+loop's counter; iterations after the loop stops are drawn and never read.
 
-The draws are made ahead, on the host's request, before the loop: one
-``indices`` call per iteration for the whole trip (:func:`plan_solve`), with
-the step-size schedule of the ``'sgd'`` and ``'adam'`` rules, computed on
+The step-size schedule of the ``'sgd'`` and ``'adam'`` rules is computed on
 the host in the solve's dtype (as JAX computes it on its iteration
-counter).  The loop indexes both by its device counter.  Iterations after
-the loop stops are drawn and never read, so the results are those of
-per-iteration draws.  An :class:`SGDPlan` given as ``key`` is used as it
-is; :data:`register_sgd_jit` and :func:`mapping.map_step` make it outside
-their programs, so that the source never enters a program's cache key.
+counter) and read at the counter.  An :class:`SGDPlan` (the element keys
+or the drawn indices, and the schedule) given as ``key`` is used as it is;
+:data:`register_sgd_jit` and :func:`mapping.map_step` make it outside
+their programs, so that a key's value never enters a program's cache key.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from dicp_tpu_torch import fixed_trip, losses, se3
+from dicp_tpu_torch import fixed_trip, knn, losses, se3
 from dicp_tpu_torch.jit import capturing, device_while, jit, records
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn
 from dicp_tpu_torch.ops.normals import estimate_normals
@@ -77,9 +83,12 @@ class SGDICPResult(NamedTuple):
 
 
 class SGDPlan(NamedTuple):
-    """What the host prepares for a solve (:func:`plan_solve`)."""
-    indices: torch.Tensor             # (iterations, N, minibatch) int64
+    """What the host prepares for a solve (:func:`plan_solve`): the element
+    keys the loop draws from, or the indices of an explicit source drawn
+    ahead; and the schedule."""
+    indices: Optional[torch.Tensor]   # (iterations, N, minibatch) int64; None with keys
     schedule: Optional[torch.Tensor]  # (iterations, 3) [lr_t, c1, c2]; None for 'gn'
+    keys: Optional[torch.Tensor] = None   # (N, 2) int32 element key words
 
 
 class SeededSampler:
@@ -118,30 +127,18 @@ class _PerElement:
                           for i in pair_ids])
 
 
-def _single_sampler(key):
-    if isinstance(key, (int, torch.Generator)) and not isinstance(key, bool):
-        return SeededSampler(key)
+def minibatch_sampler(key, N: int):
+    """The explicit mini-batch source of an N-element solve: an object with
+    ``indices(...)``, or a sequence of N of those (one per element)."""
     if callable(getattr(key, "indices", None)):
         return key
-    return None
-
-
-def minibatch_sampler(key, N: int):
-    """The mini-batch source of an N-element solve from ``key`` (see the
-    module docstring); a sequence must hold N keys."""
-    single = _single_sampler(key)
-    if single is not None:
-        return single
-    if isinstance(key, (list, tuple)):
-        if len(key) != N:
-            raise ValueError(f"key must be a single sampler key or a sequence of {N} keys; "
-                             f"got {len(key)} keys")
-        samplers = [_single_sampler(k) for k in key]
-        if all(s is not None for s in samplers):
-            return _PerElement(samplers)
-    raise ValueError("key must be an int seed, a torch.Generator, an object with an "
-                     "indices(pair_ids, iteration, k, n, device) method, or a sequence of "
-                     f"{N} of those; got {type(key).__name__}")
+    if isinstance(key, (list, tuple)) and len(key) == N and all(
+            callable(getattr(k, "indices", None)) for k in key):
+        return _PerElement(key)
+    raise ValueError("key must be an int seed, a torch.Generator, (2,) or (N, 2) uint32 key "
+                     "data, a sequence of N single keys, an object with an indices(pair_ids, "
+                     f"iteration, k, n, device) method, or a sequence of {N} of those; got "
+                     f"{type(key).__name__}")
 
 
 def _gather(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -223,6 +220,20 @@ def _schedule(iterations: int, *, optimizer, lr, lr_decay, b1, b2, dt) -> Option
     return torch.tensor(rows, dtype=dt).reshape(iterations, 3)
 
 
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(x) with the value of the nearest float, as the card's ``sqrt``
+    and JAX's give it.  torch's CPU ``sqrt`` (a vector library's) leaves
+    about 0.7% of f32 results one ulp off; there the value is that of the
+    f64 sqrt rounded to f32, which is the nearest (53 >= 2 * 24 + 2 bits:
+    the double rounding is exact).  Only the value matches the card: the
+    gradient stays that of the CPU's f32 ``sqrt``."""
+    y = torch.sqrt(x)
+    if x.device.type != "cpu" or x.dtype != torch.float32:
+        return y
+    # one ulp or none, exact; 0 where y is inf or nan
+    return y + (torch.sqrt(x.double()).float() - y).nan_to_num(0.0).detach()
+
+
 def _step_delta(H, g, m1, m2, it, *, optimizer, lr, lr_decay, b1, b2, dt, sched=None):
     """One update delta (N, 6) and the new Adam moments, for the chosen rule.
     ``sched``: this iteration's [lr_t, c1, c2] as a tensor (the loop's,
@@ -240,7 +251,7 @@ def _step_delta(H, g, m1, m2, it, *, optimizer, lr, lr_decay, b1, b2, dt, sched=
         return -lr_t * g, m1, m2
     m1 = b1 * m1 + (1.0 - b1) * g
     m2 = b2 * m2 + (1.0 - b2) * g * g
-    return -lr_t * (m1 / c1) / (torch.sqrt(m2 / c2) + 1e-8), m1, m2
+    return -lr_t * (m1 / c1) / (_sqrt_rn(m2 / c2) + 1e-8), m1, m2
 
 
 def _dense_nn_fn(tgt):
@@ -284,17 +295,35 @@ class _Rule(NamedTuple):
     patience: int
 
 
-def _advance(s: dict, count, plan: SGDPlan, rule: _Rule, src, tgt, tgt_n, weight,
+class _Draws:
+    """What an iteration reads at its executed-iteration counter: the
+    mini-batch indices, uniform with replacement, one stream per element
+    and iteration (drawn on the device from the plan's element keys, or
+    read from its indices drawn ahead), and the schedule row."""
+
+    def __init__(self, plan: SGDPlan, iterations: int, minibatch: int, n: int):
+        self.plan, self.iterations, self.minibatch, self.n = plan, iterations, minibatch, n
+        if plan.keys is not None:
+            # the draw's key words, contiguous once for every iteration
+            self.k1, self.k2 = (w.contiguous() for w in plan.keys.unbind(1))
+
+    def at(self, count):
+        row = torch.clamp(count, max=max(self.iterations - 1, 0)).reshape(1).long()
+        sched = (None if self.plan.schedule is None
+                 else self.plan.schedule.index_select(0, row)[0])
+        if self.plan.keys is None:
+            return self.plan.indices.index_select(0, row)[0], sched
+        return knn.threefry_randint(self.k1, self.k2, count, self.minibatch, self.n), sched
+
+
+def _advance(s: dict, count, draws: _Draws, rule: _Rule, src, tgt, tgt_n, weight,
              nn_fn) -> dict:
     """The state (T, m1, m2, streak, cost_ema, done, num_it) after the
     iteration whose executed-iteration counter is ``count`` (0-dim int32):
-    its draws and schedule row read at ``count``, frozen elements carried
+    its draws and schedule row taken at ``count``, frozen elements carried
     forward."""
     dt = src.dtype
-    at = torch.clamp(count, max=max(rule.iterations - 1, 0)).reshape(1).long()
-    # uniform with replacement, one stream per element and iteration
-    idx = plan.indices.index_select(0, at)[0]
-    sched = None if plan.schedule is None else plan.schedule.index_select(0, at)[0]
+    idx, sched = draws.at(count)
     done = s["done"]
     H, g, cost = _minibatch_system(
         s["T"], idx, src, tgt, tgt_n, weight, nn_fn, icp_type=rule.icp_type,
@@ -328,17 +357,18 @@ _ORDER = ("T", "m1", "m2", "cost_ema", "streak", "done", "num_it")
 class _Trip(fixed_trip.Trip):
     """SGD-ICP's iterations in a fixed trip: inputs (src, tgt, tgt_n,
     weight), the carry of :data:`_ORDER` (T, the moments and the cost
-    differentiable).  The plan is read at the trip's executed-step counter;
-    the search is the mini-batch's 1-NN, saved as int32 indices beside the
-    cluster tier's certificate gate."""
+    differentiable).  The draws are taken at the trip's executed-step
+    counter (a recomputing backward draws the same bits again); the search
+    is the mini-batch's 1-NN, saved as int32 indices beside the cluster
+    tier's certificate gate."""
 
     n_inputs, n_grad = 4, 4
 
-    def __init__(self, plan: SGDPlan, rule: _Rule, nn_fn, gated: bool):
-        self.plan, self.rule, self.nn_fn, self.gated = plan, rule, nn_fn, gated
+    def __init__(self, draws: _Draws, rule: _Rule, nn_fn, gated: bool):
+        self.draws, self.rule, self.nn_fn, self.gated = draws, rule, nn_fn, gated
 
     def found(self, inputs):
-        shape, device = self.plan.indices.shape[1:], inputs[0].device
+        shape, device = (inputs[0].shape[0], self.draws.minibatch), inputs[0].device
         return [torch.zeros(shape, dtype=torch.int32, device=device),
                 torch.zeros(shape, dtype=torch.bool, device=device) if self.gated else None]
 
@@ -346,13 +376,13 @@ class _Trip(fixed_trip.Trip):
         return self.nn_fn(p)
 
     def step(self, inputs, carry, it, search):
-        new = _advance(dict(zip(_ORDER, carry)), it, self.plan, self.rule, *inputs, search)
+        new = _advance(dict(zip(_ORDER, carry)), it, self.draws, self.rule, *inputs, search)
         return tuple(new[name] for name in _ORDER), ()
 
 
 def _solve(src, tgt, tgt_n, weight, T0, plan: SGDPlan, *, icp_type, loss_name, loss_metric,
-           trim_dist, differentiable, iterations, optimizer, tolerance, ema_beta, patience,
-           nn_method, cluster_group, cluster_probes, cluster_fixup):
+           trim_dist, differentiable, iterations, minibatch, optimizer, tolerance, ema_beta,
+           patience, nn_method, cluster_group, cluster_probes, cluster_fixup):
     """The trip (:func:`_advance`): a masked body per iteration while
     ``count < iterations`` and an element is active (every field
     ``where(flag, new, old)``; where autograd records the loop, the state is
@@ -368,6 +398,7 @@ def _solve(src, tgt, tgt_n, weight, T0, plan: SGDPlan, *, icp_type, loss_name, l
         nn_fn = _dense_nn_fn(tgt)
     rule = _Rule(icp_type, loss_name, loss_metric, trim_dist, differentiable, iterations,
                  optimizer, tolerance, ema_beta, patience)
+    draws = _Draws(plan, iterations, minibatch, src.shape[1])
 
     # every field owns its storage: the body overwrites it in place
     s = dict(T=T0.clone(),
@@ -380,7 +411,7 @@ def _solve(src, tgt, tgt_n, weight, T0, plan: SGDPlan, *, icp_type, loss_name, l
     recorded = records((src, tgt, tgt_n, weight, T0))
     if recorded and capturing(src):
         # a WHILE node would record one body: the fixed trip records each step
-        trip = _Trip(plan, rule, nn_fn, nn_method == "cluster")
+        trip = _Trip(draws, rule, nn_fn, nn_method == "cluster")
         fields, _, _ = fixed_trip.run(trip, iterations, (src, tgt, tgt_n, weight),
                                       tuple(s[name] for name in _ORDER),
                                       lambda c: ~torch.all(c[_ORDER.index("done")]))
@@ -390,7 +421,7 @@ def _solve(src, tgt, tgt_n, weight, T0, plan: SGDPlan, *, icp_type, loss_name, l
         flag = (count < iterations) & ~torch.all(s["done"])
 
         def body():
-            new = _advance(s, count, plan, rule, src, tgt, tgt_n, weight, nn_fn)
+            new = _advance(s, count, draws, rule, src, tgt, tgt_n, weight, nn_fn)
             # masked: a body run after the flag fell changes no bit (the host
             # loop that autograd records runs the body only while the flag holds)
             for name, val in new.items():
@@ -410,18 +441,21 @@ def _solve(src, tgt, tgt_n, weight, T0, plan: SGDPlan, *, icp_type, loss_name, l
 
 def plan_solve(key, N: int, n: int, device, dtype, *, iterations: int, minibatch: int,
                optimizer: str = "gn", lr: float = 0.1, lr_decay: float = 0.05) -> SGDPlan:
-    """The draws and schedule of an N-element solve over n source points:
-    ``key``'s source (:func:`minibatch_sampler`) asked once per iteration,
-    on ``device``, for the whole trip."""
+    """The draws and schedule of an N-element solve over n source points on
+    ``device``: a key's (N, 2) element keys (:func:`knn.element_keys`), which
+    the loop draws from; or an explicit source (:func:`minibatch_sampler`)
+    asked once per iteration for the whole trip."""
     if isinstance(key, SGDPlan):
         return key
-    sampler = minibatch_sampler(key, N)
-    pair_ids = list(range(N))
-    draws = [sampler.indices(pair_ids, it, minibatch, n, device).to(device=device,
-                                                                    dtype=torch.int64)
-             for it in range(iterations)]
-    indices = (torch.stack(draws) if draws
-               else torch.zeros((0, N, minibatch), dtype=torch.int64, device=device))
+    keys, indices = knn.element_keys(key, N, device), None
+    if keys is None:
+        sampler = minibatch_sampler(key, N)
+        pair_ids = list(range(N))
+        draws = [sampler.indices(pair_ids, it, minibatch, n, device).to(device=device,
+                                                                        dtype=torch.int64)
+                 for it in range(iterations)]
+        indices = (torch.stack(draws) if draws
+                   else torch.zeros((0, N, minibatch), dtype=torch.int64, device=device))
     schedule = _schedule(iterations, optimizer=optimizer, lr=float(lr),
                          lr_decay=float(lr_decay), b1=0.9, b2=0.999, dt=dtype)
     if schedule is not None and torch.device(device).type == "cuda":
@@ -429,7 +463,7 @@ def plan_solve(key, N: int, n: int, device, dtype, *, iterations: int, minibatch
         schedule = schedule.pin_memory().to(device, non_blocking=True)
     elif schedule is not None:
         schedule = schedule.to(device)
-    return SGDPlan(indices, schedule)
+    return SGDPlan(indices, schedule, keys)
 
 
 def register_sgd(
@@ -460,9 +494,14 @@ def register_sgd(
     """Batched stochastic mini-batch ICP: (N, n, 3), (N, m, 3|6), (N, 4, 4)
     tensors on one device.
 
-    ``key`` is the mini-batch source (module docstring): reproducible under
-    a fixed key, one independent stream per batch element; or an
-    :class:`SGDPlan` made for this solve by :func:`plan_solve`.  ``target``
+    ``key`` seeds the mini-batch sampling, one independent stream per batch
+    element, as in JAX (module docstring): an int seed (``PRNGKey(seed)``),
+    a ``torch.Generator`` (read once for a seed), (2,) uint32 key data
+    (``jax.random.key_data(k)``; split N ways), (N, 2) key data (one key per
+    element), a sequence of N single keys; an explicit source (an object
+    with ``indices(...)``, or a sequence of N); or an :class:`SGDPlan` made
+    for this solve by :func:`plan_solve`.  A key draws JAX's mini-batches
+    on the tensors' device; the results are reproducible under it.  ``target``
     columns 3:6 are the normals for pt2pl when present, otherwise they are
     estimated (:func:`estimate_normals` with ``k_normals``).  ``optimizer``:
     ``'gn'``, ``'sgd'`` (lr/(1 + decay·t)) or ``'adam'``.  The stopping
@@ -487,10 +526,12 @@ def register_sgd(
     N, n = src.shape[0], src.shape[1]
     plan = plan_solve(key, N, n, src.device, dt, iterations=int(iterations),
                       minibatch=int(minibatch), optimizer=optimizer, lr=lr, lr_decay=lr_decay)
-    if (tuple(plan.indices.shape) != (int(iterations), N, int(minibatch))
-            or (plan.schedule is None) != (optimizer == "gn")):
-        raise ValueError(f"an SGDPlan for this solve holds ({iterations}, {N}, {minibatch}) "
-                         f"indices and {'no' if optimizer == 'gn' else 'a'} schedule")
+    drawn = (tuple(plan.keys.shape) == (N, 2) if plan.keys is not None
+             else tuple(plan.indices.shape) == (int(iterations), N, int(minibatch)))
+    if not drawn or (plan.schedule is None) != (optimizer == "gn"):
+        raise ValueError(f"an SGDPlan for this solve holds ({N}, 2) element keys or "
+                         f"({iterations}, {N}, {minibatch}) indices, and "
+                         f"{'no' if optimizer == 'gn' else 'a'} schedule")
     if icp_type == "pt2pl":
         if target.shape[-1] >= 6:
             tgt_n = target[..., 3:6].to(dt)
@@ -504,7 +545,8 @@ def register_sgd(
         src, tgt, tgt_n, weight.to(dt), T_init.to(dt), plan, icp_type=icp_type,
         loss_name=loss_name, loss_metric=float(loss_metric),
         trim_dist=None if trim_dist is None else float(trim_dist),
-        differentiable=differentiable, iterations=int(iterations), optimizer=optimizer,
+        differentiable=differentiable, iterations=int(iterations),
+        minibatch=int(minibatch), optimizer=optimizer,
         tolerance=float(tolerance), ema_beta=float(ema_beta), patience=int(patience),
         nn_method=nn_method, cluster_group=int(cluster_group),
         cluster_probes=int(cluster_probes),
@@ -513,7 +555,8 @@ def register_sgd(
 
 
 def _plan_arguments(a: dict) -> None:
-    """``register_sgd_jit``'s host work: ``key`` becomes the solve's plan."""
+    """``register_sgd_jit``'s host work: ``key`` becomes the solve's plan
+    (a key its element keys, made on the device by fills)."""
     src = a["source"]
     a["key"] = plan_solve(a["key"], src.shape[0], src.shape[1], src.device, src.dtype,
                           iterations=int(a["iterations"]), minibatch=int(a["minibatch"]),
@@ -522,8 +565,9 @@ def _plan_arguments(a: dict) -> None:
 
 # The JAX package's ``register_sgd_jit`` is ``jax.jit(register_sgd)`` with every
 # option static: on the card the port's is a captured CUDA graph whose loop is
-# a WHILE node (see dicp_tpu_torch.jit), fed the plan drawn before each call;
-# on the CPU it is register_sgd itself.
+# a WHILE node (see dicp_tpu_torch.jit) that draws the mini-batches from the
+# plan's element keys (D2 at the loop's counter), or reads those an explicit
+# source drew before the call; on the CPU it is register_sgd itself.
 register_sgd_jit = jit(register_sgd, static_argnames=(
     "icp_type", "minibatch", "iterations", "optimizer", "lr", "lr_decay", "loss_name",
     "loss_metric", "trim_dist", "tolerance", "ema_beta", "patience", "differentiable",

@@ -291,7 +291,7 @@ def test_drawn_ahead_block_equals_per_iteration_draws():
     per-iteration draws of SeededSampler (and of a sequence of sources);
     the schedule's rows are _step_delta's host scalars of the parent."""
     n, k, its = 700, 33, 6
-    for key in (7, [SeededSampler(1), SeededSampler(2)]):
+    for key in (SeededSampler(7), [SeededSampler(1), SeededSampler(2)]):
         plan = plan_solve(key, 2, n, "cpu", torch.float64, iterations=its, minibatch=k)
         sampler = sgd_icp.minibatch_sampler(key, 2)
         assert plan.indices.shape == (its, 2, k) and plan.indices.dtype == torch.int64
@@ -384,6 +384,7 @@ def test_these_programs_take_tensors_only(monkeypatch):
     assert isinstance(a[0], torch.Tensor) and a[1] is None
     src = torch.zeros((1, 10, 3), dtype=torch.float64)
     ti = torch.eye(4, dtype=torch.float64)[None]
-    keys = {register_sgd_jit.cache_key(src, src, ti, key, minibatch=4, iterations=2)
-            for key in (1, SeededSampler(2))}
-    assert len(keys) == 1
+    for sources in ((1, 2, np.array([0, 2], np.uint32)), (SeededSampler(1), SeededSampler(2))):
+        keys = {register_sgd_jit.cache_key(src, src, ti, key, minibatch=4, iterations=2)
+                for key in sources}
+        assert len(keys) == 1

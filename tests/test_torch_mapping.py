@@ -359,14 +359,32 @@ def step_refs(par_seq):
     return out
 
 
-@pytest.mark.parametrize("name", list(STEP_CASES))
-def test_map_step_matches_jax(par_seq, step_refs, jax_normals, name):
+@pytest.mark.parametrize("name, key", [(name, "sampler") for name in STEP_CASES]
+                         + [("sgd subsample", "int seed")],
+                         ids=list(STEP_CASES) + ["sgd subsample-int seed"])
+def test_map_step_matches_jax(par_seq, step_refs, jax_normals, name, key):
+    """Each case from the map of scan 0 against JAX's step.  The SGD case
+    takes scan 1's key as JAX's draws through the sampler, or as the key
+    data scan_to_map_odometry derives from the int seed 7 (fold_in(key(7),
+    1)), which enters the program as a (1, 2) key tensor whose value is not
+    part of the cache key."""
     scans, _ = par_seq
     m0, t_pred, ref, extra = step_refs[name]
     case = STEP_CASES[name]
     kw = dict(case["kw"])
-    if kw.get("solver") == "sgd":
+    if kw.get("solver") == "sgd" and key == "sampler":
         kw["key"] = _jax_chain(7)(1)
+    elif kw.get("solver") == "sgd":
+        kw["key"] = tm._scan_keys(7)(1)
+        np.testing.assert_array_equal(
+            kw["key"], np.asarray(jax.random.key_data(jax.random.fold_in(jax.random.key(7), 1))))
+        args = (_to_port(m0), torch.as_tensor(scans[1]), torch.as_tensor(t_pred), None,
+                CFG.with_(**case["cfg"]), 0.25)
+        bound = map_step._bind(args, dict(merge_mode="mean", **kw))[0].arguments["key"]
+        assert bound.shape == (1, 2) and bound.dtype == torch.int32
+        others = (dict(kw, key=k) for k in (7, tm._scan_keys(7)(2)))
+        assert len({map_step.cache_key(*args, merge_mode="mean", **k)
+                    for k in (kw, *others)}) == 1
     cfg = CFG.with_(**case["cfg"])
     if extra is not None:
         parts, deq, alone = extra
@@ -403,10 +421,12 @@ def s2m_refs(par_seq):
     return {k: jax.tree_util.tree_map(np.asarray, v) for k, v in (("gn", gn), ("sgd", sgd))}
 
 
-@pytest.mark.parametrize("solver", ["gn", "sgd"])
-def test_scan_to_map_odometry_matches_jax(par_seq, s2m_refs, jax_normals, solver):
+@pytest.mark.parametrize("solver, seed", [("gn", None), ("sgd", _jax_chain(7)), ("sgd", 7)],
+                         ids=["gn", "sgd", "sgd int seed"])
+def test_scan_to_map_odometry_matches_jax(par_seq, s2m_refs, jax_normals, solver, seed):
     """4 scans: poses within 1e-9, iterations and convergence equal; the SGD
-    stream draws JAX's per-scan chain through the callable ``seed``."""
+    stream draws JAX's per-scan chain through the callable ``seed``, or
+    derives JAX's per-scan keys fold_in(key(7), k) from the int seed 7."""
     scans, _ = par_seq
     ref = s2m_refs[solver]
     if solver == "gn":
@@ -415,7 +435,7 @@ def test_scan_to_map_odometry_matches_jax(par_seq, s2m_refs, jax_normals, solver
     else:
         res = scan_to_map_odometry(((s, None) for s in scans), CFG.with_(tolerance=1e-5),
                                    capacity=CAP, voxel=0.25, solver="sgd", sgd_minibatch=256,
-                                   sgd_iterations=30, seed=_jax_chain(7), device=CPU)
+                                   sgd_iterations=30, seed=seed, device=CPU)
     np.testing.assert_allclose(res.poses.numpy(), ref.poses, rtol=0, atol=1e-9)
     np.testing.assert_allclose(res.rel_transforms.numpy(), ref.rel_transforms, rtol=0,
                                atol=1e-9)

@@ -1,10 +1,11 @@
 """The port's stochastic mini-batch ICP (``dicp_tpu_torch.sgd_icp``) against
 the JAX package's, f64 on the CPU.
 
-The contracts of ``tests/test_sgd_icp.py`` run on the port with its own
-mini-batch source (an int seed); the parity cases serve JAX's own draws,
+The contracts of ``tests/test_sgd_icp.py`` run on the port with an int
+seed; the parity cases give the port JAX's key (as key data or its int
+seed, drawn by the port itself) or serve JAX's own draws,
 ``randint(fold_in(key, it), (k,), 0, n)``, through the sampler protocol
-(:class:`JaxSampler`) and hold the port to JAX on the same numpy inputs.
+(:class:`JaxSampler`), and hold the port to JAX on the same numpy inputs.
 Each JAX reference is computed once per module, on 1,500-point scenes with
 at most 40 iterations."""
 
@@ -21,7 +22,7 @@ from dicp_tpu import sgd_icp as jsgd  # noqa: E402
 
 from dicp_tpu_torch import se3  # noqa: E402
 from dicp_tpu_torch import sgd_icp as tsgd  # noqa: E402
-from dicp_tpu_torch.sgd_icp import SeededSampler, register_sgd  # noqa: E402
+from dicp_tpu_torch.sgd_icp import SeededSampler, register_sgd, register_sgd_jit  # noqa: E402
 
 from tests.test_sgd_icp import XI, _scene  # noqa: E402
 
@@ -140,8 +141,8 @@ def test_batch_equals_serial_with_element_keys():
                          minibatch=256, iterations=40)
     solo1 = register_sgd(S1, Tg, Ti, keys[1:], minibatch=256, iterations=40)
     np.testing.assert_allclose(batch.T[1].numpy(), solo1.T[0].numpy(), rtol=0, atol=1e-12)
-    # an int seed gives element i the stream (seed, i): element 0 of a batch
-    # equals a one-element sequence of the same seed
+    # an int seed is one key split N ways (JAX's per-element keys): element 0
+    # of its batch lands on the pose of the sequence's element 0
     single = register_sgd(torch.cat([S0, S1]), torch.cat([Tg, Tg]), torch.cat([Ti, Ti]), 9,
                           minibatch=256, iterations=40)
     np.testing.assert_allclose(single.T[0].numpy(), batch.T[0].numpy(), rtol=0, atol=1e-12)
@@ -246,6 +247,35 @@ def test_step_delta_matches_jax(optimizer):
         np.testing.assert_allclose(a[0].numpy(), np.asarray(b), rtol=0, atol=1e-12)
 
 
+def test_adam_step_f32_takes_the_nearest_sqrt():
+    """The f32 'adam' step on the CPU equals the same arithmetic with an
+    IEEE sqrt (numpy's, as the card's) bit for bit: torch's CPU sqrt leaves
+    some results an ulp off, and _sqrt_rn moves them to the nearest float,
+    keeping sqrt's gradient."""
+    rng = np.random.default_rng(2)
+    g, m1 = rng.normal(size=(4000, 6)).astype(np.float32), rng.normal(size=(4000, 6))
+    m1, m2 = m1.astype(np.float32), (rng.uniform(size=(4000, 6)) + 0.1).astype(np.float32)
+    sched = tsgd._schedule(40, optimizer="adam", lr=0.05, lr_decay=0.02, b1=0.9, b2=0.999,
+                           dt=torch.float32)
+    H = torch.zeros((4000, 6, 6))
+    for it in (0, 39):
+        got = tsgd._step_delta(H, torch.as_tensor(g), torch.as_tensor(m1), torch.as_tensor(m2),
+                               None, optimizer="adam", lr=None, lr_decay=None, b1=0.9,
+                               b2=0.999, dt=torch.float32, sched=sched[it])
+        lr_t, c1, c2 = (np.float32(v) for v in sched[it].tolist())
+        m1n = np.float32(0.9) * m1 + np.float32(1.0 - 0.9) * g
+        m2n = np.float32(0.999) * m2 + np.float32(1.0 - 0.999) * g * g
+        want = -lr_t * (m1n / c1) / (np.sqrt(m2n / c2) + np.float32(1e-8))
+        np.testing.assert_array_equal(got[0].numpy(), want)
+    x = torch.as_tensor(rng.uniform(0.0, 10.0, 100_000).astype(np.float32))
+    x = torch.cat([x, torch.tensor([0.0, float("inf"), float("nan"), 1e-45, 3.4e38])])
+    np.testing.assert_array_equal(tsgd._sqrt_rn(x).numpy(), np.sqrt(x.numpy()))
+    leaf = x[:100].clone().requires_grad_(True)
+    (a,) = torch.autograd.grad(tsgd._sqrt_rn(leaf).sum(), leaf)
+    (b,) = torch.autograd.grad(torch.sqrt(leaf).sum(), leaf)
+    assert torch.equal(a, b)
+
+
 # (name, register_sgd keywords): the dense and the cluster backend (16 of 24
 # groups probed), the paper's rules on pt2pt
 PARITY = {
@@ -268,22 +298,38 @@ def jax_solves(par_pair):
     return out
 
 
-@pytest.mark.parametrize("name", list(PARITY))
-def test_register_sgd_matches_jax(par_pair, jax_solves, name):
-    """JAX's draws through the sampler: T within 1e-10, iterations and
-    convergence equal, cost within 1e-12.  JAX runs every iteration; the
-    port stops once every element has converged, and the results agree."""
+# the forms of JAX's key KEY given to register_sgd: its draws served through
+# the sampler protocol, its key data, its int seed
+KEY_FORMS = ("sampler", "key data", "int seed")
+
+
+def _key_form(form):
+    return {"sampler": lambda: JaxSampler(jax.random.split(jax.random.key(KEY), 1)),
+            "key data": lambda: np.asarray(jax.random.key_data(jax.random.key(KEY))),
+            "int seed": lambda: KEY}[form]()
+
+
+@pytest.mark.parametrize("name, form", [(name, form) for form in KEY_FORMS for name in PARITY],
+                         ids=[name if form == "sampler" else f"{name}-{form}"
+                              for form in KEY_FORMS for name in PARITY])
+def test_register_sgd_matches_jax(par_pair, jax_solves, name, form):
+    """JAX's draws through the sampler (_per_element_keys, N = 1), or JAX's
+    key as key data or as its int seed, drawn by the port itself: T within
+    1e-10, iterations and convergence equal, cost within 1e-12.  JAX runs
+    every iteration; the port stops once every element has converged, and
+    the results agree."""
     src, tgt, ti, _ = par_pair
     ref = jax_solves[name]
-    sampler = JaxSampler(jax.random.split(jax.random.key(KEY), 1))  # _per_element_keys, N = 1
+    key = _key_form(form)
     res = register_sgd(torch.as_tensor(src), torch.as_tensor(tgt), torch.as_tensor(ti),
-                       sampler, minibatch=256, iterations=40, **PARITY[name])
+                       key, minibatch=256, iterations=40, **PARITY[name])
     np.testing.assert_allclose(res.T.numpy(), ref.T, rtol=0, atol=1e-10)
     np.testing.assert_array_equal(res.iterations.numpy(), ref.iterations)
     np.testing.assert_array_equal(res.converged.numpy(), ref.converged)
     np.testing.assert_allclose(res.cost.numpy(), ref.cost, rtol=0, atol=1e-12)
-    # every iteration is drawn ahead, once (the loop reads those it runs)
-    assert sampler.calls == 40
+    if form == "sampler":
+        # every iteration is drawn ahead, once (the loop reads those it runs)
+        assert key.calls == 40
 
 
 def test_batch_equals_serial_with_jax_streams(par_pair):
@@ -300,6 +346,47 @@ def test_batch_equals_serial_with_jax_streams(par_pair):
                         [JaxSampler(keys[1:])], minibatch=256, iterations=40)
     np.testing.assert_allclose(batch.T[1].numpy(), solo.T[0].numpy(), rtol=0, atol=1e-12)
     assert torch.equal(batch.iterations[1:], solo.iterations)
+
+
+def test_batch_equals_serial_with_key_arrays(par_pair):
+    """An (N, 2) key array (JAX's split keys) and the single key split N
+    ways give the same batch, whose element 1 equals the one-element solve
+    on its key within 1e-12; the batch equals JAX's draws served through the
+    sampler protocol bit for bit."""
+    src, tgt, ti, _ = par_pair
+    src1 = _np_pair(XI2, n=N_PAR)[0]
+    keys = jax.random.split(jax.random.key(9), 2)
+    data = np.asarray(jax.random.key_data(keys))
+    S = torch.as_tensor(np.concatenate([src, src1]))
+    Tg = torch.as_tensor(np.concatenate([tgt, tgt]))
+    Ti = torch.as_tensor(np.concatenate([ti, ti]))
+    kw = dict(minibatch=256, iterations=40)
+    batch = register_sgd(S, Tg, Ti, data, **kw)
+    split = register_sgd(S, Tg, Ti, 9, **kw)
+    solo = register_sgd(S[1:], torch.as_tensor(tgt), torch.as_tensor(ti), data[1:], **kw)
+    served = register_sgd(S, Tg, Ti, JaxSampler(keys), **kw)
+    for a, b in zip(batch, split):
+        assert torch.equal(a, b)
+    for a, b in zip(batch, served):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(batch.T[1].numpy(), solo.T[0].numpy(), rtol=0, atol=1e-12)
+    assert torch.equal(batch.iterations[1:], solo.iterations)
+
+
+def test_register_sgd_jit_takes_a_key_as_element_keys(par_pair):
+    """register_sgd_jit's host work turns a key into an SGDPlan of (N, 2)
+    element keys (no indices drawn): every seed and key-data form shares one
+    cache key, and the call equals register_sgd bit for bit."""
+    src, tgt, ti, _ = par_pair
+    args = (torch.as_tensor(src), torch.as_tensor(tgt), torch.as_tensor(ti))
+    kw = dict(minibatch=256, iterations=40, optimizer="adam", lr=0.05, icp_type="pt2pt")
+    plan = register_sgd_jit._bind(args + (KEY,), kw)[0].arguments["key"]
+    assert plan.indices is None and plan.keys.shape == (1, 2) and plan.schedule.shape == (40, 3)
+    keys = {register_sgd_jit.cache_key(*args, key, **kw)
+            for key in (1, KEY, _key_form("key data"), torch.Generator().manual_seed(2))}
+    assert len(keys) == 1
+    for a, b in zip(register_sgd_jit(*args, KEY, **kw), register_sgd(*args, KEY, **kw)):
+        assert torch.equal(a, b)
 
 
 def test_gradient_matches_jax(par_pair):
