@@ -184,20 +184,27 @@ Phases, each raising on failure (the script then exits non-zero):
     (phase 24 holds the run to an eager one).
 21. dicp_tpu_torch.parallel in a world of one rank on NCCL (make_mesh((1, 1))
     on the card; the backend must be nccl; the group is destroyed at the
-    end): register_map_sharded at phase 8's pair (converged, errors < 1e-3,
-    T within 1e-4 of register's, K2 once per iteration and once in the
-    final cost pass, bit-equal to its plain version on the first and last
-    call, iterations + 1 all-reduces of <= 87 elements; sharded_fused=False
-    gives the same iterations and T within 1e-4), timed beside register;
-    register_map_sharded_ift's gradient of sum(T * probe) into the source
-    (finite, nonzero, cosine > 0.99 with the unrolled gradient; fwd+bwd
-    ms; the collectives the backward adds); register_ring_sharded at phase
-    4's first pair (within 1e-5 of the dense map-sharded T, no kernel);
-    register_batch_sharded at phase 9's batch (T bit-equal to register's,
-    K2 launched, no collective); pose_graph_optimize_partitioned on phase
-    20's front-end graph (within 1e-4 of pose_graph_optimize) and
-    refine_robust(mesh=...) against the dense refine (positions within
-    1e-2, ATE within 5%), both timed.
+    end), eager and captured in one phase: each solve's eager call held to
+    its reference, then its program to the eager call as phase 24 holds
+    its cases (collectives counted apart: map_sharded_fn's fixed trip runs
+    max_iterations masked steps, each with its all-reduce, K2 in run-once
+    nodes), then eager against captured in turns.  register_map_sharded at phase 8's pair
+    (converged, errors < 1e-3, T within 1e-4 of register's, K2 once per
+    iteration and once in the final cost pass, bit-equal to its plain
+    version on the eager call's first and last launch, iterations + 1
+    all-reduces of <= 87 elements, max_iterations + 1 per replay;
+    sharded_fused=False gives the same iterations and T within 1e-4);
+    register_map_sharded_ift's forward captured and its gradient of
+    sum(T * probe) into the source (the forward a replay: equal to the
+    eager forward's bit for bit, finite, nonzero, cosine > 0.99 with the
+    unrolled gradient; the collectives the backward adds);
+    register_ring_sharded at phase 4's first pair (within 1e-5 of the dense
+    map-sharded T, no kernel); register_batch_sharded at phase 9's batch
+    (T bit-equal to register's, K2 launched, no collective; register_jit
+    captured); the partitioned pose graph's program on phase 20's
+    front-end graph (within 1e-4 of pose_graph_optimize) and
+    refine_robust(mesh=...) (captured equal to eager over two calls; its
+    positions within 1e-2 of the dense refine, ATE within 5%).
 22. the headline bench entry, the suite and the examples:
     dicp_tpu_torch.bench.main() in this process (its gates, its JSON line);
     every row of dicp_tpu_torch.benchmarks.bench_suite.ALL at the JAX
@@ -279,27 +286,15 @@ Phases, each raising on failure (the script then exits non-zero):
     (1, 2048) rows, an (8, 512) batch, n = 2**31 - 1, a ragged shape, a
     span of 1), timed call by call and back to back through its wrapper
     and inside a CUDA graph of 100 launches, beside its plain version and
-    its bound; the Gumbel solve on JAX's threefry streams and
-    parallel/'s programs captured, each against its eager form as phase 24
-    holds its cases (collectives counted beside the kernels'
-    launches): register_jit(use_gumbel=True) at phase 15's headline (a new
+    its bound; the Gumbel solve on JAX's threefry streams captured,
+    against its eager form as phase 24 holds its cases:
+    register_jit(use_gumbel=True) at phase 15's headline (a new
     key, as a fresh input and as a key tensor, replays the one program;
     transform error < 0.5) and the draw of one iteration captured alone
     (its share of the captured solve); the streamed gumbel_nn at phase 4's
     shape; the same threefry draws on the card and on the CPU, bit for bit;
-    then in an NCCL world of one (destroyed at the end) map_sharded_fn's
-    programs: register_map_sharded at phase 8's pair (the fixed trip:
-    max_iterations masked steps, each with its all-reduce, K2 in run-once
-    nodes; collectives per replay = max_iterations + 1; K2 held to its
-    plain version on the eager call: a replay skips the fixed trip's last
-    steps, whose recorded buffers it never writes), register_ring_sharded at phase 4's
-    first pair, register_map_sharded_ift's forward (its gradient,
-    the forward a replay, cosine > 0.99 with the unrolled one); the
-    batch-sharded solve at phase 9's batch (register_jit); the partitioned
-    pose graph's program on phase 20's graph (within 1e-4 of the dense one)
-    and refine_robust(mesh=...) (its second pass and the next call replay
-    the program); then eager against captured in turns.  Since D1 these
-    Gumbel cases draw through csrc/threefry.cu.
+    then eager against captured in turns.  Since D1 these Gumbel cases
+    draw through csrc/threefry.cu.
 27. (run after 26) the unrolled gradient captured and the draw kernel D1:
     D1 against its plain version bit for bit (f32, f64) at the dense Gumbel
     block (256, 65, 65), a streamed chunk (8, 12,288, 1,365), counters past
@@ -337,7 +332,17 @@ Phases, each raising on failure (the script then exits non-zero):
     (K2 held to its plain version on the host loop's first and last
     launch; the cluster solve's certified share); eager against captured in turns,
     first-call cost, launches per replay, pools against the eager peak,
-    and the headline's .backward() beside bench.fwdbwd_jit.
+    and the headline's .backward() beside bench.fwdbwd_jit.  Then, in an
+    NCCL world of one, the map-sharded gradients at phase 8's pair (K2):
+    register_map_sharded by .backward() through its program pair
+    (map_sharded_fn's, the fixed trip split at its all-reduces) and inside
+    one program that calls torch.autograd.grad, and
+    register_map_sharded_ift the same two ways (its backward captured),
+    each bit-equal to its uncaptured run (fresh inputs, no host wait), with
+    K2 launches and collectives per replay (the unrolled forward
+    max_iterations + 1 all-reduces, its backward max_iterations + a
+    constant, the IFT backward a constant), first-call cost, pools, and
+    eager against captured in turns.
 16. (run after 17-28) a torch.profiler pass over 3 calls each of phases
     4 (captured, through ICP.icp, and eager register), 8 and 9 (captured),
     12 (eager and captured), one W = 1 warm stream of phase 17's first 9
@@ -359,8 +364,8 @@ beside it the time back to back (20 launches between two CUDA events, median
 of 7 rounds: the kernel's time, free of the host's launch overhead).
 
 Each main path (phases 4, 8, 9, 12, 14, each run of 17 and 18, the pyramid of 19,
-the first SLAM run of 20, phase 21's map-sharded and batch-sharded solves,
-each row and example of 22, and phases 23's to 27's captured runs) is driven with
+the first SLAM run of 20, phase 21's solves, each row and example of 22,
+and phases 23's to 28's captured runs) is driven with
 the kernels' launch counts set to 0 just before it and read just after.
 ICP.icp, the pipeline, map_step (phases 18 and 20) and SLAM's closures
 run captured programs (dicp_tpu_torch.jit): a
@@ -419,8 +424,12 @@ batch-sharded solve and the partitioned pose graph, each against its
 eager form bit for bit and the same on every rank, with their collectives
 and times, and the IFT gradient against the same gradient in a world of
 one and the unrolled one (dense tier: cosines > 0.999; cluster tier: > 0.99
-on the rows both worlds certify); then tries a WHILE node whose body holds
-an all-reduce and prints CUDA's answer.  The last line is the ranks' exit codes as JSON.
+on the rows both worlds certify); phase 28's map-sharded gradient programs
+(register_map_sharded and register_map_sharded_ift, by .backward() and
+inside one program), each bit-equal to its uncaptured run on every rank,
+with collectives per replay, beside the certified queries of each rank's
+first search and of each rank alone; then tries a WHILE node whose body
+holds an all-reduce and prints CUDA's answer.  The last line is the ranks' exit codes as JSON.
 """
 
 from __future__ import annotations
@@ -2635,61 +2644,86 @@ def _collectives() -> dict:
 
 
 def phase21_parallel(device, pair, T_pair: np.ndarray, sources: np.ndarray,
-                     targets: np.ndarray, T_true: np.ndarray, raw_sources: np.ndarray,
-                     raw_targets: np.ndarray, T_raw: np.ndarray, slam_case) -> dict:
+                     targets: np.ndarray, T_true: np.ndarray, raw_inputs, T_raw: np.ndarray,
+                     slam_case) -> dict:
     """dicp_tpu_torch.parallel in a world of one rank on NCCL (make_mesh((1, 1))
-    on the card): the map-sharded solve of phase 8's pair (K2 in every
-    iteration), its IFT gradient, the ring at phase 4's shape, the
-    batch-sharded solve of phase 9's batch and the partitioned pose graph and
-    refine_robust(mesh=...) of phase 20's graph.  The group is destroyed at
-    the end of the phase.  Returns K2's launches and largest |difference| on
-    the path, and the map-sharded call (on a mesh given) for phase 16's
-    profile."""
+    on the card), eager and captured: each solve's eager call held to its
+    reference, then its program to the eager call (_captured_equals_eager:
+    bit for bit, fresh inputs, no host wait, launches; collectives apart),
+    then eager against captured in turns.  The solves: the map-sharded
+    solve of phase 8's pair (K2 in every iteration; the group scan too) and
+    its IFT gradient (the forward a replay), the ring at phase 4's shape,
+    the batch-sharded solve of phase 9's batch, and the partitioned pose
+    graph and refine_robust(mesh=...) of phase 20's graph.  The group is
+    destroyed at the end.  Returns the phase's launches, K2's largest
+    |difference| to its plain version and its launches per eager
+    map-sharded call, and the map-sharded call (on a mesh given) for phase
+    16's profile."""
     t_phase = time.perf_counter()
     mesh = make_mesh((1, 1))
     _check(dist.get_backend() == "nccl", f"the world of one runs on NCCL ({dist.get_backend()})")
     try:
-        out = _phase21_body(device, mesh, pair, T_pair, sources, targets, T_true, raw_sources,
-                            raw_targets, T_raw, slam_case)
+        _reset_launches()
+        calls, rec, out = _map_sharded_cases(device, mesh, pair, T_pair, sources, targets,
+                                             T_true, raw_inputs, T_raw)
+        calls.update(_partitioned_cases(device, mesh, slam_case))
+        launches = _launches()
+        k2_err = _held_to_plain("cluster_search", rec)
+        for label, (eager_call, jitted_call) in calls.items():
+            heavy = "refine_robust" in label or "pose graph" in label
+            _alternated(label, eager_call, jitted_call, rounds=2,
+                        iters=TURN_ITERS_HEAVY if heavy else 5)
+        for info in jit.programs():
+            print(f"  cached program {info.name}: {info.pool_bytes / 2**20:.1f} MiB of private "
+                  f"pools, {info.replays} replays, key {str(info.key)[:140]}")
     finally:
+        jit.clear_caches()
         dist.destroy_process_group()
-    print(f"phase 21 ok: dicp_tpu_torch.parallel on NCCL (world of one), "
-          f"{time.perf_counter() - t_phase:.1f} s")
-    return out
+    print(f"phase 21 ok: dicp_tpu_torch.parallel on NCCL (world of one), each program equal "
+          f"to its eager form bit for bit, no host wait in a replay (collectives: "
+          f"map_sharded_fn's fixed trip max_iterations + 1 per replay, the pose graph's as "
+          f"eager); launches {launches}; {time.perf_counter() - t_phase:.1f} s")
+    return {**out, "launches": launches, "k2_err": k2_err}
 
 
-def _phase21_body(device, mesh, pair, T_pair, sources, targets, T_true, raw_sources,
-                  raw_targets, T_raw, slam_case) -> dict:
+def _map_sharded_cases(device, mesh, pair, T_pair, sources, targets, T_true, raw_inputs,
+                       T_raw) -> tuple:
+    """map_sharded_fn's programs (map-sharded at phase 8's pair through K2,
+    the ring at phase 4's shape, the sharded IFT's forward) and the
+    batch-sharded solve (register_jit) at phase 9's batch: each eager call
+    held to its reference (register's T and bits, the dense tier, the
+    poses), then its program against it.  A map_sharded_fn replay runs
+    max_iterations steps, each with its all-reduce (the fixed trip: CUDA
+    refuses NCCL's kernels in a conditional node's body), the eager call
+    the iterations it needs: their collectives are checked apart.  K2
+    recorded on the eager map-sharded call; the IFT gradient against the
+    unrolled one.  Returns the (eager, captured) calls, K2's recordings and
+    what phase 21 returns of the map-sharded call."""
+    calls, rec = {}, {}
     src, target = pair
     n, m = src.shape[0], target.shape[0]
     ti = torch.eye(4, dtype=torch.float32, device=device)
-    cfg = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=30, tolerance=1e-5,
-                    dim=3, trim_dist=2.0, loss_name="huber", loss_metric=1.0,
-                    cluster_probes=PROBES, cluster_group=GROUP, collect_histories=False)
-    _check(cfg.resolved_nn_method(n, m, device) == "cluster", "phase 8's pair is cluster-tier")
+    src2 = _fresh(src, 260)
+    _check(CFG_MAP.resolved_nn_method(n, m, device) == "cluster", "phase 8's pair is cluster-tier")
 
-    def sharded(c=cfg):
-        return register_map_sharded(mesh, src, target, ti, cfg=c)
+    def ms(s=src, cfg=CFG_MAP):
+        return register_map_sharded(mesh, s, target, ti, cfg=cfg)
 
-    def single():
-        return register(src[None], target[None], ti[None], None, cfg)
-
-    # the map-sharded solve: K2 once per iteration and once in the final cost
-    # pass, one all-reduce per iteration and one in the cost pass
-    rec = {}
-    _reset_launches()
+    # the eager solve: K2 once per iteration and once in the final cost pass,
+    # one all-reduce per iteration and one in the cost pass
     _comm.reset_counts()
+    before = _launches()["cluster_search"]
     with _recording("cluster_search", rec.setdefault("the map-sharded solve", {})):
-        res = sharded()
+        res = _eager(ms)()
         torch.cuda.synchronize()
-    k2_map = _launches()["cluster_search"]
+    k2_map = _launches()["cluster_search"] - before
     counts = _collectives()
     it = int(res.iterations)
-    ref = single()
+    ref = register(src[None], target[None], ti[None], None, CFG_MAP)
     rot, trans = pose_errors(torch.as_tensor(T_pair[None], device=device),
                              res.T[None].to(torch.float64))
     diff = float((res.T - ref.T[0]).abs().max())
-    print(f"  map-sharded {n} -> {m} pt2pl (cluster tier): {it} iterations, converged "
+    print(f"  map-sharded {n} -> {m} pt2pl (cluster tier), eager: {it} iterations, converged "
           f"{bool(res.converged)}, rotation error {float(rot[0]):.3e} rad, translation error "
           f"{float(trans[0]):.3e} m, |T - register's T| {diff:.3e} (register: "
           f"{int(ref.iterations[0])} iterations); K2 {k2_map} launches; collectives {counts}")
@@ -2703,125 +2737,128 @@ def _phase21_body(device, mesh, pair, T_pair, sources, targets, T_true, raw_sour
            and all(kind == "all_reduce" and numel <= 2 * (36 + 6 + 1) + 1
                    for kind, _, numel in counts), "one all-reduce of <= 87 elements per "
            "iteration and one in the cost pass")
-    k2_err = _held_to_plain("cluster_search", rec)
-
-    res_x = sharded(cfg.with_(sharded_fused=False))
+    res_x = _eager(lambda: ms(cfg=CFG_MAP.with_(sharded_fused=False)))()
     diff_x = float((res_x.T - res.T).abs().max())
     print(f"  sharded_fused=False (the group scan): {int(res_x.iterations)} iterations, "
           f"converged {bool(res_x.converged)}, |T - K2 path's T| {diff_x:.3e}")
     _check(int(res_x.iterations) == it and bool(res_x.converged) == bool(res.converged)
            and diff_x < 1e-4, "the group-scan path gives K2's T, iterations and convergence")
-    ms_sharded = cuda_median_ms(sharded, warmup=1, iters=5)
-    ms_single = cuda_median_ms(single, warmup=1, iters=5)
-    print(f"  map-sharded call {ms_sharded:.3f} ms against register (phase 8's solve) "
-          f"{ms_single:.3f} ms (CUDA events, median of 5 after one)")
-
-    # the sharded IFT against the unrolled gradient
-    cfg_d = cfg.with_(differentiable=True)
-    probe = torch.linspace(0.5, 1.5, 16, device=device).reshape(4, 4)
-
-    def grad_of(fn):
-        s = src.clone().requires_grad_(True)
-        r = fn(mesh, s, target, ti, cfg=cfg_d)
-        return r, torch.autograd.grad(torch.sum(r.T * probe), s)[0]
-
-    _comm.reset_counts()
-    s = src.clone().requires_grad_(True)
-    r_i = register_map_sharded_ift(mesh, s, target, ti, cfg=cfg_d)
-    fwd = _collectives()
-    _comm.reset_counts()
-    g_i = torch.autograd.grad(torch.sum(r_i.T * probe), s)[0]
-    torch.cuda.synchronize()
-    bwd = _collectives()
-    _, g_u = grad_of(register_map_sharded)
-    cos = bench.cosine(g_i, g_u)
-    ms_ift = cuda_median_ms(lambda: grad_of(register_map_sharded_ift), warmup=1, iters=5)
-    print(f"  sharded IFT: {int(r_i.iterations)} iterations, converged {bool(r_i.converged)}; "
-          f"gradient cosine with the unrolled one {cos:.6f}, |g| {float(g_i.norm()):.3e}; "
-          f"fwd+bwd {ms_ift:.3f} ms; forward collectives {fwd}, the backward added {bwd}")
-    _check(bool(torch.isfinite(g_i).all()) and bool((g_i != 0).any()),
-           "finite, nonzero IFT gradient")
-    _check(cos > 0.99, f"IFT gradient cosine {cos} > 0.99")
+    label = (f"register_map_sharded, phase 8's {n} -> {m} pair (cluster tier, K2; NCCL world "
+             f"of one)")
+    calls[label] = (_eager(ms), ms)
+    _captured_equals_eager(label, *calls[label], sharding.map_sharded_fn(mesh, CFG_MAP),
+                           (_eager(lambda: ms(src2)), lambda: ms(src2)))
+    _fixed_trip_collectives(label, calls[label], CFG_MAP)
 
     # the ring at phase 4's shape (the dense tile fits; no kernel)
-    cfg4 = ICPConfig(icp_type="pt2pl", differentiable=False, max_iterations=50, tolerance=1e-6,
-                     dim=3, trim_dist=2.0, loss_name="huber", loss_metric=0.5,
-                     collect_histories=False)
     s4, t4 = to_torch(sources[0], device), to_torch(targets[0], device)
-    _reset_launches()
+    s4b = _fresh(s4, 261)
+
+    def ring(s=s4):
+        return register_ring_sharded(mesh, s, t4, cfg=CFG_RING)
+
     _comm.reset_counts()
-    ring = register_ring_sharded(mesh, s4, t4, cfg=cfg4)
-    ring_counts = _collectives()
-    ring_launches = _launches()
-    dense = register_map_sharded(mesh, s4, t4, cfg=cfg4.with_(nn_method="dense"))
+    before = _launches()
+    ring_res = _eager(ring)()
+    ring_counts, ring_launches = _collectives(), _delta(before, _launches())
+    dense = _eager(lambda: register_map_sharded(mesh, s4, t4,
+                                                cfg=CFG_RING.with_(nn_method="dense")))()
     rot4, trans4 = pose_errors(torch.as_tensor(T_true[:1], device=device),
-                               ring.T[None].to(torch.float64))
-    diff4 = float((ring.T - dense.T).abs().max())
-    ms_ring = cuda_median_ms(lambda: register_ring_sharded(mesh, s4, t4, cfg=cfg4), warmup=1,
-                             iters=5)
-    print(f"  ring {s4.shape[0]} -> {t4.shape[0]}: {int(ring.iterations)} iterations, "
-          f"|T - dense map-sharded T| {diff4:.3e}, rotation error {float(rot4[0]):.3e}, "
-          f"translation error {float(trans4[0]):.3e}; {ms_ring:.3f} ms; collectives "
+                               ring_res.T[None].to(torch.float64))
+    diff4 = float((ring_res.T - dense.T).abs().max())
+    print(f"  ring {tuple(s4.shape)} -> {tuple(t4.shape)}, eager: {int(ring_res.iterations)} "
+          f"iterations, |T - dense map-sharded T| {diff4:.3e}, rotation error "
+          f"{float(rot4[0]):.3e}, translation error {float(trans4[0]):.3e}; collectives "
           f"{ring_counts}; kernel launches {ring_launches}")
     _check(diff4 < 1e-5, "ring T within 1e-5 of the dense map-sharded T")
     _check(float(rot4[0]) < TOL_POSE and float(trans4[0]) < TOL_POSE, "ring errors < 1e-3")
-    _check(not any(ring_launches.values()), "the ring runs no kernel")
+    _check(not ring_launches, "the ring runs no kernel")
+    label_r = f"register_ring_sharded, phase 4's {tuple(s4.shape)} -> {tuple(t4.shape)}"
+    calls[label_r] = (_eager(ring), ring)
+    _captured_equals_eager(label_r, *calls[label_r],
+                           sharding.map_sharded_fn(mesh, CFG_RING, target_sharded=True),
+                           (_eager(lambda: ring(s4b)), lambda: ring(s4b)))
+    _fixed_trip_collectives(label_r, calls[label_r], CFG_RING)
 
     # batch-sharded at phase 9's batch: register's bits, K2, no collective
-    cfg9 = cfg.with_(collect_histories=True)
-    s9, t9 = to_torch(raw_sources, device), to_torch(raw_targets, device)
-    ti9 = torch.eye(4, dtype=torch.float32, device=device).expand(len(raw_sources), 4, 4)
-    _reset_launches()
+    s9, t9 = raw_inputs
+    ti9 = torch.eye(4, dtype=torch.float32, device=device).expand(s9.shape[0], 4, 4)
+    s9b = _fresh(s9, 262)
+    cfg9 = CFG_MAP.with_(collect_histories=True)
+
+    def batch(s=s9):
+        return register_batch_sharded(mesh, s, t9, ti9, cfg=cfg9)
+
     _comm.reset_counts()
-    res_b = register_batch_sharded(mesh, s9, t9, ti9, cfg=cfg9)
+    before = _launches()["cluster_search"]
+    res_b = _eager(batch)()
     torch.cuda.synchronize()
-    k2_batch = _launches()["cluster_search"]
-    batch_counts = _collectives()
+    k2_batch, batch_counts = _launches()["cluster_search"] - before, _collectives()
     ref_b = register(s9, t9, ti9, None, cfg9)
     rot9, trans9 = pose_errors(torch.as_tensor(T_raw, device=device), res_b.T.to(torch.float64))
-    print(f"  batch-sharded {tuple(s9.shape)} -> {tuple(t9.shape)}: T bit-equal to register's "
-          f"{torch.equal(res_b.T, ref_b.T)}, K2 {k2_batch} launches, collectives "
+    print(f"  batch-sharded {tuple(s9.shape)} -> {tuple(t9.shape)}, eager: T bit-equal to "
+          f"register's {torch.equal(res_b.T, ref_b.T)}, K2 {k2_batch} launches, collectives "
           f"{batch_counts}, max rotation error {float(rot9.max()):.3e}")
     _check(torch.equal(res_b.T, ref_b.T), "batch-sharded T bit-equal to register's")
     _check(k2_batch > 0, "K2 launched by the batch-sharded solve")
     _check(not batch_counts, "no collective in the batch-sharded solve")
     _check(float(rot9.max()) < TOL_POSE and float(trans9.max()) < TOL_POSE,
            "batch-sharded errors < 1e-3")
+    label_b = f"register_batch_sharded, phase 9's {tuple(s9.shape)} -> {tuple(t9.shape)} (K2)"
+    calls[label_b] = (_eager(batch), batch)
+    _captured_equals_eager(label_b, *calls[label_b], _register_captured,
+                           (_eager(lambda: batch(s9b)), lambda: batch(s9b)),
+                           counter=_launches_and_collectives)
 
-    # the partitioned pose graph and refine_robust(mesh=...) on phase 20's
-    # front-end graph (functorch is warm: phases 12 and 20 used it)
-    slam_res, truth = slam_case
-    poses = slam_res.poses_front.to(device)
-    graph = slam.build_pose_graph(poses, slam_res.closures, SLAM_KW["closure_info"],
-                                  converged=slam_res.converged)
-    its = SLAM_KW["refine_iterations"]
+    # the sharded IFT: its forward a program, its gradient against the
+    # unrolled one
+    cfg_d = CFG_MAP.with_(differentiable=True)
+
+    def ift(s=src):
+        return register_map_sharded_ift(mesh, s, target, ti, cfg=cfg_d)
+
+    label_i = "register_map_sharded_ift's forward, phase 8's pair"
+    fn_d = sharding.map_sharded_fn(mesh, cfg_d.with_(driver="while"))
+    calls[label_i] = (_eager(ift), ift)
+    _captured_equals_eager(label_i, *calls[label_i], fn_d,
+                           (_eager(lambda: ift(src2)), lambda: ift(src2)))
+    _fixed_trip_collectives(label_i, calls[label_i], cfg_d)
+    probe = torch.linspace(0.5, 1.5, 16, device=device).reshape(4, 4)
+
+    def grad_of(fn):
+        s = src.clone().requires_grad_(True)
+        r = fn(mesh, s, target, ti, cfg=cfg_d)
+        return torch.autograd.grad(torch.sum(r.T * probe), s)[0]
+
     _comm.reset_counts()
-    part = pose_graph_optimize_partitioned(poses, graph, mesh, iterations=its)
-    pg_counts = _collectives()
-    dense_pg, _ = pose_graph_optimize(poses, graph, iterations=its)
-    pg_diff = float((part - dense_pg).abs().max())
-    ref_mesh = slam.refine_robust(poses, graph, mesh=mesh, iterations=its)
-    ref_dense = slam.refine_robust(poses, graph, iterations=its)
-    pos_diff = float(torch.linalg.vector_norm(ref_mesh[:, :3, 3] - ref_dense[:, :3, 3],
-                                              dim=-1).max())
-    a_dense = float(ate(ref_dense.double().cpu(), truth, align=False))
-    a_mesh = float(ate(ref_mesh.double().cpu(), truth, align=False))
-    ms_part = cuda_median_ms(lambda: pose_graph_optimize_partitioned(poses, graph, mesh,
-                                                                     iterations=its),
-                             warmup=1, iters=3)
-    ms_dense = cuda_median_ms(lambda: pose_graph_optimize(poses, graph, iterations=its),
-                              warmup=1, iters=3)
-    print(f"  pose graph ({poses.shape[0]} poses, {graph.edges_i.shape[0]} edges, {its} "
-          f"iterations): |partitioned - dense| {pg_diff:.3e}; {ms_part:.1f} ms against dense "
-          f"{ms_dense:.1f} ms (median of 3 after one); collectives {pg_counts}; "
-          f"refine_robust(mesh) vs dense: position difference {pos_diff:.3e} m, ATE "
-          f"{a_mesh:.5f} against {a_dense:.5f} m")
-    _check(pg_diff < 1e-4, "partitioned pose graph within 1e-4 of the dense one")
-    _check(pos_diff < 1e-2, "refine_robust(mesh) positions within 1e-2 of the dense refine")
-    _check(abs(a_mesh - a_dense) < 0.05 * max(a_dense, 1e-9), "ATE within 5% of the dense")
-    return {"launches": k2_map + k2_batch, "launches_per_map_sharded_call": k2_map,
-            "k2_err": k2_err, "iterations": it,
-            "call": lambda mesh_: register_map_sharded(mesh_, src, target, ti, cfg=cfg)}
+    with _eager_programs():
+        s = src.clone().requires_grad_(True)
+        r_i = register_map_sharded_ift(mesh, s, target, ti, cfg=cfg_d)
+        fwd = _collectives()
+        _comm.reset_counts()
+        g_eager = torch.autograd.grad(torch.sum(r_i.T * probe), s)[0]
+        torch.cuda.synchronize()
+        bwd = _collectives()
+        g_u = grad_of(register_map_sharded)
+    prog = next(reversed(fn_d.cache.values()))
+    replays = prog.replays
+    g_i = grad_of(register_map_sharded_ift)
+    _check(prog.replays == replays + 1, "the IFT gradient's forward replays the program")
+    cos = bench.cosine(g_i, g_u)
+    _check(torch.equal(g_i, g_eager), "the IFT gradient with a captured forward equals the "
+           "eager forward's bit for bit")
+    _check(bool(torch.isfinite(g_i).all()) and bool((g_i != 0).any()) and cos > 0.99,
+           f"IFT gradient finite, nonzero, cosine {cos} > 0.99")
+    print(f"  sharded IFT: {int(r_i.iterations)} iterations, converged {bool(r_i.converged)}; "
+          f"the gradient with a captured forward equals the eager forward's bit for bit; "
+          f"cosine with the unrolled one {cos:.6f}, |g| {float(g_i.norm()):.3e}; eager "
+          f"forward collectives {fwd}, the backward added {bwd}")
+    label_g = "register_map_sharded_ift forward + gradient (captured forward)"
+    calls[label_g] = (_eager(lambda: grad_of(register_map_sharded_ift)),
+                      lambda: grad_of(register_map_sharded_ift))
+    return calls, rec, {"launches_per_map_sharded_call": k2_map, "iterations": it,
+                        "call": lambda mesh_: register_map_sharded(mesh_, src, target, ti,
+                                                                   cfg=CFG_MAP)}
 
 
 # --- phase 22: the bench entry, the suite's rows and the examples ---------------
@@ -4275,103 +4312,13 @@ def _fixed_trip_collectives(label: str, calls, cfg: ICPConfig) -> int:
     return it
 
 
-def _map_sharded_cases(device, mesh, pair, sources, targets, raw_inputs) -> tuple:
-    """map_sharded_fn's programs (map-sharded at phase 8's pair through K2,
-    the ring at phase 4's shape, the sharded IFT's forward) and the
-    batch-sharded solve (register_jit) at phase 9's batch, each against its
-    eager form; a map_sharded_fn replay runs max_iterations masked steps,
-    each with its all-reduce (the fixed trip: CUDA refuses NCCL's kernels in
-    a conditional node's body), the eager form the iterations it needs:
-    their collectives are printed and checked apart.  K2 recorded on the
-    eager map-sharded call; the IFT gradient against the unrolled one.
-    Returns the calls, K2's recordings and the map-sharded call's
-    iterations."""
-    calls, rec = {}, {}
-    src, target = pair
-    ti = torch.eye(4, dtype=torch.float32, device=device)
-    src2 = _fresh(src, 260)
-
-    def ms(s=src):
-        return register_map_sharded(mesh, s, target, ti, cfg=CFG_MAP)
-
-    label = (f"register_map_sharded, phase 8's {src.shape[0]} -> {target.shape[0]} pair "
-             f"(cluster tier, K2; NCCL world of one)")
-    calls[label] = (_eager(ms), ms)
-    _captured_equals_eager(label, *calls[label], sharding.map_sharded_fn(mesh, CFG_MAP),
-                           (_eager(lambda: ms(src2)), lambda: ms(src2)))
-    # recorded on the eager call: the program's last captured K2 launch lies
-    # in a step of its fixed trip that a replay skips, whose buffers it
-    # never writes; the program's K2 calls are the eager call's (bit-equal)
-    with _recording("cluster_search", rec.setdefault("the map-sharded call", {})):
-        _eager(ms)()
-    it = _fixed_trip_collectives(label, calls[label], CFG_MAP)
-
-    s4, t4 = to_torch(sources[0], device), to_torch(targets[0], device)
-    s4b = _fresh(s4, 261)
-
-    def ring(s=s4):
-        return register_ring_sharded(mesh, s, t4, cfg=CFG_RING)
-
-    label_r = f"register_ring_sharded, phase 4's {tuple(s4.shape)} -> {tuple(t4.shape)}"
-    calls[label_r] = (_eager(ring), ring)
-    _captured_equals_eager(label_r, *calls[label_r],
-                           sharding.map_sharded_fn(mesh, CFG_RING, target_sharded=True),
-                           (_eager(lambda: ring(s4b)), lambda: ring(s4b)))
-    _fixed_trip_collectives(label_r, calls[label_r], CFG_RING)
-
-    s9, t9 = raw_inputs
-    ti9 = torch.eye(4, dtype=torch.float32, device=device).expand(s9.shape[0], 4, 4)
-    s9b = _fresh(s9, 262)
-    cfg9 = CFG_MAP.with_(collect_histories=True)
-
-    def batch(s=s9):
-        return register_batch_sharded(mesh, s, t9, ti9, cfg=cfg9)
-
-    label_b = f"register_batch_sharded, phase 9's {tuple(s9.shape)} -> {tuple(t9.shape)} (K2)"
-    calls[label_b] = (_eager(batch), batch)
-    _captured_equals_eager(label_b, *calls[label_b], _register_captured,
-                           (_eager(lambda: batch(s9b)), lambda: batch(s9b)),
-                           counter=_launches_and_collectives)
-
-    cfg_d = CFG_MAP.with_(differentiable=True)
-
-    def ift(s=src):
-        return register_map_sharded_ift(mesh, s, target, ti, cfg=cfg_d)
-
-    label_i = "register_map_sharded_ift's forward, phase 8's pair"
-    fn_d = sharding.map_sharded_fn(mesh, cfg_d.with_(driver="while"))
-    calls[label_i] = (_eager(ift), ift)
-    _captured_equals_eager(label_i, *calls[label_i], fn_d,
-                           (_eager(lambda: ift(src2)), lambda: ift(src2)))
-    _fixed_trip_collectives(label_i, calls[label_i], cfg_d)
-    probe = torch.linspace(0.5, 1.5, 16, device=device).reshape(4, 4)
-
-    def grad_of(fn):
-        s = src.clone().requires_grad_(True)
-        r = fn(mesh, s, target, ti, cfg=cfg_d)
-        return torch.autograd.grad(torch.sum(r.T * probe), s)[0]
-
-    prog = next(reversed(fn_d.cache.values()))
-    replays = prog.replays
-    g_i = grad_of(register_map_sharded_ift)
-    _check(prog.replays == replays + 1, "the IFT gradient's forward replays the program")
-    g_u = grad_of(register_map_sharded)
-    cos = bench.cosine(g_i, g_u)
-    _check(bool(torch.isfinite(g_i).all()) and bool((g_i != 0).any()) and cos > 0.99,
-           f"captured-forward IFT gradient finite, nonzero, cosine {cos} > 0.99")
-    print(f"  sharded IFT, the forward a replay and the backward eager: gradient cosine with "
-          f"the unrolled one {cos:.6f}")
-    label_g = "register_map_sharded_ift forward + gradient (captured forward)"
-    calls[label_g] = (_eager(lambda: grad_of(register_map_sharded_ift)),
-                      lambda: grad_of(register_map_sharded_ift))
-    return calls, rec, it
-
-
 def _partitioned_cases(device, mesh, slam_case) -> dict:
     """The partitioned pose graph's program on phase 20's graph (its host
-    partition done before), refine_robust(mesh=...) (the second IRLS pass
-    replays the first's program); returns the calls."""
-    res_c, _ = slam_case
+    partition done before) against eager and the dense pose graph;
+    refine_robust(mesh=...) against the dense refine (positions, ATE) and
+    captured against eager (the second IRLS pass replays the first's
+    program); returns the calls."""
+    res_c, truth = slam_case
     poses, poses2 = res_c.poses_front.to(device), res_c.poses.to(device)
     graph = slam.build_pose_graph(poses, res_c.closures, SLAM_KW["closure_info"],
                                   converged=res_c.converged)
@@ -4397,6 +4344,15 @@ def _partitioned_cases(device, mesh, slam_case) -> dict:
         return slam.refine_robust(poses, graph, mesh=mesh, iterations=its)
 
     eager = _eager(rr)()
+    ref_dense = slam.refine_robust(poses, graph, iterations=its)
+    pos_diff = float(torch.linalg.vector_norm(eager[:, :3, 3] - ref_dense[:, :3, 3],
+                                              dim=-1).max())
+    a_dense = float(ate(ref_dense.double().cpu(), truth, align=False))
+    a_mesh = float(ate(eager.double().cpu(), truth, align=False))
+    print(f"  refine_robust(mesh=...) against the dense refine, eager: position difference "
+          f"{pos_diff:.3e} m, ATE {a_mesh:.5f} against {a_dense:.5f} m")
+    _check(pos_diff < 1e-2, "refine_robust(mesh) positions within 1e-2 of the dense refine")
+    _check(abs(a_mesh - a_dense) < 0.05 * max(a_dense, 1e-9), "ATE within 5% of the dense")
     prog.cache_clear()
     _comm.reset_counts()
     got = [rr(), rr()]
@@ -4413,45 +4369,28 @@ def _partitioned_cases(device, mesh, slam_case) -> dict:
     return calls
 
 
-def phase26_captured_gumbel_parallel(device, head_inputs, sources, targets, pair,
-                                     raw_inputs, slam_case) -> dict:
-    """The Gumbel solve on threefry draws and parallel/'s programs captured,
-    each against its eager form (_captured_equals_eager, collectives
-    counted), in an NCCL world of one destroyed at the end; then eager
+def phase26_captured_gumbel(device, head_inputs, sources, targets) -> dict:
+    """D2 against its plain version; the Gumbel solve on threefry draws
+    captured, against its eager form (_captured_equals_eager); then eager
     against captured in turns and the draw's share of the captured solve.
-    Returns the phase's launches and K2's largest |difference| to its plain
-    version on the map-sharded call."""
+    Returns the phase's launches and D2's entry of the kernels line."""
     t_phase = time.perf_counter()
     d2 = _d2_against_plain(device)
     _reset_launches()
     g_calls, draw_ms, eager_draw_ms, iters = _gumbel_cases(device, head_inputs, sources,
                                                            targets)
-    mesh = make_mesh((1, 1))
-    _check(dist.get_backend() == "nccl", f"the world of one runs on NCCL ({dist.get_backend()})")
-    try:
-        m_calls, rec, _ = _map_sharded_cases(device, mesh, pair, sources, targets, raw_inputs)
-        p_calls = _partitioned_cases(device, mesh, slam_case)
-        launches = _launches()
-        k2_err = _held_to_plain("cluster_search", rec)
-        for label, (eager_call, jitted_call) in {**g_calls, **m_calls, **p_calls}.items():
-            heavy = "gumbel" in label or "refine_robust" in label or "pose graph" in label
-            med = _alternated(label, eager_call, jitted_call, rounds=2,
-                              iters=TURN_ITERS_HEAVY if heavy else 5)
-            if label.startswith("register_jit(use_gumbel"):
-                share = draw_ms * iters / med["captured"]
-                print(f"    the draw: {draw_ms:.4f} ms per iteration captured ({eager_draw_ms:.4f} "
-                      f"eager), x {iters:.0f} iterations = {share:.3f} of the captured solve")
-        for info in jit.programs():
-            print(f"  cached program {info.name}: {info.pool_bytes / 2**20:.1f} MiB of private "
-                  f"pools, {info.replays} replays, key {str(info.key)[:140]}")
-    finally:
-        jit.clear_caches()
-        dist.destroy_process_group()
-    print(f"phase 26 ok: the Gumbel solve and parallel/'s programs captured equal their eager "
-          f"forms bit for bit, no host wait in a replay, kernel launches as eager (collectives: "
-          f"map_sharded_fn's fixed trip max_iterations + 1 per replay, the pose graph's as "
-          f"eager); launches {launches}; {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "k2_err": k2_err, "d2": d2}
+    launches = _launches()
+    for label, (eager_call, jitted_call) in g_calls.items():
+        med = _alternated(label, eager_call, jitted_call, rounds=2, iters=TURN_ITERS_HEAVY)
+        if label.startswith("register_jit(use_gumbel"):
+            share = draw_ms * iters / med["captured"]
+            print(f"    the draw: {draw_ms:.4f} ms per iteration captured ({eager_draw_ms:.4f} "
+                  f"eager), x {iters:.0f} iterations = {share:.3f} of the captured solve")
+    jit.clear_caches()
+    print(f"phase 26 ok: the Gumbel solve captured equals its eager form bit for bit, no host "
+          f"wait in a replay, kernel launches as eager; launches {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "d2": d2}
 
 
 # --- phase 27: the unrolled gradient captured, and the draw kernel D1 ---------
@@ -4697,7 +4636,8 @@ class _BackwardCase(NamedTuple):
     host outside its program (``ICP.icp``'s slice of the histories);
     ``loose``: gradient positions in ``wrt`` held within a relative bound
     instead of bit for bit; ``replayed``: what a replay launches where the
-    eager call launches ``launches``."""
+    eager call launches ``launches``; ``counter``: what "launches" counts
+    (default :func:`_launches`)."""
 
     label: str
     jitted: object
@@ -4709,6 +4649,7 @@ class _BackwardCase(NamedTuple):
     loose: dict = {}
     replayed: object = None
     heavy: bool = False
+    counter: object = None
 
 
 def _recomputed_draws(want: dict) -> dict:
@@ -4795,9 +4736,10 @@ def _backward_equals_eager(case: _BackwardCase) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     with jit.disable_jit():
-        want, _, eager_s = _counted(lambda: _fwd_bwd(case, case.inputs))
+        want, _, eager_s = _counted(lambda: _fwd_bwd(case, case.inputs), case.counter)
         peak = torch.cuda.max_memory_allocated() - base
-        want_fresh, launches_fresh, _ = _counted(lambda: _fwd_bwd(case, case.fresh))
+        want_fresh, launches_fresh, _ = _counted(lambda: _fwd_bwd(case, case.fresh),
+                                                 case.counter)
     case.jitted.cache_clear()
     first, _, first_s = _counted(lambda: _fwd_bwd(case, case.inputs))
     _check(not case.jitted.cache, f"{case.label}: the first call captures nothing")
@@ -4808,7 +4750,8 @@ def _backward_equals_eager(case: _BackwardCase) -> dict:
            f"{case.label}: one program pair")
     gap = max(gap, _same(case, "the second call (the captures)", want, second))
     replays = prog.replays
-    got, per_replay, _ = _counted(lambda: _fwd_bwd(case, case.fresh, strict=True))
+    got, per_replay, _ = _counted(lambda: _fwd_bwd(case, case.fresh, strict=True),
+                                  case.counter)
     gap = max(gap, _same(case, "fresh inputs", want_fresh, got))
     _check(per_replay == replayed(launches_fresh), f"{case.label}: a forward and backward "
            f"replay launch {replayed(launches_fresh)} (eager {launches_fresh}), got {per_replay}")
@@ -5063,6 +5006,105 @@ def _in_program_cases(device, pair, recorded: dict) -> None:
           f"(probes {PROBES}, group {GROUP})")
 
 
+CFG_MAP_GRAD = CFG_MAP.with_(differentiable=True)   # phase 8's pair, map-sharded, differentiated
+
+
+def _trip_replayed(cfg: ICPConfig, unrolled: bool, ranks: int = 1):
+    """What a replay of a map-sharded solve's fixed trip launches where the
+    uncaptured host loop launches ``want`` (K2 and collectives): K2 as the
+    host loop (a skipped step searches nothing, the backward recomputes
+    without a search); the forward's summands all-reduced max_iterations + 1
+    times, not iterations + 1; with ``unrolled`` the backward's all-reduce
+    of the pose's cotangent max_iterations times, not iterations times (once
+    per step after the first, and the cost pass's); everything else, the
+    IFT backward's included, as the host loop."""
+    k = 3 if cfg.dim == 2 else 6
+    summands = f"collective all_reduce {ranks} {2 * (k * k + k + 1) + 1}"
+    pose = f"collective all_reduce {ranks} 12"
+
+    def replayed(want: dict) -> dict:
+        steps = want[summands] - 1    # the host loop's iterations
+        moved = (summands, pose) if unrolled else (summands,)
+        return {key: n + cfg.max_iterations - steps if key in moved else n
+                for key, n in want.items()}
+    return replayed
+
+
+def _map_sharded_backward_cases(device, pair) -> dict:
+    """The map-sharded gradients as programs at phase 8's pair (cluster
+    tier, K2) in an NCCL world of one, each against its uncaptured run:
+    register_map_sharded by .backward() through its program pair
+    (map_sharded_fn's) and its fixed trip inside one program that calls
+    torch.autograd.grad, and register_map_sharded_ift the same two ways (a
+    jit over a call of it; its backward inside the pair's backward program).
+    Collectives per replay (_trip_replayed): the unrolled forward
+    max_iterations + 1, its backward max_iterations + a constant, the IFT
+    backward a constant.  Then eager against captured in turns.  Returns
+    the .backward() cases' measurements."""
+    src8, tgt8 = pair
+    ti = torch.eye(4, dtype=torch.float32, device=device)
+    cfg = CFG_MAP_GRAD
+    mesh = make_mesh((1, 1))
+    _check(dist.get_backend() == "nccl", f"the world of one runs on NCCL ({dist.get_backend()})")
+    checked = {}
+    try:
+        ift_jit = jit.jit(lambda s: register_map_sharded_ift(mesh, s, tgt8, ti, cfg=cfg),
+                          name="map_sharded_ift")
+        cases = [
+            _BackwardCase(f"register_map_sharded, phase 8's {src8.shape[0]} -> "
+                          f"{tgt8.shape[0]} pair (cluster tier, K2; its fixed trip)",
+                          sharding.map_sharded_fn(mesh, cfg),
+                          lambda s: register_map_sharded(mesh, s, tgt8, ti, cfg=cfg), (src8,),
+                          (_fresh(src8, 293),), heavy=True,
+                          replayed=_trip_replayed(cfg, unrolled=True),
+                          counter=_launches_and_collectives),
+            _BackwardCase("register_map_sharded_ift in a jitted call, phase 8's pair (its "
+                          "backward captured)", ift_jit, ift_jit, (src8,), (_fresh(src8, 294),),
+                          heavy=True, replayed=_trip_replayed(cfg, unrolled=False),
+                          counter=_launches_and_collectives)]
+        for case in cases:
+            checked[case.label] = _backward_equals_eager(case)
+            checked[case.label]["turns"] = _alternated(
+                f"{case.label}, forward + .backward()", functools.partial(_eager_fb, case),
+                functools.partial(_fwd_bwd, case, case.inputs), rounds=2, iters=1)
+            case.jitted.cache_clear()
+
+        def unit(solve, s, t, t0):
+            with torch.enable_grad():
+                s = s.clone().requires_grad_(True)
+                # the inner map_sharded_fn stays out of the program's warm-up
+                # (a jitted call there would count as its key's first
+                # sighting); inside the capture it is part of the program
+                with jit.disable_jit():
+                    res = solve(mesh, s, t, t0, cfg=cfg)
+                value = _loss(res)
+                (grad,) = torch.autograd.grad(value, s)
+            return res, value.detach(), grad
+
+        src8_b = _fresh(src8, 295)
+        for solve, name, unrolled in ((register_map_sharded, "map_sharded_unrolled", True),
+                                      (register_map_sharded_ift, "map_sharded_ift_grad", False)):
+            call = functools.partial(unit, solve)
+            jitted = jit.jit(call, name=name)
+            label = (f"{solve.__name__}'s gradient in one program, phase 8's pair (K2; "
+                     f"{'the fixed trip' if unrolled else 'the IFT backward'})")
+            _captured_equals_eager(label, _eager(lambda: call(src8, tgt8, ti)),
+                                   lambda: jitted(src8, tgt8, ti), jitted,
+                                   (_eager(lambda: call(src8_b, tgt8, ti)),
+                                    lambda: jitted(src8_b, tgt8, ti)),
+                                   counter=_launches_and_collectives,
+                                   replayed=_trip_replayed(cfg, unrolled))
+            steps = int(jitted(src8, tgt8, ti)[0].iterations)
+            print(f"  {label}: {steps} executed steps of {cfg.max_iterations}")
+            _alternated(label, _eager(lambda: call(src8, tgt8, ti)),
+                        lambda: jitted(src8, tgt8, ti), rounds=2, iters=1)
+            jitted.cache_clear()
+    finally:
+        jit.clear_caches()
+        dist.destroy_process_group()
+    return checked
+
+
 def phase28_backward(device, head_inputs, sources, targets, pair) -> dict:
     """.backward() through captured programs (jit's program pairs) against
     disable_jit(); GICP's, SGD's and the cluster tier's fixed trips inside
@@ -5084,6 +5126,7 @@ def phase28_backward(device, head_inputs, sources, targets, pair) -> dict:
     _evicted_pair_case(head_inputs)
     recorded = {}
     _in_program_cases(device, pair, recorded)
+    checked.update(_map_sharded_backward_cases(device, pair))
     launches = _launches()
     k2_err = _held_to_plain("cluster_search", recorded)
     src, tgt, ti = head_inputs
@@ -5101,8 +5144,9 @@ def phase28_backward(device, head_inputs, sources, targets, pair) -> dict:
     jit.clear_caches()
     print(f"phase 28 ok: .backward() through every captured program pair equals its "
           f"disable_jit() run bit for bit (fresh inputs, interleaved forwards, retain_graph; "
-          f"no host wait in a replay); the GICP, SGD and cluster-tier fixed trips in one "
-          f"program equal the host loop; launches {launches}; "
+          f"no host wait in a replay); the GICP, SGD, cluster-tier and map-sharded fixed "
+          f"trips and the sharded IFT's backward in one program equal the host loop; "
+          f"launches {launches}; "
           f"{time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "k2_err": k2_err, "cases": checked}
 
@@ -5139,8 +5183,9 @@ def main() -> None:
         s2m_launches, s2m_d2, k2_err_s2m, s2m_stream = phase18_scan_to_map(device)
         pyramid = phase19_gicp_multiscale(device)
         slam_k1, slam_k2, slam_stream, slam_case, slam_scans = phase20_slam(device)
-        par = phase21_parallel(device, pair, T_pair, sources, targets, T_true, raw_sources,
-                               raw_targets, T_raw, slam_case)
+        par = phase21_parallel(device, pair, T_pair, sources, targets, T_true,
+                               (to_torch(raw_sources, device), to_torch(raw_targets, device)),
+                               T_raw, slam_case)
         suite = phase22_bench_suite_examples(device)
         captured = phase23_captured(device, reference_batch(device),
                                     (to_torch(sources, device), to_torch(targets, device)),
@@ -5153,16 +5198,14 @@ def main() -> None:
         del slam_scans
         backend = phase25_captured_backend(device, host, slam_case)
         del host
-        last = phase26_captured_gumbel_parallel(
-            device, reference_batch(device), sources, targets, pair,
-            (to_torch(raw_sources, device), to_torch(raw_targets, device)), slam_case)
+        last = phase26_captured_gumbel(device, reference_batch(device), sources, targets)
         unrolled = phase27_unrolled_captured(device, reference_batch(device), sources, targets)
         backward = phase28_backward(device, reference_batch(device), sources, targets, pair)
         timed["cluster_search"]["max_abs_err"] = max(timed["cluster_search"]["max_abs_err"],
                                                      k2_err, k2_err_s2m, pyramid["k2_err"],
                                                      slam_k2["k2_err"], par["k2_err"],
                                                      solvers["k2_err"], backend["k2_err"],
-                                                     last["k2_err"], backward["k2_err"])
+                                                     backward["k2_err"])
         k1["max_abs_err"] = max(k1["max_abs_err"], slam_k1["k1_err"], solvers["k1_err"],
                                 unrolled["k1_err"])
         for name, got in (("tiled_nn", k1), ("cluster_search", timed["cluster_search"]),
@@ -5223,9 +5266,11 @@ def main() -> None:
         "replaces": "dicp_tpu/ops/pallas_knn.py:50",
         **k1,
         "launches": (launches + slam_k1["launches"] + suite_launches("tiled_nn")[1]
+                     + par["launches"]["tiled_nn"]
                      + captured["launches"]["tiled_nn"] + solvers["launches"]["tiled_nn"]
                      + backend["launches"]["tiled_nn"] + last["launches"]["tiled_nn"]
                      + unrolled["launches"]["tiled_nn"] + backward["launches"]["tiled_nn"]),
+        "launches_in_phase21": par["launches"]["tiled_nn"],
         "launches_in_phase23": captured["launches"]["tiled_nn"],
         "launches_in_phase24": solvers["launches"]["tiled_nn"],
         "launches_in_phase25": backend["launches"]["tiled_nn"],
@@ -5248,7 +5293,7 @@ def main() -> None:
         if name == "cluster_search":
             count += (sum(odo_launches.values()) + sum(s2m_launches.values())
                       + pyramid["launches_single"] + pyramid["launches_per_multiscale_call"]
-                      + slam_k2["launches"] + par["launches"])
+                      + slam_k2["launches"])
             extra = {"launches_per_streamed_pair": {
                          label: k / (S_SEQ - 1) for label, k in odo_launches.items()
                          if label != "batched odometry"},
@@ -5259,13 +5304,14 @@ def main() -> None:
                      "launches_per_multiscale_call": pyramid["launches_per_multiscale_call"],
                      "launches_per_map_sharded_call": par["launches_per_map_sharded_call"]}
         per_row, in_suite = suite_launches(name)
+        in21 = par["launches"][name]
         in23, in24 = captured["launches"][name], solvers["launches"][name]
         in25, in26 = backend["launches"][name], last["launches"][name]
         in28 = backward["launches"][name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": count + in_suite + in23 + in24 + in25 + in26 + in28,
+                        "launches": count + in_suite + in21 + in23 + in24 + in25 + in26 + in28,
                         **timed[name], **extra, "launches_per_suite_row": per_row,
-                        "launches_in_phase23": in23, "launches_in_phase24": in24,
+                        "launches_in_phase21": in21, "launches_in_phase23": in23, "launches_in_phase24": in24,
                         "launches_in_phase25": in25, "launches_in_phase26": in26,
                         "launches_in_phase28": in28})
     _check(k4_launches > 0, f"fused_gn launched on the headline path ({k4_launches})")
@@ -5273,11 +5319,13 @@ def main() -> None:
                     "source": "dicp_tpu_torch/csrc/fused_gn.cu",
                     "replaces": "dicp_tpu/ops/fused_gn.py:167",
                     "launches": (k4_launches + suite_launches("fused_gn")[1]
+                                 + par["launches"]["fused_gn"]
                                  + captured["launches"]["fused_gn"]
                                  + solvers["launches"]["fused_gn"]
                                  + backend["launches"]["fused_gn"]
                                  + last["launches"]["fused_gn"]
                                  + backward["launches"]["fused_gn"]), **k4,
+                    "launches_in_phase21": par["launches"]["fused_gn"],
                     "launches_in_phase23": captured["launches"]["fused_gn"],
                     "launches_in_phase24": solvers["launches"]["fused_gn"],
                     "launches_in_phase25": backend["launches"]["fused_gn"],
@@ -5799,8 +5847,9 @@ def _rank_worker() -> None:
     the same gradient in a world of one (each rank alone in a group) and
     the unrolled one, at the solve's tolerance and with both solves run
     max_iterations, on the cluster tier (cosine > 0.99 on the rows both
-    worlds certify) and the dense tier (cosines > 0.999).  Then a WHILE
-    node whose body holds an all-reduce, and CUDA's answer."""
+    worlds certify) and the dense tier (cosines > 0.999); the map-sharded
+    gradient programs (_rank_gradient_programs).  Then a WHILE node whose
+    body holds an all-reduce, and CUDA's answer."""
     from dicp_tpu_torch.odometry import PoseGraph
     from dicp_tpu_torch.parallel.multihost import initialize_distributed
     from dicp_tpu_torch.registration import _register_captured as register_program
@@ -5947,6 +5996,7 @@ def _rank_worker() -> None:
                        f"on {world} ranks against one rank's on the rows both certify, "
                        f"cosine {cos_both:.6f} > 0.99")
         say(line)
+    _rank_gradient_programs(mesh_map, mesh_one, src, target, ti, say, same_on_ranks)
     s9, t9, _ = scene_pairs(np.random.default_rng(SEED + 9), 2 * world, N_RAW, M_RAW)
     s9, t9 = to_torch(s9, dev), to_torch(t9, dev)
     ti9 = torch.eye(4, dtype=torch.float32, device=dev).expand(s9.shape[0], 4, 4)
@@ -6002,6 +6052,104 @@ def _rank_worker() -> None:
     dist.barrier(group=group)
     dist.destroy_process_group()
     say("--ranks ok")
+
+
+def _rank_gradient_programs(mesh, mesh_one, src, target, ti, say, same_on_ranks) -> None:
+    """One rank of --ranks: the map-sharded gradients as programs at phase
+    8's pair (phase 28's four: register_map_sharded and
+    register_map_sharded_ift, by .backward() through a program pair and
+    inside one program that calls torch.autograd.grad), each against its
+    uncaptured run bit for bit on every rank (T, the loss, the gradient
+    into the source), the same on every rank, with its K2 launches and
+    collectives per replay (_trip_replayed); and the certified queries of
+    the map-sharded solve's first search on each rank, beside each rank
+    alone's."""
+    world = dist.get_world_size()
+    cfg = CFG_MAP_GRAD
+    src_b = _fresh(src, 296)
+
+    def certified(m) -> list:
+        search, counts = sharding.cluster_nn, []
+
+        def spy(*args, **kwargs):
+            out = search(*args, **kwargs)
+            counts.append(out[2].sum().reshape(1).double())
+            return out
+
+        sharding.cluster_nn = spy
+        try:
+            with jit.disable_jit():
+                register_map_sharded(m, src, target, ti, cfg=CFG_MAP)
+        finally:
+            sharding.cluster_nn = search
+        every = [torch.empty_like(counts[0]) for _ in range(world)]
+        dist.all_gather(every, counts[0])
+        return [int(c) for c in every]
+
+    say(f"  certified queries of the map-sharded solve's first search (at T_init), by rank: "
+        f"{certified(mesh)} of {src.shape[0] // world} each on {world} ranks; each rank alone "
+        f"(a world of one): {certified(mesh_one)} of {src.shape[0]}")
+
+    def backward_form(fn):
+        def call(s_in):
+            s = s_in.detach().clone().requires_grad_(True)
+            res = fn(s)
+            value = _loss(res)
+            value.backward()
+            return res.T.detach(), value.detach(), s.grad
+        return call
+
+    def in_program(solve):
+        def unit(s, t, t0):
+            with torch.enable_grad():
+                s = s.clone().requires_grad_(True)
+                with jit.disable_jit():   # the inner program stays out of the warm-up
+                    res = solve(mesh, s, t, t0, cfg=cfg)
+                value = _loss(res)
+                (grad,) = torch.autograd.grad(value, s)
+            return res.T.detach(), value.detach(), grad
+        return unit
+
+    ift_jit = jit.jit(lambda s: register_map_sharded_ift(mesh, s, target, ti, cfg=cfg),
+                      name="map_sharded_ift")
+    cases = [("register_map_sharded, .backward() through its program pair",
+              sharding.map_sharded_fn(mesh, cfg),
+              backward_form(lambda s: register_map_sharded(mesh, s, target, ti, cfg=cfg)), True),
+             ("register_map_sharded_ift in a jitted call, .backward()", ift_jit,
+              backward_form(ift_jit), False)]
+    for solve, unrolled in ((register_map_sharded, True), (register_map_sharded_ift, False)):
+        jitted = jit.jit(in_program(solve), name=f"{solve.__name__}_grad")
+        cases.append((f"{solve.__name__}'s gradient in one program", jitted,
+                      lambda s, jitted=jitted: jitted(s, target, ti), unrolled))
+    for label, jitted, call, unrolled in cases:
+        with jit.disable_jit():
+            eager = call(src)
+            eager_b, want_b, _ = _counted(lambda: call(src_b), _launches_and_collectives)
+        jitted.cache_clear()
+        outs = [call(src), call(src)]     # a pair: eager at its first sighting
+
+        def strict(call=call):
+            with _no_host_wait():
+                return call(src_b)
+
+        got, per_replay, _ = _counted(strict, _launches_and_collectives)
+        replayed = _trip_replayed(cfg, unrolled, world)
+        _check(per_replay == replayed(want_b), f"{label}: a replay launches "
+               f"{replayed(want_b)} (eager {want_b}), got {per_replay}")
+        for what, a, b in [("the first calls", eager, o) for o in outs] + [("fresh inputs",
+                                                                            eager_b, got)]:
+            _check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                   f"{label}, {what}: equal to the uncaptured run bit for bit")
+        _check(all(same_on_ranks(x) for x in got), f"{label}: the same on every rank")
+        with jit.disable_jit():
+            eager_ms = cuda_median_ms(lambda: call(src), warmup=1, iters=3)
+        captured_ms = cuda_median_ms(lambda: call(src), warmup=1, iters=3)
+        say(f"  {label}, {world} ranks: equal to the uncaptured run bit for bit on every "
+            f"rank (two calls, a fresh-input replay under the sync debug mode's 'error'), "
+            f"the same on every rank; per replay {per_replay} (eager {want_b}); eager "
+            f"{eager_ms:.3f} ms, captured {captured_ms:.3f} ms (rank 0, CUDA events, medians "
+            f"of 3)")
+        jitted.cache_clear()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """JAX's differentiable scan driver as autograd steps that a capture can
-record: the machinery that ``registration``, ``gicp`` and ``sgd_icp`` share.
+record: the machinery that ``registration``, ``gicp``, ``sgd_icp`` and
+``parallel.sharding`` share.
 
 JAX differentiates a solve through a ``lax.scan`` of a fixed number of
 steps, each skipped (its carry passed through) where every batch element has
@@ -21,7 +22,13 @@ of :class:`Step` autograd Functions:
 * a skipped step passes the carry's cotangent through, as the VJP of JAX's
   ``lax.cond`` does, and gives none to the inputs.
 
-A solve describes its step with a :class:`Trip`.
+A solve describes its step with a :class:`Trip` and runs the trip with
+:func:`run`.  A step that must run a collective (the map-sharded solve's
+all-reduce: CUDA refuses NCCL's kernels inside a conditional node's body)
+is split at it: each part is a :class:`Trip` of its own, applied by
+:func:`step` under the one flag of the step, and the collective between
+them is a plain autograd op, run in every step, skipped or not, forward and
+backward.
 """
 
 from __future__ import annotations
@@ -146,6 +153,16 @@ class Step(torch.autograd.Function):
         return (None, None, None, *grads, *(None,) * (len(fields) - g))
 
 
+def step(trip: Trip, it, run: Optional[torch.Tensor], inputs: Sequence[torch.Tensor],
+         carry: Sequence[torch.Tensor]) -> Tuple[tuple, tuple]:
+    """One :class:`Step` of ``trip`` at the executed-step counter ``it``,
+    run where the 0-dim bool ``run`` holds (always where it is None):
+    (the new carry, the step's other outputs)."""
+    carry = tuple(carry)
+    outs = Step.apply(trip, it, run, *inputs, *carry)
+    return tuple(outs[:len(carry)]), tuple(outs[len(carry):])
+
+
 def run(trip: Trip, steps: int, inputs: Sequence[torch.Tensor], carry: Sequence[torch.Tensor],
         go: Optional[Callable[[tuple], torch.Tensor]]):
     """``steps`` :class:`Step` s from ``carry``; step k runs where
@@ -157,8 +174,7 @@ def run(trip: Trip, steps: int, inputs: Sequence[torch.Tensor], carry: Sequence[
     others = []
     for _ in range(steps):
         flag = None if go is None else go(carry)
-        outs = Step.apply(trip, it, flag, *inputs, *carry)
-        carry, other = tuple(outs[:len(carry)]), tuple(outs[len(carry):])
+        carry, other = step(trip, it, flag, inputs, carry)
         others.append(other)
         it = it + 1 if flag is None else it + flag.to(torch.int32)
     return carry, others, it

@@ -14,7 +14,11 @@ VJPs; the replicated target's cotangent is all-reduced, as JAX's shard_map
 autodiff sums it).  The backward adds a CONSTANT number of collectives, never
 one per iteration: the (k, k) all-reduce, the target's, the source's and the
 weight's (``_comm.replicated``), and the certificate gate's count on the
-cluster tier.
+cluster tier.  It reads nothing on the host and runs no loop, so a capture
+takes it as it is: the backward of a program pair (a jitted function that
+calls :func:`register_map_sharded_ift`, differentiated by ``.backward()``)
+or part of a program that calls ``torch.autograd.grad``, its all-reduces
+plain ops of the captured graph.
 
 Weighting matches the sharded solver: prior, trim and loss weights apply
 LINEARLY, not through the single-pair driver's sqrt(w + 1e-10) - 1e-5 row
@@ -149,7 +153,9 @@ class _ShardedFixedPoint(torch.autograd.Function):
         A = psum(cols.T, group)                       # A[i, j] = dG_i / dxi_j
         A = A + _damping(cfg, A[None], use_abs=True)[0] * torch.eye(k, dtype=dtype,
                                                                     device=src.device)
-        lam = torch.linalg.solve(A.T, xi_bar[:, None])[:, 0]
+        # solve_ex: linalg.solve's LU without its host check of ``info``,
+        # which a capture refuses
+        lam = torch.linalg.solve_ex(A.T, xi_bar[:, None], check_errors=False)[0][:, 0]
         _, g_vjp = vjp(lambda s, t, wp: G_loc(zero, s, t, wp), src, tgt, w)
         src_bar, tgt_bar, w_bar = g_vjp(-lam)
         # every rank uses the target whole: its cotangent is the group's sum
@@ -181,8 +187,8 @@ def register_map_sharded_ift(
     and pad exclusion), run by :func:`~dicp_tpu_torch.parallel.sharding.map_sharded_fn`
     (a captured program on the card); a gradient through the returned ``T``
     costs one k x k solve and one stationarity VJP instead of the unrolled
-    loop, run eagerly.  Requires convergence for exactness (check
-    ``.converged``)."""
+    loop, eagerly or inside the caller's program.  Requires convergence for
+    exactness (check ``.converged``)."""
     if cfg.use_gumbel:
         raise ValueError("IFT gradients require hard (deterministic) NN")
     _, _, n_dev = _axis(mesh, axis)

@@ -25,11 +25,15 @@ Programs.  :func:`map_sharded_fn` is the counterpart of JAX's jitted
 ``shard_map``: a program of :mod:`dicp_tpu_torch.jit` per (mesh, cfg, axis,
 target_sharded, n_real), captured on the card with its collectives inside.
 CUDA refuses NCCL's kernels in a conditional node's body, so the captured
-loop is a fixed trip of masked steps, each with its all-reduce (JAX's scan
-driver), where a step past the exit skips its local terms in a run-once
-node; every rank reads the same all-reduced step norm, so the ranks' steps
-and collectives pair up.  ``register_batch_sharded`` runs ``register_jit``
-on its rows.
+loop is a fixed trip (JAX's scan driver, :mod:`dicp_tpu_torch.fixed_trip`)
+whose steps are split at their all-reduce: the local terms and the update
+are run-once nodes, skipped past the exit, and the all-reduce between them
+runs in every step; every rank reads the same all-reduced step norm, so the
+ranks' steps and collectives pair up.  Autograd records the trip where an
+input requires grad, so a call that differentiates runs jit's program pair
+(or is part of a program that calls ``torch.autograd.grad``): the
+counterpart of ``jax.jit(jax.grad(f))`` over the scan driver.
+``register_batch_sharded`` runs ``register_jit`` on its rows.
 
 Gradients.  A global input that each rank slices or uses whole goes through
 ``_comm.replicated`` (the backward sums the ranks' partial cotangents), and
@@ -48,7 +52,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from dicp_tpu_torch import knn, losses, se3
+from dicp_tpu_torch import fixed_trip, knn, losses, se3
 from dicp_tpu_torch.config import ICPConfig
 from dicp_tpu_torch.jit import capturing, device_if, jit, records
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn, query_order
@@ -185,8 +189,8 @@ def _ring_nn_where(run: torch.Tensor, x: torch.Tensor, y_shard: torch.Tensor,
     best_row = y_shard.new_zeros((x.shape[0], y_shard.shape[1]))
 
     def fold(y_cur):
-        # in place, in a run-once node: a captured solve on which autograd
-        # records raises before it gets here (_map_sharded_solve)
+        # in place, in a run-once node: the rows carry no gradient (a
+        # captured solve that differentiates the ring's target raises)
         for old, new in zip((best_d, best_row), _ring_fold(x, y_cur, best_d, best_row)):
             old.copy_(new)
 
@@ -254,95 +258,71 @@ def _linearize(cfg: ICPConfig, C, cp, ps_t, src_nrm, nn6, w, smooth: bool):
     return J, res, w
 
 
-def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_init, group,
-                       target_sharded: bool = False, n_real: Optional[int] = None):
-    """This rank's part of the map-sharded Gauss-Newton solve; returns (T,
-    converged, iterations, cost), the same on every rank of ``group``.
+def _moved(source, pose):
+    """(C, cp, ps_t): the rotation of the flat pose (12,), and this rank's
+    source points rotated and moved by the pose."""
+    C_l = pose[:9].reshape(3, 3)
+    cp = source[:, :3] @ C_l.T
+    return C_l, cp, cp + pose[9:]
 
-    Weights apply LINEARLY (not through the single-pair driver's sqrt row
-    scaling), as in JAX's sharded solver, and its fixed point is the same.
-    One early-exit loop serves both JAX drivers (a frozen iteration of the
-    scan driver is the identity); every rank reads the same reduced step
-    norm, so all stop together.  With ``target_sharded`` the target is this
-    rank's shard and correspondences come from :func:`ring_nn`.
 
-    Under capture the loop is a fixed trip, as JAX's ``lax.scan`` form
-    runs it: ``max_iterations`` masked steps over a state held in tensors (``C``,
-    ``r``, a 0-dim int32 ``it``, a 0-dim bool ``done``, ``cost``; a step runs
-    where ``it < max_iterations & ~done``), each with its all-reduce: CUDA
-    refuses NCCL's kernels inside a conditional node's body, so the exit
-    cannot be a WHILE node.  The work around the collectives is in run-once
-    nodes, skipped in a step that does not run.  Otherwise the loop runs on
-    the host, reads the step norm once per iteration, and autograd can
-    record it.  Both give the same bits."""
-    dtype, device = source_shard.dtype, source_shard.device
-    rank, k_dev = dist.get_rank(group), dist.get_world_size(group)
-    n_loc = source_shard.shape[0]
-    C0, r0 = T_init[:3, :3], T_init[:3, 3]
-    src_pts = source_shard[:, :3]
-    src_nrm = source_shard[:, 3:6] if cfg.icp_type == "symmetric" else None
-    tgt_pts = target[:, :3]
-    if target_sharded:
-        method = "ring"
-    else:
-        method = cfg.resolved_nn_method(n_loc, target.shape[0], device)
-        if method == "pallas":
-            # JAX demotes the tiled tier inside its shard_map body; the
-            # (n/K, m) dense tile is K times smaller per rank
-            method = "dense"
-    if method == "cluster":
-        # the index over the replicated target and the query order, once per
-        # solve at T_init (rigid motion keeps neighbourhoods)
-        with torch.no_grad():
-            cl_index = build_cluster_index(tgt_pts.detach(), cfg.cluster_group)
-            qord = query_order(cl_index, (src_pts @ C0.T + r0).detach())
-        fixup = cfg.resolved_cluster_fixup(n_loc)
+class _Terms(fixed_trip.Trip):
+    """The first part of a map-sharded Gauss-Newton step: this rank's
+    summands of the step's one all-reduce, flat.  Inputs: the source shard
+    (n_loc, 3|6), its weight, the target, the replicated pose (12,) and, on
+    the ring, the matched rows (found around the ring's shifts, outside the
+    step).  The carry is the summands' buffer, 0 where the step is skipped.
+    The search: the int32 nearest rows and, on the cluster tier, the
+    certificate."""
 
-    # the summands of the iteration's one all-reduce, flat: (A, b, cost), or
-    # on the cluster tier the gated and ungated equations and the certified
-    # count (the 50% certification fallback must fire on the GLOBAL
-    # fraction, or shards diverge near the threshold)
-    k = 3 if cfg.dim == 2 else 6
-    n_ne = k * k + k + 1
-    if n_real is not None:
-        denom = float(n_real)
-    else:
-        denom = n_loc * k_dev
+    n_grad = 1
 
-    def pose_rows(C, r):
-        """(C, cp, ps_t): this rank's source points rotated and moved by the
-        pose (C, r)."""
-        # the replicated pose enters this rank's local terms: its cotangent
-        # from them is summed over the group
-        Cr = replicated(torch.cat([C.reshape(-1), r]), group)
-        C_l, r_l = Cr[:9].reshape(3, 3), Cr[9:]
-        cp = src_pts @ C_l.T
-        return C_l, cp, cp + r_l
+    def __init__(self, cfg: ICPConfig, method: str, rank: int, n_real: Optional[int],
+                 cl_index=None, qord=None, fixup: int = 0):
+        self.cfg, self.method, self.rank, self.n_real = cfg, method, rank, n_real
+        self.cl_index, self.qord, self.fixup = cl_index, qord, fixup
+        self.n_inputs = 5 if method == "ring" else 4
 
-    def local_terms(C, r):
-        """This rank's summands at the pose (C, r), flat."""
-        C_l, cp, ps_t = pose_rows(C, r)
-        valid = None
-        if method == "ring":
-            nn6 = ring_nn(ps_t, target, group)
-        elif method == "cluster":
+    def found(self, inputs):
+        if self.method == "ring":
+            return []
+        source = inputs[0]
+        idx = torch.zeros((source.shape[0],), dtype=torch.int32, device=source.device)
+        return [idx] + ([source.new_zeros((source.shape[0],))] if self.method == "cluster" else [])
+
+    def search(self, ps_t, tgt_pts):
+        if self.method == "cluster":
             # fused=cfg.sharded_fused (None: K2 on CUDA queries, the group
             # scan on the CPU); the certificate gate is applied on the GLOBAL
             # fraction, after the all-reduce
-            idx, _, cert = cluster_nn(cl_index, ps_t, probes=cfg.cluster_probes,
-                                      use_pallas=False, fused=cfg.sharded_fused, order=qord,
-                                      fixup=fixup)
-            nn6 = target[idx.long()]
-            valid = cert.to(dtype)
-        else:
-            nn6 = target[knn.nn_indices(ps_t, tgt_pts).long()]
-        return terms(C_l, cp, ps_t, nn6, valid)
+            idx, _, cert = cluster_nn(self.cl_index, ps_t, probes=self.cfg.cluster_probes,
+                                      use_pallas=False, fused=self.cfg.sharded_fused,
+                                      order=self.qord, fixup=self.fixup)
+            return idx, cert.to(ps_t.dtype)
+        return (knn.nn_indices(ps_t, tgt_pts),)
 
-    def terms(C_l, cp, ps_t, nn6, valid):
-        """The summands, flat, from the matched rows ``nn6`` (and the
-        certificate ``valid`` on the cluster tier)."""
-        J, res, w = _linearize(cfg, C_l, cp, ps_t, src_nrm, nn6, weight_shard,
-                               cfg.differentiable)
+    def step(self, inputs, carry, it, search):
+        source, weight, target, pose = inputs[:4]
+        C_l, cp, ps_t = _moved(source, pose)
+        valid = None
+        if self.method == "ring":
+            nn6 = inputs[4]
+        else:
+            got = search(ps_t, target[:, :3])
+            nn6 = target[got[0].long()]
+            if self.method == "cluster":
+                valid = got[1]
+        return (self.terms(source, weight, C_l, cp, ps_t, nn6, valid),), ()
+
+    def terms(self, source, weight, C_l, cp, ps_t, nn6, valid):
+        """The summands, flat, from the matched rows ``nn6``: (A, b, cost),
+        or with the certificate ``valid`` (the cluster tier) the gated and
+        ungated equations and the certified count (the 50% certification
+        fallback must fire on the GLOBAL fraction, or shards diverge near
+        the threshold)."""
+        cfg, n_loc = self.cfg, source.shape[0]
+        src_nrm = source[:, 3:6] if cfg.icp_type == "symmetric" else None
+        J, res, w = _linearize(cfg, C_l, cp, ps_t, src_nrm, nn6, weight, cfg.differentiable)
 
         def ne(wv):
             return [J.T @ (wv[:, None] * J), J.T @ (wv * res), torch.sum(wv * res * res)]
@@ -353,22 +333,36 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
             if cfg.icp_type == "pt2pt":
                 valid = torch.repeat_interleave(valid, 3)
             rep = valid.shape[0] // n_loc
-            if n_real is not None:
+            if self.n_real is not None:
                 # the wrapper's zero-weight pads leave the fraction
-                real = (rank * n_loc + torch.arange(n_loc, device=device)) < n_real
-                cnt_local = torch.sum(valid[::rep] * real.to(dtype))
+                rows = self.rank * n_loc + torch.arange(n_loc, device=source.device)
+                cnt_local = torch.sum(valid[::rep] * (rows < self.n_real).to(source.dtype))
             else:
                 cnt_local = torch.sum(valid) / rep
             parts = ne(w * valid) + ne(w) + [cnt_local]
         return torch.cat([p.reshape(-1) for p in parts])
 
-    def finish(C, r, total):
-        """The step from the all-reduced summands ``total``: (C, r) updated,
-        the step norm, the cost."""
+
+class _Update(fixed_trip.Trip):
+    """The second part of a map-sharded step: the update from the
+    all-reduced summands (the input); the carry (C, r, done), C and r
+    differentiable."""
+
+    n_inputs, n_grad = 1, 2
+
+    def __init__(self, cfg: ICPConfig, method: str, denom: float):
+        self.cfg, self.method, self.denom = cfg, method, denom
+
+    def finish(self, C, r, total):
+        """The step from the all-reduced summands ``total``: (C, r)
+        updated, the step norm, the cost."""
+        cfg, dtype, device = self.cfg, total.dtype, total.device
+        k = 3 if cfg.dim == 2 else 6
+        n_ne = k * k + k + 1
         A, b, cost = total[:k * k].reshape(k, k), total[k * k:k * k + k], total[n_ne - 1]
-        if method == "cluster":
+        if self.method == "cluster":
             A_f, b_f = total[n_ne:n_ne + k * k].reshape(k, k), total[n_ne + k * k:2 * n_ne - 1]
-            use = total[2 * n_ne] / denom >= 0.5
+            use = total[2 * n_ne] / self.denom >= 0.5
             A = torch.where(use, A, A_f)
             b = torch.where(use, b, b_f)
             cost = torch.where(use, cost, total[2 * n_ne - 1])
@@ -387,60 +381,106 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
         r_new = r - delta6[3:]
         return C_new, r_new, torch.linalg.vector_norm(delta6), cost
 
-    def gn_iteration(C, r):
-        return finish(C, r, psum(local_terms(C, r), group))
+    def step(self, inputs, carry, it, search):
+        C, r, step_norm, _ = self.finish(carry[0], carry[1], inputs[0])
+        return (C, r, step_norm < self.cfg.tolerance), ()
+
+
+def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_init, group,
+                       target_sharded: bool = False, n_real: Optional[int] = None):
+    """This rank's part of the map-sharded Gauss-Newton solve; returns (T,
+    converged, iterations, cost), the same on every rank of ``group``.
+
+    Weights apply LINEARLY (not through the single-pair driver's sqrt row
+    scaling), as in JAX's sharded solver, and its fixed point is the same.
+    A step: the pose through ``replicated``, this rank's summands
+    (:class:`_Terms`), their all-reduce, the update (:class:`_Update`).
+    Every rank reads the same reduced step norm, so all stop together.  With
+    ``target_sharded`` the target is this rank's shard and correspondences
+    come from :func:`ring_nn`.
+
+    Under capture the loop is JAX's ``lax.scan`` driver, a fixed trip of
+    ``max_iterations`` steps, each part a run-once node
+    (:func:`fixed_trip.step`) skipped once a step has converged, and the
+    all-reduce between the parts run in every step: CUDA refuses NCCL's
+    kernels inside a conditional node's body, so the exit cannot be a WHILE
+    node.  Where an input requires grad autograd records the trip: each
+    part's backward is a run-once node (the terms recomputed from the saved
+    correspondences, no new search), and the pose's cotangent is all-reduced
+    in every step, outside them.  Otherwise the loop runs on the host, reads
+    the step norm once per iteration, and autograd records its ops.  Both
+    give the same bits."""
+    dtype, device = source_shard.dtype, source_shard.device
+    rank, k_dev = dist.get_rank(group), dist.get_world_size(group)
+    n_loc = source_shard.shape[0]
+    C0, r0 = T_init[:3, :3], T_init[:3, 3]
+    if target_sharded:
+        method = "ring"
+    else:
+        method = cfg.resolved_nn_method(n_loc, target.shape[0], device)
+        if method == "pallas":
+            # JAX demotes the tiled tier inside its shard_map body; the
+            # (n/K, m) dense tile is K times smaller per rank
+            method = "dense"
+    cluster = {}
+    if method == "cluster":
+        # the index over the replicated target and the query order, once per
+        # solve at T_init (rigid motion keeps neighbourhoods)
+        with torch.no_grad():
+            cl_index = build_cluster_index(target[:, :3].detach(), cfg.cluster_group)
+            qord = query_order(cl_index, (source_shard[:, :3] @ C0.T + r0).detach())
+        cluster = dict(cl_index=cl_index, qord=qord, fixup=cfg.resolved_cluster_fixup(n_loc))
+    terms = _Terms(cfg, method, rank, n_real, **cluster)
+    update = _Update(cfg, method, float(n_real) if n_real is not None else n_loc * k_dev)
+    inputs = (source_shard, weight_shard, target)
+
+    def pose(C, r):
+        # the replicated pose enters this rank's local terms: its cotangent
+        # from them is summed over the group
+        return replicated(torch.cat([C.reshape(-1), r]), group)
+
+    def iteration(C, r):
+        """One step, uncaptured: (C, r, step norm, cost)."""
+        Cr = pose(C, r)
+        ring = (ring_nn(_moved(source_shard, Cr)[2], target, group),) if method == "ring" else ()
+        (total,), _ = terms.step((*inputs, Cr, *ring), (), None, terms.search)
+        return update.finish(C, r, psum(total, group))
 
     if capturing(C0):
-        if records((source_shard, weight_shard, target, T_init)):
-            # the steps overwrite their state in place, which autograd cannot
-            # record (map_sharded_fn runs such a call eagerly)
-            raise ValueError("a captured map-sharded solve cannot be differentiated: call "
-                             "it uncaptured (its host loop records) or use "
-                             "register_map_sharded_ift")
-        # every field owns its storage: the steps overwrite them in place
-        C, r = C0.clone(), r0.clone()
-        it = torch.zeros((), dtype=torch.int32, device=device)
+        if method == "ring" and records((target,)):
+            raise ValueError("the ring is forward-only: a captured ring-sharded solve cannot "
+                             "differentiate its target")
+        k = 3 if cfg.dim == 2 else 6
+        n_ne = k * k + k + 1
+        zero = torch.zeros((2 * n_ne + 1 if method == "cluster" else n_ne,), dtype=dtype,
+                           device=device)
+        C, r = C0, r0
         done = torch.zeros((), dtype=torch.bool, device=device)
-        cost = torch.zeros((), dtype=dtype, device=device)
-        T = cfg.max_iterations
-
-        def update(run, total):
-            """The state after the step from the all-reduced ``total`` where
-            the 0-dim bool ``run`` holds, as it was where it does not."""
-            C_n, r_n, step_norm, cost_n = finish(C, r, total)
-            for old, new in ((C, C_n), (r, r_n), (done, step_norm < cfg.tolerance),
-                             (cost, cost_n)):
-                old.copy_(torch.where(run, new, old))
-            it.copy_(torch.where(run, it + 1, it))
-
-        # each step's run-once nodes overwrite state in place: nothing records
-        # them (a recorded capture raised above)
-        for _ in range(T):
-            run = (it < T) & ~done
-            total = torch.zeros((n_ne * 2 + 1 if method == "cluster" else n_ne,),
-                                dtype=dtype, device=device)
-            if method == "ring" and k_dev > 1:
-                # the ring's shifts run in every step, the search and the
-                # terms around them where the step runs
-                C_l, cp, ps_t = pose_rows(C, r)
-                nn6 = _ring_nn_where(run, ps_t, target, group)
-                device_if(run, lambda: total.copy_(terms(C_l, cp, ps_t, nn6, None)))
-            else:
-                device_if(run, lambda: total.copy_(local_terms(C, r)))
-            reduced = psum(total, group)
-            device_if(run, lambda: update(run, reduced))
+        it = torch.zeros((), dtype=torch.int32, device=device)
+        for _ in range(cfg.max_iterations):
+            run = ~done
+            Cr = pose(C, r)
+            ring = ()
+            if method == "ring":
+                # the shifts run in every step, the folds where the step runs
+                ring = (_ring_nn_where(run, _moved(source_shard, Cr)[2].detach(), target,
+                                       group),)
+            (total,), _ = fixed_trip.step(terms, it, run, (*inputs, Cr, *ring), (zero,))
+            (C, r, done), _ = fixed_trip.step(update, it, run, (psum(total, group),),
+                                              (C, r, done))
+            it = it + run.to(torch.int32)
     else:
         C, r = C0, r0
         steps, stop = 0, False
         while steps < cfg.max_iterations and not stop:
-            C, r, step_norm, _ = gn_iteration(C, r)
+            C, r, step_norm, _ = iteration(C, r)
             steps += 1
             stop = bool(step_norm < cfg.tolerance)
         done = torch.full((), stop, dtype=torch.bool, device=device)
         it = torch.full((), steps, dtype=torch.int32, device=device)
     # the in-loop cost is taken at each iteration's INPUT pose; report the
     # cost at the returned pose (one more correspondence pass)
-    _, _, _, cost = gn_iteration(C, r)
+    _, _, _, cost = iteration(C, r)
     return se3._homogeneous(C, r), done, it, cost
 
 
@@ -515,11 +555,13 @@ def map_sharded_fn(mesh: DeviceMesh, cfg: ICPConfig, axis: str = "map",
 
     On the card ``fn`` is a :func:`dicp_tpu_torch.jit.jit` program: a call
     per input shape captures the solve and later calls replay it.  A
-    replay runs ``cfg.max_iterations`` masked steps and
-    ``cfg.max_iterations + 1`` all-reduces (an uncaptured call, the host
-    loop: the iterations it needs, plus one).  A call whose input requires grad runs
-    eagerly (``eager_if``).  On the CPU it is the solve itself.  The mesh
-    and cfg live in the closure, not in the program's key.
+    replay runs ``cfg.max_iterations`` steps and ``cfg.max_iterations + 1``
+    all-reduces (an uncaptured call, the host loop: the iterations it
+    needs, plus one).  A call whose input requires grad runs a program pair
+    (eagerly at its key's first call): its backward replays
+    ``cfg.max_iterations`` all-reduces of the pose's cotangent, one per
+    step, beside a constant few.  On the CPU it is the solve itself.  The
+    mesh and cfg live in the closure, not in the program's key.
 
     lru-cached on (mesh, cfg, axis, target_sharded, n_real), as JAX's is,
     and on the axis's process group: a mesh of a new world equals the old
@@ -543,11 +585,7 @@ def _map_sharded_fn(mesh, cfg, axis, target_sharded, n_real, group):
         return _map_sharded_solve(cfg, source[rows], weight[rows], target, T_init, group,
                                   target_sharded=target_sharded, n_real=n_real)
 
-    # a call on which autograd records runs eagerly: the captured fixed trip
-    # overwrites its state in place, and its collectives have no captured
-    # backward
-    return jit(program, name="map_sharded_fn",
-               eager_if=lambda a: records([x for x in a.values() if torch.is_tensor(x)]))
+    return jit(program, name="map_sharded_fn")
 
 
 def register_ring_sharded(

@@ -140,22 +140,46 @@ def job_world_info(mesh):
 
 
 def job_map_sharded(mesh, source, target, cfg, T_init=None, weight=None, axis="map",
-                    entry="register_map_sharded", grad_wrt=(), probe=None, expect_error=False):
+                    entry="register_map_sharded", grad_wrt=(), probe=None, expect_error=False,
+                    cost_scale=None, fixed_trip=False, certified=False):
     """One map-sharded, ring-sharded or IFT solve; with ``grad_wrt`` the
-    gradient of sum(T * probe) with respect to the named inputs, and the
-    collectives of the forward and of the backward apart.  With
-    ``expect_error`` the ValueError or RuntimeError that every rank raises
-    alike, as {"error": message}."""
+    gradient of sum(T * probe) (plus ``cost_scale`` times the cost) with
+    respect to the named inputs, and the collectives of the forward and of
+    the backward apart.  ``fixed_trip``: the solve takes the fixed trip of
+    its capture (run uncaptured).  ``certified``: the certified queries of
+    each of the solve's cluster-tier searches on this rank, and the rank's
+    coordinate on ``axis``.  With ``expect_error`` the ValueError or
+    RuntimeError that every rank raises alike, as {"error": message}."""
+    from dicp_tpu_torch.jit import capturing
+    from dicp_tpu_torch.parallel import sharding
+
+    search, counts = sharding.cluster_nn, []
+
+    def spy(*args, **kwargs):
+        out = search(*args, **kwargs)
+        counts.append(int(out[2].sum()))
+        return out
+
+    if fixed_trip:
+        sharding.capturing = lambda x=None: True
+    if certified:
+        sharding.cluster_nn = spy
     try:
-        return _map_sharded(mesh, source, target, cfg, T_init, weight, axis, entry, grad_wrt,
-                            probe)
+        out = _map_sharded(mesh, source, target, cfg, T_init, weight, axis, entry, grad_wrt,
+                           probe, cost_scale)
+        if certified:
+            out.update(certified=counts, coordinate=mesh.get_local_rank(axis))
+        return out
     except (ValueError, RuntimeError) as exc:
         if expect_error:
             return {"error": str(exc)}
         raise
+    finally:
+        sharding.capturing, sharding.cluster_nn = capturing, search
 
 
-def _map_sharded(mesh, source, target, cfg, T_init, weight, axis, entry, grad_wrt, probe):
+def _map_sharded(mesh, source, target, cfg, T_init, weight, axis, entry, grad_wrt, probe,
+                 cost_scale=None):
     import torch
 
     from dicp_tpu_torch import parallel
@@ -174,6 +198,8 @@ def _map_sharded(mesh, source, target, cfg, T_init, weight, axis, entry, grad_wr
     if grad_wrt:
         _comm.reset_counts()
         loss = torch.sum(res.T * (1.0 if probe is None else torch.as_tensor(probe)))
+        if cost_scale is not None:
+            loss = loss + cost_scale * res.cost
         grads = torch.autograd.grad(loss, [inputs[name] for name in grad_wrt])
         out["grads"] = {name: _np(g) for name, g in zip(grad_wrt, grads)}
         out["counts_bwd"] = _counts()
@@ -181,24 +207,20 @@ def _map_sharded(mesh, source, target, cfg, T_init, weight, axis, entry, grad_wr
 
 
 def job_map_sharded_loops(mesh, source, target, cfg, entry="register_map_sharded",
-                          axis="map"):
+                          axis="map", weight=None, grad_wrt=(), probe=None, cost_scale=None):
     """One solve through ``map_sharded_fn``'s program (uncaptured: the host
     loop) and through the fixed trip its capture takes (run uncaptured),
-    each with its collectives; and whether equal arguments give
-    ``map_sharded_fn`` one callable (its cache) and other ones another."""
-    import torch
-
-    from dicp_tpu_torch import parallel
+    each as :func:`job_map_sharded` runs it (``grad_wrt``: the gradients,
+    and the forward's and the backward's collectives apart); and whether
+    equal arguments give ``map_sharded_fn`` one callable (its cache) and
+    other ones another."""
     from dicp_tpu_torch.jit import capturing
     from dicp_tpu_torch.parallel import _comm, sharding
 
     def run():
         _comm.reset_counts()
-        res = getattr(parallel, entry)(mesh, torch.as_tensor(source), torch.as_tensor(target),
-                                       None, None, cfg=cfg, axis=axis)
-        return {"T": _np(res.T), "converged": bool(res.converged),
-                "iterations": int(res.iterations), "cost": float(res.cost),
-                "counts": sorted(_comm.collectives().items())}
+        return _map_sharded(mesh, source, target, cfg, None, weight, axis, entry, grad_wrt,
+                            probe, cost_scale)
 
     host = run()
     # the captured form's fixed trip, run uncaptured (its run-once nodes

@@ -8,8 +8,11 @@ the map-sharded solve's capture takes (run uncaptured: max_iterations + 1
 all-reduces; on the ring its shifts in every step, its folds only in the
 steps that run) is held to the host loop bit for bit in T, iterations,
 convergence and cost; the host loop runs one all-reduce per iteration plus
-the cost pass.  The pose graph is held to the dense ``pose_graph_optimize``
-within 1e-4."""
+the cost pass.  Differentiated (the trip that a program pair or a program
+calling ``torch.autograd.grad`` records), the trip's gradients into the
+source, the target and the weight equal the host loop's bit for bit, and
+its backward runs one all-reduce of the pose's cotangent per step.  The
+pose graph is held to the dense ``pose_graph_optimize`` within 1e-4."""
 
 import inspect
 from collections import Counter
@@ -83,12 +86,82 @@ def test_program_equals_the_host_loop(world, source_np, target_np, case):
             (host["iterations"], host["converged"], host["cost"])
         np.testing.assert_array_equal(host["T"], res[0]["host"]["T"])
         for got, want in ((host, host["iterations"] + 1), (trip, cfg.max_iterations + 1)):
-            counts = Counter({k: v for k, v in got["counts"]})
+            counts = Counter({k: v for k, v in got["counts_fwd"]})
             assert sum(v for (kind, _, _), v in counts.items() if kind == "all_reduce") == want
             if case == "ring":   # K - 1 = 1 shift per pass
                 assert sum(v for (kind, _, _), v in counts.items()
                            if kind == "ring_shift") == want
         assert host["converged"] and r["cached"]
+
+
+GRAD_CASES = {
+    # (entry, source rows, cfg, the inputs differentiated): the dense tier at
+    # pt2pl, the cluster tier with a padded source (n_real; the certificate
+    # gate in the all-reduce), and the ring (forward-only in its target)
+    "pt2pl": ("register_map_sharded", 64,
+              ICPConfig(icp_type="pt2pl", differentiable=True, max_iterations=30, tolerance=1e-10,
+                        trim_dist=5.0, loss_name="huber", dim=2, nn_method="dense"),
+              ("source", "target", "weight")),
+    "cluster": ("register_map_sharded", 63,
+                ICPConfig(icp_type="pt2pl", differentiable=True, max_iterations=30,
+                          tolerance=1e-10, trim_dist=5.0, loss_name="huber",
+                          nn_method="cluster", cluster_group=16, cluster_probes=4),
+                ("source", "target", "weight")),
+    "ring": ("register_ring_sharded", 64,
+             ICPConfig(icp_type="pt2pl", differentiable=True, max_iterations=30, tolerance=1e-8,
+                       trim_dist=5.0, loss_name="huber", dim=2),
+             ("source", "weight")),
+}
+
+
+def _all_reduces(counts) -> int:
+    return sum(v for (kind, _, _), v in counts if kind == "all_reduce")
+
+
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_fixed_trip_gradient_equals_the_host_loop(world, source_np, target_np, case):
+    """The differentiable fixed trip (what a captured map-sharded solve on
+    which autograd records runs) gives the host loop's T, cost and
+    gradients into the source, the target and the weight (the ring: the
+    source and the weight) bit for bit on every rank, the loss
+    sum(T * probe) + 0.1 cost.  All-reduces: forward max_iterations + 1 for
+    the trip and iterations + 1 for the host loop; backward max_iterations
+    and iterations plus one for each input differentiated: the pose's
+    cotangent once per step after the first (whose pose is T_init's) and in
+    the cost pass, and each input's."""
+    entry, n, cfg, names = GRAD_CASES[case]
+    rng = np.random.default_rng(5)
+    src = source_np[:n, :3] + rng.normal(scale=2e-2, size=(n, 3)) * [1, 1, 0]
+    res = world.run("map_sharded_loops", (1, 2), source=src, target=target_np, cfg=cfg,
+                    entry=entry, weight=rng.uniform(0.5, 1.5, n), grad_wrt=names,
+                    probe=np.linspace(0.5, 1.5, 16).reshape(4, 4), cost_scale=0.1)
+    for r in res:
+        trip, host = r["trip"], r["host"]
+        it = host["iterations"]
+        assert host["converged"] and 1 < it < cfg.max_iterations
+        np.testing.assert_array_equal(trip["T"], host["T"])
+        assert (trip["iterations"], trip["converged"], trip["cost"]) == \
+            (it, host["converged"], host["cost"])
+        for name in names:
+            np.testing.assert_array_equal(trip["grads"][name], host["grads"][name])
+            np.testing.assert_array_equal(trip["grads"][name], res[0]["trip"]["grads"][name])
+            assert np.abs(trip["grads"][name]).max() > 0, name
+        assert _all_reduces(host["counts_fwd"]) == it + 1
+        assert _all_reduces(trip["counts_fwd"]) == cfg.max_iterations + 1
+        assert _all_reduces(host["counts_bwd"]) == it + len(names)
+        assert _all_reduces(trip["counts_bwd"]) == cfg.max_iterations + len(names)
+        assert all(kind == "all_reduce" for (kind, _, _), _ in trip["counts_bwd"])
+
+
+def test_captured_ring_differentiating_its_target_raises(world, source_np, target_np):
+    """The ring is forward-only: a captured ring-sharded solve on which
+    autograd records the target raises on every rank, where its host loop's
+    shifts would raise in the backward."""
+    cfg = GRAD_CASES["ring"][2]
+    err = world.run("map_sharded", (1, 2), source=source_np[:64, :3], target=target_np,
+                    cfg=cfg, entry="register_ring_sharded", grad_wrt=("target",),
+                    fixed_trip=True, expect_error=True)
+    assert all("forward-only" in r["error"] for r in err), err
 
 
 def _partitioned(world, V, closures, iterations):

@@ -27,12 +27,14 @@ import jax.numpy as jnp  # noqa: E402
 
 from dicp_tpu import parallel as jp  # noqa: E402
 from dicp_tpu.config import ICPConfig as JICPConfig  # noqa: E402
+from dicp_tpu.ops import cluster_knn as j_cluster_knn  # noqa: E402
 from dicp_tpu.registration import register_jit as j_register  # noqa: E402
 
 from dicp_tpu_torch import se3  # noqa: E402
 from dicp_tpu_torch.config import ICPConfig  # noqa: E402
 from dicp_tpu_torch.convert import config_from_dict  # noqa: E402
 from dicp_tpu_torch.knn import hard_nn  # noqa: E402
+from dicp_tpu_torch.ops import cluster_knn as port_cluster_knn  # noqa: E402
 from dicp_tpu_torch.registration import register  # noqa: E402
 
 from tests._torch_world import World  # noqa: E402
@@ -347,6 +349,58 @@ def test_map_sharded_fused_parity(world, source_np, target_np):
     T_j, it_j = _jmap((1, 8), source_np[:, :3], target_np, base.with_(sharded_fused=False))
     np.testing.assert_allclose(res_f["T"], T_j, atol=1e-10)
     assert res_f["iterations"] == it_j
+
+
+def _certified(cluster_knn, shard, target, cfg: ICPConfig):
+    """The queries that the map-sharded solve's first search certifies on
+    one shard at T_init = I, by ``cluster_knn`` (JAX's module or the
+    port's): the index over the target, the query order at T_init,
+    cluster_nn with the solve's probes, backend and fix-up budget."""
+    index = cluster_knn.build_cluster_index(target, cfg.cluster_group)
+    _, _, cert = cluster_knn.cluster_nn(
+        index, shard, probes=cfg.cluster_probes, use_pallas=False, fused=cfg.sharded_fused,
+        order=cluster_knn.query_order(index, shard),
+        fixup=cfg.resolved_cluster_fixup(shard.shape[0]))
+    return cert.sum()
+
+
+def test_map_sharded_cluster_certificates_on_four_ranks(world, source_np, target_np):
+    """The cluster tier on 4 'map' ranks (a (2, 4) mesh) against JAX's
+    (1, 4) mesh, on a pair that one rank and four certify differently (a
+    fix-up budget of 2; each rank sorts and blocks its own queries): each
+    rank's certified count at T_init (its solve's first search) equals what
+    JAX's shard_map body certifies on the same shard, and the converged T
+    is within 1e-10 of JAX's register_map_sharded_ift's forward (on these
+    inputs register_map_sharded's solve).  The sharded IFT gradient's
+    cosine with JAX's is printed: the port searches the backward's cluster
+    tier in the forward's query order, JAX re-sorts at theta* (ROADMAP,
+    Queue 3's deviations)."""
+    cfg = CFG.with_(max_iterations=50, tolerance=1e-10, nn_method="cluster", cluster_group=8,
+                    cluster_probes=3, cluster_fixup=2)
+    src = _perturbed_pair(source_np)[0][:64]
+    res, ranks = _map(world, (2, 4), src, target_np, cfg, entry="register_map_sharded_ift",
+                      grad_wrt=("source",), certified=True)
+    count = jax.jit(lambda t, q: _certified(j_cluster_knn, q, t, cfg))
+    want = [int(count(jnp.asarray(target_np[:, :3]), jnp.asarray(shard)))
+            for shard in np.split(src, 4)]
+    got = {r["coordinate"]: r["certified"][0] for r in ranks}
+    assert all(r["certified"][0] == want[r["coordinate"]] for r in ranks), (got, want)
+    one = int(_certified(port_cluster_knn, torch.as_tensor(src), torch.as_tensor(target_np[:, :3]),
+                         cfg))
+    assert one != sum(want), (one, want)
+    assert res["converged"]
+    mesh, jcfg = jp.make_mesh((1, 4), devices=jax.devices()[:4]), _jcfg(cfg)
+    (_, T_j), g_j = jax.jit(jax.value_and_grad(
+        lambda s: (lambda r: (jnp.sum(r.T), r.T))(jp.register_map_sharded_ift(
+            mesh, s, jnp.asarray(target_np), cfg=jcfg)), has_aux=True))(jnp.asarray(src))
+    np.testing.assert_allclose(res["T"], np.asarray(T_j), atol=1e-10)
+    (g,) = _grads_all_ranks(ranks, ("source",))
+    g_j = np.asarray(g_j)
+    cos = float(np.sum(g * g_j) / (np.linalg.norm(g) * np.linalg.norm(g_j)))
+    assert _rel(g, g_j) < 1e-8, (cos, _rel(g, g_j))
+    print(f"certified at T_init by rank coordinate: port {dict(sorted(got.items()))}, JAX "
+          f"{want}, one rank {one}; IFT gradient cosine with JAX's {cos:.9f}, "
+          f"|g - g_jax| / |g_jax| {_rel(g, g_j):.3e}")
 
 
 def test_map_sharded_ift_gradients_match_unrolled(world, source_np, target_np):

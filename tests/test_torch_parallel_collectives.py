@@ -120,25 +120,62 @@ def test_map_sharding_cluster_no_extra_collectives(world, source_np, target_np):
     assert it == it_j
 
 
+_J_IFT_GRADS = {}
+
+
+def _jax_ift_grad(source, target, cfg):
+    """jax.grad of sum(T) through JAX's register_map_sharded_ift over the
+    source, under jit, once per max_iterations in this module."""
+    if cfg.max_iterations not in _J_IFT_GRADS:
+        mesh, tgt, jcfg = jp.make_mesh((1, K)), jnp.asarray(target), _jcfg(cfg)
+        _J_IFT_GRADS[cfg.max_iterations] = np.asarray(jax.jit(jax.grad(lambda s: jnp.sum(
+            jp.register_map_sharded_ift(mesh, s, tgt, cfg=jcfg).T)))(jnp.asarray(source)))
+    return _J_IFT_GRADS[cfg.max_iterations]
+
+
+IFT_CFG = CFG.with_(differentiable=True, driver="auto", max_iterations=25)
+
+
 def test_map_sharded_ift_backward_constant_collectives(world, source_np, target_np):
     """The IFT backward adds a CONSTANT number of all-reduces (the (k, k)
     Jacobian, the target's cotangent, the source's), never one per
     iteration, and no shift: doubling max_iterations leaves it unchanged."""
-    cfg = CFG.with_(differentiable=True, driver="auto", max_iterations=25)
     src = source_np[:64, :3]
     added = {}
     for iters in (25, 50):
-        res = _map(world, src, target_np, cfg.with_(max_iterations=iters),
-                   entry="register_map_sharded_ift", grad_wrt=("source",))
+        cfg = IFT_CFG.with_(max_iterations=iters)
+        res = _map(world, src, target_np, cfg, entry="register_map_sharded_ift",
+                   grad_wrt=("source",))
         bwd = dict(res["counts_bwd"])
         assert all(kind == "all_reduce" for kind, _, _ in bwd), bwd
         assert dict(res["counts_fwd"]) == {("all_reduce", K, 13): res["iterations"] + 1}
         added[iters] = sum(bwd.values())
         assert 0 < added[iters] <= 8, bwd
-        mesh, tgt = jp.make_mesh((1, K)), jnp.asarray(target_np)
-        jcfg = _jcfg(cfg.with_(max_iterations=iters))
-        g_j = jax.jit(jax.grad(lambda s: jnp.sum(
-            jp.register_map_sharded_ift(mesh, s, tgt, cfg=jcfg).T)))(jnp.asarray(src))
+        g_j = _jax_ift_grad(src, target_np, cfg)
         g = res["grads"]["source"]
-        assert np.abs(g - np.asarray(g_j)).max() < 1e-8 * np.abs(np.asarray(g_j)).max()
+        assert np.abs(g - g_j).max() < 1e-8 * np.abs(g_j).max()
     assert added[25] == added[50], added
+
+
+def test_map_sharded_ift_backward_after_the_captured_forward(world, source_np, target_np):
+    """The sharded IFT's backward (its k x k solve by linalg.solve_ex, no
+    host check of info) after the forward that a capture runs
+    (map_sharded_fn's fixed trip, run uncaptured: max_iterations + 1
+    all-reduces): the gradient equals the host loop forward's bit for bit
+    and JAX's within 1e-8 relative, and the backward adds the host loop
+    forward's all-reduces, the same at max_iterations 25 and 50."""
+    src = source_np[:64, :3]
+    added = {}
+    for iters in (25, 50):
+        cfg = IFT_CFG.with_(max_iterations=iters)
+        host, trip = (_map(world, src, target_np, cfg, entry="register_map_sharded_ift",
+                           grad_wrt=("source",), fixed_trip=fixed)
+                      for fixed in (False, True))
+        assert dict(trip["counts_fwd"]) == {("all_reduce", K, 13): iters + 1}
+        assert trip["counts_bwd"] == host["counts_bwd"]
+        added[iters] = sum(v for _, v in trip["counts_bwd"])
+        np.testing.assert_array_equal(trip["T"], host["T"])
+        np.testing.assert_array_equal(trip["grads"]["source"], host["grads"]["source"])
+        g_j = _jax_ift_grad(src, target_np, cfg)
+        assert np.abs(trip["grads"]["source"] - g_j).max() < 1e-8 * np.abs(g_j).max()
+    assert added[25] == added[50] > 0, added
