@@ -342,7 +342,12 @@ Phases, each raising on failure (the script then exits non-zero):
     K2 launches and collectives per replay (the unrolled forward
     max_iterations + 1 all-reduces, its backward max_iterations + a
     constant, the IFT backward a constant), first-call cost, pools, and
-    eager against captured in turns.
+    eager against captured in turns.  In the same world, the ring's
+    unrolled gradient at phase 4's first pair: register_ring_sharded
+    differentiated into its source and its sharded target (the reverse
+    ring), by .backward() through map_sharded_fn's program pair and inside
+    one program, the same way (the target gradient finite and nonzero; a
+    ring of one sends nothing).
 16. (run after 17-28) a torch.profiler pass over 3 calls each of phases
     4 (captured, through ICP.icp, and eager register), 8 and 9 (captured),
     12 (eager and captured), one W = 1 warm stream of phase 17's first 9
@@ -426,8 +431,11 @@ and times, and the IFT gradient against the same gradient in a world of
 one and the unrolled one (dense tier: cosines > 0.999; cluster tier: > 0.99
 on the rows both worlds certify); phase 28's map-sharded gradient programs
 (register_map_sharded and register_map_sharded_ift, by .backward() and
-inside one program), each bit-equal to its uncaptured run on every rank,
-with collectives per replay, beside the certified queries of each rank's
+inside one program) and the ring's unrolled gradient into the source and
+the sharded target at phase 8's pair (by .backward() and inside one
+program: K - 1 shifts and as many reverse shifts per ring call), each
+bit-equal to its uncaptured run on every rank, with collectives per
+replay, beside the certified queries of each rank's
 first search and of each rank alone; then tries a WHILE node whose body
 holds an all-reduce and prints CUDA's answer.  The last line is the ranks' exit codes as JSON.
 """
@@ -3179,13 +3187,13 @@ def _windows_in_flight(host, window: int):
     return in_flight, len(events), torch.cat(rels).cpu()   # the final fetch
 
 
-TURN_BUDGET_MS = 1000.0   # eager ms that one visit of the turns may spend
+TURN_BUDGET_MS = 400.0    # eager ms that one visit of the turns may spend
 
 
 def _alternated(label: str, eager_call, jitted_call, unit: float = 0.0, what: str = "",
-                rounds: int = 4, iters: int = 5) -> dict:
-    """ms per call, eager and captured in turns (E C C E E C C E for
-    ``rounds`` = 4, ``iters`` calls a visit), CUDA events around each call
+                rounds: int = 2, iters: int = 5) -> dict:
+    """ms per call, eager and captured in turns (E C C E for ``rounds`` =
+    2, ``iters`` calls a visit), CUDA events around each call
     (bench.time_alternated with max_ms=TURN_BUDGET_MS: one eager call timed
     first is eager's warm-up and sets the depth, a visit spends at most
     TURN_BUDGET_MS of eager calls, an eager call slower than that takes two
@@ -5007,30 +5015,38 @@ def _in_program_cases(device, pair, recorded: dict) -> None:
 
 
 CFG_MAP_GRAD = CFG_MAP.with_(differentiable=True)   # phase 8's pair, map-sharded, differentiated
+CFG_RING_GRAD = CFG_RING.with_(differentiable=True)  # phase 4's first pair, the ring differentiated
 
 
-def _trip_replayed(cfg: ICPConfig, unrolled: bool, ranks: int = 1):
+def _trip_replayed(cfg: ICPConfig, unrolled: bool, ranks: int = 1, ring: bool = False):
     """What a replay of a map-sharded solve's fixed trip launches where the
     uncaptured host loop launches ``want`` (K2 and collectives): K2 as the
     host loop (a skipped step searches nothing, the backward recomputes
     without a search); the forward's summands all-reduced max_iterations + 1
     times, not iterations + 1; with ``unrolled`` the backward's all-reduce
     of the pose's cotangent max_iterations times, not iterations times (once
-    per step after the first, and the cost pass's); everything else, the
-    IFT backward's included, as the host loop."""
+    per step after the first, and the cost pass's); on the ``ring`` (whose
+    summands carry no certificate) ranks - 1 shifts per step, and with its
+    backward as many reverse shifts, max_iterations + 1 ring calls, not
+    iterations + 1; everything else, the IFT backward's included, as the
+    host loop."""
     k = 3 if cfg.dim == 2 else 6
-    summands = f"collective all_reduce {ranks} {2 * (k * k + k + 1) + 1}"
+    n_ne = k * k + k + 1
+    summands = f"collective all_reduce {ranks} {n_ne if ring else 2 * n_ne + 1}"
     pose = f"collective all_reduce {ranks} 12"
+    shifts = ("collective ring_shift ", "collective ring_shift_reverse ")
 
     def replayed(want: dict) -> dict:
         steps = want[summands] - 1    # the host loop's iterations
         moved = (summands, pose) if unrolled else (summands,)
-        return {key: n + cfg.max_iterations - steps if key in moved else n
+        extra = cfg.max_iterations - steps
+        return {key: n + extra if key in moved else
+                n + (ranks - 1) * extra if key.startswith(shifts) else n
                 for key, n in want.items()}
     return replayed
 
 
-def _map_sharded_backward_cases(device, pair) -> dict:
+def _map_sharded_backward_cases(device, pair, ring_pair) -> dict:
     """The map-sharded gradients as programs at phase 8's pair (cluster
     tier, K2) in an NCCL world of one, each against its uncaptured run:
     register_map_sharded by .backward() through its program pair
@@ -5039,8 +5055,10 @@ def _map_sharded_backward_cases(device, pair) -> dict:
     jit over a call of it; its backward inside the pair's backward program).
     Collectives per replay (_trip_replayed): the unrolled forward
     max_iterations + 1, its backward max_iterations + a constant, the IFT
-    backward a constant.  Then eager against captured in turns.  Returns
-    the .backward() cases' measurements."""
+    backward a constant.  Then eager against captured in turns.  Then the
+    ring's unrolled gradient into the source and the sharded target at
+    ``ring_pair`` (phase 4's first pair) the same two ways (_ring_cases).
+    Returns the .backward() cases' measurements."""
     src8, tgt8 = pair
     ti = torch.eye(4, dtype=torch.float32, device=device)
     cfg = CFG_MAP_GRAD
@@ -5099,9 +5117,66 @@ def _map_sharded_backward_cases(device, pair) -> dict:
             _alternated(label, _eager(lambda: call(src8, tgt8, ti)),
                         lambda: jitted(src8, tgt8, ti), rounds=2, iters=1)
             jitted.cache_clear()
+        checked.update(_ring_cases(mesh, ring_pair))
     finally:
         jit.clear_caches()
         dist.destroy_process_group()
+    return checked
+
+
+def _ring_cases(mesh, ring_pair) -> dict:
+    """The ring's unrolled gradient (register_ring_sharded, differentiable,
+    into the source and the sharded target; CFG_RING_GRAD) at ``ring_pair``
+    on ``mesh``'s map axis, each against its uncaptured run as the
+    map-sharded gradients are: by .backward() through map_sharded_fn's
+    program pair (_backward_equals_eager) and inside one program that calls
+    torch.autograd.grad (_captured_equals_eager), the target gradient
+    finite and nonzero, collectives per replay by _trip_replayed (on a ring
+    of one no shift), then eager against captured in turns.  Returns the
+    .backward() case's measurements."""
+    s4, t4 = ring_pair
+    cfg = CFG_RING_GRAD
+    ti = torch.eye(4, dtype=s4.dtype, device=s4.device)
+    ranks = dist.get_world_size(mesh.get_group("map"))
+    replayed = _trip_replayed(cfg, unrolled=True, ranks=ranks, ring=True)
+    shape = f"{tuple(s4.shape)} -> {tuple(t4.shape)}"
+    case = _BackwardCase(
+        f"register_ring_sharded, phase 4's {shape} pair (the ring's fixed trip; into the "
+        f"source and the sharded target)",
+        sharding.map_sharded_fn(mesh, cfg, target_sharded=True),
+        lambda s, t: register_ring_sharded(mesh, s, t, ti, cfg=cfg), (s4, t4),
+        (_fresh(s4, 297), _fresh(t4, 298)), wrt=(0, 1), heavy=True, replayed=replayed,
+        counter=_launches_and_collectives)
+    g_target = _eager_fb(case)[2][1]
+    _check(bool(torch.isfinite(g_target).all()) and bool((g_target != 0).any()),
+           f"{case.label}: the target gradient finite and nonzero")
+    checked = {case.label: _backward_equals_eager(case)}
+    checked[case.label]["turns"] = _alternated(
+        f"{case.label}, forward + .backward()", functools.partial(_eager_fb, case),
+        functools.partial(_fwd_bwd, case, case.inputs), rounds=2, iters=1)
+    case.jitted.cache_clear()
+    print(f"  {case.label}: target gradient |g| {float(g_target.norm()):.3e}, rows with a "
+          f"gradient {int((g_target.abs().sum(dim=-1) != 0).sum())} of {t4.shape[0]}")
+
+    def unit(s, t):
+        with torch.enable_grad():
+            s, t = s.clone().requires_grad_(True), t.clone().requires_grad_(True)
+            with jit.disable_jit():   # the inner program stays out of the warm-up
+                res = register_ring_sharded(mesh, s, t, ti, cfg=cfg)
+            value = _loss(res)
+            grads = torch.autograd.grad(value, (s, t))
+        return res, value.detach(), *grads
+
+    jitted = jit.jit(unit, name="ring_sharded_unrolled")
+    s4b, t4b = case.fresh
+    label = f"register_ring_sharded's gradient in one program, phase 4's {shape} pair"
+    _captured_equals_eager(label, _eager(lambda: unit(s4, t4)), lambda: jitted(s4, t4), jitted,
+                           (_eager(lambda: unit(s4b, t4b)), lambda: jitted(s4b, t4b)),
+                           counter=_launches_and_collectives, replayed=replayed)
+    steps = int(jitted(s4, t4)[0].iterations)
+    print(f"  {label}: {steps} executed steps of {cfg.max_iterations}")
+    _alternated(label, _eager(lambda: unit(s4, t4)), lambda: jitted(s4, t4), rounds=2, iters=1)
+    jitted.cache_clear()
     return checked
 
 
@@ -5126,7 +5201,8 @@ def phase28_backward(device, head_inputs, sources, targets, pair) -> dict:
     _evicted_pair_case(head_inputs)
     recorded = {}
     _in_program_cases(device, pair, recorded)
-    checked.update(_map_sharded_backward_cases(device, pair))
+    checked.update(_map_sharded_backward_cases(
+        device, pair, (to_torch(sources[0], device), to_torch(targets[0], device))))
     launches = _launches()
     k2_err = _held_to_plain("cluster_search", recorded)
     src, tgt, ti = head_inputs
@@ -6058,12 +6134,14 @@ def _rank_gradient_programs(mesh, mesh_one, src, target, ti, say, same_on_ranks)
     """One rank of --ranks: the map-sharded gradients as programs at phase
     8's pair (phase 28's four: register_map_sharded and
     register_map_sharded_ift, by .backward() through a program pair and
-    inside one program that calls torch.autograd.grad), each against its
-    uncaptured run bit for bit on every rank (T, the loss, the gradient
-    into the source), the same on every rank, with its K2 launches and
-    collectives per replay (_trip_replayed); and the certified queries of
-    the map-sharded solve's first search on each rank, beside each rank
-    alone's."""
+    inside one program that calls torch.autograd.grad; and the ring's
+    unrolled gradient, register_ring_sharded into the source and the
+    sharded target, the same two ways), each against its uncaptured run bit
+    for bit on every rank (T, the loss, the gradients), the same on every
+    rank, with its K2 launches and collectives per replay (_trip_replayed:
+    on the ring K - 1 shifts and as many reverse shifts per ring call); and
+    the certified queries of the map-sharded solve's first search on each
+    rank, beside each rank alone's."""
     world = dist.get_world_size()
     cfg = CFG_MAP_GRAD
     src_b = _fresh(src, 296)
@@ -6099,6 +6177,23 @@ def _rank_gradient_programs(mesh, mesh_one, src, target, ti, say, same_on_ranks)
             return res.T.detach(), value.detach(), s.grad
         return call
 
+    def ring_backward(s_in):
+        s = s_in.detach().clone().requires_grad_(True)
+        t = target.detach().clone().requires_grad_(True)
+        res = register_ring_sharded(mesh, s, t, ti, cfg=cfg)
+        value = _loss(res)
+        value.backward()
+        return res.T.detach(), value.detach(), s.grad, t.grad
+
+    def ring_unit(s, t, t0):
+        with torch.enable_grad():
+            s, t = s.clone().requires_grad_(True), t.clone().requires_grad_(True)
+            with jit.disable_jit():   # the inner program stays out of the warm-up
+                res = register_ring_sharded(mesh, s, t, t0, cfg=cfg)
+            value = _loss(res)
+            grads = torch.autograd.grad(value, (s, t))
+        return res.T.detach(), value.detach(), *grads
+
     def in_program(solve):
         def unit(s, t, t0):
             with torch.enable_grad():
@@ -6114,26 +6209,45 @@ def _rank_gradient_programs(mesh, mesh_one, src, target, ti, say, same_on_ranks)
                       name="map_sharded_ift")
     cases = [("register_map_sharded, .backward() through its program pair",
               sharding.map_sharded_fn(mesh, cfg),
-              backward_form(lambda s: register_map_sharded(mesh, s, target, ti, cfg=cfg)), True),
+              backward_form(lambda s: register_map_sharded(mesh, s, target, ti, cfg=cfg)), True,
+              False),
              ("register_map_sharded_ift in a jitted call, .backward()", ift_jit,
-              backward_form(ift_jit), False)]
+              backward_form(ift_jit), False, False)]
     for solve, unrolled in ((register_map_sharded, True), (register_map_sharded_ift, False)):
         jitted = jit.jit(in_program(solve), name=f"{solve.__name__}_grad")
         cases.append((f"{solve.__name__}'s gradient in one program", jitted,
-                      lambda s, jitted=jitted: jitted(s, target, ti), unrolled))
-    for label, jitted, call, unrolled in cases:
+                      lambda s, jitted=jitted: jitted(s, target, ti), unrolled, False))
+    ring_jit = jit.jit(ring_unit, name="ring_sharded_grad")
+    cases += [("register_ring_sharded into the source and the sharded target, .backward() "
+               "through its program pair", sharding.map_sharded_fn(mesh, cfg, target_sharded=True),
+               ring_backward, True, True),
+              ("register_ring_sharded's gradient into the source and the sharded target in one "
+               "program", ring_jit, lambda s: ring_jit(s, target, ti), True, True)]
+    for label, jitted, call, unrolled, ring in cases:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         with jit.disable_jit():
             eager = call(src)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
             eager_b, want_b, _ = _counted(lambda: call(src_b), _launches_and_collectives)
         jitted.cache_clear()
-        outs = [call(src), call(src)]     # a pair: eager at its first sighting
+        # a pair: eager at its first sighting, captured at its second; a
+        # program over autograd.grad: captured at its first call
+        outs, first_s = [], []
+        for _ in range(2):
+            out, _, seconds = _counted(lambda: call(src))
+            outs.append(out)
+            first_s.append(seconds)
+        pool = next(reversed(jitted.cache.values())).pool_bytes
 
         def strict(call=call):
             with _no_host_wait():
                 return call(src_b)
 
         got, per_replay, _ = _counted(strict, _launches_and_collectives)
-        replayed = _trip_replayed(cfg, unrolled, world)
+        replayed = _trip_replayed(cfg, unrolled, world, ring=ring)
         _check(per_replay == replayed(want_b), f"{label}: a replay launches "
                f"{replayed(want_b)} (eager {want_b}), got {per_replay}")
         for what, a, b in [("the first calls", eager, o) for o in outs] + [("fresh inputs",
@@ -6141,6 +6255,9 @@ def _rank_gradient_programs(mesh, mesh_one, src, target, ti, say, same_on_ranks)
             _check(all(torch.equal(x, y) for x, y in zip(a, b)),
                    f"{label}, {what}: equal to the uncaptured run bit for bit")
         _check(all(same_on_ranks(x) for x in got), f"{label}: the same on every rank")
+        if ring:
+            _check(bool(torch.isfinite(got[3]).all()) and bool((got[3] != 0).any()),
+                   f"{label}: the target gradient finite and nonzero")
         with jit.disable_jit():
             eager_ms = cuda_median_ms(lambda: call(src), warmup=1, iters=3)
         captured_ms = cuda_median_ms(lambda: call(src), warmup=1, iters=3)
@@ -6148,7 +6265,9 @@ def _rank_gradient_programs(mesh, mesh_one, src, target, ti, say, same_on_ranks)
             f"rank (two calls, a fresh-input replay under the sync debug mode's 'error'), "
             f"the same on every rank; per replay {per_replay} (eager {want_b}); eager "
             f"{eager_ms:.3f} ms, captured {captured_ms:.3f} ms (rank 0, CUDA events, medians "
-            f"of 3)")
+            f"of 3); first and second call {first_s[0] * 1e3:.1f} and {first_s[1] * 1e3:.1f} "
+            f"ms (host clock); pool {pool / 2**20:.1f} MiB against the eager peak of "
+            f"{peak / 2**20:.1f} MiB")
         jitted.cache_clear()
 
 

@@ -15,7 +15,10 @@ Three functions carry every collective of the package, on a
   per-rank partial gradients into JAX's gradient of the global array on
   every rank.
 * :func:`ring_shift`: send to the next rank of the group and receive from the
-  previous one.  Forward only: a gradient through it raises.
+  previous one (``reverse``: to the previous, from the next), outside
+  autograd: the ring's backward, the reverse shifts, is
+  ``sharding._Ring``'s.  The reverse shifts count under the kind
+  ``"ring_shift_reverse"``.
 
 :func:`psum_many` reduces several summands as ONE flat buffer (``torch.cat``
 of the flattened parts, one ``all_reduce``, then split): the counterpart of
@@ -93,28 +96,6 @@ class _Replicated(torch.autograd.Function):
         return _all_reduce(grad, ctx.group), None
 
 
-class _RingShift(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        size = dist.get_world_size(group)
-        rank = dist.get_rank(group)
-        send = x.detach().contiguous()
-        recv = torch.empty_like(send)
-        _count("ring_shift", group, send)
-        ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, (rank + 1) % size),
-                          group),
-               dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, (rank - 1) % size),
-                          group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return recv
-
-    @staticmethod
-    def backward(ctx, grad):
-        raise RuntimeError("ring_shift is forward-only: no gradient flows through the ring "
-                           "(register_map_sharded differentiates the replicated-target solve)")
-
-
 def psum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum of ``x`` over the group's ranks; the backward passes the cotangent
     through unchanged."""
@@ -133,9 +114,23 @@ def replicated(x: torch.Tensor, group) -> torch.Tensor:
     return _Replicated.apply(x, group)
 
 
-def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
-    """The previous rank's ``x`` (each rank sends its own to the next); at
-    group size 1 ``x`` itself, with nothing sent."""
-    if dist.get_world_size(group) == 1:
+def ring_shift(x: torch.Tensor, group, reverse: bool = False) -> torch.Tensor:
+    """The previous rank's ``x`` (each rank sends its own to the next), or
+    with ``reverse`` the next rank's (each sends to the previous); at group
+    size 1 ``x`` itself, with nothing sent.  The result carries no
+    gradient."""
+    size = dist.get_world_size(group)
+    if size == 1:
         return x
-    return _RingShift.apply(x, group)
+    rank = dist.get_rank(group)
+    step = -1 if reverse else 1
+    send = x.detach().contiguous()
+    recv = torch.empty_like(send)
+    _count("ring_shift_reverse" if reverse else "ring_shift", group, send)
+    ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, (rank + step) % size),
+                      group),
+           dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, (rank - step) % size),
+                      group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv

@@ -19,7 +19,9 @@ collectives of :mod:`dicp_tpu_torch.parallel._comm` on that axis's group
   the (k, k) block, the (k,) vector and the cost (43 elements at k = 6,
   twice that plus one with the cluster certificate gate).
 * **ring**: the target split too; correspondences from :func:`ring_nn`,
-  whose target shards travel around the ring (send/recv).
+  whose target shards travel around the ring (send/recv), and whose
+  backward sends the rows' cotangents back around it (JAX's transpose of
+  ``ppermute``).
 
 Programs.  :func:`map_sharded_fn` is the counterpart of JAX's jitted
 ``shard_map``: a program of :mod:`dicp_tpu_torch.jit` per (mesh, cfg, axis,
@@ -54,7 +56,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from dicp_tpu_torch import fixed_trip, knn, losses, se3
 from dicp_tpu_torch.config import ICPConfig
-from dicp_tpu_torch.jit import capturing, device_if, jit, records
+from dicp_tpu_torch.jit import capturing, jit
 from dicp_tpu_torch.ops.cluster_knn import build_cluster_index, cluster_nn, query_order
 from dicp_tpu_torch.ops.smallsolve import solve_spd
 from dicp_tpu_torch.parallel._comm import psum, replicated, ring_shift
@@ -146,16 +148,83 @@ class MapShardedResult(NamedTuple):
     cost: torch.Tensor        # () final weighted squared cost
 
 
-def _ring_fold(x, y_cur, best_d, best_row):
-    """The running (best distance, best row) of the queries ``x`` after the
-    visiting shard ``y_cur``."""
+def _ring_fold(x, y_cur, step: int, best_d, best_row, won_at, won_row) -> None:
+    """Fold the visiting shard ``y_cur`` (the ring's ``step``) into the
+    running (best distance, best row) of the queries ``x``, in place, and
+    note for each query whose row it replaces the step and the row's local
+    index (int32): where the backward sends that row's cotangent."""
     with torch.no_grad():
-        d2 = knn.pairwise_sq_dist(x.detach(), y_cur[:, :3].detach())
+        d2 = knn.pairwise_sq_dist(x, y_cur[:, :3])
         idx = torch.argmin(d2, dim=-1)
         dmin = torch.gather(d2, 1, idx[:, None])[:, 0]
         better = dmin < best_d
-        best_d = torch.where(better, dmin, best_d)
-    return best_d, torch.where(better[:, None], y_cur[idx], best_row)
+        best_d.copy_(torch.where(better, dmin, best_d))
+        best_row.copy_(torch.where(better[:, None], y_cur[idx], best_row))
+        won_at.masked_fill_(better, step)
+        won_row.copy_(torch.where(better, idx.to(torch.int32), won_row))
+
+
+def _unfold(buf, grad, won_at, won_row, step: int) -> None:
+    """Add the cotangents of the rows found at the ring's ``step`` into
+    ``buf`` (m_loc + 1, c) at their local indices; the other queries' go to
+    the last row, which is no row of the shard."""
+    with torch.no_grad():
+        rows = torch.where(won_at == step, won_row, buf.shape[0] - 1).long()
+        buf.index_put_((rows,), grad, accumulate=True)
+
+
+class _Ring(torch.autograd.Function):
+    """The rows that :func:`ring_nn` finds, differentiable in the target
+    shard: the one description of the ring that the eager call, the host
+    loop and the captured trip share.
+
+    The forward folds each visiting shard (:func:`_ring_fold`) and shifts it
+    on (K - 1 shifts on K ranks), saving for each query the step at which
+    its final row was found and that row's local index.  The backward is the
+    transpose of JAX's ring: from the last step to the first it adds the
+    rows' cotangents of the step's winners into an (m_loc, c) buffer and
+    shifts the buffer back to the previous visitor (K - 1 reverse shifts);
+    at step 0 the buffer is the gradient of this rank's own shard.  The
+    queries get none (the rows come from an argmin), as in JAX.
+
+    ``run``: None, or a 0-dim bool under which each fold and each step's
+    additions are run-once nodes (:func:`fixed_trip.when`), skipped where it
+    does not hold: the rows are then zeros, no query has won, and the step
+    adds nothing.  The shifts run in any case, forward and backward (CUDA
+    refuses NCCL's kernels in a conditional node's body), so the ranks'
+    collectives pair up."""
+
+    @staticmethod
+    def forward(ctx, x, y_shard, group, run):
+        k_dev = dist.get_world_size(group)
+        n, device = x.shape[0], x.device
+        x, y_cur = x.detach(), y_shard.detach()
+        best_d = torch.full((n,), torch.inf, dtype=x.dtype, device=device)
+        best_row = y_cur.new_zeros((n, y_cur.shape[1]))
+        won_at = torch.full((n,), -1, dtype=torch.int32, device=device)
+        won_row = torch.zeros((n,), dtype=torch.int32, device=device)
+        for step in range(k_dev):
+            fixed_trip.when(run, functools.partial(_ring_fold, x, y_cur, step, best_d,
+                                                   best_row, won_at, won_row))
+            if step + 1 < k_dev:
+                y_cur = ring_shift(y_cur, group)
+        ctx.group, ctx.run, ctx.m_loc = group, run, y_shard.shape[0]
+        ctx.save_for_backward(won_at, won_row)
+        return best_row
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[1]:
+            return None, None, None, None
+        won_at, won_row = ctx.saved_tensors
+        m_loc = ctx.m_loc
+        buf = grad.new_zeros((m_loc + 1, grad.shape[1]))
+        for step in reversed(range(dist.get_world_size(ctx.group))):
+            fixed_trip.when(ctx.run, functools.partial(_unfold, buf, grad, won_at, won_row,
+                                                       step))
+            if step:
+                buf[:m_loc].copy_(ring_shift(buf[:m_loc], ctx.group, reverse=True))
+        return None, buf[:m_loc], None, None
 
 
 def ring_nn(x: torch.Tensor, y_shard: torch.Tensor, group) -> torch.Tensor:
@@ -166,40 +235,10 @@ def ring_nn(x: torch.Tensor, y_shard: torch.Tensor, group) -> torch.Tensor:
     ranks, K - 1 shifts); each step folds the visiting shard into a running
     (best distance, best row) accumulator.  Ties across shards resolve by
     ring order (this rank's own shard first), not by global index, as in
-    JAX.  Forward only: a gradient through the shifted shards raises."""
-    k_dev = dist.get_world_size(group)
-    best_d = torch.full((x.shape[0],), torch.inf, dtype=x.dtype, device=x.device)
-    best_row = y_shard.new_zeros((x.shape[0], y_shard.shape[1]))
-    y_cur = y_shard
-    for step in range(k_dev):
-        best_d, best_row = _ring_fold(x, y_cur, best_d, best_row)
-        if step + 1 < k_dev:
-            y_cur = ring_shift(y_cur, group)
-    return best_row
-
-
-def _ring_nn_where(run: torch.Tensor, x: torch.Tensor, y_shard: torch.Tensor,
-                   group) -> torch.Tensor:
-    """:func:`ring_nn` where the 0-dim bool ``run`` holds.  The shifts pair
-    up across ranks and run in any case (CUDA refuses NCCL's kernels in a
-    conditional node's body); each fold is a run-once node (:func:`device_if`),
-    skipped where ``run`` does not hold, and the rows are then stale."""
-    k_dev = dist.get_world_size(group)
-    best_d = torch.full((x.shape[0],), torch.inf, dtype=x.dtype, device=x.device)
-    best_row = y_shard.new_zeros((x.shape[0], y_shard.shape[1]))
-
-    def fold(y_cur):
-        # in place, in a run-once node: the rows carry no gradient (a
-        # captured solve that differentiates the ring's target raises)
-        for old, new in zip((best_d, best_row), _ring_fold(x, y_cur, best_d, best_row)):
-            old.copy_(new)
-
-    y_cur = y_shard
-    for step in range(k_dev):
-        device_if(run, functools.partial(fold, y_cur))
-        if step + 1 < k_dev:
-            y_cur = ring_shift(y_cur, group)
-    return best_row
+    JAX.  Differentiable in ``y_shard`` as JAX's is: the backward sends the
+    rows' cotangents back around the ring (K - 1 reverse shifts, counted as
+    ``"ring_shift_reverse"``); ``x`` gets no gradient (:class:`_Ring`)."""
+    return _Ring.apply(x, y_shard, group, None)
 
 
 def _preshard(cfg: ICPConfig, source, target, weight):
@@ -397,19 +436,23 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
     (:class:`_Terms`), their all-reduce, the update (:class:`_Update`).
     Every rank reads the same reduced step norm, so all stop together.  With
     ``target_sharded`` the target is this rank's shard and correspondences
-    come from :func:`ring_nn`.
+    come from the ring (:class:`_Ring`), whose rows enter the summands with
+    their gradient: a backward runs K - 1 reverse shifts per ring call.
 
     Under capture the loop is JAX's ``lax.scan`` driver, a fixed trip of
     ``max_iterations`` steps, each part a run-once node
     (:func:`fixed_trip.step`) skipped once a step has converged, and the
     all-reduce between the parts run in every step: CUDA refuses NCCL's
     kernels inside a conditional node's body, so the exit cannot be a WHILE
-    node.  Where an input requires grad autograd records the trip: each
-    part's backward is a run-once node (the terms recomputed from the saved
-    correspondences, no new search), and the pose's cotangent is all-reduced
-    in every step, outside them.  Otherwise the loop runs on the host, reads
-    the step norm once per iteration, and autograd records its ops.  Both
-    give the same bits."""
+    node.  On the ring the folds are run-once nodes of their own and the
+    shifts run in every step.  Where an input requires grad autograd records
+    the trip: each part's backward is a run-once node (the terms recomputed
+    from the saved correspondences, no new search), and the pose's
+    cotangent is all-reduced in every step, outside them; on the ring each
+    step's additions into the target's cotangent are run-once nodes and its
+    reverse shifts run in every step, a skipped step's adding nothing.
+    Otherwise the loop runs on the host, reads the step norm once per
+    iteration, and autograd records its ops.  Both give the same bits."""
     dtype, device = source_shard.dtype, source_shard.device
     rank, k_dev = dist.get_rank(group), dist.get_world_size(group)
     n_loc = source_shard.shape[0]
@@ -432,24 +475,29 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
         cluster = dict(cl_index=cl_index, qord=qord, fixup=cfg.resolved_cluster_fixup(n_loc))
     terms = _Terms(cfg, method, rank, n_real, **cluster)
     update = _Update(cfg, method, float(n_real) if n_real is not None else n_loc * k_dev)
-    inputs = (source_shard, weight_shard, target)
+    # on the ring the target reaches the summands only through the rows
+    # that _Ring finds, and its gradient only through _Ring's backward
+    inputs = (source_shard, weight_shard, target.detach() if method == "ring" else target)
 
     def pose(C, r):
         # the replicated pose enters this rank's local terms: its cotangent
         # from them is summed over the group
         return replicated(torch.cat([C.reshape(-1), r]), group)
 
+    def ring(Cr, run=None):
+        """The rows that the ring finds for the pose ``Cr`` (none off the
+        ring); the queries carry no gradient into them."""
+        if method != "ring":
+            return ()
+        return (_Ring.apply(_moved(source_shard, Cr)[2].detach(), target, group, run),)
+
     def iteration(C, r):
         """One step, uncaptured: (C, r, step norm, cost)."""
         Cr = pose(C, r)
-        ring = (ring_nn(_moved(source_shard, Cr)[2], target, group),) if method == "ring" else ()
-        (total,), _ = terms.step((*inputs, Cr, *ring), (), None, terms.search)
+        (total,), _ = terms.step((*inputs, Cr, *ring(Cr)), (), None, terms.search)
         return update.finish(C, r, psum(total, group))
 
     if capturing(C0):
-        if method == "ring" and records((target,)):
-            raise ValueError("the ring is forward-only: a captured ring-sharded solve cannot "
-                             "differentiate its target")
         k = 3 if cfg.dim == 2 else 6
         n_ne = k * k + k + 1
         zero = torch.zeros((2 * n_ne + 1 if method == "cluster" else n_ne,), dtype=dtype,
@@ -460,12 +508,9 @@ def _map_sharded_solve(cfg: ICPConfig, source_shard, weight_shard, target, T_ini
         for _ in range(cfg.max_iterations):
             run = ~done
             Cr = pose(C, r)
-            ring = ()
-            if method == "ring":
-                # the shifts run in every step, the folds where the step runs
-                ring = (_ring_nn_where(run, _moved(source_shard, Cr)[2].detach(), target,
-                                       group),)
-            (total,), _ = fixed_trip.step(terms, it, run, (*inputs, Cr, *ring), (zero,))
+            # on the ring the shifts run in every step, the folds where it runs
+            (total,), _ = fixed_trip.step(terms, it, run, (*inputs, Cr, *ring(Cr, run)),
+                                          (zero,))
             (C, r, done), _ = fixed_trip.step(update, it, run, (psum(total, group),),
                                               (C, r, done))
             it = it + run.to(torch.int32)
@@ -560,7 +605,9 @@ def map_sharded_fn(mesh: DeviceMesh, cfg: ICPConfig, axis: str = "map",
     needs, plus one).  A call whose input requires grad runs a program pair
     (eagerly at its key's first call): its backward replays
     ``cfg.max_iterations`` all-reduces of the pose's cotangent, one per
-    step, beside a constant few.  On the CPU it is the solve itself.  The
+    step, beside a constant few.  On a ring of K ranks a replay runs
+    (K - 1)(``cfg.max_iterations`` + 1) shifts, and a backward into the
+    target as many reverse shifts.  On the CPU it is the solve itself.  The
     mesh and cfg live in the closure, not in the program's key.
 
     lru-cached on (mesh, cfg, axis, target_sharded, n_real), as JAX's is,
@@ -606,14 +653,22 @@ def register_ring_sharded(
 
     Target padding uses far-away sentinel rows (coordinates 1e15) that never
     win a distance comparison.  Ties across shards resolve by ring order, not
-    by the lowest global index (see :func:`ring_nn`).  Forward only when the
-    target requires a gradient (the ring has no backward)."""
-    _, _, n_dev = _axis(mesh, axis)
+    by the lowest global index (see :func:`ring_nn`).
+
+    Differentiable in the source, the target and the weight, as JAX's is:
+    the rows that the ring finds carry the target's gradient back around
+    the ring (:class:`_Ring`; per ring call K - 1 reverse shifts of an
+    (m/K, c) buffer), and the target's cotangent is then all-reduced (one
+    all-reduce of m x c elements), so every rank holds JAX's gradient of the
+    global target, as of the source and the weight.  The sentinel rows'
+    share is dropped."""
+    group, _, n_dev = _axis(mesh, axis)
     source, target, T_init, weight = _global_inputs(mesh, axis, cfg, source, target, T_init,
                                                     weight)
     n, m = source.shape[0], target.shape[0]
     src_cols = 6 if cfg.icp_type == "symmetric" else 3
-    source, target, weight = _preshard(cfg, source, target, weight)
+    # each rank takes its shard of the target: its cotangent is summed over the group
+    source, target, weight = _preshard(cfg, source, replicated(target, group), weight)
     pad_n, pad_m = (-n) % n_dev, (-m) % n_dev
     source, weight = _pad_rows(source, pad_n), _pad_rows(weight, pad_n)
     if pad_m:

@@ -255,18 +255,27 @@ def job_batch_sharded(mesh, source, target, T_init, cfg, weight=None, key=None):
             "iterations": _np(res.iterations), "counts": _counts()}
 
 
-def job_ring_nn(mesh, x, y, axis="map"):
-    """ring_nn of this rank's query rows against the ring of target shards."""
+def job_ring_nn(mesh, x, y, axis="map", probe=None):
+    """ring_nn of this rank's query rows against the ring of target shards;
+    with ``probe`` (the global rows' shape) also the gradient of
+    sum(rows * probe) into this rank's shard of ``y``, and the collectives of
+    the backward apart."""
     import torch
 
-    from dicp_tpu_torch.parallel import ring_nn
+    from dicp_tpu_torch.parallel import _comm, ring_nn
     from dicp_tpu_torch.parallel.sharding import _axis
 
     group, rank, size = _axis(mesh, axis)
     nx, ny = x.shape[0] // size, y.shape[0] // size
-    got = ring_nn(torch.as_tensor(x[rank * nx:(rank + 1) * nx]),
-                  torch.as_tensor(y[rank * ny:(rank + 1) * ny]), group)
-    return {"rows": _np(got), "counts": _counts()}
+    y_shard = torch.as_tensor(y[rank * ny:(rank + 1) * ny]).requires_grad_(probe is not None)
+    got = ring_nn(torch.as_tensor(x[rank * nx:(rank + 1) * nx]), y_shard, group)
+    out = {"rows": _np(got), "counts": _counts()}
+    if probe is not None:
+        _comm.reset_counts()
+        (grad,) = torch.autograd.grad(
+            torch.sum(got * torch.as_tensor(probe[rank * nx:(rank + 1) * nx])), y_shard)
+        out.update(grad=_np(grad), counts_bwd=_counts())
+    return out
 
 
 def job_pose_graph(mesh, poses, edges_i, edges_j, t_meas, info, iterations, axis="map",

@@ -11,8 +11,9 @@ convergence and cost; the host loop runs one all-reduce per iteration plus
 the cost pass.  Differentiated (the trip that a program pair or a program
 calling ``torch.autograd.grad`` records), the trip's gradients into the
 source, the target and the weight equal the host loop's bit for bit, and
-its backward runs one all-reduce of the pose's cotangent per step.  The
-pose graph is held to the dense ``pose_graph_optimize`` within 1e-4."""
+its backward runs one all-reduce of the pose's cotangent per step (on the
+ring also one reverse shift per ring call, every step's).  The pose graph
+is held to the dense ``pose_graph_optimize`` within 1e-4."""
 
 import inspect
 from collections import Counter
@@ -97,7 +98,8 @@ def test_program_equals_the_host_loop(world, source_np, target_np, case):
 GRAD_CASES = {
     # (entry, source rows, cfg, the inputs differentiated): the dense tier at
     # pt2pl, the cluster tier with a padded source (n_real; the certificate
-    # gate in the all-reduce), and the ring (forward-only in its target)
+    # gate in the all-reduce), and the ring (its target padded by a sentinel
+    # row; the target's cotangent through the reverse ring)
     "pt2pl": ("register_map_sharded", 64,
               ICPConfig(icp_type="pt2pl", differentiable=True, max_iterations=30, tolerance=1e-10,
                         trim_dist=5.0, loss_name="huber", dim=2, nn_method="dense"),
@@ -110,25 +112,29 @@ GRAD_CASES = {
     "ring": ("register_ring_sharded", 64,
              ICPConfig(icp_type="pt2pl", differentiable=True, max_iterations=30, tolerance=1e-8,
                        trim_dist=5.0, loss_name="huber", dim=2),
-             ("source", "weight")),
+             ("source", "target", "weight")),
 }
 
 
-def _all_reduces(counts) -> int:
-    return sum(v for (kind, _, _), v in counts if kind == "all_reduce")
+def _all_reduces(counts, kind_wanted: str = "all_reduce") -> int:
+    return sum(v for (kind, _, _), v in counts if kind == kind_wanted)
 
 
 @pytest.mark.parametrize("case", list(GRAD_CASES))
 def test_fixed_trip_gradient_equals_the_host_loop(world, source_np, target_np, case):
     """The differentiable fixed trip (what a captured map-sharded solve on
     which autograd records runs) gives the host loop's T, cost and
-    gradients into the source, the target and the weight (the ring: the
-    source and the weight) bit for bit on every rank, the loss
-    sum(T * probe) + 0.1 cost.  All-reduces: forward max_iterations + 1 for
-    the trip and iterations + 1 for the host loop; backward max_iterations
-    and iterations plus one for each input differentiated: the pose's
-    cotangent once per step after the first (whose pose is T_init's) and in
-    the cost pass, and each input's."""
+    gradients into the source, the target and the weight bit for bit on
+    every rank, the loss sum(T * probe) + 0.1 cost.  All-reduces: forward
+    max_iterations + 1 for the trip and iterations + 1 for the host loop;
+    backward max_iterations and iterations plus one for each input
+    differentiated: the pose's cotangent once per step after the first
+    (whose pose is T_init's) and in the cost pass, and each input's (the
+    ring's target too: register_ring_sharded sums its cotangent over the
+    ranks, so that each holds the global gradient).  The ring's backward
+    adds K - 1 = 1 reverse shift per ring call: max_iterations + 1 for the
+    trip (a skipped step's shifts a zero buffer), iterations + 1 for the
+    host loop, as many as its forward's shifts."""
     entry, n, cfg, names = GRAD_CASES[case]
     rng = np.random.default_rng(5)
     src = source_np[:n, :3] + rng.normal(scale=2e-2, size=(n, 3)) * [1, 1, 0]
@@ -150,18 +156,37 @@ def test_fixed_trip_gradient_equals_the_host_loop(world, source_np, target_np, c
         assert _all_reduces(trip["counts_fwd"]) == cfg.max_iterations + 1
         assert _all_reduces(host["counts_bwd"]) == it + len(names)
         assert _all_reduces(trip["counts_bwd"]) == cfg.max_iterations + len(names)
-        assert all(kind == "all_reduce" for (kind, _, _), _ in trip["counts_bwd"])
+        kinds = {"all_reduce"}
+        if case == "ring":
+            kinds.add("ring_shift_reverse")
+            for got, want in ((host, it + 1), (trip, cfg.max_iterations + 1)):
+                assert _all_reduces(got["counts_bwd"], "ring_shift_reverse") == want
+                assert _all_reduces(got["counts_fwd"], "ring_shift") == want
+        assert {kind for (kind, _, _), _ in trip["counts_bwd"]} == kinds
 
 
-def test_captured_ring_differentiating_its_target_raises(world, source_np, target_np):
-    """The ring is forward-only: a captured ring-sharded solve on which
-    autograd records the target raises on every rank, where its host loop's
-    shifts would raise in the backward."""
+def test_captured_ring_target_gradient_equals_the_host_loop(world, source_np, target_np):
+    """The differentiable trip of a captured ring-sharded solve gives the
+    host loop's gradient into the target alone (no other input requires
+    grad; the loss sum(T), so the cost pass is not differentiated) bit for
+    bit on both ranks: nonzero, of the caller's 65 rows (the sentinel row's
+    share dropped), the same on both.  Reverse shifts: one per step's ring
+    call, max_iterations for the trip (the skipped steps' add nothing) and
+    iterations for the host loop."""
     cfg = GRAD_CASES["ring"][2]
-    err = world.run("map_sharded", (1, 2), source=source_np[:64, :3], target=target_np,
-                    cfg=cfg, entry="register_ring_sharded", grad_wrt=("target",),
-                    fixed_trip=True, expect_error=True)
-    assert all("forward-only" in r["error"] for r in err), err
+    res = {}
+    for form, trip in (("host", False), ("trip", True)):
+        res[form] = world.run("map_sharded", (1, 2), source=source_np[:64, :3],
+                              target=target_np, cfg=cfg, entry="register_ring_sharded",
+                              grad_wrt=("target",), fixed_trip=trip)
+    for host, trip in zip(res["host"], res["trip"]):
+        g = trip["grads"]["target"]
+        np.testing.assert_array_equal(g, host["grads"]["target"])
+        np.testing.assert_array_equal(g, res["trip"][0]["grads"]["target"])
+        assert g.shape == target_np.shape and np.abs(g).max() > 0
+        np.testing.assert_array_equal(trip["T"], host["T"])
+        assert _all_reduces(host["counts_bwd"], "ring_shift_reverse") == host["iterations"]
+        assert _all_reduces(trip["counts_bwd"], "ring_shift_reverse") == cfg.max_iterations
 
 
 def _partitioned(world, V, closures, iterations):

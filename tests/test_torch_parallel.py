@@ -10,7 +10,11 @@ same meshes.  Beside each JAX contract, run on the port:
 * gradients (source, target, weight; unrolled and IFT) within 1e-8 relative
   of ``jax.grad``'s, the same on every rank, and IFT against unrolled within
   JAX's 1e-5;
-* ``ring_nn`` equal to ``hard_nn`` (atol 0) and to JAX's ``ring_nn`` rows.
+* ``ring_nn`` equal to ``hard_nn`` (atol 0) and to JAX's ``ring_nn`` rows,
+  and its gradient into the target shards (the reverse ring) within 1e-10
+  of ``jax.grad``'s;
+* the ring-sharded solve's gradients into the source, the sharded target
+  and the weight within 1e-8 relative of ``jax.grad``'s, padded or not.
 
 ``test_multihost_single_process_fallbacks`` lives in
 ``tests/test_torch_multihost.py`` with the multi-process recipe."""
@@ -244,21 +248,55 @@ def test_mesh_2d_both_axes(world, source_np, target_np):
 
 
 def test_ring_nn_matches_replicated(world, source_np, target_np):
-    """ring_nn over sharded targets == hard NN over the replicated target."""
+    """ring_nn over sharded targets == hard NN over the replicated target,
+    and == JAX's ring_nn; its gradient into the target shards (K - 1 = 7
+    reverse shifts of one shard, the transpose of JAX's ppermute) within
+    1e-10 of jax.grad's."""
     from jax.sharding import PartitionSpec as P
 
     x, y = source_np[:64, :3], target_np[:64]       # 8 queries and 8 targets per rank
-    res = world.run("ring_nn", (1, 8), x=x, y=y)
+    probe = np.random.default_rng(3).uniform(-1.0, 1.0, size=y.shape)
+    res = world.run("ring_nn", (1, 8), x=x, y=y, probe=probe)
     got = np.concatenate([r["rows"] for r in res])
     want = hard_nn(torch.as_tensor(x), torch.as_tensor(y)).numpy()
     np.testing.assert_allclose(got, want, atol=0)
     fn = jax.jit(jax.shard_map(lambda xs, ys: jp.ring_nn(xs, ys, "map"), mesh=jp.make_mesh((1, 8)),
                                in_specs=(P("map"), P("map")), out_specs=P("map")))
     np.testing.assert_array_equal(got, np.asarray(fn(jnp.asarray(x), jnp.asarray(y))))
+    grad = np.concatenate([r["grad"] for r in res])
+    g_j = jax.jit(jax.grad(lambda ys: jnp.sum(fn(jnp.asarray(x), ys) * probe)))(jnp.asarray(y))
+    assert np.abs(grad).max() > 0 and _rel(grad, g_j) < 1e-10, _rel(grad, g_j)
+    assert all(r["counts_bwd"] == [(("ring_shift_reverse", 8, 8 * 6), 7)] for r in res), \
+        res[0]["counts_bwd"]
+
+
+def _ring_gradients(world, shape, src, tgt, cfg, w):
+    """The ring-sharded solve's gradients of sum(T) into the source, the
+    target and the weight (the same on every rank), each against
+    jax.grad's (under jax.jit) within 1e-8 relative, finite and nonzero;
+    the backward's reverse shifts: K - 1 per iteration's ring call."""
+    names = ("source", "target", "weight")
+    res, ranks = _map(world, shape, src, tgt, cfg, weight=w, grad_wrt=names,
+                      entry="register_ring_sharded")
+    mesh = jp.make_mesh(shape)
+    theirs = _jgrad(lambda s, t, w_: jnp.sum(jp.register_ring_sharded(
+        mesh, s, t, weight=w_, cfg=_jcfg(cfg)).T), (0, 1, 2))(
+        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(w))
+    for a, b, name in zip(_grads_all_ranks(ranks, names), theirs, names):
+        assert a.shape == b.shape and np.all(np.isfinite(a)) and np.abs(a).max() > 0, name
+        assert _rel(a, b) < 1e-8, (name, _rel(a, b))
+    k = shape[1]
+    for r in ranks:
+        shifts = {key: n for key, n in r["counts_bwd"] if key[0] == "ring_shift_reverse"}
+        assert shifts == {("ring_shift_reverse", k, (-(-tgt.shape[0] // k)) * tgt.shape[1]):
+                          (k - 1) * res["iterations"]}, shifts
 
 
 def test_ring_sharded_registration(world, source_np, target_np):
-    """Source AND target sharded: the truth, and the map-sharded result."""
+    """Source AND target sharded: the truth, and the map-sharded result;
+    differentiated (the perturbed pair, 10 iterations), the gradients into
+    the source, the sharded target (points and normals; 7 sentinel rows pad
+    it to 72) and the weight equal jax.grad's within 1e-8 relative."""
     res, _ = _map(world, (1, 8), source_np[:, :3], target_np, CFG,
                   entry="register_ring_sharded")
     assert res["converged"]
@@ -268,10 +306,8 @@ def test_ring_sharded_registration(world, source_np, target_np):
     T_j, _ = _jmap((1, 8), source_np[:, :3], target_np, CFG, entry="register_ring_sharded")
     np.testing.assert_allclose(res["T"], T_j, atol=1e-10)
 
-    # the ring is forward-only: a gradient into the sharded target raises
-    err = world.run("map_sharded", (1, 8), source=source_np[:, :3], target=target_np, cfg=CFG,
-                    entry="register_ring_sharded", grad_wrt=("target",), expect_error=True)
-    assert all("forward-only" in r["error"] for r in err)
+    src, w = _perturbed_pair(source_np)
+    _ring_gradients(world, (1, 8), src, target_np, CFG.with_(max_iterations=10), w)
 
 
 def test_ring_sharded_pt2pt_and_padding(world, source_np, target_np):
@@ -283,6 +319,16 @@ def test_ring_sharded_pt2pt_and_padding(world, source_np, target_np):
     T_j, _ = _jmap((2, 4), source_np[:, :3], target_np[:, :3], cfg,
                    entry="register_ring_sharded")
     np.testing.assert_allclose(res["T"], T_j, atol=1e-10)
+
+
+def test_ring_sharded_gradient_pt2pt_padded(world, source_np, target_np):
+    """The same inputs on the (2, 4) mesh (three sentinel target rows and
+    three zero-weight source pads on each ring of 4), perturbed, pt2pt:
+    the gradients into the source, the target and the weight equal
+    jax.grad's within 1e-8 relative; the pads' share is dropped."""
+    src, w = _perturbed_pair(source_np)
+    _ring_gradients(world, (2, 4), src, target_np[:, :3],
+                    CFG.with_(icp_type="pt2pt", max_iterations=10), w)
 
 
 def test_map_sharded_nondefault_axis(world, source_np, target_np):
