@@ -332,7 +332,18 @@ Phases, each raising on failure (the script then exits non-zero):
     (K2 held to its plain version on the host loop's first and last
     launch; the cluster solve's certified share); eager against captured in turns,
     first-call cost, launches per replay, pools against the eager peak,
-    and the headline's .backward() beside bench.fwdbwd_jit.  Then, in an
+    and the headline's .backward() beside bench.fwdbwd_jit.  Then second
+    derivatives: the Hessian-vector product of the headline
+    (register_ift_jit, K4) and of phase 4's first pair
+    (register_jit(differentiable=True), K1, 12 steps), each by a double
+    backward through its program pair (the call's VJP a jitted call of its
+    own: eager at its first sighting, a program pair from its second) and
+    inside one program that calls torch.autograd.grad twice, bit-equal to
+    disable_jit() in every output, the gradient and the HVP (the unrolled
+    HVP's captured trip held to the forced trip, whose second-order sums
+    group as the capture's), fresh inputs, no host wait, launches per
+    replay, first-call cost, pools, then eager, pair and in-program in
+    turns, all with the deterministic kernels.  Then, in an
     NCCL world of one, the map-sharded gradients at phase 8's pair (K2):
     register_map_sharded by .backward() through its program pair
     (map_sharded_fn's, the fixed trip split at its all-reduces) and inside
@@ -435,7 +446,12 @@ inside one program) and the ring's unrolled gradient into the source and
 the sharded target at phase 8's pair (by .backward() and inside one
 program: K - 1 shifts and as many reverse shifts per ring call), each
 bit-equal to its uncaptured run on every rank, with collectives per
-replay, beside the certified queries of each rank's
+replay; the Hessian-vector products of register_map_sharded and
+of register_ring_sharded (into the source and the sharded target) at
+phase 8's pair inside one program, and register_map_sharded's by a double
+backward through its program pair, bit-equal on every rank to the
+uncaptured fixed trip (the ring's second backward: K - 1 reverse shifts
+and K - 1 gathers per ring call), beside the certified queries of each rank's
 first search and of each rank alone; then tries a WHILE node whose body
 holds an all-reduce and prints CUDA's answer.  The last line is the ranks' exit codes as JSON.
 """
@@ -485,6 +501,7 @@ from dicp_tpu_torch.parallel import (_comm, make_mesh, pose_graph_optimize_parti
                                      register_batch_sharded, register_map_sharded,
                                      register_map_sharded_ift, register_ring_sharded)
 from dicp_tpu_torch.pipeline import stream_odometry, stream_registrations
+from dicp_tpu_torch import registration as registration_mod
 from dicp_tpu_torch.registration import _preprocess, _register_captured
 from dicp_tpu_torch.sgd_icp import SeededSampler, plan_solve, register_sgd, register_sgd_jit
 from dicp_tpu_torch import visualization
@@ -5014,6 +5031,288 @@ def _in_program_cases(device, pair, recorded: dict) -> None:
           f"(probes {PROBES}, group {GROUP})")
 
 
+HVP_SEED = 300   # phase 28's second-order directions and fresh inputs
+# phase 4's unrolled solve cut to 12 of its 50 steps for its HVP (it converges
+# in 4): each step costs ~0.4 s of the second order's captures
+CFG_UNROLL_HVP = CFG_UNROLL_SLICE.with_(max_iterations=12)
+
+
+def _direction(x: torch.Tensor, seed: int) -> torch.Tensor:
+    """A seeded standard normal tensor shaped as ``x``: an HVP's direction."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    return torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch.use_deterministic_algorithms(True, warn_only=True) within the
+    block.  The IFT's second backward scatter-adds (functorch's batched
+    JVPs, recorded under create_graph), by default with atomics whose
+    order may move the HVP's last bit; the deterministic kernels rule that
+    out, so that a captured HVP can be held to its eager run bit for bit.
+    (The call-to-call differences seen on the card came from autograd's
+    thread counters instead: :func:`_on_autograd_thread`.)"""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@contextlib.contextmanager
+def _forced_trip():
+    """Solves on which autograd records take the fixed trip of their capture
+    while uncaptured (its run-once nodes then read their flags on the host),
+    as the CPU tests force it: the eager form of a captured trip's second
+    derivatives.  The host loop's second backward sums the same terms in
+    another grouping (within rounding, not bit for bit); the first order's
+    sums group alike."""
+    mods = (registration_mod, sharding)
+    saved = [m.capturing for m in mods]
+    for m in mods:
+        m.capturing = lambda x=None: True
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.capturing = f
+
+
+def _hvp_loss(res) -> torch.Tensor:
+    """sum(T * probe) + sum(pc * w), w = 0.01 sin(0, 1, 2, ...): every
+    output's cotangent dense.  A scaled sum (``_loss``'s 0.01 sum(pc)) hands
+    the outputs an expanded (stride-0) cotangent, which a program's static
+    buffer holds dense; the second backward's bits follow that layout."""
+    probe = torch.linspace(0.5, 1.5, 16, dtype=res.T.dtype, device=res.T.device).reshape(4, 4)
+    w = 0.01 * torch.sin(torch.arange(res.pc.numel(), dtype=res.pc.dtype,
+                                      device=res.pc.device)).reshape(res.pc.shape)
+    return torch.sum(res.T * probe) + torch.sum(res.pc * w)
+
+
+def _hvp(call, x, v, strict: bool = False) -> tuple:
+    """(result, loss, gradient, Hessian-vector product) of
+    :func:`_hvp_loss` through ``call`` at ``x`` along ``v``:
+    torch.autograd.grad with create_graph, then torch.autograd.grad of
+    sum(gradient * v); with ``strict`` under the sync debug mode's
+    "error"."""
+    s = x.detach().clone().requires_grad_(True)
+    with _no_host_wait() if strict else contextlib.nullcontext():
+        res = call(s)
+        value = _hvp_loss(res)
+        (g,) = torch.autograd.grad(value, s, create_graph=True)
+        (h,) = torch.autograd.grad(torch.sum(g * v), s)
+    return res, value.detach(), g.detach(), h
+
+
+class _HvpCase(NamedTuple):
+    """A Hessian-vector product through a jitted entry point: ``call(x)``
+    runs it (a program pair where ``x`` requires grad), ``solve(x)`` its
+    function (the in-program unit's); ``fresh`` other inputs of ``x``'s
+    shape; ``trip``: autograd records the solve on the fixed trip under
+    capture (its eager reference then forces the trip)."""
+
+    label: str
+    jitted: object
+    call: object
+    solve: object
+    x: torch.Tensor
+    fresh: torch.Tensor
+    v: torch.Tensor
+    trip: bool
+
+
+def _on_autograd_thread(fn, device):
+    """``fn()`` inside an autograd backward, on the engine's thread for
+    ``device``, with grad mode on.  The engine runs ready nodes in the order
+    of a per-thread creation counter.  A program pair's VJP builds a
+    forward and its create_graph backward on that thread, in that order;
+    an eager HVP called on this thread builds its forward here and its
+    backward there, so its second backward's sums group by whichever
+    thread's counter is ahead, and its last bits move with the process's
+    history (on an H100 in the full script: 1.9e-9 of 3.8e-2 at the
+    headline).  Run here, the eager HVP is built as the pair's is."""
+    out = []
+
+    class _Run(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, grad):
+            with torch.enable_grad():
+                out.append(fn())
+            return grad
+
+    x = torch.zeros((), device=device, requires_grad=True)
+    torch.autograd.grad(_Run.apply(x), x)
+    return out[0]
+
+
+def _hvp_pair_equals_eager(case: _HvpCase) -> dict:
+    """A double backward through the case's program pair against the same
+    calls under disable_jit(), bit for bit in every output, the loss, the
+    gradient and the HVP: the key's first call (eager: nothing captured),
+    its second (the pair captured; the VJP call of the double backward
+    eager, its key's first sighting), its third (the pair replayed; the VJP
+    captured as a pair of its own) and fresh inputs (every program
+    replayed, the sync debug mode at "error": no host wait).  The eager
+    runs, the first call's included, run on autograd's thread
+    (:func:`_on_autograd_thread`); the same HVP built on this thread is
+    printed beside them.  Where the solve takes the fixed trip under
+    capture, the calls whose VJP ran eagerly (the host loop) are held to
+    the host loop's HVP and the others to the forced trip's
+    (:func:`_forced_trip`); the two are printed apart.  Returns the
+    launches per replayed HVP, the first, second and third calls' host ms,
+    the eager ms, the two programs' pools and the eager peak."""
+    device = case.x.device
+
+    def eager(x, trip=False):
+        def run():   # disable_jit holds for its own thread only
+            with jit.disable_jit(), _forced_trip() if trip else contextlib.nullcontext():
+                return _hvp(case.call, x, case.v)
+        return _on_autograd_thread(run, device)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with jit.disable_jit():
+        here, _, eager_s = _counted(lambda: _hvp(case.call, case.x, case.v))
+    peak = torch.cuda.max_memory_allocated() - base
+    host = eager(case.x)
+    want = eager(case.x, case.trip)
+    want_fresh, launches_fresh, _ = _counted(lambda: eager(case.fresh, case.trip))
+
+    def rel(a, b):
+        return _max_abs_diff(a[3].double(), b[3].double()) / float(b[3].abs().max())
+
+    case.jitted.cache_clear()
+    seconds = []
+    calls = [lambda: _on_autograd_thread(lambda: _hvp(case.call, case.x, case.v), device)]
+    calls += [lambda: _hvp(case.call, case.x, case.v)] * 2
+    for k, (call, ref) in enumerate(zip(calls, (host, host, want))):
+        got, _, sec = _counted(call)
+        seconds.append(sec)
+        diff = _diff_fields(ref, got)
+        _check(not diff, f"{case.label}, call {k + 1}: equal to the disable_jit() run bit for "
+               f"bit (differing: {diff})")
+        _check(bool(torch.isfinite(got[3]).all()) and bool((got[3] != 0).any()),
+               f"{case.label}, call {k + 1}: the HVP finite and nonzero")
+        if k == 0:
+            _check(not case.jitted.cache, f"{case.label}: the first call captures nothing")
+    pair = next(reversed(case.jitted.cache.values()))
+    vjp = next(reversed(case.jitted.vjp.cache.values()))
+    _check(pair.bwd_graph is not None and vjp.bwd_graph is not None
+           and len(case.jitted.cache) == 1 and len(case.jitted.vjp.cache) == 1,
+           f"{case.label}: one program pair and one VJP pair")
+    got, per_replay, _ = _counted(lambda: _hvp(case.call, case.fresh, case.v, strict=True))
+    diff = _diff_fields(want_fresh, got)
+    _check(not diff, f"{case.label}, fresh inputs: equal to the disable_jit() run bit for bit "
+           f"(differing: {diff})")
+    _check(per_replay == _twice(launches_fresh), f"{case.label}: a replayed HVP launches "
+           f"{_twice(launches_fresh)} (eager {launches_fresh}), got {per_replay}")
+    print(f"  {case.label}: a double backward through its program pair equals disable_jit() "
+          f"bit for bit in {len(_leaves(want))} outputs, the loss, the gradient and the HVP "
+          f"(first call eager; second: the pair captured, the VJP eager"
+          f"{' on the host loop' if case.trip else ''}; third: the VJP captured as a pair"
+          f"{', held to the forced trip' if case.trip else ''}; fresh inputs, every program "
+          f"replayed, host waits 0; the eager runs on autograd's thread, the same HVP built "
+          f"on the caller's thread {rel(here, host):.3e} relative from them)"
+          f"{f'; the host loop HVP against the trip {rel(host, want):.3e} relative' if case.trip else ''}; "
+          f"launches per replayed HVP {per_replay} (eager {launches_fresh}); first, second "
+          f"and third call {', '.join(f'{t * 1e3:.1f}' for t in seconds)} ms against "
+          f"{eager_s * 1e3:.1f} ms eager; pools {pair.pool_bytes / 2**20:.1f} MiB (the pair) "
+          f"and {vjp.pool_bytes / 2**20:.1f} MiB (its VJP pair) against the eager peak of "
+          f"{peak / 2**20:.1f} MiB")
+    return {"launches": per_replay, "eager_launches": launches_fresh,
+            "calls_ms": [t * 1e3 for t in seconds], "eager_ms": eager_s * 1e3,
+            "pool": pair.pool_bytes, "vjp_pool": vjp.pool_bytes, "peak": peak,
+            "host_gap": rel(host, want), "thread_gap": rel(here, host)}
+
+
+def _twice(launches: dict) -> dict:
+    """What a replayed double backward through a program pair launches
+    where its eager run launches ``launches``: each kernel twice, since the
+    VJP program runs the call's forward again (the eager HVP differentiates
+    the forward's own graph)."""
+    return {k: 2 * v for k, v in launches.items()}
+
+
+def _second_order_cases(device, head_inputs, sources, targets) -> dict:
+    """Phase 28's second derivatives: the headline HVP (register_ift_jit at
+    B = 256, K4's forward) and the unrolled HVP at phase 4's first pair
+    (register_jit(differentiable=True), the tiled tier, K1), each by a
+    double backward through its program pair (:func:`_hvp_pair_equals_eager`)
+    and inside one program (jit over a function that calls
+    torch.autograd.grad twice; :func:`_captured_equals_eager`), then eager,
+    pair and in-program in turns (CUDA events); every call with the
+    deterministic kernels (:func:`_deterministic`).  Returns the
+    measurements."""
+    with _deterministic():
+        return _second_order_checked(device, head_inputs, sources, targets)
+
+
+def _second_order_checked(device, head_inputs, sources, targets) -> dict:
+    src, tgt, ti = head_inputs
+    cfg = bench.head_config()
+    s4 = to_torch(sources[:1], device)
+    t4 = to_torch(targets[:1], device)
+    ti4 = torch.eye(4, dtype=torch.float32, device=device)[None]
+    cases = [
+        _HvpCase(f"register_ift_jit's HVP, the headline pair at B={B_HEAD} (K4 forward)",
+                 register_ift_jit, lambda s: register_ift_jit(s, tgt, ti, None, cfg),
+                 lambda s: register_ift(s, tgt, ti, None, cfg), src,
+                 _fresh(src, HVP_SEED + 1), _direction(src, HVP_SEED), False),
+        _HvpCase(f"register_jit(differentiable=True)'s HVP, phase 4's first pair "
+                 f"{tuple(s4.shape)} -> {tuple(t4.shape)} (tiled tier, K1; "
+                 f"{CFG_UNROLL_HVP.max_iterations} steps)", _register_captured,
+                 lambda s: register_jit(s, t4, ti4, None, CFG_UNROLL_HVP),
+                 lambda s: register(s, t4, ti4, None, CFG_UNROLL_HVP), s4,
+                 _fresh(s4, HVP_SEED + 3), _direction(s4, HVP_SEED + 2), True)]
+    out = {}
+    for case in cases:
+        checked = _hvp_pair_equals_eager(case)
+
+        def unit(x, v, solve=case.solve):
+            with torch.enable_grad():
+                return _hvp(solve, x, v)
+
+        program = jit.jit(unit, name="hvp_in_program")
+        trip = _forced_trip if case.trip else contextlib.nullcontext
+
+        def eager(x, unit=unit, trip=trip):
+            with jit.disable_jit(), trip():
+                return unit(x, case.v)
+
+        label = case.label.replace("'s HVP", "'s HVP in one program")
+        _captured_equals_eager(label, lambda: eager(case.x), lambda: program(case.x, case.v),
+                               program, (lambda: eager(case.fresh),
+                                         lambda: program(case.fresh, case.v)))
+        case.jitted.cache_clear()
+        _hvp(case.call, case.x, case.v)      # the key's first sighting: eager
+        _hvp(case.call, case.x, case.v)      # the pair; its VJP's first sighting
+        _hvp(case.call, case.x, case.v)      # the VJP's pair
+        times = bench.time_alternated(
+            {"eager": functools.partial(_eager_hvp, case),
+             "pair": lambda: _hvp(case.call, case.x, case.v),
+             "in one program": lambda: program(case.x, case.v)},
+            device, iters=3, rounds=2, max_ms=TURN_BUDGET_MS)
+        med = {name: statistics.median(v) for name, v in times.items()}
+        print(f"  {case.label}: ms per forward + gradient + HVP (medians of "
+              f"{len(times['eager'])}, in turns): "
+              + "; ".join(f"{name} {t:.4f}" for name, t in med.items()))
+        checked["ms"] = med
+        out[case.label] = checked
+        program.cache_clear()
+        case.jitted.cache_clear()
+    return out
+
+
+def _eager_hvp(case: _HvpCase) -> tuple:
+    with jit.disable_jit():
+        return _hvp(case.call, case.x, case.v)
+
+
 CFG_MAP_GRAD = CFG_MAP.with_(differentiable=True)   # phase 8's pair, map-sharded, differentiated
 CFG_RING_GRAD = CFG_RING.with_(differentiable=True)  # phase 4's first pair, the ring differentiated
 
@@ -5201,6 +5500,7 @@ def phase28_backward(device, head_inputs, sources, targets, pair) -> dict:
     _evicted_pair_case(head_inputs)
     recorded = {}
     _in_program_cases(device, pair, recorded)
+    second = _second_order_cases(device, head_inputs, sources, targets)
     checked.update(_map_sharded_backward_cases(
         device, pair, (to_torch(sources[0], device), to_torch(targets[0], device))))
     launches = _launches()
@@ -5221,10 +5521,11 @@ def phase28_backward(device, head_inputs, sources, targets, pair) -> dict:
     print(f"phase 28 ok: .backward() through every captured program pair equals its "
           f"disable_jit() run bit for bit (fresh inputs, interleaved forwards, retain_graph; "
           f"no host wait in a replay); the GICP, SGD, cluster-tier and map-sharded fixed "
-          f"trips and the sharded IFT's backward in one program equal the host loop; "
-          f"launches {launches}; "
+          f"trips and the sharded IFT's backward in one program equal the host loop; the "
+          f"headline's and phase 4's Hessian-vector products through their program pairs "
+          f"and in one program equal disable_jit(); launches {launches}; "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "k2_err": k2_err, "cases": checked}
+    return {"launches": launches, "k2_err": k2_err, "cases": checked, "second_order": second}
 
 
 def _eager_fb(case: _BackwardCase) -> tuple:
@@ -6073,6 +6374,7 @@ def _rank_worker() -> None:
                        f"cosine {cos_both:.6f} > 0.99")
         say(line)
     _rank_gradient_programs(mesh_map, mesh_one, src, target, ti, say, same_on_ranks)
+    _rank_second_order(mesh_map, src, target, ti, say, same_on_ranks)
     s9, t9, _ = scene_pairs(np.random.default_rng(SEED + 9), 2 * world, N_RAW, M_RAW)
     s9, t9 = to_torch(s9, dev), to_torch(t9, dev)
     ti9 = torch.eye(4, dtype=torch.float32, device=dev).expand(s9.shape[0], 4, 4)
@@ -6269,6 +6571,132 @@ def _rank_gradient_programs(mesh, mesh_one, src, target, ti, say, same_on_ranks)
             f"ms (host clock); pool {pool / 2**20:.1f} MiB against the eager peak of "
             f"{peak / 2**20:.1f} MiB")
         jitted.cache_clear()
+
+
+def _rank_second_order(mesh, src, target, ti, say, same_on_ranks) -> None:
+    """One rank of --ranks: second derivatives through the map-sharded and
+    the ring solve at phase 8's pair (K2): Hessian-vector products (the
+    gradient of sum(gradient * v), the first gradient taken with
+    create_graph) of register_map_sharded into the source and of
+    register_ring_sharded into the source and the sharded target, each
+    inside one program (jit over the two torch.autograd.grad calls), and
+    register_map_sharded's by a double backward through its program pair;
+    each bit-equal on every rank to its uncaptured run on the fixed trip
+    (:func:`_forced_trip`; the host loop's second backward groups its sums
+    otherwise, and the gap is printed) and the same on every rank, with
+    its collectives per replay (the ring's second backward: K - 1 reverse
+    shifts and K - 1 gathers per ring call) and eager (the host loop)
+    against captured ms; every call with the deterministic kernels
+    (:func:`_deterministic`)."""
+    with _deterministic():
+        _rank_second_order_checked(mesh, src, target, ti, say, same_on_ranks)
+
+
+def _rank_second_order_checked(mesh, src, target, ti, say, same_on_ranks) -> None:
+    world = dist.get_world_size()
+    cfg = CFG_MAP_GRAD
+    v_s, v_t = _direction(src, HVP_SEED + 4), _direction(target, HVP_SEED + 5)
+
+    def hvp_of(call, into_target: bool):
+        def unit(s_in, t_in):
+            with torch.enable_grad():
+                s = s_in.detach().clone().requires_grad_(True)
+                t = t_in.detach().clone().requires_grad_(into_target)
+                xs, vs = ((s, t), (v_s, v_t)) if into_target else ((s,), (v_s,))
+                res = call(s, t)
+                value = _loss(res)
+                gs = torch.autograd.grad(value, xs, create_graph=True)
+                hs = torch.autograd.grad(sum(torch.sum(g * v) for g, v in zip(gs, vs)), xs)
+            return (res.T.detach(), value.detach(), *(g.detach() for g in gs), *hs)
+        return unit
+
+    def inner(solve):
+        def call(s, t):
+            with jit.disable_jit():   # the inner program stays out of the warm-up
+                return solve(mesh, s, t, ti, cfg=cfg)
+        return call
+
+    def held(label, got, want):
+        _check(not _diff_fields(want, got), f"{label}: equal to the uncaptured fixed trip "
+               f"bit for bit (differing: {_diff_fields(want, got)})")
+        _check(all(same_on_ranks(t) for _, t in _leaves(got)),
+               f"{label}: the same on every rank")
+        hvps = got[2 + (len(got) - 2) // 2:]   # (T, loss, the gradients, the HVPs)
+        _check(all(bool(torch.isfinite(h).all()) and bool((h != 0).any()) for h in hvps),
+               f"{label}: the HVP finite and nonzero")
+
+    def reference(unit):
+        with jit.disable_jit():
+            unit(src, target)     # warm-up: the first HVPs move the threads' counters
+            host = unit(src, target)
+            _comm.reset_counts()
+            with _forced_trip():
+                want = unit(src, target)
+            torch.cuda.synchronize()
+            counts = _collectives()
+        gap = max(_max_abs_diff(a.double(), b.double()) / float(b.abs().max())
+                  for a, b in zip(host[-2:], want[-2:]))
+        return host, want, counts, gap
+
+    for label, unit in (
+            ("register_map_sharded's HVP into the source in one program",
+             hvp_of(inner(register_map_sharded), False)),
+            ("register_ring_sharded's HVP into the source and the sharded target in one "
+             "program", hvp_of(inner(register_ring_sharded), True))):
+        host, want, eager_counts, gap = reference(unit)
+        jitted = jit.jit(unit, name="rank_hvp")
+        jitted(src, target)                       # the miss: warm-up and capture
+        for _ in range(2):
+            _comm.reset_counts()
+            with _no_host_wait():
+                got = jitted(src, target)
+            torch.cuda.synchronize()
+            counts = _collectives()
+            held(label, got, want)
+        with jit.disable_jit():
+            eager_ms = cuda_median_ms(lambda: unit(src, target), warmup=0, iters=1)
+        captured_ms = cuda_median_ms(lambda: jitted(src, target), warmup=0, iters=3)
+        pool = next(reversed(jitted.cache.values())).pool_bytes
+        jitted.cache_clear()
+        del got
+        gc.collect()
+        say(f"  {label}, {world} ranks: two replays equal the uncaptured fixed trip bit for "
+            f"bit on every rank (no host wait), the same on every rank; the host loop's HVP "
+            f"against the trip's {gap:.3e} relative; collectives of the trip's eager run "
+            f"{eager_counts}, of a replay {counts}; eager (host loop) {eager_ms:.3f} ms, "
+            f"captured {captured_ms:.3f} ms (rank 0, CUDA events); pool {pool / 2**20:.1f} MiB; "
+            f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated once it is released")
+
+    # a double backward through map_sharded_fn's program pair
+    label = "register_map_sharded's HVP into the source through its program pair"
+    pair_fn = sharding.map_sharded_fn(mesh, cfg)
+    unit = hvp_of(lambda s, t: register_map_sharded(mesh, s, t, ti, cfg=cfg), False)
+    # the eager runs and the first call on autograd's thread, where the
+    # pair's VJP builds its graph (_on_autograd_thread)
+    def eager(trip: bool):
+        def run():   # disable_jit holds for its own thread only
+            with jit.disable_jit(), _forced_trip() if trip else contextlib.nullcontext():
+                return unit(src, target)
+        return _on_autograd_thread(run, src.device)
+
+    host, want = eager(False), eager(True)
+    pair_fn.cache_clear()
+    held(f"{label}, call 1", _on_autograd_thread(lambda: unit(src, target), src.device), host)
+    for k, ref in enumerate((host, want), 2):
+        held(f"{label}, call {k}", unit(src, target), ref)
+    _comm.reset_counts()
+    with _no_host_wait():
+        got = unit(src, target)
+    torch.cuda.synchronize()
+    counts = _collectives()
+    held(f"{label}, a replay", got, want)
+    _check(len(pair_fn.cache) == 1 and len(pair_fn.vjp.cache) == 1,
+           f"{label}: one program pair and one VJP pair")
+    say(f"  {label}, {world} ranks: the first call (eager) and the second (the pair captured, "
+        f"its VJP eager) equal the host loop, the third (the VJP captured) and a replay the "
+        f"uncaptured fixed trip, bit for bit on every rank, the same on every rank, no host "
+        f"wait; collectives per replayed HVP {counts}")
+    jit.clear_caches()
 
 
 if __name__ == "__main__":

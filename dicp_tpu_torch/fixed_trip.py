@@ -20,7 +20,13 @@ of :class:`Step` autograd Functions:
   from them with grad enabled, without searching again (the search carries
   no gradient), and takes its VJP;
 * a skipped step passes the carry's cotangent through, as the VJP of JAX's
-  ``lax.cond`` does, and gives none to the inputs.
+  ``lax.cond`` does, and gives none to the inputs;
+* the recomputing VJP is itself an autograd Function (:class:`_VJP`), whose
+  backward is the VJP of that recomputation, again a run-once node under the
+  step's flag, and so on at any order: a double backward
+  (``create_graph=True``) differentiates the trip as ``jax.grad`` of
+  ``jax.grad`` differentiates the scan, and a skipped step still passes
+  cotangents through and launches nothing.
 
 A solve describes its step with a :class:`Trip` and runs the trip with
 :func:`run`.  A step that must run a collective (the map-sharded solve's
@@ -33,7 +39,7 @@ backward.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -122,35 +128,106 @@ class Step(torch.autograd.Function):
         trip = ctx.trip
         k, g = trip.n_inputs, trip.n_grad
         saved = ctx.saved_tensors
-        fields = saved[k:]
-        wrt = saved[:k + g]
         need = ctx.needs_input_grad[3:3 + k + g]
-        cot = cotangents[:g]
-        # a skipped step's VJP: the carry's cotangent through, none to the inputs
-        grads = [None if not need[i] else
-                 (torch.zeros_like(x) if i < k or cot[i - k] is None else cot[i - k].clone())
-                 for i, x in enumerate(wrt)]
+        wanted = tuple(i for i in range(k + g) if need[i])
+        grads = [None] * len(saved)
+        if not wanted:
+            return (None, None, None, *grads)
+        fixed = tuple(f.detach() for f in saved[k + g:])
+
+        def new_carry(*leaves):
+            new, _ = trip.step(leaves[:k], (*leaves[k:], *fixed), ctx.it, lambda *q: ctx.found)
+            return new[:g]
+
+        # a skipped step passes each carry field's cotangent through: field
+        # i - k's is argument (k + g) + (i - k)
+        through = {p: g + i for p, i in enumerate(wanted) if i >= k}
+        spec = _Spec(new_carry, k + g, wanted, through, ctx.run, frozenset(wanted))
+        for i, grad in zip(wanted, _VJP.apply(spec, *saved[:k + g], *cotangents[:g])):
+            grads[i] = grad
+        return (None, None, None, *grads)
+
+
+class _Spec(NamedTuple):
+    """A recomputing VJP node (:class:`_VJP`): the arguments are ``n``
+    primals, then the cotangents of ``f(*primals)``'s outputs; the node
+    returns the gradients of the primals at ``wanted``.  Where ``run``
+    (None: always) does not hold, output p is the argument ``through[p]``
+    (a cotangent passed through), or zero where p is not in ``through``.
+    ``req``: the primals that are leaves requiring grad when ``f`` runs
+    (``wanted`` and those an inner order differentiates)."""
+
+    f: Callable
+    n: int
+    wanted: Tuple[int, ...]
+    through: dict
+    run: Optional[torch.Tensor]
+    req: frozenset
+
+    def grads(self, primals, cotangents, create_graph: bool) -> tuple:
+        """The VJP of ``f`` at ``primals`` (leaves, ``req`` requiring grad):
+        the gradients at ``wanted`` (None where none flows)."""
+        outs = self.f(*primals)
+        roots = [(o, c) for o, c in zip(outs, cotangents)
+                 if c is not None and o is not None and o.requires_grad]
+        if not roots:
+            return (None,) * len(self.wanted)
+        return torch.autograd.grad([o for o, _ in roots], [primals[i] for i in self.wanted],
+                                   [c for _, c in roots], allow_unused=True,
+                                   create_graph=create_graph)
+
+    def vjp(self, wanted: Tuple[int, ...], n_args: int) -> "_Spec":
+        """The node of this node's own VJP over its ``n_args`` arguments,
+        returning their gradients at ``wanted``: it recomputes this VJP with
+        create_graph and differentiates that.  Where skipped, an argument
+        that output p passed through gets p's cotangent (argument
+        ``n_args + p``), every other argument zero."""
+        inner = self
+        passed = {j: p for p, j in self.through.items()}
+        return _Spec(lambda *args: inner.grads(args[:inner.n], args[inner.n:], True), n_args,
+                     wanted, {q: n_args + passed[j] for q, j in enumerate(wanted) if j in passed},
+                     self.run, frozenset(wanted) | self.req)
+
+
+class _VJP(torch.autograd.Function):
+    """The gradients of a :class:`_Spec`, recomputed in a run-once node;
+    differentiable at any order: its backward is the :class:`_VJP` of its
+    own recomputation (:meth:`_Spec.vjp`), under the same flag, so a skipped
+    step passes cotangents through, and launches nothing, at every order."""
+
+    @staticmethod
+    def forward(ctx, spec: _Spec, *args):
+        grads = [args[spec.through[p]].clone()
+                 if p in spec.through and args[spec.through[p]] is not None
+                 else torch.zeros_like(args[i]) for p, i in enumerate(spec.wanted)]
 
         def body():
             with torch.enable_grad():
-                leaves = [x.detach().requires_grad_(need[i]) for i, x in enumerate(wrt)]
-                carry = (*leaves[k:], *(f.detach() for f in fields[g:]))
-                new, _ = trip.step(tuple(leaves[:k]), carry, ctx.it, lambda *q: ctx.found)
-                roots = [(o, c) for o, c in zip(new[:g], cot)
-                         if c is not None and o.requires_grad]
-                wanted = [i for i in range(len(leaves)) if need[i]]
-                got = (torch.autograd.grad([o for o, _ in roots], [leaves[i] for i in wanted],
-                                           [c for _, c in roots], allow_unused=True)
-                       if roots else [None] * len(wanted))
-            for i, grad in zip(wanted, got):
+                primals = [None if x is None else x.detach().requires_grad_(i in spec.req)
+                           for i, x in enumerate(args[:spec.n])]
+                got = spec.grads(primals, args[spec.n:], create_graph=False)
+            for buf, grad in zip(grads, got):
                 if grad is None:
-                    grads[i].zero_()
+                    buf.zero_()
                 else:
-                    grads[i].copy_(grad)
+                    buf.copy_(grad)
 
-        if any(need):
-            when(ctx.run, body)
-        return (None, None, None, *grads, *(None,) * (len(fields) - g))
+        when(spec.run, body)
+        ctx.spec = spec
+        ctx.save_for_backward(*args)
+        ctx.set_materialize_grads(False)
+        return tuple(grads)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        args = ctx.saved_tensors
+        wanted = tuple(i for i, need in enumerate(ctx.needs_input_grad[1:]) if need)
+        grads = [None] * len(args)
+        if wanted:
+            for i, grad in zip(wanted, _VJP.apply(ctx.spec.vjp(wanted, len(args)), *args,
+                                                  *cotangents)):
+                grads[i] = grad
+        return (None, *grads)
 
 
 def step(trip: Trip, it, run: Optional[torch.Tensor], inputs: Sequence[torch.Tensor],

@@ -139,10 +139,10 @@ def _adjoint(cfg: ICPConfig, source, target, weight, T_init, T, T_bar):
     k = 3 if cfg.dim == 2 else 6
     C_star, r_star = T[:, :3, :3], T[:, :3, 3]
     # the solver's preprocessing; its pt2pt x3 weight expansion is undone,
-    # because the stationarity applies per-point weights to 3-vectors
-    src, tgt, w_prior, C0, r0 = _preprocess(cfg, source.detach(), target.detach(),
-                                            T_init.detach(),
-                                            None if weight is None else weight.detach())
+    # because the stationarity applies per-point weights to 3-vectors.  Not
+    # detached: under create_graph the cotangents stay functions of the
+    # inputs (and, through T, of _FixedPoint again), as JAX's traced _fp_bwd
+    src, tgt, w_prior, C0, r0 = _preprocess(cfg, source, target, T_init, weight)
     if cfg.icp_type == "pt2pt":
         w_prior = w_prior[..., ::3]
 

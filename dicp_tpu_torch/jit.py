@@ -59,11 +59,18 @@ inputs.  The static buffers hold one call at a time: where another call of
 the same program has replayed its forward since, a backward first replays
 the forward on its own saved inputs (a loss over two registrations of one
 shape pays one more forward).  A double backward (``create_graph=True``)
-through a program raises, where JAX allows it.
+through a program pair computes the call's VJP as a call of its own,
+:func:`_vjp_call` (the function run again on the call's saved inputs, then
+``torch.autograd.grad`` with ``create_graph``), jitted per function
+(:attr:`_Jitted.vjp`): eager at its key's first sighting and a program pair
+from its second, whose own double backward recurses, as
+``jax.grad(jax.grad(jax.jit(f)))`` differentiates at any order.
 
 A forward and its backward are also captured into one program, the
 counterpart of ``jax.jit(jax.grad(f))``, by calling ``torch.autograd.grad``
-inside ``fn`` (``bench.fwdbwd_jit``, ``bench.unrolled_jit``).  Either way a
+inside ``fn`` (``bench.fwdbwd_jit``, ``bench.unrolled_jit``); and a
+Hessian-vector product, by calling it twice, the first with
+``create_graph=True``.  Either way a
 solve on which autograd records inside a capture (``register``, GICP,
 SGD-ICP) takes the fixed trip of JAX's scan driver
 (:mod:`dicp_tpu_torch.fixed_trip`): one run-once node per step in the
@@ -387,35 +394,34 @@ class _Replayed(torch.autograd.Function):
     """One call of a program pair: ``pair.forward(inputs)`` gives its
     outputs, attached to the caller's ``inputs``; the backward returns
     ``pair.backward(cotangents)``, the gradients of the inputs (None where
-    one needs none).
+    one needs none), or under create_graph ``pair.vjp(inputs, cotangents)``.
 
     ``pair`` holds the replays (:class:`_PairReplays` on the card; any
-    object with ``forward``, ``backward``, ``generation`` and ``lock``, so
-    that eager stand-ins can drive this on the CPU).  ``forward`` writes one
-    set of static buffers and counts its calls in ``generation``: the
-    Function keeps clones of its inputs and the generation of its replay,
-    and where another forward has replayed since, its backward replays the
-    forward on its own inputs first."""
+    object with ``forward``, ``backward``, ``vjp``, ``generation`` and
+    ``lock``, so that eager stand-ins can drive this on the CPU).
+    ``forward`` writes one set of static buffers and counts its calls in
+    ``generation``: the Function saves its inputs and the generation of its
+    replay, and where another forward has replayed since, its backward
+    replays the forward on its own inputs first."""
 
     @staticmethod
     def forward(ctx, pair, diff_out, *inputs):
         outs = pair.forward(inputs)
         ctx.pair, ctx.generation = pair, pair.generation
-        ctx.inputs = [x.detach().clone() for x in inputs]
+        ctx.save_for_backward(*inputs)
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(*(o for i, o in enumerate(outs) if i not in diff_out))
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *cotangents):
+        pair, inputs = ctx.pair, ctx.saved_tensors
         if torch.is_grad_enabled():
-            raise RuntimeError("a double backward (create_graph=True) through a captured "
-                               "program is not supported: run the function under "
-                               "dicp_tpu_torch.jit.disable_jit() for higher derivatives")
-        pair = ctx.pair
+            # a double backward: the gradients as a differentiable call
+            return (None, None, *pair.vjp(inputs, cotangents))
         with pair.lock:
             if pair.generation != ctx.generation:
-                pair.forward(ctx.inputs)   # another call's forward holds the buffers
+                pair.forward(inputs)   # another call's forward holds the buffers
                 ctx.generation = pair.generation
             grads = pair.backward(cotangents)
         return (None, None, *grads)
@@ -427,8 +433,8 @@ class _PairReplays:
     the call's autograd graph) it holds the program: a program that leaves
     the cache is released only when its last holder is gone."""
 
-    def __init__(self, prog: "_Program", lock):
-        self.prog, self.lock = prog, lock
+    def __init__(self, prog: "_Program", lock, vjp_of: "_CallOf"):
+        self.prog, self.lock, self.vjp_of = prog, lock, vjp_of
         with _held_lock:
             _holders[id(prog)] = _holders.get(id(prog), 0) + 1
         weakref.finalize(self, _let_go, prog).atexit = False
@@ -460,6 +466,69 @@ class _PairReplays:
             grads[i] = None if g is None else g.clone()
         return grads
 
+    def vjp(self, inputs, cotangents) -> list:
+        """The gradients of ``inputs`` as a differentiable call (a double
+        backward): :func:`_vjp_call` through the function's VJP program."""
+        of = self.vjp_of
+        got = iter(of.jitted.vjp(of, list(inputs),
+                                 [cotangents[i] for i in self.prog.diff_out]))
+        return [next(got) if x.requires_grad else None for x in inputs]
+
+
+class _CallOf:
+    """The static argument of a VJP program (:func:`_vjp_call`): a call of
+    ``jitted`` with the key ``key``, its arguments with the tensors left
+    out, and its differentiable outputs (``diff_out``, indices among the
+    tensor outputs).  Equal for the calls of one key, so that they share
+    one VJP program."""
+
+    def __init__(self, jitted: "_Jitted", key: tuple, bound, leaves, spec, diff_out):
+        self.jitted, self.key, self.spec, self.diff_out = jitted, key, spec, tuple(diff_out)
+        self.arguments = collections.OrderedDict(
+            (k, v if k in jitted.static else None) for k, v in bound.arguments.items())
+        self.leaves = [None if _is_tensor(x) else x for x in leaves]
+        self.tensor_at = [i for i, x in enumerate(leaves) if _is_tensor(x)]
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, _CallOf) and other.jitted is self.jitted
+                and other.key == self.key)
+
+    def __hash__(self) -> int:
+        return hash((id(self.jitted), self.key))
+
+    def call(self, inputs):
+        """The call's function on the tensors ``inputs``."""
+        leaves = list(self.leaves)
+        for i, x in zip(self.tensor_at, inputs):
+            leaves[i] = x
+        arguments = collections.OrderedDict(self.arguments)
+        arguments.update(pytree.tree_unflatten(leaves, self.spec))
+        bound = inspect.BoundArguments(self.jitted.signature, arguments)
+        return self.jitted.fn(*bound.args, **bound.kwargs)
+
+
+def _vjp_call(of: _CallOf, inputs: list, cotangents: list) -> list:
+    """The VJP of the call ``of`` at the tensors ``inputs``: the gradients
+    of those that require grad (None where none flows) from the cotangents
+    of its differentiable outputs (None: none), with create_graph, so that
+    it is differentiable once more.  Jitted per function
+    (:meth:`_Jitted.vjp`): a double backward through a program pair is
+    this call, eager at its key's first sighting and a program pair of its
+    own from the second, and so on at every order."""
+    with torch.enable_grad():
+        out = [o for o in pytree.tree_leaves(of.call(inputs)) if _is_tensor(o)]
+    wrt = [x for x in inputs if x.requires_grad]
+    roots = [(out[i], c) for i, c in zip(of.diff_out, cotangents)
+             if c is not None and out[i].requires_grad]
+    if not roots:
+        return [None] * len(wrt)
+    grads = torch.autograd.grad([o for o, _ in roots], wrt, [c for _, c in roots],
+                                allow_unused=True, create_graph=True)
+    # contiguous: a program pair's static cotangent takes its output's
+    # strides, and a gradient may come out transposed, where a loss's
+    # cotangent comes dense; the backward's bits follow the layout
+    return [None if g is None else g.contiguous() for g in grads]
+
 
 class _Jitted:
     def __init__(self, fn, static_argnames, eager_if, name, prepare):
@@ -472,8 +541,18 @@ class _Jitted:
         self.cache: "collections.OrderedDict[tuple, _Program]" = collections.OrderedDict()
         self.seen: "collections.OrderedDict[tuple, None]" = collections.OrderedDict()
         self.lock = threading.RLock()
+        self._vjp: Optional[_Jitted] = None
         functools.update_wrapper(self, fn)
         _jitted.add(self)
+
+    @property
+    def vjp(self) -> "_Jitted":
+        """:func:`_vjp_call` jitted for this function's calls: the double
+        backward of its program pairs."""
+        with self.lock:
+            if self._vjp is None:
+                self._vjp = _Jitted(_vjp_call, ("of",), None, f"{self.name}.vjp", None)
+            return self._vjp
 
     def _bind(self, args, kwargs):
         bound = self.signature.bind(*args, **kwargs)
@@ -537,7 +616,8 @@ class _Jitted:
                 return self._miss(key, devices.pop(), bound, leaves, spec)
             self.cache.move_to_end(key)
             if grad and prog.bwd_graph is not None:
-                return self._replay_pair(prog, tensors)
+                return self._replay_pair(prog, tensors,
+                                         _CallOf(self, key, bound, leaves, spec, prog.diff_out))
             return self._replay(prog, tensors)
 
     def _replay(self, prog: _Program, tensors):
@@ -549,8 +629,9 @@ class _Jitted:
         leaves = [x.clone() if _is_tensor(x) else x for x in prog.out_leaves]
         return pytree.tree_unflatten(leaves, prog.out_spec)
 
-    def _replay_pair(self, prog: _Program, tensors):
-        outs = iter(_Replayed.apply(_PairReplays(prog, self.lock), prog.diff_out, *tensors))
+    def _replay_pair(self, prog: _Program, tensors, vjp_of: _CallOf):
+        outs = iter(_Replayed.apply(_PairReplays(prog, self.lock, vjp_of), prog.diff_out,
+                                    *tensors))
         leaves = [next(outs) if _is_tensor(x) else x for x in prog.out_leaves]
         return pytree.tree_unflatten(leaves, prog.out_spec)
 
@@ -643,6 +724,8 @@ class _Jitted:
                 _retire(prog)
             self.cache.clear()
             self.seen.clear()
+        if self._vjp is not None:
+            self._vjp.cache_clear()
 
 
 def jit(fn, *, static_argnames: Sequence[str] = (),

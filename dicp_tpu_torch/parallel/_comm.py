@@ -4,21 +4,28 @@ Three functions carry every collective of the package, on a
 ``torch.distributed`` process group (one axis of a ``DeviceMesh``):
 
 * :func:`psum`: ``all_reduce`` SUM in the forward and the identity in the
-  backward.  This is JAX's ``psum`` under ``shard_map`` with a replicated
-  output: every rank computes the same loss from the same reduced value, so
-  each rank's cotangent of its own summand is the cotangent of the sum.
+  backward (through :func:`replicated`, so that a double backward sums the
+  cotangent that the identity's output receives).  This is JAX's ``psum``
+  under ``shard_map`` with a replicated output: every rank computes the
+  same loss from the same reduced value, so each rank's cotangent of its
+  own summand is the cotangent of the sum.
   (``torch.distributed.nn.functional.all_reduce`` all-reduces the gradient
   once more, which multiplies it by the group size here.)
 * :func:`replicated`: the identity in the forward and an ``all_reduce`` SUM
-  of the gradient in the backward.  Applied to a global input that every
+  of the gradient in the backward (through :func:`psum`).  Each of the two
+  is the other's transpose, JAX's ``pvary`` and ``psum``: so a double
+  backward, and any higher order, sums where JAX's transposes sum.
+  Applied to a global input that every
   rank passes whole and each rank slices (or uses whole), it completes the
   per-rank partial gradients into JAX's gradient of the global array on
   every rank.
 * :func:`ring_shift`: send to the next rank of the group and receive from the
   previous one (``reverse``: to the previous, from the next), outside
   autograd: the ring's backward, the reverse shifts, is
-  ``sharding._Ring``'s.  The reverse shifts count under the kind
-  ``"ring_shift_reverse"``.
+  ``sharding._Ring``'s, and the backward of that (a double backward), the
+  forward shifts again, ``sharding._RingScatter``'s.  The reverse shifts
+  count under the kind ``"ring_shift_reverse"``, the double backward's
+  forward shifts under ``"ring_shift_gather"``.
 
 :func:`psum_many` reduces several summands as ONE flat buffer (``torch.cat``
 of the flattened parts, one ``all_reduce``, then split): the counterpart of
@@ -38,7 +45,7 @@ they read the kernels' launch counters (:func:`reset_counts` sets both to
 from __future__ import annotations
 
 from collections import Counter
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -78,11 +85,14 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
+        ctx.group = group
         return _all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        # the replicated cotangent enters this rank's summand: through
+        # replicated, whose backward sums what a double backward sends back
+        return replicated(grad, ctx.group), None
 
 
 class _Replicated(torch.autograd.Function):
@@ -93,7 +103,9 @@ class _Replicated(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad, ctx.group), None
+        # through psum, whose backward is replicated again: each is the
+        # other's transpose, at every order
+        return psum(grad, ctx.group), None
 
 
 def psum(x: torch.Tensor, group) -> torch.Tensor:
@@ -114,11 +126,13 @@ def replicated(x: torch.Tensor, group) -> torch.Tensor:
     return _Replicated.apply(x, group)
 
 
-def ring_shift(x: torch.Tensor, group, reverse: bool = False) -> torch.Tensor:
+def ring_shift(x: torch.Tensor, group, reverse: bool = False,
+               kind: Optional[str] = None) -> torch.Tensor:
     """The previous rank's ``x`` (each rank sends its own to the next), or
     with ``reverse`` the next rank's (each sends to the previous); at group
     size 1 ``x`` itself, with nothing sent.  The result carries no
-    gradient."""
+    gradient.  Counted under ``kind``, by default ``"ring_shift"`` or
+    ``"ring_shift_reverse"``."""
     size = dist.get_world_size(group)
     if size == 1:
         return x
@@ -126,7 +140,7 @@ def ring_shift(x: torch.Tensor, group, reverse: bool = False) -> torch.Tensor:
     step = -1 if reverse else 1
     send = x.detach().contiguous()
     recv = torch.empty_like(send)
-    _count("ring_shift_reverse" if reverse else "ring_shift", group, send)
+    _count(kind or ("ring_shift_reverse" if reverse else "ring_shift"), group, send)
     ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, (rank + step) % size),
                       group),
            dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, (rank - step) % size),

@@ -130,6 +130,13 @@ class _ShardedFixedPoint(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, T_bar, *_):
+        if torch.is_grad_enabled():
+            # a second derivative of JAX's sharded IFT differentiates its
+            # forward's lax.while_loop, which JAX refuses; so does the port
+            raise RuntimeError(
+                "register_map_sharded_ift is differentiable once: a double backward "
+                "(create_graph=True) is refused, as JAX's is; differentiate the unrolled "
+                "register_map_sharded twice instead")
         cfg, group, rows = ctx.cfg, ctx.group, ctx.rows
         src_all, w_all, tgt, t_init, T_star = ctx.saved_tensors
         src, w = src_all[rows], w_all[rows]

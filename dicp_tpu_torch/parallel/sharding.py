@@ -19,9 +19,9 @@ collectives of :mod:`dicp_tpu_torch.parallel._comm` on that axis's group
   the (k, k) block, the (k,) vector and the cost (43 elements at k = 6,
   twice that plus one with the cluster certificate gate).
 * **ring**: the target split too; correspondences from :func:`ring_nn`,
-  whose target shards travel around the ring (send/recv), and whose
-  backward sends the rows' cotangents back around it (JAX's transpose of
-  ``ppermute``).
+  whose target shards travel around the ring (send/recv), whose backward
+  sends the rows' cotangents back around it (JAX's transpose of
+  ``ppermute``), and whose double backward gathers them forward again.
 
 Programs.  :func:`map_sharded_fn` is the counterpart of JAX's jitted
 ``shard_map``: a program of :mod:`dicp_tpu_torch.jit` per (mesh, cfg, axis,
@@ -173,6 +173,14 @@ def _unfold(buf, grad, won_at, won_row, step: int) -> None:
         buf.index_put_((rows,), grad, accumulate=True)
 
 
+def _refold(out, shard, won_at, won_row, step: int) -> None:
+    """The transpose of :func:`_unfold`: the queries whose row was found at
+    the ring's ``step`` take that row of ``shard`` (the visiting (m_loc, c)
+    cotangent), in place in ``out`` (n, c)."""
+    with torch.no_grad():
+        out.copy_(torch.where((won_at == step)[:, None], shard[won_row.long()], out))
+
+
 class _Ring(torch.autograd.Function):
     """The rows that :func:`ring_nn` finds, differentiable in the target
     shard: the one description of the ring that the eager call, the host
@@ -181,11 +189,8 @@ class _Ring(torch.autograd.Function):
     The forward folds each visiting shard (:func:`_ring_fold`) and shifts it
     on (K - 1 shifts on K ranks), saving for each query the step at which
     its final row was found and that row's local index.  The backward is the
-    transpose of JAX's ring: from the last step to the first it adds the
-    rows' cotangents of the step's winners into an (m_loc, c) buffer and
-    shifts the buffer back to the previous visitor (K - 1 reverse shifts);
-    at step 0 the buffer is the gradient of this rank's own shard.  The
-    queries get none (the rows come from an argmin), as in JAX.
+    transpose of JAX's ring, :class:`_RingScatter`.  The queries get none
+    (the rows come from an argmin), as in JAX.
 
     ``run``: None, or a 0-dim bool under which each fold and each step's
     additions are run-once nodes (:func:`fixed_trip.when`), skipped where it
@@ -217,14 +222,63 @@ class _Ring(torch.autograd.Function):
         if not ctx.needs_input_grad[1]:
             return None, None, None, None
         won_at, won_row = ctx.saved_tensors
-        m_loc = ctx.m_loc
+        return None, _RingScatter.apply(grad, won_at, won_row, ctx.group, ctx.run,
+                                        ctx.m_loc), None, None
+
+
+class _RingScatter(torch.autograd.Function):
+    """:class:`_Ring`'s backward, linear in the rows' cotangent ``grad`` (n,
+    c): from the last step to the first it adds the cotangents of the step's
+    winners into an (m_loc, c) buffer (:func:`_unfold`) and shifts the
+    buffer back to the previous visitor (K - 1 reverse shifts); at step 0
+    the buffer is the gradient of this rank's own shard.  Its backward (a
+    double backward through the ring) is its transpose, :class:`_RingGather`;
+    ``run`` as in :class:`_Ring`."""
+
+    @staticmethod
+    def forward(ctx, grad, won_at, won_row, group, run, m_loc: int):
         buf = grad.new_zeros((m_loc + 1, grad.shape[1]))
-        for step in reversed(range(dist.get_world_size(ctx.group))):
-            fixed_trip.when(ctx.run, functools.partial(_unfold, buf, grad, won_at, won_row,
-                                                       step))
+        for step in reversed(range(dist.get_world_size(group))):
+            fixed_trip.when(run, functools.partial(_unfold, buf, grad, won_at, won_row, step))
             if step:
-                buf[:m_loc].copy_(ring_shift(buf[:m_loc], ctx.group, reverse=True))
-        return None, buf[:m_loc], None, None
+                buf[:m_loc].copy_(ring_shift(buf[:m_loc], group, reverse=True))
+        ctx.group, ctx.run = group, run
+        ctx.save_for_backward(won_at, won_row)
+        return buf[:m_loc]
+
+    @staticmethod
+    def backward(ctx, shard_bar):
+        won_at, won_row = ctx.saved_tensors
+        return (_RingGather.apply(shard_bar, won_at, won_row, ctx.group, ctx.run),
+                None, None, None, None, None)
+
+
+class _RingGather(torch.autograd.Function):
+    """The transpose of :class:`_RingScatter`, linear in the shard's
+    cotangent ``shard`` (m_loc, c): the forward ring again, gathering rows
+    instead of searching them; each step's winners take their row of the
+    visiting shard (:func:`_refold`), and the shard shifts on (K - 1 shifts,
+    counted as ``"ring_shift_gather"``).  Its backward is
+    :class:`_RingScatter`."""
+
+    @staticmethod
+    def forward(ctx, shard, won_at, won_row, group, run):
+        k_dev = dist.get_world_size(group)
+        out = shard.new_zeros((won_at.shape[0], shard.shape[1]))
+        cur = shard.contiguous()
+        for step in range(k_dev):
+            fixed_trip.when(run, functools.partial(_refold, out, cur, won_at, won_row, step))
+            if step + 1 < k_dev:
+                cur = ring_shift(cur, group, kind="ring_shift_gather")
+        ctx.group, ctx.run, ctx.m_loc = group, run, shard.shape[0]
+        ctx.save_for_backward(won_at, won_row)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        won_at, won_row = ctx.saved_tensors
+        return (_RingScatter.apply(grad, won_at, won_row, ctx.group, ctx.run, ctx.m_loc),
+                None, None, None, None)
 
 
 def ring_nn(x: torch.Tensor, y_shard: torch.Tensor, group) -> torch.Tensor:

@@ -141,15 +141,18 @@ def job_world_info(mesh):
 
 def job_map_sharded(mesh, source, target, cfg, T_init=None, weight=None, axis="map",
                     entry="register_map_sharded", grad_wrt=(), probe=None, expect_error=False,
-                    cost_scale=None, fixed_trip=False, certified=False):
+                    cost_scale=None, fixed_trip=False, certified=False, hvp=None):
     """One map-sharded, ring-sharded or IFT solve; with ``grad_wrt`` the
     gradient of sum(T * probe) (plus ``cost_scale`` times the cost) with
     respect to the named inputs, and the collectives of the forward and of
-    the backward apart.  ``fixed_trip``: the solve takes the fixed trip of
-    its capture (run uncaptured).  ``certified``: the certified queries of
-    each of the solve's cluster-tier searches on this rank, and the rank's
-    coordinate on ``axis``.  With ``expect_error`` the ValueError or
-    RuntimeError that every rank raises alike, as {"error": message}."""
+    the backward apart; with ``hvp`` (a direction per name of ``grad_wrt``)
+    also the Hessian-vector product, the gradient of sum(gradient *
+    direction) taken again, and the collectives of that second backward.
+    ``fixed_trip``: the solve takes the fixed trip of its capture (run
+    uncaptured).  ``certified``: the certified queries of each of the
+    solve's cluster-tier searches on this rank, and the rank's coordinate on
+    ``axis``.  With ``expect_error`` the ValueError or RuntimeError that
+    every rank raises alike, as {"error": message}."""
     from dicp_tpu_torch.jit import capturing
     from dicp_tpu_torch.parallel import sharding
 
@@ -166,7 +169,7 @@ def job_map_sharded(mesh, source, target, cfg, T_init=None, weight=None, axis="m
         sharding.cluster_nn = spy
     try:
         out = _map_sharded(mesh, source, target, cfg, T_init, weight, axis, entry, grad_wrt,
-                           probe, cost_scale)
+                           probe, cost_scale, hvp)
         if certified:
             out.update(certified=counts, coordinate=mesh.get_local_rank(axis))
         return out
@@ -179,7 +182,7 @@ def job_map_sharded(mesh, source, target, cfg, T_init=None, weight=None, axis="m
 
 
 def _map_sharded(mesh, source, target, cfg, T_init, weight, axis, entry, grad_wrt, probe,
-                 cost_scale=None):
+                 cost_scale=None, hvp=None):
     import torch
 
     from dicp_tpu_torch import parallel
@@ -200,9 +203,17 @@ def _map_sharded(mesh, source, target, cfg, T_init, weight, axis, entry, grad_wr
         loss = torch.sum(res.T * (1.0 if probe is None else torch.as_tensor(probe)))
         if cost_scale is not None:
             loss = loss + cost_scale * res.cost
-        grads = torch.autograd.grad(loss, [inputs[name] for name in grad_wrt])
+        wrt = [inputs[name] for name in grad_wrt]
+        grads = torch.autograd.grad(loss, wrt, create_graph=hvp is not None)
         out["grads"] = {name: _np(g) for name, g in zip(grad_wrt, grads)}
         out["counts_bwd"] = _counts()
+        if hvp is not None:
+            _comm.reset_counts()
+            inner = sum(torch.sum(g * torch.as_tensor(hvp[name]))
+                        for name, g in zip(grad_wrt, grads))
+            out["hvp"] = {name: _np(h) for name, h in zip(grad_wrt,
+                                                            torch.autograd.grad(inner, wrt))}
+            out["counts_hvp"] = _counts()
     return out
 
 

@@ -11,7 +11,7 @@ port's own bookkeeping: the call's cache hit, ``_PairReplays`` and the
 autograd Function ``_Replayed``.  Gradients equal plain autograd through
 ``register_ift`` and ``register``; two forwards before their backwards
 replay the stale one's forward again; ``retain_graph`` works; a double
-backward raises; outputs that carry no gradient get none; a key's first
+backward differentiates the call again, to the third order; outputs that carry no gradient get none; a key's first
 call runs eagerly, and a pair that leaves the cache still replays for the
 calls that hold it and is released after them."""
 
@@ -178,10 +178,14 @@ def test_interleaved_forwards_replay_the_stale_one(source_np, target_np, on_card
         assert prog.forwards - before == forwards, order
 
 
-def test_retain_graph_and_double_backward(source_np, target_np, on_card):
+def test_retain_graph_and_double_backward(source_np, target_np, on_card, monkeypatch):
     """A second .backward() with retain_graph replays the backward again
     (after another call's forward, the forward first); the gradients add up
-    as plain autograd's do.  create_graph=True raises."""
+    as plain autograd's do.  A double backward (create_graph=True) is the
+    call's VJP as a jitted call of its own (``jit._vjp_call``), eager at
+    its key's first sighting and a program pair from its second: the first,
+    second and third derivatives equal plain autograd's bit for bit, in
+    three rounds (each order's VJP eager, then through its pair)."""
     jitted, fn, cfg = ENTRIES["register_jit"]
     src, tgt, ti = _inputs(source_np, target_np)
     prog = _eager_pair(jitted, *_leaves(src), tgt, ti, None, cfg)
@@ -198,10 +202,33 @@ def test_retain_graph_and_double_backward(source_np, target_np, on_card):
     assert torch.equal(results[0][1], results[1][1])
     assert torch.equal(results[0][1], 2 * results[0][0])
     assert prog.forwards == 3
-    (s,) = _leaves(src)
-    loss = torch.sum(jitted(s, tgt, ti, None, cfg).T)
-    with pytest.raises(RuntimeError, match="double backward"):
-        torch.autograd.grad(loss, s, create_graph=True)
+
+    pairs = []
+
+    def capture_pair(self, key, device, bound, leaves, spec):
+        pairs.append(self.name)
+        return _eager_program(self, bound, leaves, spec)
+
+    monkeypatch.setattr(jit_mod._Jitted, "_capture_pair", capture_pair)
+    rng = np.random.default_rng(4)
+    v, u = (torch.as_tensor(rng.normal(size=src.shape)) for _ in range(2))
+
+    def orders(call):
+        (s,) = _leaves(src)
+        (g,) = torch.autograd.grad(torch.sum(call(s, tgt, ti, None, cfg).T * PROBE), s,
+                                   create_graph=True)
+        (h,) = torch.autograd.grad(torch.sum(g * v), s, create_graph=True)
+        (t,) = torch.autograd.grad(torch.sum(h * u), s)
+        return g.detach(), h.detach(), t
+
+    want = orders(fn)
+    assert all(bool((w != 0).any()) and bool(torch.isfinite(w).all()) for w in want)
+    for turn in range(3):
+        got = orders(jitted)
+        for order, (a, b) in enumerate(zip(got, want), 1):
+            assert torch.equal(a, b), (turn, order)
+    assert pairs == ["register_jit.vjp", "register_jit.vjp.vjp"]
+    assert prog.forwards == 6 and len(jitted.vjp.cache) == 1 and len(jitted.vjp.vjp.cache) == 1
 
 
 def test_outputs_without_gradient(source_np, target_np, on_card):

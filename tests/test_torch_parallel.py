@@ -14,7 +14,10 @@ same meshes.  Beside each JAX contract, run on the port:
   and its gradient into the target shards (the reverse ring) within 1e-10
   of ``jax.grad``'s;
 * the ring-sharded solve's gradients into the source, the sharded target
-  and the weight within 1e-8 relative of ``jax.grad``'s, padded or not.
+  and the weight within 1e-8 relative of ``jax.grad``'s, padded or not;
+* the map-sharded and ring Hessian-vector products on 1 and 2 ranks of
+  the map axis within 1e-8 relative of JAX's, host loop and fixed trip;
+  the sharded IFT refusing a second derivative, as JAX's does.
 
 ``test_multihost_single_process_fallbacks`` lives in
 ``tests/test_torch_multihost.py`` with the multi-process recipe."""
@@ -493,6 +496,69 @@ def test_map_sharded_ift_pt2pt(world, source_np, target_np):
     g_j = _jgrad(lambda s: jnp.sum(jp.register_map_sharded_ift(mesh, s, t, cfg=jcfg).T))(
         jnp.asarray(src))
     assert _rel(g_i, g_j) < 1e-8
+
+
+HVP_NAMES = ("source", "target", "weight")
+
+
+@pytest.mark.parametrize("entry,shape", [(e, s) for e in ("register_map_sharded",
+                                                           "register_ring_sharded")
+                                         for s in ((8, 1), (4, 2))])
+def test_map_sharded_and_ring_hvp(world, source_np, target_np, entry, shape):
+    """Second derivatives through the all-reduced and the ring solve, on 1
+    and 2 ranks of the map axis: the Hessian-vector product (the gradient
+    of sum_i <grad_i sum(T), v_i> over source, target and weight), on the
+    host loop and on the fixed trip of its capture, the same on every rank
+    and within 1e-8 relative of JAX's on a (1, k) mesh (jax.jit of jax.jvp
+    of jax.grad: forward over reverse, the same HVP at a third of the
+    compile time).  The second backward's collectives: on the ring of 2,
+    K - 1 reverse shifts and K - 1 forward gathers (the transpose of the
+    reverse ring) per step's ring call."""
+    cfg = CFG.with_(max_iterations=4)
+    src, w = _perturbed_pair(source_np)
+    rng = np.random.default_rng(5)
+    v = {name: rng.normal(size=a.shape) for name, a in zip(HVP_NAMES, (src, target_np, w))}
+    k = shape[1]
+    mesh, jcfg = jp.make_mesh((1, k), devices=jax.devices()[:k]), _jcfg(cfg)
+    grad = jax.grad(lambda s, t, w_: jnp.sum(getattr(jp, entry)(
+        mesh, s, t, weight=w_, cfg=jcfg).T), (0, 1, 2))
+    theirs = jax.jit(lambda *a: jax.jvp(grad, a, tuple(jnp.asarray(v[n]) for n in HVP_NAMES))[1])(
+        jnp.asarray(src), jnp.asarray(target_np), jnp.asarray(w))
+    for trip in (False, True):
+        res, ranks = _map(world, shape, src, target_np, cfg, weight=w, grad_wrt=HVP_NAMES,
+                          hvp=v, entry=entry, fixed_trip=trip)
+        for r in ranks[1:]:
+            for name in HVP_NAMES:
+                np.testing.assert_array_equal(r["hvp"][name], ranks[0]["hvp"][name])
+        for name, b in zip(HVP_NAMES, theirs):
+            a = ranks[0]["hvp"][name]
+            assert np.all(np.isfinite(a)) and np.abs(a).max() > 0, (name, trip)
+            assert _rel(a, b) < 1e-8, (name, trip, _rel(a, b))
+        steps = cfg.max_iterations if trip else res["iterations"]
+        shifts = {key[0]: n for key, n in ranks[0]["counts_hvp"] if key[0].startswith("ring")}
+        want = ({"ring_shift_reverse": steps, "ring_shift_gather": steps}
+                if entry == "register_ring_sharded" and k == 2 else {})
+        assert shifts == want, (trip, shifts)
+
+
+def test_map_sharded_ift_refuses_a_double_backward(world, source_np, target_np):
+    """register_map_sharded_ift is differentiable once, as JAX's is: under
+    create_graph=True its backward raises on every rank (before any
+    collective), naming the unrolled solve; JAX's second derivative raises
+    when it is traced (reverse mode through its forward's while loop)."""
+    cfg = CFG.with_(max_iterations=10)
+    names = ("source", "target")
+    v = {"source": np.ones((65, 3)), "target": np.ones(target_np.shape)}
+    res = world.run("map_sharded", (4, 2), source=source_np[:, :3], target=target_np, cfg=cfg,
+                    entry="register_map_sharded_ift", grad_wrt=names, hvp=v,
+                    expect_error=True)
+    assert all("differentiable once" in r["error"] and "register_map_sharded" in r["error"]
+               for r in res), res[0]
+    mesh = jp.make_mesh((1, 2), devices=jax.devices()[:2])
+    grad = jax.grad(lambda t: jnp.sum(jp.register_map_sharded_ift(
+        mesh, jnp.asarray(source_np[:, :3]), t, cfg=_jcfg(cfg)).T))
+    with pytest.raises(ValueError, match="Reverse-mode differentiation"):
+        jax.jit(jax.grad(lambda t: jnp.sum(grad(t))))(jnp.asarray(target_np))
 
 
 def test_map_sharded_dim2_matches_dense(world, source_np, target_np):
